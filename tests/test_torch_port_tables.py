@@ -1,0 +1,175 @@
+"""vali_tpu_torch against vali_tpu: package boundary, enums, format
+tables, colour matrices, resampling matrices and the kernels' band
+tables."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import vali_tpu
+import vali_tpu_torch
+from vali_tpu.core import enums as jenums
+from vali_tpu.core import formats as jformats
+from vali_tpu.ops import colors as jcolors
+from vali_tpu.ops import fused as jfused
+from vali_tpu.ops import pallas_fused as jpallas
+from vali_tpu.ops import resize as jresize
+from vali_tpu_torch.core import enums as tenums
+from vali_tpu_torch.core import formats as tformats
+from vali_tpu_torch.ops import banded
+from vali_tpu_torch.ops import colors as tcolors
+from vali_tpu_torch.ops import fused as tfused
+from vali_tpu_torch.ops import resize as tresize
+
+SIZES = [(1080, 224), (1920, 224), (540, 224), (960, 224), (64, 64),
+         (62, 30), (130, 34), (36, 100), (100, 36), (720, 90), (1280, 160)]
+
+
+def test_import_without_jax():
+    """The port imports with JAX and vali_tpu blocked, every module."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['vali_tpu'] = None\n"
+        "import vali_tpu_torch\n"
+        "import vali_tpu_torch.pipeline.multistream\n"
+        "import vali_tpu_torch.ops.nv12_preprocess\n"
+        "import vali_tpu_torch.ops.yuv420_preprocess\n"
+        "import vali_tpu_torch.ops._cuda_build\n"
+        "import vali_tpu_torch.engine.encoder\n"
+        "import vali_tpu_torch.engine.muxer\n"
+        "import vali_tpu_torch.utils.synth\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'vali_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print(vali_tpu_torch.PixelFormat.NV12.name)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "NV12"
+
+
+def test_enums_and_exports_match():
+    for name in ("PixelFormat", "ColorSpace", "ColorRange", "TaskExecInfo",
+                 "TaskExecStatus", "DecodeMode", "SeekMode",
+                 "FfmpegLogLevel", "DLDeviceType", "NV_ENC_CAPS"):
+        a, b = getattr(jenums, name), getattr(tenums, name)
+        assert [(m.name, int(m)) for m in a] == \
+            [(m.name, int(m)) for m in b], name
+    assert tenums.NO_PTS == jenums.NO_PTS
+    assert int(vali_tpu_torch.NV12) == int(vali_tpu.NV12)
+
+
+def test_format_plane_dims_match():
+    for fmt in jformats.all_formats():
+        ji = jformats.format_info(fmt)
+        ti = tformats.format_info(tenums.PixelFormat(int(fmt)))
+        assert ji.dtype == ti.dtype and ji.bit_depth == ti.bit_depth
+        for w, h in ((1920, 1080), (256, 144), (64, 48)):
+            assert ji.plane_dims(w, h) == ti.plane_dims(w, h)
+            assert ji.host_size(w, h) == ti.host_size(w, h)
+
+
+def test_color_matrices_match():
+    for space in jenums.ColorSpace:
+        for rng in jenums.ColorRange:
+            a = jcolors.yuv2rgb_matrix(space, rng)
+            b = tcolors.yuv2rgb_matrix(tenums.ColorSpace(int(space)),
+                                       tenums.ColorRange(int(rng)))
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+            a = jcolors.rgb2yuv_matrix(space, rng)
+            b = tcolors.rgb2yuv_matrix(tenums.ColorSpace(int(space)),
+                                       tenums.ColorRange(int(rng)))
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+
+
+@pytest.mark.parametrize("method", tresize.METHODS)
+def test_resampling_matrices_match(method):
+    for n_in, n_out in SIZES:
+        assert np.array_equal(jresize.resize_weights(n_in, n_out, method),
+                              tresize.resize_weights(n_in, n_out, method))
+        # chroma: half-resolution axis onto the destination grid
+        assert np.array_equal(
+            jfused._chroma_weights(n_in // 2, n_out, n_in, method),
+            tfused._chroma_weights(n_in // 2, n_out, n_in, method))
+
+
+def _expand(start, count, weights, n_in):
+    dense = np.zeros((len(start), n_in), np.float32)
+    for o, (s, c) in enumerate(zip(start, count)):
+        dense[o, s:s + c] = weights[o, :c]
+    return dense
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("method", tresize.METHODS)
+def test_band_table_expands_to_dense(method, cdt):
+    for n_in, n_out in SIZES:
+        dense_sets = [tresize.resize_weights(n_in, n_out, method)]
+        if n_in % 2 == 0:
+            dense_sets.append(
+                tfused._chroma_weights(n_in // 2, n_out, n_in, method))
+        for dense in dense_sets:
+            start, count, w = banded.band_table(dense, cdt)
+            m = dense.shape[1]
+            assert start.dtype == count.dtype == np.int32
+            assert (start >= 0).all() and (start + count <= m).all()
+            assert (count >= 1).all()
+            assert w.shape == (n_out, count.max())
+            want = banded.round_to(dense, cdt).numpy()
+            assert np.array_equal(_expand(start, count, w, m), want)
+
+
+def test_compute_dtype_policy_matches():
+    import jax.numpy as jnp
+
+    for hbd in (False, True):
+        assert banded.resolve_compute_dtype(None, hbd) == (
+            torch.float32 if hbd else torch.bfloat16)
+        assert np.dtype(jpallas._resolve_compute_dtype(None, hbd)) == (
+            np.dtype(np.float32) if hbd else np.dtype(jnp.bfloat16))
+        assert banded.resolve_compute_dtype(torch.float32, hbd) == \
+            torch.float32
+    for jbad, tbad, hbd in ((jnp.float16, torch.float16, False),
+                            (jnp.bfloat16, torch.bfloat16, True)):
+        with pytest.raises(ValueError) as je:
+            jpallas._resolve_compute_dtype(jbad, hbd)
+        with pytest.raises(ValueError) as te:
+            banded.resolve_compute_dtype(tbad, hbd)
+        assert str(je.value).split(",")[0].split(" got")[0] == \
+            str(te.value).split(",")[0].split(" got")[0]
+
+
+def test_kernel_formats_cover_the_decoded_path():
+    fmts = banded.kernel_preprocess_formats()
+    assert {int(f) for f in fmts} <= {
+        int(f) for f in jpallas.pallas_preprocess_formats()}
+    assert tenums.PixelFormat.YUV420 in fmts
+    assert tenums.PixelFormat.NV12 in fmts
+
+
+def test_host_frame_layout_matches():
+    from vali_tpu.memory import host as jhost
+    from vali_tpu_torch.memory import host as thost
+
+    rng = np.random.default_rng(4)
+    for fmt in (jenums.PixelFormat.NV12, jenums.PixelFormat.P10,
+                jenums.PixelFormat.YUV420, jenums.PixelFormat.YUV420_10bit):
+        size = jformats.format_info(fmt).host_size(64, 48)
+        frame = rng.integers(0, 256, size, dtype=np.uint8)
+        a = jhost.host_frame_to_planes(frame, fmt, 64, 48)
+        b = thost.host_frame_to_planes(frame, tenums.PixelFormat(int(fmt)),
+                                       64, 48)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+        assert np.array_equal(thost.planes_to_host_frame(b), frame)

@@ -1,0 +1,453 @@
+// Banded fused YUV -> RGB preprocess for Hopper (sm_90a).
+//
+// Replaces the two TPU kernels of vali_tpu/ops/pallas_fused.py on the
+// decode -> preprocess path:
+//   - pallas_nv12_preprocess   (NV12 / P010 / P012: Y plane stacked on
+//                               interleaved UV rows)
+//   - pallas_yuv420_preprocess (planar I420, 8-bit or LSB-aligned 10-bit)
+// Both compute the same thing: a banded H pass over luma and chroma rows,
+// a banded W pass, a 3x3 CSC, then round/clip to uint8 or scale (and
+// optionally normalise) to float. They differ only in how chroma is
+// addressed, so one template serves both.
+//
+// What bounds it on this card: one 64 x 1080p -> 224x224 batch reads about
+// 199 MB and does about 3 GFLOP of FMAs, ~15 FLOP/byte, far under the
+// H100's ~295 FLOP/byte ridge, so the kernel is bound by device-memory
+// reads. The design therefore reads every source sample from device memory
+// in 16-byte coalesced loads, keeps the H-pass rows in shared memory
+// between the passes (they never go back to device memory) and writes only
+// the small planar output. CUDA-core FMAs are enough at this intensity.
+//
+// Layout of one block: one (frame, strip of `rows` output rows).
+//   Phase 1 (H pass): for each output row of the strip, every column of
+//     luma and chroma is a weighted sum over that row's band of source
+//     rows: fp32 FMAs, the result rounded to the compute type (bf16 or
+//     fp32) and kept in shared memory — the TPU kernel's cast point. Chroma
+//     is stored interleaved (U at 2j, V at 2j+1) for both layouts.
+//   Phase 2 (W pass + tail): each output pixel is a weighted sum over its
+//     column band from shared memory, then the CSC in fp32 and the
+//     quantise/normalise tail, written to out[b, c, o, p].
+//
+// Tables (built on the host by vali_tpu_torch/ops/banded.py): per output
+// row or column the first source index, the tap count and the weights
+// padded to the largest tap count. A band lies inside its plane, so the
+// kernel never reads outside a plane and needs no pad rows. Weights arrive
+// already rounded to the compute type.
+//
+// Each launcher returns cudaGetLastError() after the launch, runs on the
+// caller's stream, and neither synchronises nor allocates.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxRows = 8;            // output rows per block
+constexpr int kSmemLimit = 232448;     // dynamic shared memory per block
+
+struct Tables {
+  const int* hy_start; const int* hy_count; const float* hy_w; int hy_k;
+  const int* hc_start; const int* hc_count; const float* hc_w; int hc_k;
+  // column weights are stored transposed: w[k * dst_w + p]
+  const int* wy_start; const int* wy_count; const float* wy_w;
+  const int* wc_start; const int* wc_count; const float* wc_w;
+};
+
+struct Planes {
+  const void* y; const void* u; const void* v;   // frame 0 of each plane
+  long long y_bs, y_rs, u_bs, u_rs, v_bs, v_rs;  // strides in elements
+  int vec;  // 1: every row start is 16-byte aligned, widths fit vectors
+};
+
+// CSC and quantise/normalise constants, in the input's stored units;
+// without normalisation mean is 0 and std 1, which change nothing.
+struct Tail {
+  float m[9];
+  float y_off, c_off, div;
+  float mean[3], stdv[3];
+};
+
+struct Geometry {
+  int batch, src_h, src_w, dst_h, dst_w, rows;
+};
+
+// --- compute type of the H-pass rows kept in shared memory --------------
+template <bool F32> struct Mid;
+template <> struct Mid<true> {
+  using T = float;
+  static __device__ __forceinline__ T put(float x) { return x; }
+  static __device__ __forceinline__ float get(T x) { return x; }
+};
+template <> struct Mid<false> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ T put(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float get(T x) {
+    return __bfloat162float(x);
+  }
+};
+
+// --- input samples: one 16-byte load -> kVec exact fp32 values ----------
+template <typename TIn> struct In;
+template <> struct In<uint8_t> {
+  static constexpr int kVec = 16;
+  static __device__ __forceinline__ void load_vec(const uint8_t* p,
+                                                  float* f) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f[4 * j + i] = static_cast<float>((w[j] >> (8 * i)) & 0xFFu);
+  }
+  static __device__ __forceinline__ float load(const uint8_t* p) {
+    return static_cast<float>(__ldg(p));
+  }
+};
+template <> struct In<uint16_t> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ void load_vec(const uint16_t* p,
+                                                  float* f) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        f[2 * j + i] = static_cast<float>((w[j] >> (16 * i)) & 0xFFFFu);
+  }
+  static __device__ __forceinline__ float load(const uint16_t* p) {
+    return static_cast<float>(__ldg(p));
+  }
+};
+
+// --- output element ------------------------------------------------------
+template <typename TOut> struct Out;
+template <> struct Out<uint8_t> {
+  static __device__ __forceinline__ void store(uint8_t* p, float x,
+                                               int /*c*/, const Tail& t) {
+    // round half to even, then clip (jnp.round / torch.round semantics)
+    float q = rintf(__fdiv_rn(x, t.div));
+    q = fminf(fmaxf(q, 0.0f), 255.0f);
+    *p = static_cast<uint8_t>(q);
+  }
+};
+__device__ __forceinline__ float scaled(float x, int c, const Tail& t) {
+  return __fdiv_rn(__fsub_rn(__fdiv_rn(x, t.div), t.mean[c]), t.stdv[c]);
+}
+template <> struct Out<float> {
+  static __device__ __forceinline__ void store(float* p, float x, int c,
+                                               const Tail& t) {
+    *p = scaled(x, c, t);
+  }
+};
+template <> struct Out<__nv_bfloat16> {
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x,
+                                               int c, const Tail& t) {
+    *p = __float2bfloat16_rn(scaled(x, c, t));
+  }
+};
+
+// H pass of one plane segment: `ncols` columns of `rows` output rows,
+// written to dst[r * dst_w + col * step + off].
+template <typename TIn, bool F32>
+__device__ __forceinline__ void hpass(
+    const TIn* plane, long long rs, int ncols, int o0, int rows,
+    const int* start, const int* count, const float* w, int k_max,
+    typename Mid<F32>::T* dst, int dst_w, int step, int off, bool vec) {
+  using M = Mid<F32>;
+  if (vec) {
+    constexpr int V = In<TIn>::kVec;
+    const int groups = ncols / V;
+    for (int item = threadIdx.x; item < rows * groups; item += blockDim.x) {
+      const int r = item / groups;
+      const int g = item - r * groups;
+      const int o = o0 + r;
+      const int n = __ldg(count + o);
+      const float* wr = w + static_cast<long long>(o) * k_max;
+      const TIn* src = plane + static_cast<long long>(__ldg(start + o)) * rs
+                       + static_cast<long long>(g) * V;
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+      for (int k = 0; k < n; ++k) {
+        float x[V];
+        In<TIn>::load_vec(src + static_cast<long long>(k) * rs, x);
+        const float wk = __ldg(wr + k);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = fmaf(wk, x[i], acc[i]);
+      }
+      typename M::T* d = dst + r * dst_w + (g * V) * step + off;
+#pragma unroll
+      for (int i = 0; i < V; ++i) d[i * step] = M::put(acc[i]);
+    }
+  } else {
+    for (int item = threadIdx.x; item < rows * ncols; item += blockDim.x) {
+      const int r = item / ncols;
+      const int col = item - r * ncols;
+      const int o = o0 + r;
+      const int n = __ldg(count + o);
+      const float* wr = w + static_cast<long long>(o) * k_max;
+      const TIn* src = plane + static_cast<long long>(__ldg(start + o)) * rs
+                       + col;
+      float acc = 0.0f;
+      for (int k = 0; k < n; ++k)
+        acc = fmaf(__ldg(wr + k),
+                   In<TIn>::load(src + static_cast<long long>(k) * rs), acc);
+      dst[r * dst_w + col * step + off] = M::put(acc);
+    }
+  }
+}
+
+template <typename TIn, typename TOut, bool F32, bool NV12>
+__global__ void __launch_bounds__(kThreads)
+banded_preprocess_kernel(Planes pl, Tables t, Tail tl, Geometry g,
+                         TOut* __restrict__ out) {
+  using M = Mid<F32>;
+  using T = typename M::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* yh = reinterpret_cast<T*>(smem);    // [rows][src_w] luma
+  T* ch = yh + g.rows * g.src_w;         // [rows][src_w] interleaved U/V
+
+  const int b = blockIdx.y;
+  const int o0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, g.dst_h - o0);
+  const bool vec = pl.vec != 0;
+
+  // ---- phase 1: banded H pass into shared memory -----------------------
+  hpass<TIn, F32>(static_cast<const TIn*>(pl.y) + b * pl.y_bs, pl.y_rs,
+                  g.src_w, o0, rows, t.hy_start, t.hy_count, t.hy_w,
+                  t.hy_k, yh, g.src_w, 1, 0, vec);
+  if (NV12) {
+    // interleaved UV rows: resampled as W columns, already interleaved
+    hpass<TIn, F32>(static_cast<const TIn*>(pl.u) + b * pl.u_bs, pl.u_rs,
+                    g.src_w, o0, rows, t.hc_start, t.hc_count, t.hc_w,
+                    t.hc_k, ch, g.src_w, 1, 0, vec);
+  } else {
+    const int cw = g.src_w / 2;
+    hpass<TIn, F32>(static_cast<const TIn*>(pl.u) + b * pl.u_bs, pl.u_rs,
+                    cw, o0, rows, t.hc_start, t.hc_count, t.hc_w, t.hc_k,
+                    ch, g.src_w, 2, 0, vec);
+    hpass<TIn, F32>(static_cast<const TIn*>(pl.v) + b * pl.v_bs, pl.v_rs,
+                    cw, o0, rows, t.hc_start, t.hc_count, t.hc_w, t.hc_k,
+                    ch, g.src_w, 2, 1, vec);
+  }
+  __syncthreads();
+
+  // ---- phase 2: banded W pass, CSC, quantise/normalise -----------------
+  const int DW = g.dst_w;
+  const long long plane_sz = static_cast<long long>(g.dst_h) * DW;
+  TOut* ob = out + static_cast<long long>(b) * 3 * plane_sz;
+  for (int item = threadIdx.x; item < rows * DW; item += blockDim.x) {
+    const int r = item / DW;
+    const int p = item - r * DW;
+    const T* yrow = yh + r * g.src_w;
+    const T* crow = ch + r * g.src_w;
+
+    float ya = 0.0f;
+    const int ys = __ldg(t.wy_start + p), yn = __ldg(t.wy_count + p);
+    for (int k = 0; k < yn; ++k)
+      ya = fmaf(__ldg(t.wy_w + k * DW + p), M::get(yrow[ys + k]), ya);
+
+    float ua = 0.0f, va = 0.0f;
+    const int cs = __ldg(t.wc_start + p), cn = __ldg(t.wc_count + p);
+    for (int k = 0; k < cn; ++k) {
+      const float wk = __ldg(t.wc_w + k * DW + p);
+      const int j = 2 * (cs + k);
+      ua = fmaf(wk, M::get(crow[j]), ua);
+      va = fmaf(wk, M::get(crow[j + 1]), va);
+    }
+    const float yv = __fsub_rn(ya, tl.y_off);
+    const float u = __fsub_rn(ua, tl.c_off);
+    const float v = __fsub_rn(va, tl.c_off);
+    const long long pix = static_cast<long long>(o0 + r) * DW + p;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // no FMA contraction: same rounding as three separate products
+      const float x = __fadd_rn(
+          __fadd_rn(__fmul_rn(tl.m[3 * c], yv), __fmul_rn(tl.m[3 * c + 1], u)),
+          __fmul_rn(tl.m[3 * c + 2], v));
+      Out<TOut>::store(ob + c * plane_sz + pix, x, c, tl);
+    }
+  }
+}
+
+template <typename TIn, typename TOut, bool F32, bool NV12>
+cudaError_t launch_typed(const Planes& pl, const Tables& t, const Tail& tl,
+                         const Geometry& g, void* out, cudaStream_t stream) {
+  auto kern = banded_preprocess_kernel<TIn, TOut, F32, NV12>;
+  const size_t smem =
+      2ull * g.rows * g.src_w * sizeof(typename Mid<F32>::T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((g.dst_h + g.rows - 1) / g.rows, g.batch);
+  kern<<<grid, kThreads, smem, stream>>>(pl, t, tl, g,
+                                         static_cast<TOut*>(out));
+  return cudaGetLastError();
+}
+
+template <typename TIn, typename TOut, bool NV12>
+cudaError_t pick_compute(int f32, const Planes& pl, const Tables& t,
+                         const Tail& tl, const Geometry& g, void* out,
+                         cudaStream_t s) {
+  return f32 ? launch_typed<TIn, TOut, true, NV12>(pl, t, tl, g, out, s)
+             : launch_typed<TIn, TOut, false, NV12>(pl, t, tl, g, out, s);
+}
+
+template <typename TIn, bool NV12>
+cudaError_t pick_out(int out_kind, int f32, const Planes& pl,
+                     const Tables& t, const Tail& tl, const Geometry& g,
+                     void* out, cudaStream_t s) {
+  switch (out_kind) {
+    case 0: return pick_compute<TIn, uint8_t, NV12>(f32, pl, t, tl, g, out, s);
+    case 1: return pick_compute<TIn, float, NV12>(f32, pl, t, tl, g, out, s);
+    case 2:
+      return pick_compute<TIn, __nv_bfloat16, NV12>(f32, pl, t, tl, g, out,
+                                                    s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Shared part of both launchers: tables, tail, strip height, dispatch.
+template <bool NV12>
+cudaError_t launch(Planes pl, int in_bytes, int batch, int src_h, int src_w,
+                   int dst_h, int dst_w, const int* index,
+                   const float* weights, int hy_k, int hc_k, int wy_k,
+                   int wc_k, const float* tail, int f32, void* out,
+                   int out_kind, cudaStream_t stream) {
+  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return cudaSuccess;
+  if ((in_bytes != 1 && in_bytes != 2) || src_w <= 0 || (src_w & 1))
+    return cudaErrorInvalidValue;
+
+  Tables t;
+  t.hy_start = index;
+  t.hy_count = index + dst_h;
+  t.hc_start = index + 2 * dst_h;
+  t.hc_count = index + 3 * dst_h;
+  t.wy_start = index + 4 * dst_h;
+  t.wy_count = t.wy_start + dst_w;
+  t.wc_start = t.wy_start + 2 * dst_w;
+  t.wc_count = t.wy_start + 3 * dst_w;
+  t.hy_w = weights;
+  t.hy_k = hy_k;
+  t.hc_w = t.hy_w + static_cast<long long>(dst_h) * hy_k;
+  t.hc_k = hc_k;
+  t.wy_w = t.hc_w + static_cast<long long>(dst_h) * hc_k;
+  t.wc_w = t.wy_w + static_cast<long long>(wy_k) * dst_w;
+
+  Tail tl;
+  for (int i = 0; i < 9; ++i) tl.m[i] = tail[i];
+  tl.y_off = tail[9];
+  tl.c_off = tail[10];
+  tl.div = tail[11];
+  for (int i = 0; i < 3; ++i) {
+    tl.mean[i] = tail[12 + i];
+    tl.stdv[i] = tail[15 + i];
+  }
+
+  Geometry g;
+  g.batch = batch;
+  g.src_h = src_h;
+  g.src_w = src_w;
+  g.dst_h = dst_h;
+  g.dst_w = dst_w;
+  const int elem = f32 ? 4 : 2;
+  int rows = kMaxRows < dst_h ? kMaxRows : dst_h;
+  while (rows > 1 && 2ll * rows * src_w * elem > kSmemLimit) --rows;
+  if (2ll * rows * src_w * elem > kSmemLimit) return cudaErrorInvalidValue;
+  g.rows = rows;
+
+  // 16-byte vector loads need every row start of every plane aligned and
+  // widths that are whole vectors
+  const int vec = 16 / in_bytes;  // elements per 16 bytes
+  bool ok = aligned16(pl.y) && aligned16(pl.u) && src_w % vec == 0 &&
+            pl.y_bs % vec == 0 && pl.y_rs % vec == 0 &&
+            pl.u_bs % vec == 0 && pl.u_rs % vec == 0;
+  if (!NV12)
+    ok = ok && aligned16(pl.v) && (src_w / 2) % vec == 0 &&
+         pl.v_bs % vec == 0 && pl.v_rs % vec == 0;
+  pl.vec = ok ? 1 : 0;
+
+  if (in_bytes == 1)
+    return pick_out<uint8_t, NV12>(out_kind, f32, pl, t, tl, g, out, stream);
+  return pick_out<uint16_t, NV12>(out_kind, f32, pl, t, tl, g, out, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// NV12 / P010 / P012: `src` is frame 0 of a [B, >= H*3/2, W] plane with
+// the given batch and row strides (elements); the interleaved UV rows
+// start at row H. in_bytes 1 = uint8, 2 = uint16. out is a contiguous
+// [B, 3, dst_h, dst_w] tensor: out_kind 0 = uint8, 1 = float32,
+// 2 = bfloat16. `tail` is a host array of 18 floats (see
+// vali_tpu_torch/ops/banded.py tail_params).
+int nv12_preprocess_launch(const void* src, int in_bytes,
+                           long long batch_stride, long long row_stride,
+                           int batch, int src_h, int src_w, int dst_h,
+                           int dst_w, const int* index, const float* weights,
+                           int hy_k, int hc_k, int wy_k, int wc_k,
+                           const float* tail, int f32_compute, void* out,
+                           int out_kind, void* stream) {
+  Planes pl;
+  pl.y = src;
+  pl.u = static_cast<const char*>(src) +
+         static_cast<long long>(src_h) * row_stride * in_bytes;
+  pl.v = pl.u;
+  pl.y_bs = pl.u_bs = pl.v_bs = batch_stride;
+  pl.y_rs = pl.u_rs = pl.v_rs = row_stride;
+  pl.vec = 0;
+  return static_cast<int>(launch<true>(
+      pl, in_bytes, batch, src_h, src_w, dst_h, dst_w, index, weights, hy_k,
+      hc_k, wy_k, wc_k, tail, f32_compute, out, out_kind,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Planar I420 (8-bit or LSB-aligned 10-bit): y [B, >= H, W], u and v
+// [B, >= H/2, W/2], each frame 0 of a plane with its own strides
+// (elements). Everything else as nv12_preprocess_launch.
+int yuv420_preprocess_launch(const void* y, const void* u, const void* v,
+                             int in_bytes, long long y_batch_stride,
+                             long long y_row_stride, long long u_batch_stride,
+                             long long u_row_stride, long long v_batch_stride,
+                             long long v_row_stride, int batch, int src_h,
+                             int src_w, int dst_h, int dst_w,
+                             const int* index, const float* weights,
+                             int hy_k, int hc_k, int wy_k, int wc_k,
+                             const float* tail, int f32_compute, void* out,
+                             int out_kind, void* stream) {
+  Planes pl;
+  pl.y = y;
+  pl.u = u;
+  pl.v = v;
+  pl.y_bs = y_batch_stride;
+  pl.y_rs = y_row_stride;
+  pl.u_bs = u_batch_stride;
+  pl.u_rs = u_row_stride;
+  pl.v_bs = v_batch_stride;
+  pl.v_rs = v_row_stride;
+  pl.vec = 0;
+  return static_cast<int>(launch<false>(
+      pl, in_bytes, batch, src_h, src_w, dst_h, dst_w, index, weights, hy_k,
+      hc_k, wy_k, wc_k, tail, f32_compute, out, out_kind,
+      static_cast<cudaStream_t>(stream)));
+}
+
+const char* banded_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,113 @@
+"""Build and load the package's CUDA kernels.
+
+The kernels are CUDA C++ for Hopper (``csrc/*.cu``) with a plain C
+interface. At first use they are compiled with nvcc into one shared library
+under ``build/vali_tpu_torch_kernels/`` beside the package, keyed by a hash
+of the sources and flags, under a file lock so concurrent processes build
+once; later calls load the cached library with ``ctypes``. Importing the
+package never runs nvcc. A failed build raises with the tail of nvcc's
+output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCES = ("csrc/banded_preprocess.cu",)
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "vali_tpu_torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_FP = ctypes.POINTER(ctypes.c_float)
+_SIGNATURES = {
+    "nv12_preprocess_launch": [
+        _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
+        _I, _P, _I, _P],
+    "yuv420_preprocess_launch": [
+        _P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I,
+        _P, _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels of vali_tpu_torch are built from source at first use")
+
+
+def _source_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _SOURCES:
+        with open(os.path.join(_PKG_DIR, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(out_path: str) -> None:
+    srcs = [os.path.join(_PKG_DIR, rel) for rel in _SOURCES]
+    tmp = f"{out_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-40:])
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{tail}")
+    os.replace(tmp, out_path)
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"banded_preprocess_{_source_key()}.so")
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, "lock"), "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)
+            try:
+                if not os.path.exists(path):
+                    _build(path)
+            finally:
+                fcntl.flock(lock_file, fcntl.LOCK_UN)
+        lib = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.banded_error_string.argtypes = [ctypes.c_int]
+        lib.banded_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error."""
+    if code != 0:
+        msg = lib.banded_error_string(code).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({code})")

@@ -1,0 +1,233 @@
+"""Host half of the banded preprocess kernels: compute-dtype policy, band
+tables, the shared plain version and the format dispatch.
+
+Counterpart of the host code in ``vali_tpu/ops/pallas_fused.py``. The TPU
+kernels slice the dense resampling matrices into aligned TILE x WIN blocks
+for the matrix unit; the Hopper kernel instead reads one compact band per
+output row or column: the first source index, the tap count, and the
+weights padded to the largest tap count (:func:`band_table`). A band is the
+nonzero extent of a dense row inside the plane, so the kernel never reads
+outside a plane and the staging buffers need no pad rows.
+
+Both kernels (``ops/nv12_preprocess.py``, ``ops/yuv420_preprocess.py``)
+use the same four tables: luma rows, chroma rows, luma columns, chroma
+columns, built from the same dense matrices the dense route uses.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..core.enums import ColorRange, ColorSpace, PixelFormat
+from . import colors
+from .fused import _chroma_weights, exact_f32_matmul, to_f32
+from .resize import resize_weights
+
+#: output dtype -> the kernels' out_kind code
+OUT_KINDS = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def resolve_compute_dtype(compute_dtype, hbd: bool = False) -> torch.dtype:
+    """Compute-dtype policy shared by both kernels: uint8 input defaults to
+    bfloat16 compute, uint16 ("hbd") input always computes in float32.
+
+    ``compute_dtype=torch.float32`` is the per-call exactness knob for
+    uint8 input."""
+    if compute_dtype is None:
+        return torch.float32 if hbd else torch.bfloat16
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    if hbd and compute_dtype != torch.float32:
+        raise ValueError(
+            "high-bit-depth input (uint16 / float32) requires float32 "
+            "compute — bfloat16 cannot hold its significant bits")
+    return compute_dtype
+
+
+def round_to(x, dtype: torch.dtype):
+    """Round float32 values to ``dtype`` and widen back to float32 (the
+    compute dtype's cast points, kept in float32 storage)."""
+    t = torch.as_tensor(x, dtype=torch.float32)
+    return t.to(dtype).to(torch.float32) if dtype != torch.float32 else t
+
+
+def band_table(dense: np.ndarray, compute_dtype: torch.dtype
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Compact per-row bands of a dense [n_out, n_in] resampling matrix.
+
+    Returns ``(start [n_out] int32, count [n_out] int32,
+    weights [n_out, K] float32)``: row ``o`` reads source indices
+    ``start[o] .. start[o] + count[o] - 1``, all inside ``[0, n_in)``, with
+    ``weights[o, :count[o]]`` (the rest is zero). K is the largest count.
+    Weights are rounded to ``compute_dtype`` (the TPU kernels' cast point
+    for their weight blocks) and stored as float32."""
+    dense = np.asarray(dense, dtype=np.float32)
+    n_out, n_in = dense.shape
+    nz = dense != 0.0
+    has = nz.any(axis=1)
+    first = np.where(has, nz.argmax(axis=1), 0)
+    last = np.where(has, n_in - 1 - nz[:, ::-1].argmax(axis=1), -1)
+    count = (last - first + 1).astype(np.int32)
+    k = max(1, int(count.max(initial=0)))
+    cols = first[:, None] + np.arange(k)[None, :]
+    inside = np.arange(k)[None, :] < count[:, None]
+    weights = np.where(inside, dense[np.arange(n_out)[:, None],
+                                    np.minimum(cols, n_in - 1)], 0.0)
+    weights = round_to(weights.astype(np.float32), compute_dtype).numpy()
+    return first.astype(np.int32), count, weights
+
+
+class DenseWeights(NamedTuple):
+    """The four dense resampling matrices of one geometry."""
+    luma_h: np.ndarray    # [DH, H]
+    chroma_h: np.ndarray  # [DH, H/2]
+    luma_w: np.ndarray    # [DW, W]
+    chroma_w: np.ndarray  # [DW, W/2]
+
+
+def dense_weights(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  method: str) -> DenseWeights:
+    return DenseWeights(
+        resize_weights(src_h, dst_h, method),
+        _chroma_weights(src_h // 2, dst_h, src_h, method),
+        resize_weights(src_w, dst_w, method),
+        _chroma_weights(src_w // 2, dst_w, src_w, method))
+
+
+class DeviceTables(NamedTuple):
+    """Band tables of one geometry, uploaded to one device.
+
+    ``index`` int32 holds, back to back: luma-row start and count [DH]
+    each, chroma-row start and count [DH] each, luma-column start and
+    count [DW] each, chroma-column start and count [DW] each.
+    ``weights`` float32 holds luma-row weights [DH, taps[0]], chroma-row
+    weights [DH, taps[1]], then the column weights TRANSPOSED — luma
+    [taps[2], DW] and chroma [taps[3], DW] — so neighbouring output
+    columns read neighbouring addresses."""
+    index: torch.Tensor
+    weights: torch.Tensor
+    taps: Tuple[int, int, int, int]
+
+
+@functools.lru_cache(maxsize=32)
+def device_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  method: str, compute_dtype: torch.dtype,
+                  device: torch.device) -> DeviceTables:
+    """Build and upload the band tables once per geometry and device."""
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, method)
+    tabs = [band_table(m, compute_dtype) for m in dw]
+    index = np.concatenate([np.concatenate([s, c]) for s, c, _ in tabs])
+    weights = np.concatenate([
+        tabs[0][2].reshape(-1), tabs[1][2].reshape(-1),
+        tabs[2][2].T.reshape(-1), tabs[3][2].T.reshape(-1)])
+    return DeviceTables(
+        torch.from_numpy(index).to(device),
+        torch.from_numpy(np.ascontiguousarray(weights)).to(device),
+        tuple(int(t[2].shape[1]) for t in tabs))
+
+
+def tail_params(space: ColorSpace, crange: ColorRange, scale: float,
+                out_dtype: torch.dtype, normalize) -> np.ndarray:
+    """Validate the CSC/quantise tail and pack it as the kernels take it:
+    18 float32 — the 3x3 matrix (row-major), luma offset, chroma offset,
+    output divisor (``scale`` for uint8 out, ``255 * scale`` for float),
+    mean[3], std[3]. Without ``normalize`` mean is 0 and std 1, which
+    leaves every value unchanged."""
+    mo = colors.yuv2rgb_matrix(space, crange)
+    if mo is None:
+        raise ValueError(f"Unsupported cc combo {space}/{crange}")
+    if out_dtype not in OUT_KINDS:
+        raise ValueError(
+            f"out_dtype must be uint8, float32 or bfloat16, got {out_dtype}")
+    is_u8 = out_dtype == torch.uint8
+    if normalize is not None and is_u8:
+        raise ValueError("normalize requires a float out_dtype")
+    m, y_off = mo
+    mean, std = normalize if normalize is not None else ((0.0,) * 3,
+                                                         (1.0,) * 3)
+    return np.array(
+        list(m.astype(np.float32).reshape(-1))
+        + [y_off * scale, 128.0 * scale,
+           scale if is_u8 else 255.0 * scale]
+        + [float(x) for x in mean] + [float(x) for x in std],
+        dtype=np.float32)
+
+
+def banded_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                 src_w: int, src_h: int, dst_w: int, dst_h: int,
+                 method: str, compute_dtype: torch.dtype,
+                 tail: np.ndarray, out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of both banded kernels on planar y/u/v views.
+
+    Same dense matrices and cast points as the kernels: weights rounded to
+    the compute dtype, an fp32 product with TF32 off, the H-pass result
+    rounded to the compute dtype, the W-pass product, the CSC and the
+    quantise/normalise tail in fp32. Returns [B, 3, dst_h, dst_w]."""
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, method)
+    dev = y.device
+    wyh, wch, wyw, wcw = (round_to(m, compute_dtype).to(dev) for m in dw)
+    with exact_f32_matmul():
+        yh = round_to(torch.matmul(wyh, to_f32(y[:, :src_h])), compute_dtype)
+        uh = round_to(torch.matmul(wch, to_f32(u[:, :src_h // 2])),
+                      compute_dtype)
+        vh = round_to(torch.matmul(wch, to_f32(v[:, :src_h // 2])),
+                      compute_dtype)
+        yv = torch.matmul(yh, wyw.T) - float(tail[9])
+        uv = torch.matmul(uh, wcw.T) - float(tail[10])
+        vv = torch.matmul(vh, wcw.T) - float(tail[10])
+    m = [float(x) for x in tail[:9]]
+    div = float(tail[11])
+    chans = []
+    for c in range(3):
+        x = m[3 * c] * yv + m[3 * c + 1] * uv + m[3 * c + 2] * vv
+        if out_dtype == torch.uint8:
+            x = torch.clamp(torch.round(x / div), 0.0, 255.0).to(torch.uint8)
+        else:
+            x = ((x / div - float(tail[12 + c])) / float(tail[15 + c])).to(
+                out_dtype)
+        chans.append(x)
+    return torch.stack(chans, dim=1)
+
+
+def kernel_preprocess_formats():
+    """The formats a banded preprocess kernel covers — one source of truth
+    for the pipeline's routing and the :func:`kernel_preprocess`
+    dispatch."""
+    return frozenset({
+        PixelFormat.NV12, PixelFormat.P10, PixelFormat.P12,
+        PixelFormat.YUV420, PixelFormat.YUV420_10bit,
+    })
+
+
+def kernel_preprocess(planes, fmt, *, src_w: int, src_h: int, dst_w: int,
+                      dst_h: int, space: ColorSpace, crange: ColorRange,
+                      out_dtype: torch.dtype, method: str, normalize
+                      ) -> torch.Tensor:
+    """Dispatch the banded fused CSC+resize kernel for ``fmt``.
+
+    Every format in :func:`kernel_preprocess_formats` has a branch here;
+    an uncovered format raises. Output is planar [B, 3, dst_h, dst_w]."""
+    from .nv12_preprocess import nv12_preprocess
+    from .yuv420_preprocess import yuv420_preprocess
+
+    fmt = PixelFormat(fmt)
+    if fmt in (PixelFormat.NV12, PixelFormat.P10, PixelFormat.P12):
+        return nv12_preprocess(
+            planes[0], src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h,
+            space=space, crange=crange, out_dtype=out_dtype, method=method,
+            normalize=normalize)
+    if fmt in (PixelFormat.YUV420, PixelFormat.YUV420_10bit):
+        bd = 10 if fmt == PixelFormat.YUV420_10bit else 8
+        return yuv420_preprocess(
+            planes[0], planes[1], planes[2], src_w=src_w, src_h=src_h,
+            dst_w=dst_w, dst_h=dst_h, space=space, crange=crange,
+            out_dtype=out_dtype, method=method, normalize=normalize,
+            bit_depth=bd)
+    raise ValueError(
+        f"no preprocess kernel for {fmt!r} — "
+        f"kernel_preprocess_formats() is out of sync with this dispatch")
