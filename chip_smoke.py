@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of vali_tpu_torch on one CUDA card.
 
-Drives the port's main path — host frames staged by MultiStreamPipeline
-into the banded preprocess kernels — at full size: 64 streams of 1080p ->
-224x224. It builds the CUDA kernels from the sources in this checkout,
-compares every kernel with its plain PyTorch version on the card, runs
-MultiStreamPipeline over 64 in-memory frame sources and checks every batch
-against the kernels, checks a kernel against the dense exact route, and
-when the native engine builds, decodes a synthesised clip through the
-pipeline too. It times kernels and plain versions with CUDA events and the
-pipeline on the host clock, and prints:
+Drives the port's two main paths at full size. The batched preprocess
+path: host frames staged by MultiStreamPipeline into the banded preprocess
+kernels, 64 streams of 1080p -> 224x224. The Surface path (VALI's public
+API): PyFrameUploader, PySurfaceConverter NV12 -> RGB and PySurfaceResizer
+-> 640x360 on 64 distinct 1080p frames, one Surface at a time, read through
+DLPack; and a 4K NV12 Surface resized to 1080p (turbo), converted to
+YUV420, resized to 960x540 (turbo) and downloaded. It builds the CUDA
+kernels from the sources in this checkout, compares every kernel with its
+plain PyTorch version on the card and with the dense exact route, checks
+every main-path output against the batched kernels bit for bit, and when
+the native engine builds, decodes a synthesised clip through the pipeline
+too. It times kernels and plain versions with CUDA events and the paths on
+the host clock, and prints:
 
   - the card's name and power limit (nvidia-smi), torch/CUDA versions and
     the kernel build time;
@@ -72,8 +76,9 @@ def make_frames(np, rng, fmt, b, w, h):
 
 def compare(torch, name, out, ref):
     """Print and check kernel vs plain: u8 within 1 LSB on <1e-3 of the
-    pixels (same cast points, only the summation order differs), float
-    within 1e-3 relative (bfloat16 outputs within one bfloat16 ulp)."""
+    pixels (same cast points, only the summation order differs), u16
+    within 1 LSB on <1e-2, float within 1e-3 relative (bfloat16 outputs
+    within one bfloat16 ulp)."""
     d = (out.double() - ref.double()).abs()
     frac = (d > 0).double().mean().item()
     if out.dtype == torch.uint8:
@@ -90,6 +95,11 @@ def compare(torch, name, out, ref):
     if out.dtype == torch.uint8:
         if d.max().item() > 1 or frac >= 1e-3:
             raise AssertionError(f"{name}: kernel disagrees with plain")
+    elif out.dtype == torch.uint16:
+        # a float32 ulp of a 16-bit sum is ~1/256 LSB: summation-order
+        # ties land on the other side more often than for uint8
+        if d.max().item() > 1 or frac >= 1e-2:
+            raise AssertionError(f"{name}: kernel disagrees with plain")
     else:
         tol = 1e-3 if out.dtype == torch.float32 else 2.0 ** -7
         bound = tol * ref.double().abs().clamp(min=1.0)
@@ -98,23 +108,34 @@ def compare(torch, name, out, ref):
     return d.max().item()
 
 
-def time_ms(torch, fn):
-    """Median ms of one call: TIMED_RUNS samples, each CUDA events around
-    CALLS_PER_SAMPLE back-to-back calls (so host launch latency overlaps
-    device work), after warm-up."""
+def time_ms(torch, fn, samples=TIMED_RUNS, calls=CALLS_PER_SAMPLE):
+    """Median ms of one call: ``samples`` samples, each CUDA events around
+    ``calls`` back-to-back calls (so host launch latency overlaps device
+    work), after warm-up."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(CALLS_PER_SAMPLE):
+        for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / CALLS_PER_SAMPLE)
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def time_pair(torch, kern, plain):
+    """(kernel ms, plain ms) taken plain, kernel, kernel, plain; each side
+    keeps its better median. Plain versions take 5 single-call samples:
+    some run ~100 ms a call."""
+    t_plain = time_ms(torch, plain, samples=5, calls=1)
+    t_kern = time_ms(torch, kern)
+    t_kern = min(t_kern, time_ms(torch, kern))
+    t_plain = min(t_plain, time_ms(torch, plain, samples=5, calls=1))
+    return t_kern, t_plain
 
 
 def kernel_and_plain(torch, p, fmt, **kw):
@@ -331,6 +352,8 @@ def main() -> int:
         f"host_stack_ms={statistics.median(stack_ms)} h2d_ms={h2d_ms} "
         f"h2d_GBps={pinned.nbytes / (h2d_ms * 1e-3) / 1e9} ({smi})")
 
+    kernels = surface_phases(torch, np, dev, host[PixelFormat.NV12], smi,
+                             times["nv12_preprocess"][0])
     kernels = [
         {"name": "nv12_preprocess", "route": "cuda",
          "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
@@ -346,12 +369,312 @@ def main() -> int:
          "max_abs_err": err["kernel_yuv420 u8/bf16"],
          "ms": times["yuv420_preprocess"][0],
          "plain_ms": times["yuv420_preprocess"][1]},
-    ]
+    ] + kernels
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# 4K sources of the resize phases: batch, geometry
+B4K, H4K, W4K = 16, 2160, 3840
+SURFACE_W, SURFACE_H = 640, 360   # Surface path, part A
+HALF_W, HALF_H = 960, 540         # Surface path, part B
+
+
+def check_envelope(torch, name, out, ref, max_lsb, max_frac_above_1=None,
+                   min_psnr=None):
+    """Kernel against the dense exact route, at the reference's own
+    envelope: max |diff| <= max_lsb, the share of samples more than 1 LSB
+    off below ``max_frac_above_1``, PSNR above ``min_psnr``."""
+    d = (out.double() - ref.double()).abs()
+    peak = 255.0 if out.dtype == torch.uint8 else 65535.0
+    mse = (d * d).mean().item()
+    psnr = float("inf") if mse == 0 else 10 * torch.log10(
+        torch.tensor(peak * peak / mse)).item()
+    above = (d > 1).double().mean().item()
+    log(f"{name}: max_abs_diff={d.max().item()} frac_above_1={above} "
+        f"psnr_db={psnr}")
+    if out.shape != ref.shape or d.max().item() > max_lsb:
+        raise AssertionError(f"{name}: outside the envelope")
+    if max_frac_above_1 is not None and above >= max_frac_above_1:
+        raise AssertionError(f"{name}: too many samples above 1 LSB")
+    if min_psnr is not None and psnr <= min_psnr:
+        raise AssertionError(f"{name}: PSNR {psnr} <= {min_psnr}")
+
+
+def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
+    """The Surface path's four kernels against their plain versions and the
+    exact route, the Surface path itself through the public entry points,
+    and its times. Returns the four kernels' entries of the JSON line."""
+    import vali_tpu_torch as vali
+    from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
+    from vali_tpu_torch.ops import csc, resize
+    from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
+    from vali_tpu_torch.ops.nv12_to_rgb import nv12_to_rgb, nv12_to_rgb_plain
+    from vali_tpu_torch.ops.packed_resize import (packed_resize,
+                                                  packed_resize_plain)
+    from vali_tpu_torch.ops.plane_resize import (plane_resize,
+                                                 plane_resize_plain)
+    from vali_tpu_torch.utils.device import new_stream
+
+    F = PixelFormat
+    f32 = dict(compute_dtype=torch.float32)
+    bt709 = dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG)
+    bt601 = dict(space=ColorSpace.BT_601, crange=ColorRange.JPEG, swap=True)
+    rng = np.random.default_rng(7)
+    nv12 = torch.from_numpy(nv12_host).to(dev).view(B, H * 3 // 2, W)
+    rgb = nv12_to_rgb(nv12, src_w=W, src_h=H, **bt709)
+    rgb32 = rgb.float() / 255.0
+    planar32 = rgb32.view(B, H, W, 3).permute(0, 3, 1, 2).reshape(
+        B * 3, H, W)
+    nv4k = torch.from_numpy(make_frames(np, rng, F.NV12, B4K, W4K, H4K)).to(
+        dev).view(B4K, H4K * 3 // 2, W4K)
+    p10 = torch.from_numpy(make_frames(np, rng, F.P10, B4K, W4K, H4K)).to(
+        dev).view(torch.uint16).view(B4K, H4K * 3 // 2, W4K)
+    gray12 = torch.from_numpy(make_frames(np, rng, F.GRAY12, B4K, W4K,
+                                          H4K)).to(dev).view(
+        torch.uint16).view(B4K, H4K, W4K)
+    y4k, u4k, v4k = csc.nv12_split(nv4k, H4K)
+    uv4k = torch.cat([u4k, v4k]).contiguous()  # stacked U / V planes
+
+    def pair(fn, plain, x, **kw):
+        return (lambda: fn(x, **kw)), (lambda: plain(x, **kw))
+
+    to_rgb = dict(src_w=W, src_h=H)
+    to_224 = dict(src_w=W, src_h=H, dst_w=DW, dst_h=DH)
+    to_360 = dict(src_w=W, src_h=H, dst_w=SURFACE_W, dst_h=SURFACE_H)
+    to_1080 = dict(src_w=W4K, src_h=H4K, dst_w=W, dst_h=H)
+    cases = {
+        "nv12_to_rgb rgb bt709/mpeg bf16": pair(
+            nv12_to_rgb, nv12_to_rgb_plain, nv12, **to_rgb, **bt709),
+        "nv12_to_rgb rgb bt709/mpeg f32": pair(
+            nv12_to_rgb, nv12_to_rgb_plain, nv12, **to_rgb, **bt709, **f32),
+        "nv12_to_rgb bgr bt601/jpeg bf16": pair(
+            nv12_to_rgb, nv12_to_rgb_plain, nv12, **to_rgb, **bt601),
+        "nv12_to_rgb bgr bt601/jpeg f32": pair(
+            nv12_to_rgb, nv12_to_rgb_plain, nv12, **to_rgb, **bt601, **f32),
+        "packed_resize rgb 1080p->224 u8": pair(
+            packed_resize, packed_resize_plain, rgb, **to_224),
+        "packed_resize rgb 1080p->640x360 u8": pair(
+            packed_resize, packed_resize_plain, rgb, **to_360),
+        "packed_resize rgb_32f 1080p->224 f32": pair(
+            packed_resize, packed_resize_plain, rgb32, **to_224),
+        "nv12_resize 4k->1080p bf16": pair(
+            nv12_resize, nv12_resize_plain, nv4k, **to_1080),
+        "nv12_resize 4k->1080p f32": pair(
+            nv12_resize, nv12_resize_plain, nv4k, **to_1080, **f32),
+        "nv12_resize p10 4k->1080p": pair(
+            nv12_resize, nv12_resize_plain, p10, **to_1080),
+        "plane_resize y 4k->1080p u8": pair(
+            plane_resize, plane_resize_plain, y4k, src_h=H4K, dst_h=H,
+            dst_w=W),
+        "plane_resize stacked u/v 4k->540p u8": pair(
+            plane_resize, plane_resize_plain, uv4k, src_h=H4K // 2,
+            dst_h=H // 2, dst_w=W // 2),
+        "plane_resize gray12 4k->1080p u16": pair(
+            plane_resize, plane_resize_plain, gray12, src_h=H4K, dst_h=H,
+            dst_w=W),
+        "plane_resize rgb_32f_planar 1080p->224 f32": pair(
+            plane_resize, plane_resize_plain, planar32, src_h=H, dst_h=DH,
+            dst_w=DW),
+    }
+    wrappers = {"nv12_to_rgb": nv12_to_rgb, "packed_resize": packed_resize,
+                "nv12_resize": nv12_resize, "plane_resize": plane_resize}
+
+    # ---- phase 1: kernel against plain version on the card ---------------
+    err, outs = {}, {}
+    for name, (kern, plain) in cases.items():
+        wrapper = wrappers[name.split()[0]]
+        before = wrapper.launches
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"{name}: the kernel was not launched")
+        e = compare(torch, name, out, ref)
+        err.setdefault(name.split()[0], e)
+        outs[name] = out
+
+    # ---- phase 2: kernel against the dense exact route -------------------
+    exact_rgb = csc.convert_batch((nv12,), F.NV12, F.RGB, W, H,
+                                  vali.ColorspaceConversionContext(
+                                      ColorSpace.BT_709, ColorRange.MPEG),
+                                  use_kernel=False)[0]
+    check_envelope(torch, "nv12_to_rgb bf16 vs exact route",
+                   outs["nv12_to_rgb rgb bt709/mpeg bf16"], exact_rgb, 2,
+                   max_frac_above_1=1e-2)
+    check_envelope(torch, "nv12_to_rgb f32 vs exact route",
+                   outs["nv12_to_rgb rgb bt709/mpeg f32"], exact_rgb, 1)
+    lanczos_aa = resize.LANCZOS_AA
+    exact_nv = resize.resize_batch((nv4k,), F.NV12, W4K, H4K, W, H,
+                                   lanczos_aa, use_kernel=False)[0]
+    check_envelope(torch, "nv12_resize bf16 vs exact route, all frames",
+                   outs["nv12_resize 4k->1080p bf16"], exact_nv, 3)
+    # the PSNR envelope is the reference's on its own content, uniform
+    # random samples (tests/test_pallas_kernel.py:198-214): the even frames
+    # of make_frames. On bright gradients the bf16-rounded weights' row
+    # sums (+0.29 % per pass) lift the output by up to 1.5 LSB.
+    check_envelope(torch, "nv12_resize bf16 vs exact route, random frames",
+                   outs["nv12_resize 4k->1080p bf16"][::2], exact_nv[::2],
+                   3, min_psnr=48.0)
+    check_envelope(torch, "nv12_resize f32 vs exact route",
+                   outs["nv12_resize 4k->1080p f32"], exact_nv, 1)
+    check_envelope(
+        torch, "nv12_resize p10 vs exact route",
+        outs["nv12_resize p10 4k->1080p"],
+        resize.resize_batch((p10,), F.P10, W4K, H4K, W, H, lanczos_aa,
+                            use_kernel=False)[0], 1)
+    check_envelope(torch, "plane_resize u8 vs exact route",
+                   outs["plane_resize y 4k->1080p u8"],
+                   resize.resize_plane(y4k, H, W, lanczos_aa), 3)
+    check_envelope(torch, "plane_resize u8 f32 vs exact route",
+                   plane_resize(y4k, src_h=H4K, dst_h=H, dst_w=W, **f32),
+                   resize.resize_plane(y4k, H, W, lanczos_aa), 1)
+    check_envelope(torch, "plane_resize u16 vs exact route",
+                   outs["plane_resize gray12 4k->1080p u16"],
+                   resize.resize_plane(gray12, H, W, lanczos_aa), 1)
+    exact_224 = resize.resize_plane(rgb, DH, DW, lanczos_aa, channels=3)
+    # bf16 H-pass rows are 1/256-relative: the reference's own envelope
+    # for the bf16 packed resize is 4 LSB (tests/test_pallas_kernel.py:426)
+    check_envelope(torch, "packed_resize u8 vs exact route",
+                   outs["packed_resize rgb 1080p->224 u8"], exact_224, 4)
+    check_envelope(torch, "packed_resize u8 f32 vs exact route",
+                   packed_resize(rgb, **to_224, **f32), exact_224, 1)
+    d32 = (outs["packed_resize rgb_32f 1080p->224 f32"] - resize.resize_plane(
+        rgb32, DH, DW, lanczos_aa, channels=3)).abs().max().item()
+    d32p = (outs["plane_resize rgb_32f_planar 1080p->224 f32"]
+            - resize.resize_plane(planar32, DH, DW, lanczos_aa)
+            ).abs().max().item()
+    log(f"float32 resizes vs exact route: packed max_abs_diff={d32} "
+        f"planar max_abs_diff={d32p}")
+    if max(d32, d32p) > 1.0 / 255.0:
+        raise AssertionError("float32 resize outside 1 LSB of the exact "
+                             "route")
+
+    # ---- phase 3: the Surface path, N = 1 per call -----------------------
+    cc = vali.ColorspaceConversionContext(ColorSpace.BT_709,
+                                          ColorRange.MPEG)
+    want_a = packed_resize(rgb, **to_360, method=resize.LANCZOS)
+    nv_1080 = nv12_resize(nv4k, **to_1080, method=resize.LANCZOS)
+    y1, u1, v1 = csc.nv12_split(nv_1080, H)
+    y_half = plane_resize(y1, src_h=H, dst_h=HALF_H, dst_w=HALF_W,
+                          method=resize.LANCZOS)
+    c_half = plane_resize(torch.cat([u1, v1]), src_h=H // 2,
+                          dst_h=HALF_H // 2, dst_w=HALF_W // 2,
+                          method=resize.LANCZOS)
+    want_b = torch.cat([y_half.flatten(1), c_half[:B4K].flatten(1),
+                        c_half[B4K:].flatten(1)], dim=1).cpu().numpy()
+    side = new_stream(0)
+    up = vali.PyFrameUploader(gpu_id=0)
+    src = vali.Surface.Make(F.NV12, W, H, gpu_id=0)
+    full = vali.Surface.Make(F.RGB, W, H, gpu_id=0)
+    small = vali.Surface.Make(F.RGB, SURFACE_W, SURFACE_H, gpu_id=0)
+    view = torch.from_dlpack(small)  # taken before the first Run
+    cvt = vali.PySurfaceConverter(gpu_id=0, stream=side.handle)
+    rsz = vali.PySurfaceResizer(F.RGB, gpu_id=0, stream=side.handle)
+    event = vali.CudaStreamEvent(cvt.Stream, 0)
+    ok = (True, vali.TaskExecInfo.SUCCESS)
+
+    def surface_a(i):
+        """Part A on frame i: upload, then RunAsync of the converter and
+        the resizer on a side stream, then an event."""
+        if (up.Run(nv12_host[i], src) != ok
+                or cvt.RunAsync(src, full, cc) != ok
+                or rsz.RunAsync(full, small) != ok):
+            raise AssertionError(f"surface path A failed on frame {i}")
+        event.Record()
+        event.Wait()
+
+    src4k = vali.Surface.Make(F.NV12, W4K, H4K, gpu_id=0)
+    mid = vali.Surface.Make(F.NV12, W, H, gpu_id=0)
+    yuv = vali.Surface.Make(F.YUV420, W, H, gpu_id=0)
+    half = vali.Surface.Make(F.YUV420, HALF_W, HALF_H, gpu_id=0)
+    down = vali.PySurfaceDownloader(gpu_id=0)
+    rsz_nv = vali.PySurfaceResizer(F.NV12, gpu_id=0, turbo=True)
+    rsz_yuv = vali.PySurfaceResizer(F.YUV420, gpu_id=0, turbo=True)
+    cvt_sync = vali.PySurfaceConverter(gpu_id=0)
+    host_out = np.zeros(1, np.uint8)
+
+    def surface_b(i):
+        """Part B on 4K frame i, synchronous Run calls."""
+        src4k.plane_tensors()[0].copy_(nv4k[i])
+        if (rsz_nv.Run(src4k, mid) != ok or cvt_sync.Run(mid, yuv) != ok
+                or rsz_yuv.Run(yuv, half) != ok
+                or down.Run(half, host_out) != ok):
+            raise AssertionError(f"surface path B failed on frame {i}")
+
+    for w in wrappers.values():
+        w.launches = 0
+    for i in range(B):
+        surface_a(i)
+        if not torch.equal(view, want_a[i].view(SURFACE_H, SURFACE_W, 3)):
+            raise AssertionError(f"surface path A frame {i} differs from "
+                                 f"the batched kernels")
+    for i in range(B4K):
+        surface_b(i)
+        if not np.array_equal(host_out, want_b[i]):
+            raise AssertionError(f"surface path B frame {i} differs from "
+                                 f"the batched kernels")
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"surface_path_launches={json.dumps(launches)}")
+    if min(launches.values()) < 1:
+        raise AssertionError("a kernel of the Surface path was not launched")
+    log(f"surface_path: ok, A: {B} 1080p NV12 frames uploaded, converted "
+        f"to RGB and resized to {SURFACE_W}x{SURFACE_H} with RunAsync on a "
+        f"side stream + CudaStreamEvent, each equal to the batched kernels "
+        f"through a DLPack view taken before the first Run; B: {B4K} 4K "
+        f"NV12 frames resized to 1080p (turbo), converted to YUV420, "
+        f"resized to {HALF_W}x{HALF_H} (turbo) and downloaded, each equal "
+        f"to the batched kernels")
+
+    # ---- phase 4: times --------------------------------------------------
+    timed = {"nv12_to_rgb": "nv12_to_rgb rgb bt709/mpeg bf16",
+             "packed_resize": "packed_resize rgb 1080p->224 u8",
+             "nv12_resize": "nv12_resize 4k->1080p bf16",
+             "plane_resize": "plane_resize y 4k->1080p u8"}
+    times = {}
+    for kname, case in list(timed.items()) + [
+            ("packed_resize 640x360", "packed_resize rgb 1080p->640x360 u8"),
+            ("plane_resize u/v", "plane_resize stacked u/v 4k->540p u8")]:
+        t_kern, t_plain = time_pair(torch, *cases[case])
+        times[kname] = (t_kern, t_plain)
+        log(f"time {case}: kernel_ms={t_kern} plain_ms={t_plain} ({smi})")
+    in_out = {"nv12_to_rgb": nv12.nbytes + rgb.nbytes,
+              "nv12_resize": nv4k.nbytes + nv_1080.nbytes}
+    for k, nbytes in in_out.items():
+        log(f"{k} read+write GB/s={nbytes / (times[k][0] * 1e-3) / 1e9}")
+
+    def two_stage():
+        rgbp = csc.convert_batch((nv12,), F.NV12, F.RGB, W, H, cc)
+        return resize.resize_batch(rgbp, F.RGB, W, H, DW, DH, lanczos_aa)
+
+    t_two = time_ms(torch, two_stage)
+    log(f"time two-stage convert+resize {B}x{H}p NV12->RGB->{DH}x{DW}: "
+        f"ms={t_two} fps={B / (t_two * 1e-3)} beside fused nv12_preprocess "
+        f"ms={fused_ms} ({smi})")
+    for rate_name, run, n in (("A", surface_a, B), ("B", surface_b, B4K)):
+        t0 = time.perf_counter()
+        for i in range(n):
+            run(i)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"time surface path {rate_name} N=1 over {n} frames (host "
+            f"clock): fps={n / secs} ms_per_frame={secs / n * 1e3} ({smi})")
+
+    src_of = {"nv12_to_rgb": ("vali_tpu_torch/csrc/nv12_to_rgb.cu",
+                              "vali_tpu/ops/pallas_fused.py:1487"),
+              "packed_resize": ("vali_tpu_torch/csrc/banded_resize.cu",
+                                "vali_tpu/ops/pallas_fused.py:1637"),
+              "nv12_resize": ("vali_tpu_torch/csrc/banded_resize.cu",
+                              "vali_tpu/ops/pallas_fused.py:1105"),
+              "plane_resize": ("vali_tpu_torch/csrc/banded_resize.cu",
+                               "vali_tpu/ops/pallas_fused.py:1272")}
+    return [{"name": k, "route": "cuda", "source": src_of[k][0],
+             "replaces": src_of[k][1], "launches": launches[k],
+             "max_abs_err": err[k], "ms": times[k][0],
+             "plain_ms": times[k][1]} for k in timed]
 
 
 def decode_phase(torch, np, dev):

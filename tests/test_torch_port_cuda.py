@@ -1,6 +1,7 @@
 """CUDA-only tests of vali_tpu_torch: the Hopper kernels against their
-plain PyTorch versions on the card, the launch counters, and the
-pipeline's pinned staging. They skip where torch has no CUDA device.
+plain PyTorch versions on the card, the launch counters, the pipeline's
+pinned staging, and the Surface ops' streams. They skip where torch has no
+CUDA device.
 
 This file imports no JAX, so on a machine with a card it runs alone:
 
@@ -11,8 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from vali_tpu_torch.core.enums import PixelFormat
+from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
 from vali_tpu_torch.core.formats import format_info
+from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
+from vali_tpu_torch.ops.nv12_to_rgb import nv12_to_rgb, nv12_to_rgb_plain
+from vali_tpu_torch.ops.packed_resize import (packed_resize,
+                                              packed_resize_plain)
+from vali_tpu_torch.ops.plane_resize import (plane_resize,
+                                             plane_resize_plain)
 from vali_tpu_torch.ops.nv12_preprocess import (nv12_preprocess,
                                                 nv12_preprocess_plain)
 from vali_tpu_torch.ops.yuv420_preprocess import (yuv420_preprocess,
@@ -160,3 +167,186 @@ def test_staging_reuses_pinned_buffers_only_after_the_copy(dev):
     torch.cuda.synchronize()
     for got, exp in zip(outs, want):
         assert np.array_equal(got.cpu().numpy(), exp)
+
+
+# --- the Surface path's kernels -------------------------------------------
+
+
+def _rand(dev, shape, dtype, seed):
+    """Random samples: uint8 full range, uint16 10-bit MSB-aligned,
+    float32 in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.float32:
+        x = rng.random(shape, dtype=np.float32)
+    elif dtype == torch.uint16:
+        x = (rng.integers(0, 1024, shape) << 6).astype(np.uint16)
+    else:
+        x = rng.integers(0, 256, shape).astype(np.uint8)
+    return torch.from_numpy(x).to(dev)
+
+
+def _close_any(out, ref, what):
+    """_assert_close, with uint16 within 1 LSB on < 1e-2 of samples (a
+    float32 ulp of a 16-bit sum is ~1/256 LSB, so summation-order ties
+    are more frequent than for uint8)."""
+    if out.dtype == torch.uint16:
+        d = (out.to(torch.int32) - ref.to(torch.int32)).abs()
+        assert d.max().item() <= 1, what
+        assert (d > 0).float().mean().item() < 1e-2, what
+    else:
+        _assert_close(out, ref, what)
+
+
+def _resize_call(kind, x, geo, plain=False, **kw):
+    h, w, dh, dw = geo
+    if kind == "plane":
+        fn = plane_resize_plain if plain else plane_resize
+        return fn(x, src_h=h, dst_h=dh, dst_w=dw, **kw)
+    if kind == "packed":
+        fn = packed_resize_plain if plain else packed_resize
+        return fn(x, src_w=w, src_h=h, dst_w=dw, dst_h=dh, **kw)
+    fn = nv12_resize_plain if plain else nv12_resize
+    return fn(x, src_w=w, src_h=h, dst_w=dw, dst_h=dh, **kw)
+
+
+def _resize_shape(kind, b, h, w):
+    return {"plane": (b, h, w), "packed": (b, h, 3 * w),
+            "nv12": (b, h * 3 // 2, w)}[kind]
+
+
+@pytest.mark.parametrize("geo", [
+    (96, 256, 40, 120),       # downscale
+    (62, 130, 96, 200),       # upscale, widths not x4
+    (64, 64, 64, 64),         # identity
+    (2160, 3840, 1080, 1920),  # 4K -> 1080p
+    (1080, 1920, 224, 224),
+])
+@pytest.mark.parametrize("kind,dtype,kw", [
+    ("plane", torch.uint8, {}),
+    ("plane", torch.uint8, {"compute_dtype": torch.float32}),
+    ("plane", torch.uint16, {}),
+    ("plane", torch.float32, {}),
+    ("packed", torch.uint8, {}),
+    ("packed", torch.float32, {}),
+    ("nv12", torch.uint8, {}),
+    ("nv12", torch.uint16, {}),
+])
+def test_resize_kernels_match_plain(dev, geo, kind, dtype, kw):
+    h, w, dh, dw = geo
+    b = 1 if h > 1000 else 2
+    x = _rand(dev, _resize_shape(kind, b, h, w), dtype, h + w)
+    out = _resize_call(kind, x, geo, **kw)
+    ref = _resize_call(kind, x, geo, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    _close_any(out, ref, (kind, geo, dtype, kw))
+
+
+@pytest.mark.parametrize("kind", ["plane", "packed", "nv12"])
+def test_resize_kernels_padded_strided_views(dev, kind):
+    """Extra rows, a padded row pitch, a misaligned start and a batch
+    stride larger than the image give the same output as contiguous
+    input."""
+    geo = (48, 64, 20, 36)
+    x = _rand(dev, _resize_shape(kind, 3, 48, 64), torch.uint8, 5)
+    ref = _resize_call(kind, x.contiguous(), geo)
+    for pad_rows, pad_cols, off in ((5, 16, 0), (0, 3, 1)):
+        big = torch.zeros((3, x.shape[1] + pad_rows,
+                           x.shape[2] + pad_cols + off),
+                          dtype=x.dtype, device=dev)
+        big[:, :x.shape[1], off:off + x.shape[2]] = x
+        out = _resize_call(kind, big[:, :, off:off + x.shape[2]], geo)
+        assert torch.equal(out, ref), (pad_rows, pad_cols, off)
+
+
+@pytest.mark.parametrize("geom", [(2, 96, 256), (1, 62, 130),
+                                  (2, 1080, 1920)])
+@pytest.mark.parametrize("kw", [
+    {}, {"compute_dtype": torch.float32},
+    {"space": ColorSpace.BT_601, "crange": ColorRange.JPEG, "swap": True},
+    {"space": ColorSpace.BT_709, "crange": ColorRange.MPEG}])
+def test_nv12_to_rgb_matches_plain(dev, geom, kw):
+    """Same arithmetic in the same order: bit-identical."""
+    b, h, w = geom
+    x = _rand(dev, (b, h * 3 // 2, w), torch.uint8, w)
+    out = nv12_to_rgb(x, src_w=w, src_h=h, **kw)
+    ref = nv12_to_rgb_plain(x, src_w=w, src_h=h, **kw)
+    assert torch.equal(out, ref)
+
+
+def test_nv12_to_rgb_padded_strided_views(dev):
+    b, h, w = 2, 64, 128
+    x = _rand(dev, (b, h * 3 // 2, w), torch.uint8, 9)
+    ref = nv12_to_rgb(x, src_w=w, src_h=h)
+    big = torch.zeros((b, h * 2, w + 32), dtype=torch.uint8, device=dev)
+    big[:, :h * 3 // 2, 16:16 + w] = x
+    assert torch.equal(nv12_to_rgb(big[:, :, 16:16 + w], src_w=w, src_h=h),
+                       ref)                 # 16-byte aligned path
+    big[:, :h * 3 // 2, 1:1 + w] = x
+    assert torch.equal(nv12_to_rgb(big[:, :, 1:1 + w], src_w=w, src_h=h),
+                       ref)                 # per-pixel path
+
+
+def test_surface_kernels_count_launches_and_reject_bad_input(dev):
+    x = _rand(dev, (1, 48, 64), torch.uint8, 1)
+    counters = (nv12_to_rgb, plane_resize, packed_resize, nv12_resize)
+    before = [f.launches for f in counters]
+    nv12_to_rgb(x, src_w=64, src_h=32)
+    plane_resize(x, src_h=48, dst_h=16, dst_w=16)
+    packed_resize(x[:, :, :63], src_w=21, src_h=48, dst_w=8, dst_h=8)
+    nv12_resize(x, src_w=64, src_h=32, dst_w=16, dst_h=16)
+    assert [f.launches for f in counters] == [n + 1 for n in before]
+    plane_resize(x.cpu(), src_h=48, dst_h=16, dst_w=16)  # not a launch
+    assert plane_resize.launches == before[1] + 1
+    with pytest.raises(ValueError):  # rows not contiguous
+        plane_resize(x.transpose(1, 2), src_h=64, dst_h=16, dst_w=16)
+    with pytest.raises(ValueError):
+        nv12_to_rgb(x.transpose(1, 2), src_w=48, src_h=32)
+    with pytest.raises(ValueError):  # sample type
+        nv12_resize(x.to(torch.int16), src_w=64, src_h=32, dst_w=16,
+                    dst_h=16)
+    with pytest.raises(ValueError):  # shape
+        packed_resize(x, src_w=64, src_h=48, dst_w=8, dst_h=8)
+    with pytest.raises(ValueError, match="float32"):
+        plane_resize(x.float(), src_h=48, dst_h=16, dst_w=16,
+                     compute_dtype=torch.bfloat16)
+    assert [f.launches for f in counters][1:] == [n + 1 for n in before][1:]
+
+
+def test_run_async_event_then_read_on_another_stream(dev):
+    """RunAsync on a side stream, an event on that stream, then a read on
+    another stream gives the synchronous result."""
+    import vali_tpu_torch as vali
+    from vali_tpu_torch.utils.device import new_stream
+
+    F = vali.PixelFormat
+    w, h = 1920, 1080
+    frame = np.random.default_rng(4).integers(
+        0, 256, format_info(F.NV12).host_size(w, h), dtype=np.uint8)
+    src = vali.Surface.Make(F.NV12, w, h, gpu_id=0)
+    assert vali.PyFrameUploader(gpu_id=0).Run(frame, src)[0]
+    sync_rgb = vali.Surface.Make(F.RGB, w, h, gpu_id=0)
+    assert vali.PySurfaceConverter(gpu_id=0).Run(src, sync_rgb)[0]
+    side = new_stream(0)
+    rgb = vali.Surface.Make(F.RGB, w, h, gpu_id=0)
+    small = vali.Surface.Make(F.RGB, 640, 360, gpu_id=0)
+    view = torch.from_dlpack(small)  # taken before the ops run
+    conv = vali.PySurfaceConverter(gpu_id=0, stream=side.handle)
+    res = vali.PySurfaceResizer(F.RGB, gpu_id=0, stream=side.handle)
+    torch.cuda._sleep(100_000_000)  # keep the side stream's input late
+    assert conv.RunAsync(src, rgb) == (True, vali.TaskExecInfo.SUCCESS)
+    assert res.RunAsync(rgb, small) == (True, vali.TaskExecInfo.SUCCESS)
+    ev = vali.CudaStreamEvent(conv.Stream, 0)
+    ev.Record()
+    ev.Wait()
+    other = torch.cuda.Stream(dev)
+    with torch.cuda.stream(other):
+        got_rgb = rgb.to_torch().clone()
+        got_small = view.clone()
+    other.synchronize()
+    assert torch.equal(got_rgb, sync_rgb.to_torch())
+    want = vali.Surface.Make(F.RGB, 640, 360, gpu_id=0)
+    assert vali.PySurfaceResizer(F.RGB, gpu_id=0).Run(sync_rgb, want)[0]
+    assert torch.equal(got_small, want.to_torch())
+    cai = small.__cuda_array_interface__
+    assert cai["shape"] == (360, 640, 3) and cai["data"][0] == view.data_ptr()

@@ -40,6 +40,13 @@ def test_import_without_jax():
         "import vali_tpu_torch.ops.nv12_preprocess\n"
         "import vali_tpu_torch.ops.yuv420_preprocess\n"
         "import vali_tpu_torch.ops._cuda_build\n"
+        "import vali_tpu_torch.transforms\n"
+        "import vali_tpu_torch.ops.nv12_to_rgb\n"
+        "import vali_tpu_torch.ops.plane_resize\n"
+        "import vali_tpu_torch.ops.packed_resize\n"
+        "import vali_tpu_torch.ops.nv12_resize\n"
+        "import vali_tpu_torch.utils.tracing\n"
+        "print(vali_tpu_torch.Surface.__name__)\n"
         "import vali_tpu_torch.engine.encoder\n"
         "import vali_tpu_torch.engine.muxer\n"
         "import vali_tpu_torch.utils.synth\n"
@@ -51,7 +58,37 @@ def test_import_without_jax():
                          cwd=os.path.dirname(os.path.dirname(
                              os.path.abspath(__file__))))
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "NV12"
+    assert res.stdout.split() == ["Surface", "NV12"]
+
+
+def test_launcher_signatures_match_the_c_prototypes():
+    """Every launcher's ctypes argtypes follow its C prototype: a pointer
+    or the stream as c_void_p (or a float pointer), long long as
+    c_longlong, int as c_int. A missing or short list would let ctypes cut
+    a pointer to 32 bits."""
+    import ctypes
+    import re
+
+    from vali_tpu_torch.ops import _cuda_build as cb
+
+    text = "".join(open(os.path.join(cb._PKG_DIR, rel)).read()
+                   for rel in cb._SOURCES)
+    names = re.findall(r"^int (\w+_launch)\(", text, re.M)
+    assert sorted(names) == sorted(cb._SIGNATURES)
+    for name, argtypes in cb._SIGNATURES.items():
+        params = re.search(r"int %s\(([^)]*)\)" % name, text).group(1)
+        want = []
+        for p in (p.strip() for p in params.split(",")):
+            if "*" in p:
+                want.append("ptr")
+            elif p.startswith("long long"):
+                want.append("ll")
+            else:
+                assert p.startswith("int "), p
+                want.append("int")
+        got = ["ll" if t is ctypes.c_longlong else
+               "int" if t is ctypes.c_int else "ptr" for t in argtypes]
+        assert got == want, name
 
 
 def test_enums_and_exports_match():

@@ -48,6 +48,14 @@ def GetNumGpus() -> int:
 
 
 _LAZY = {
+    "Surface": ".memory.surface",
+    "SurfacePlane": ".memory.surface",
+    "CudaBuffer": ".memory.surface",
+    "CudaStreamEvent": ".utils.device",
+    "PySurfaceConverter": ".transforms",
+    "PySurfaceResizer": ".transforms",
+    "PyFrameUploader": ".transforms",
+    "PySurfaceDownloader": ".transforms",
     "PyDecoder": ".engine.decoder",
     "PyNvEncoder": ".engine.encoder",
     "PyMuxer": ".engine.muxer",

@@ -41,11 +41,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "banded_common.cuh"
+
 namespace {
+
+using banded::aligned16;
+using banded::kSmemLimit;
+using banded::Mid;
 
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 8;            // output rows per block
-constexpr int kSmemLimit = 232448;     // dynamic shared memory per block
 
 struct Tables {
   const int* hy_start; const int* hy_count; const float* hy_w; int hy_k;
@@ -71,23 +76,6 @@ struct Tail {
 
 struct Geometry {
   int batch, src_h, src_w, dst_h, dst_w, rows;
-};
-
-// --- compute type of the H-pass rows kept in shared memory --------------
-template <bool F32> struct Mid;
-template <> struct Mid<true> {
-  using T = float;
-  static __device__ __forceinline__ T put(float x) { return x; }
-  static __device__ __forceinline__ float get(T x) { return x; }
-};
-template <> struct Mid<false> {
-  using T = __nv_bfloat16;
-  static __device__ __forceinline__ T put(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  static __device__ __forceinline__ float get(T x) {
-    return __bfloat162float(x);
-  }
 };
 
 // --- input samples: one 16-byte load -> kVec exact fp32 values ----------
@@ -314,10 +302,6 @@ cudaError_t pick_out(int out_kind, int f32, const Planes& pl,
                                                     s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 // Shared part of both launchers: tables, tail, strip height, dispatch.

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The kernels are CUDA C++ for Hopper (``csrc/*.cu``) with a plain C
-interface. At first use they are compiled with nvcc into one shared library
+interface. At first use each source is compiled by its own nvcc process,
+all started together, and the objects are linked into one shared library
 under ``build/vali_tpu_torch_kernels/`` beside the package, keyed by a hash
 of the sources and flags, under a file lock so concurrent processes build
 once; later calls load the cached library with ``ctypes``. Importing the
@@ -20,11 +21,13 @@ import subprocess
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCES = ("csrc/banded_preprocess.cu",)
+_SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
+            "csrc/nv12_to_rgb.cu")
+_HEADERS = ("csrc/banded_common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +40,16 @@ _SIGNATURES = {
     "yuv420_preprocess_launch": [
         _P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I,
         _P, _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
+    "plane_resize_launch": [
+        _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+        _I, _P, _LL, _LL, _P],
+    "packed_resize_launch": [
+        _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+        _I, _P, _LL, _LL, _P],
+    "nv12_resize_launch": [
+        _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+        _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "nv12_to_rgb_launch": [_P, _LL, _LL, _I, _I, _I, _FP, _P, _P],
 }
 
 _lib = None
@@ -56,26 +69,48 @@ def _nvcc() -> str:
 
 def _source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for rel in _SOURCES:
+    for rel in _SOURCES + _HEADERS:
         with open(os.path.join(_PKG_DIR, rel), "rb") as f:
             h.update(rel.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
-def _build(out_path: str) -> None:
-    srcs = [os.path.join(_PKG_DIR, rel) for rel in _SOURCES]
-    tmp = f"{out_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-40:])
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the first failure's
+    output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        output = proc.communicate()[0]
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, output)
+    if failed is not None:
+        cmd, code, output = failed
+        tail = "\n".join(output.splitlines()[-40:])
         raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{tail}")
-    os.replace(tmp, out_path)
+            f"nvcc failed (exit {code}): {' '.join(cmd)}\n{tail}")
+
+
+def _build(out_path: str) -> None:
+    tmp = f"{out_path}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{i}.o" for i in range(len(_SOURCES))]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                   os.path.join(_PKG_DIR, rel)]
+                  for rel, obj in zip(_SOURCES, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objs]])
+        os.replace(f"{tmp}.so", out_path)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"banded_preprocess_{_source_key()}.so")
+    return os.path.join(BUILD_DIR, f"vali_kernels_{_source_key()}.so")
 
 
 def load_kernels() -> ctypes.CDLL:

@@ -1,5 +1,5 @@
-"""Host half of the banded preprocess kernels: compute-dtype policy, band
-tables, the shared plain version and the format dispatch.
+"""Host half of the banded kernels: compute-dtype policy, band tables, the
+shared plain versions and the preprocess format dispatch.
 
 Counterpart of the host code in ``vali_tpu/ops/pallas_fused.py``. The TPU
 kernels slice the dense resampling matrices into aligned TILE x WIN blocks
@@ -12,6 +12,13 @@ outside a plane and the staging buffers need no pad rows.
 Both kernels (``ops/nv12_preprocess.py``, ``ops/yuv420_preprocess.py``)
 use the same four tables: luma rows, chroma rows, luma columns, chroma
 columns, built from the same dense matrices the dense route uses.
+
+The three resize kernels (``ops/plane_resize.py``, ``ops/packed_resize.py``,
+``ops/nv12_resize.py``) use two tables per resampled image, rows and
+columns, built straight from ``resize_weights`` (:func:`resize_tables`):
+NV12 chroma is resized as its own half-size image, so its tables are
+``resize_weights(H/2, DH/2)`` and ``resize_weights(W/2, DW/2)``, never the
+chroma-to-luma-grid matrices of the preprocess kernels.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
 from . import colors
 from .fused import _chroma_weights, exact_f32_matmul, to_f32
-from .resize import resize_weights
+from .resize import resize_weights, round_to
 
 #: output dtype -> the kernels' out_kind code
 OUT_KINDS = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -47,13 +54,6 @@ def resolve_compute_dtype(compute_dtype, hbd: bool = False) -> torch.dtype:
             "high-bit-depth input (uint16 / float32) requires float32 "
             "compute — bfloat16 cannot hold its significant bits")
     return compute_dtype
-
-
-def round_to(x, dtype: torch.dtype):
-    """Round float32 values to ``dtype`` and widen back to float32 (the
-    compute dtype's cast points, kept in float32 storage)."""
-    t = torch.as_tensor(x, dtype=torch.float32)
-    return t.to(dtype).to(torch.float32) if dtype != torch.float32 else t
 
 
 def band_table(dense: np.ndarray, compute_dtype: torch.dtype
@@ -231,3 +231,89 @@ def kernel_preprocess(planes, fmt, *, src_w: int, src_h: int, dst_w: int,
     raise ValueError(
         f"no preprocess kernel for {fmt!r} — "
         f"kernel_preprocess_formats() is out of sync with this dispatch")
+
+
+# --- banded resize (csrc/banded_resize.cu) ---------------------------------
+
+#: sample dtype -> the resize kernels' in_kind code
+IN_KINDS = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+#: output rows per block: kRows of csrc/banded_resize.cu
+STRIP_ROWS = 8
+#: source lanes one block's H pass aims to cover: four per thread of its
+#: 256, two rounds at most
+TARGET_LANES = 2048
+SMEM_BUDGET = 200 * 1024
+
+
+def resize_compute_dtype(dtype: torch.dtype, compute_dtype) -> torch.dtype:
+    """Compute dtype of a banded resize: uint8 defaults to bfloat16;
+    uint16 and float32 samples always compute in float32."""
+    if dtype not in IN_KINDS:
+        raise ValueError(
+            f"resize samples must be uint8, uint16 or float32, got {dtype}")
+    return resolve_compute_dtype(compute_dtype, hbd=dtype != torch.uint8)
+
+
+def tile_window(start: np.ndarray, count: np.ndarray, tile: int) -> int:
+    """Source indices the widest group of ``tile`` consecutive outputs
+    reads (columns of a block's tile, or rows of its strip)."""
+    idx = np.arange(0, len(start), tile)
+    lo = np.minimum.reduceat(start, idx)
+    hi = np.maximum.reduceat(start + count - 1, idx)
+    return int((hi - lo + 1).max())
+
+
+class ResizeTables(NamedTuple):
+    """Band tables of one resampled image, uploaded to one device.
+
+    ``index`` int32 holds, back to back: row start and count [DH] each,
+    column start and count [DW] each. ``weights`` float32 holds the row
+    weights [DH, taps[0]], then the column weights TRANSPOSED
+    [taps[1], DW]. A block covers ``tile_w`` output columns, whose H pass
+    reads at most ``window`` source pixels of each row, and STRIP_ROWS
+    output rows, which read at most ``span`` source rows."""
+    index: torch.Tensor
+    weights: torch.Tensor
+    taps: Tuple[int, int]
+    tile_w: int
+    window: int
+    span: int
+
+    def args(self):
+        """The tables as a launcher takes them."""
+        return (self.index.data_ptr(), self.weights.data_ptr(), *self.taps,
+                self.tile_w, self.window, self.span)
+
+
+@functools.lru_cache(maxsize=64)
+def resize_tables(src_h: int, dst_h: int, src_w: int, dst_w: int,
+                  method: str, compute_dtype: torch.dtype, channels: int,
+                  device: torch.device) -> ResizeTables:
+    """Build and upload one image's band tables once per geometry.
+
+    The tile is the widest power of two of output columns whose source
+    window stays within TARGET_LANES lanes (one with at least 8 columns
+    otherwise), narrowed while the block's shared memory would pass
+    SMEM_BUDGET."""
+    hs, hc, hw = band_table(resize_weights(src_h, dst_h, method),
+                            compute_dtype)
+    ws, wc, ww = band_table(resize_weights(src_w, dst_w, method),
+                            compute_dtype)
+    span = tile_window(hs, hc, STRIP_ROWS)
+    elem = 4 if compute_dtype == torch.float32 else 2
+
+    def smem(window):
+        return STRIP_ROWS * (4 * span + elem * (window * channels + 6))
+
+    tile = 512
+    while tile > 8 and tile_window(ws, wc, tile) * channels > TARGET_LANES:
+        tile //= 2
+    while tile > 1 and smem(tile_window(ws, wc, tile)) > SMEM_BUDGET:
+        tile //= 2
+    index = np.concatenate([hs, hc, ws, wc])
+    weights = np.concatenate([hw.reshape(-1), ww.T.reshape(-1)])
+    return ResizeTables(
+        torch.from_numpy(index).to(device),
+        torch.from_numpy(np.ascontiguousarray(weights)).to(device),
+        (int(hw.shape[1]), int(ww.shape[1])), tile,
+        tile_window(ws, wc, tile), span)

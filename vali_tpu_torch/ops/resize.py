@@ -1,18 +1,24 @@
-"""Resampling-matrix builders (host side, numpy).
+"""Resampling matrices and the dense batched resize.
 
 Counterpart of ``vali_tpu/ops/resize.py``: the same Lanczos-3 / bilinear /
 nearest matrices with the same phase and anti-alias conventions, so the
 banded kernels and the dense torch path resample exactly like the JAX
 package. Each dense ``[n_out, n_in]`` matrix is built on the host once per
-(in, out, filter) and cached.
+(in, out, filter) and cached. :func:`resize_batch` is the ResizeSurface op
+over batched planes: two dense fp32 matrix products per plane (the exact
+route), or the banded resize kernels (``ops/packed_resize.py`` by default
+for packed RGB on a CUDA device).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..core.enums import PixelFormat
 
 #: NPP-parity Lanczos-3: corner-aligned phase, no filter scaling.
 LANCZOS = "lanczos"
@@ -24,6 +30,24 @@ LANCZOS_AA = "lanczos_aa"
 BILINEAR_AA = "bilinear_aa"
 
 METHODS = (LANCZOS, BILINEAR, NEAREST, LANCZOS_AA, BILINEAR_AA)
+
+#: Formats PySurfaceResizer accepts (parity: TaskResizeSurface.cpp:293-309,
+#: plus P10/P12, Y, GRAY12 and YUV422, which resize on the same paths).
+SUPPORTED_FORMATS = (
+    PixelFormat.RGB,
+    PixelFormat.BGR,
+    PixelFormat.YUV420,
+    PixelFormat.YUV444,
+    PixelFormat.RGB_PLANAR,
+    PixelFormat.RGB_32F,
+    PixelFormat.RGB_32F_PLANAR,
+    PixelFormat.NV12,
+    PixelFormat.P10,
+    PixelFormat.P12,
+    PixelFormat.Y,
+    PixelFormat.GRAY12,
+    PixelFormat.YUV422,
+)
 
 
 def method_conventions(method: str):
@@ -128,3 +152,103 @@ def resize_weights(n_in: int, n_out: int, method: str = LANCZOS,
     row_sum = w.sum(axis=1, keepdims=True)
     w = w / np.where(row_sum == 0.0, 1.0, row_sum)
     return w.astype(np.float32)
+
+
+def round_to(x, dtype: torch.dtype):
+    """Round float32 values to ``dtype`` and widen back to float32 (the
+    compute dtype's cast points, kept in float32 storage)."""
+    t = torch.as_tensor(x, dtype=torch.float32)
+    return t.to(dtype).to(torch.float32) if dtype != torch.float32 else t
+
+
+def from_f32(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 results -> ``dtype``: integer types round half to even,
+    then clamp to their range; float types are cast."""
+    if dtype.is_floating_point:
+        return x.to(dtype)
+    maxv = 255.0 if dtype == torch.uint8 else 65535.0
+    return torch.clamp(torch.round(x), 0.0, maxv).to(dtype)
+
+
+def resize_plane(plane: torch.Tensor, out_h: int, out_w: int,
+                 method: str = LANCZOS, channels: int = 1,
+                 compute_dtype: torch.dtype = torch.float32
+                 ) -> torch.Tensor:
+    """Resize one batched plane [N, H, W*channels] preserving dtype.
+
+    ``channels > 1`` treats the minor dim as packed interleaved channels:
+    output lane ``C*p + c`` reads input lanes ``C*q + c`` only. Two dense
+    fp32 products with TF32 off. With the default float32 this is the
+    exact route; ``compute_dtype=torch.bfloat16`` gives the banded
+    kernels' cast points (weights and the H-pass result rounded to
+    bfloat16), which makes it their plain version."""
+    from .fused import exact_f32_matmul, to_f32
+
+    n, h, wc = plane.shape
+    w = wc // channels
+    dev = plane.device
+    wh = round_to(resize_weights(h, out_h, method), compute_dtype).to(dev)
+    ww = round_to(resize_weights(w, out_w, method), compute_dtype).to(dev)
+    with exact_f32_matmul():
+        t = round_to(torch.matmul(wh, to_f32(plane)), compute_dtype)
+        t = t.unflatten(2, (w, channels)).movedim(-1, -2)  # [N, DH, C, W]
+        out = torch.matmul(t, ww.T).movedim(-2, -1)        # [N, DH, DW, C]
+    return from_f32(out.reshape(n, out_h, out_w * channels), plane.dtype)
+
+
+def resize_batch(planes: Sequence[torch.Tensor], fmt: PixelFormat,
+                 src_w: int, src_h: int, dst_w: int, dst_h: int,
+                 method: str = LANCZOS,
+                 use_kernel: Optional[bool] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Resize batched storage-layout planes of ``fmt`` to dst size.
+
+    On a CUDA device the packed 3-channel formats (RGB/BGR/RGB_32F) route
+    to the banded packed-resize kernel (``ops/packed_resize.py``; uint8
+    computes in bfloat16, within the reference's 4-LSB envelope of the
+    exact route; float32 stays float32). ``use_kernel=False`` forces the exact dense route,
+    ``use_kernel=True`` the kernel route (its plain version on CPU
+    tensors). Every other format takes the exact route; the resizer's
+    ``turbo`` mode reaches the other banded kernels."""
+    from .csc import nv12_merge, nv12_split
+    from ..utils.device import kernel_platform_available
+
+    fmt = PixelFormat(fmt)
+    if fmt in (PixelFormat.RGB, PixelFormat.BGR, PixelFormat.RGB_32F):
+        if use_kernel is None:
+            use_kernel = kernel_platform_available(planes[0].device)
+        if use_kernel:
+            from .packed_resize import packed_resize
+
+            return (packed_resize(planes[0], src_w=src_w, src_h=src_h,
+                                  dst_w=dst_w, dst_h=dst_h, method=method),)
+        return (resize_plane(planes[0], dst_h, dst_w, method, channels=3),)
+    if fmt in (PixelFormat.RGB_PLANAR, PixelFormat.RGB_32F_PLANAR):
+        n, h3, w = planes[0].shape
+        chans = planes[0].reshape(n * 3, h3 // 3, w)
+        out = resize_plane(chans, dst_h, dst_w, method)
+        return (out.reshape(n, 3 * dst_h, dst_w),)
+    if fmt in (PixelFormat.NV12, PixelFormat.P10, PixelFormat.P12):
+        # plane-wise, chroma as its own half-size image (reference:
+        # TaskResizeSurface.cpp:132-188)
+        y, u, v = nv12_split(planes[0], src_h)
+        return (nv12_merge(resize_plane(y, dst_h, dst_w, method),
+                           resize_plane(u, dst_h // 2, dst_w // 2, method),
+                           resize_plane(v, dst_h // 2, dst_w // 2, method)),)
+    if fmt in (PixelFormat.YUV420, PixelFormat.YUV420_10bit):
+        return (
+            resize_plane(planes[0], dst_h, dst_w, method),
+            resize_plane(planes[1], dst_h // 2, dst_w // 2, method),
+            resize_plane(planes[2], dst_h // 2, dst_w // 2, method),
+        )
+    if fmt == PixelFormat.YUV422:
+        return (
+            resize_plane(planes[0], dst_h, dst_w, method),
+            resize_plane(planes[1], dst_h, dst_w // 2, method),
+            resize_plane(planes[2], dst_h, dst_w // 2, method),
+        )
+    if fmt in (PixelFormat.YUV444, PixelFormat.YUV444_10bit):
+        return tuple(resize_plane(p, dst_h, dst_w, method) for p in planes)
+    if fmt in (PixelFormat.Y, PixelFormat.GRAY12):
+        return (resize_plane(planes[0], dst_h, dst_w, method),)
+    raise ValueError(f"Resize does not support {fmt.name}")
