@@ -3,11 +3,14 @@
 
 Drives the port's two main paths at full size. The batched preprocess
 path: host frames staged by MultiStreamPipeline into the banded preprocess
-kernels, 64 streams of 1080p -> 224x224. The Surface path (VALI's public
+kernels, 64 streams of 1080p -> 224x224 in NV12, YUV420, YUV422 (the MJPEG
+camera case) and YUV444. The Surface path (VALI's public
 API): PyFrameUploader, PySurfaceConverter NV12 -> RGB and PySurfaceResizer
 -> 640x360 on 64 distinct 1080p frames, one Surface at a time, read through
 DLPack; and a 4K NV12 Surface resized to 1080p (turbo), converted to
-YUV420, resized to 960x540 (turbo) and downloaded. It builds the CUDA
+YUV420, resized to 960x540 (turbo) and downloaded; then PySurfaceUD and
+PySurfaceRotator on 1080p Surfaces, each against the same op on a CPU copy
+of its input. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -138,22 +141,36 @@ def time_pair(torch, kern, plain):
     return t_kern, t_plain
 
 
+def preprocess_kernels():
+    """{format: (kernel wrapper, plain version)} of the four preprocess
+    kernels."""
+    from vali_tpu_torch.core.enums import PixelFormat as F
+    from vali_tpu_torch.ops import (nv12_preprocess, yuv420_preprocess,
+                                    yuv422_preprocess, yuv444_preprocess)
+
+    nv12 = (nv12_preprocess.nv12_preprocess,
+            nv12_preprocess.nv12_preprocess_plain)
+    i420 = (yuv420_preprocess.yuv420_preprocess,
+            yuv420_preprocess.yuv420_preprocess_plain)
+    return {F.NV12: nv12, F.P10: nv12, F.YUV420: i420, F.YUV420_10bit: i420,
+            F.YUV422: (yuv422_preprocess.yuv422_preprocess,
+                       yuv422_preprocess.yuv422_preprocess_plain),
+            F.YUV444: (yuv444_preprocess.yuv444_preprocess,
+                       yuv444_preprocess.yuv444_preprocess_plain)}
+
+
 def kernel_and_plain(torch, p, fmt, **kw):
     """(kernel call, plain-version call) with the same arguments on the same
-    1080p device planes ``p``."""
+    1080p device planes ``p``; BT.709 / MPEG unless ``kw`` names another
+    colour space and range."""
     from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
-    from vali_tpu_torch.ops.nv12_preprocess import (nv12_preprocess,
-                                                    nv12_preprocess_plain)
-    from vali_tpu_torch.ops.yuv420_preprocess import (
-        yuv420_preprocess, yuv420_preprocess_plain)
 
-    kw.update(src_w=W, src_h=H, dst_w=DW, dst_h=DH,
-              space=ColorSpace.BT_709, crange=ColorRange.MPEG)
+    kw = dict(dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG), **kw,
+              src_w=W, src_h=H, dst_w=DW, dst_h=DH)
+    kern, plain = preprocess_kernels()[PixelFormat(fmt)]
     if fmt in (PixelFormat.NV12, PixelFormat.P10):
-        return (lambda: nv12_preprocess(p[0], **kw),
-                lambda: nv12_preprocess_plain(p[0], **kw))
-    return (lambda: yuv420_preprocess(*p, **kw),
-            lambda: yuv420_preprocess_plain(*p, **kw))
+        p = p[:1]
+    return (lambda: kern(*p, **kw)), (lambda: plain(*p, **kw))
 
 
 def main() -> int:
@@ -170,6 +187,8 @@ def main() -> int:
     from vali_tpu_torch.ops.fused import fused_preprocess, letterbox_params
     from vali_tpu_torch.ops.nv12_preprocess import nv12_preprocess
     from vali_tpu_torch.ops.yuv420_preprocess import yuv420_preprocess
+    from vali_tpu_torch.ops.yuv422_preprocess import yuv422_preprocess
+    from vali_tpu_torch.ops.yuv444_preprocess import yuv444_preprocess
     from vali_tpu_torch.pipeline.multistream import (BatchStager,
                                                      MultiStreamPipeline)
     from vali_tpu_torch.utils.synth import HostFrameSource
@@ -188,18 +207,20 @@ def main() -> int:
         f"library={_cuda_build.library_path()}")
 
     bt709 = dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG)
+    jpeg601 = dict(space=ColorSpace.BT_601, crange=ColorRange.JPEG)
     geo = dict(src_w=W, src_h=H, dst_w=DW, dst_h=DH)
     rng = np.random.default_rng(2024)
     host = {fmt: make_frames(np, rng, fmt, B, W, H)
             for fmt in (PixelFormat.NV12, PixelFormat.P10,
-                        PixelFormat.YUV420, PixelFormat.YUV420_10bit)}
+                        PixelFormat.YUV420, PixelFormat.YUV420_10bit,
+                        PixelFormat.YUV422, PixelFormat.YUV444)}
     planes = {fmt: BatchStager(fmt, W, H, dev).split(
         torch.from_numpy(x).to(dev)) for fmt, x in host.items()}
 
     def run_pair(fmt, **kw):
         return kernel_and_plain(torch, planes[fmt], fmt, **kw)
 
-    # ---- kernel_nv12 / kernel_yuv420: kernel vs plain on the card --------
+    # ---- the four preprocess kernels: kernel vs plain on the card --------
     err = {}
     cases = [
         ("kernel_nv12 u8/bf16", PixelFormat.NV12, {}),
@@ -214,11 +235,18 @@ def main() -> int:
          dict(out_dtype=torch.float32, normalize=NORM)),
         ("kernel_yuv420 u8->bf16+norm", PixelFormat.YUV420,
          dict(out_dtype=torch.bfloat16, normalize=NORM)),
+        ("kernel_yuv422 u8/bf16 bt601/jpeg", PixelFormat.YUV422, jpeg601),
+        ("kernel_yuv422 u8/f32", PixelFormat.YUV422,
+         dict(compute_dtype=torch.float32)),
+        ("kernel_yuv444 u8/bf16", PixelFormat.YUV444, {}),
+        ("kernel_yuv444 u8->f32+norm", PixelFormat.YUV444,
+         dict(out_dtype=torch.float32, normalize=NORM)),
+        ("kernel_yuv444 u8->bf16+norm", PixelFormat.YUV444,
+         dict(out_dtype=torch.bfloat16, normalize=NORM)),
     ]
     for name, fmt, kw in cases:
         kern, plain = run_pair(fmt, **kw)
-        wrapper = (nv12_preprocess if name.startswith("kernel_nv12")
-                   else yuv420_preprocess)
+        wrapper = preprocess_kernels()[fmt][0]
         before = wrapper.launches
         out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -236,6 +264,24 @@ def main() -> int:
                            planar=True, **bt709)
     compare(torch, "kernel_yuv420 f32 vs dense route 256x144->96x64", out,
             ref)
+    # 4:2:2 and 4:4:4 at the reference's envelope for its own kernels
+    # against the dense route (tests/test_pipeline.py:307-309)
+    for fmt, fn in ((PixelFormat.YUV422, yuv422_preprocess),
+                    (PixelFormat.YUV444, yuv444_preprocess)):
+        small = make_frames(np, rng, fmt, 4, 256, 144)
+        sp = BatchStager(fmt, 256, 144, dev).split(
+            torch.from_numpy(small).to(dev))
+        out = fn(*sp, src_w=256, src_h=144, dst_w=96, dst_h=64,
+                 compute_dtype=torch.float32, **bt709)
+        ref = fused_preprocess(sp, fmt, 256, 144, 96, 64, planar=True,
+                               **bt709)
+        d = (out.int() - ref.int()).abs().double()
+        log(f"{fn.__name__} f32 vs dense route 256x144->96x64: "
+            f"max_abs_diff={d.max().item()} mean_abs_diff={d.mean().item()}")
+        if out.shape != ref.shape or d.max().item() > 4 or \
+                d.mean().item() >= 1.0:
+            raise AssertionError(f"{fn.__name__} outside the envelope of "
+                                 f"the dense route")
 
     # ---- main path: MultiStreamPipeline over 64 streams ------------------
     # Every stream is a HostFrameSource that hands the pipeline host frames
@@ -250,16 +296,20 @@ def main() -> int:
             ("yuv420 letterbox", PixelFormat.YUV420,
              dict(letterbox=True, out_dtype=torch.bfloat16, normalize=NORM,
                   planar=True), LETTERBOX, LETTERBOX),
-            ("nv12", PixelFormat.NV12, {}, DW, DH))
+            ("nv12", PixelFormat.NV12, {}, DW, DH),
+            ("yuv422", PixelFormat.YUV422, jpeg601, DW, DH),
+            ("yuv444", PixelFormat.YUV444, {}, DW, DH))
     pipes = {name: MultiStreamPipeline(
         sources(fmt, MAIN_BATCHES), dw, dh, gpu_id=0, batch_size=B,
-        sync_streams=True, **bt709, **kw) for name, fmt, kw, dw, dh in runs}
-    nv12_preprocess.launches = 0
-    yuv420_preprocess.launches = 0
+        sync_streams=True, **dict(bt709, **kw))
+        for name, fmt, kw, dw, dh in runs}
+    wrappers = (nv12_preprocess, yuv420_preprocess, yuv422_preprocess,
+                yuv444_preprocess)
+    for w in wrappers:
+        w.launches = 0
     main = {name: list(pipe) for name, pipe in pipes.items()}
     torch.cuda.synchronize()
-    launches = {"nv12_preprocess": nv12_preprocess.launches,
-                "yuv420_preprocess": yuv420_preprocess.launches}
+    launches = {w.__name__: w.launches for w in wrappers}
     log(f"main_path_launches={json.dumps(launches)}")
     if min(launches.values()) < 1:
         raise AssertionError("a kernel of the main path was not launched")
@@ -273,6 +323,10 @@ def main() -> int:
         "yuv420 letterbox": yuv420_preprocess(
             *planes[PixelFormat.YUV420], src_w=W, src_h=H, dst_w=iw,
             dst_h=ih, out_dtype=torch.bfloat16, normalize=NORM, **bt709),
+        "yuv422": yuv422_preprocess(*planes[PixelFormat.YUV422], **jpeg601,
+                                    **geo).movedim(1, -1),
+        "yuv444": yuv444_preprocess(*planes[PixelFormat.YUV444], **bt709,
+                                    **geo).movedim(1, -1),
     }
     for name, batches in main.items():
         if len(batches) != MAIN_BATCHES:
@@ -291,9 +345,10 @@ def main() -> int:
                 raise AssertionError(f"pipeline {name}: batch {k} differs "
                                      f"from the kernel's output")
     log(f"pipeline_device: ok, MultiStreamPipeline {B} streams x "
-        f"{MAIN_BATCHES} batches each: yuv420 {H}p->{DH}x{DW}, nv12 same, "
-        f"yuv420 letterbox {LETTERBOX}x{LETTERBOX} (inner {iw}x{ih}) "
-        f"bf16+norm; every batch equal to the kernel output")
+        f"{MAIN_BATCHES} batches each: yuv420 {H}p->{DH}x{DW}, nv12, "
+        f"yuv422 (bt601/jpeg) and yuv444 same, yuv420 letterbox "
+        f"{LETTERBOX}x{LETTERBOX} (inner {iw}x{ih}) bf16+norm; every batch "
+        f"equal to the kernel output")
 
     # ---- decode -> pipeline, when the native engine builds here ----------
     from vali_tpu_torch.engine._loader import load_native
@@ -313,7 +368,9 @@ def main() -> int:
     out_bytes = B * 3 * DH * DW
     times = {}
     for name, fmt in (("nv12_preprocess", PixelFormat.NV12),
-                      ("yuv420_preprocess", PixelFormat.YUV420)):
+                      ("yuv420_preprocess", PixelFormat.YUV420),
+                      ("yuv422_preprocess", PixelFormat.YUV422),
+                      ("yuv444_preprocess", PixelFormat.YUV444)):
         kern, plain = run_pair(fmt)
         # plain, kernel, kernel, plain: take each side's better median
         t_plain = time_ms(torch, plain)
@@ -354,6 +411,8 @@ def main() -> int:
 
     kernels = surface_phases(torch, np, dev, host[PixelFormat.NV12], smi,
                              times["nv12_preprocess"][0])
+    rotate_ud_phase(torch, np, host[PixelFormat.NV12][0],
+                    host[PixelFormat.YUV422][0], smi)
     kernels = [
         {"name": "nv12_preprocess", "route": "cuda",
          "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
@@ -369,6 +428,20 @@ def main() -> int:
          "max_abs_err": err["kernel_yuv420 u8/bf16"],
          "ms": times["yuv420_preprocess"][0],
          "plain_ms": times["yuv420_preprocess"][1]},
+        {"name": "yuv422_preprocess", "route": "cuda",
+         "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
+         "replaces": "vali_tpu/ops/pallas_fused.py:600",
+         "launches": launches["yuv422_preprocess"],
+         "max_abs_err": err["kernel_yuv422 u8/bf16 bt601/jpeg"],
+         "ms": times["yuv422_preprocess"][0],
+         "plain_ms": times["yuv422_preprocess"][1]},
+        {"name": "yuv444_preprocess", "route": "cuda",
+         "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
+         "replaces": "vali_tpu/ops/pallas_fused.py:359",
+         "launches": launches["yuv444_preprocess"],
+         "max_abs_err": err["kernel_yuv444 u8/bf16"],
+         "ms": times["yuv444_preprocess"][0],
+         "plain_ms": times["yuv444_preprocess"][1]},
     ] + kernels
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -675,6 +748,79 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
              "replaces": src_of[k][1], "launches": launches[k],
              "max_abs_err": err[k], "ms": times[k][0],
              "plain_ms": times[k][1]} for k in timed]
+
+
+def rotate_ud_phase(torch, np, nv12_frame, yuv422_frame, smi):
+    """PySurfaceUD and PySurfaceRotator on 1080p Surfaces on the card, each
+    against the same op on a CPU copy of its input: right angles bit-equal,
+    UD and other angles as ``compare`` holds a kernel to its plain version.
+    Logs each op's host ms on the card (synchronous Run)."""
+    import vali_tpu_torch as vali
+
+    F = vali.PixelFormat
+    ok = (True, vali.TaskExecInfo.SUCCESS)
+    cc = vali.ColorspaceConversionContext(vali.ColorSpace.BT_709,
+                                          vali.ColorRange.MPEG)
+    down = vali.PySurfaceDownloader(gpu_id=0)
+
+    def upload(frame, fmt, w, h, gpu_id):
+        surf = vali.Surface.Make(fmt, w, h, gpu_id=gpu_id)
+        if vali.PyFrameUploader(gpu_id=gpu_id).Run(frame, surf) != ok:
+            raise AssertionError(f"upload of a {fmt.name} frame failed")
+        return surf
+
+    def cpu_copy(surf):
+        frame = np.zeros(1, np.uint8)
+        if down.Run(surf, frame) != ok:
+            raise AssertionError("download failed")
+        return upload(frame, surf.Format, surf.Width, surf.Height, -1)
+
+    nv12 = upload(nv12_frame, F.NV12, W, H, 0)
+    yuv422 = upload(yuv422_frame, F.YUV422, W, H, 0)
+    yuv420 = vali.Surface.Make(F.YUV420, W, H, gpu_id=0)
+    rgb = vali.Surface.Make(F.RGB, W, H, gpu_id=0)
+    cvt = vali.PySurfaceConverter(gpu_id=0)
+    if cvt.Run(nv12, yuv420) != ok or cvt.Run(nv12, rgb, cc) != ok:
+        raise AssertionError("converting the NV12 Surface failed")
+    ops = (  # name, op, source, dst format and size, angle (rotator)
+        ("ud nv12->yuv444 1080p", vali.PySurfaceUD, nv12, F.YUV444, W, H,
+         None),
+        ("ud nv12->rgb 960x540", vali.PySurfaceUD, nv12, F.RGB, HALF_W,
+         HALF_H, None),
+        ("rotate yuv422 90", vali.PySurfaceRotator, yuv422, F.YUV422, H, W,
+         90.0),
+        ("rotate yuv420 (from nv12) 180", vali.PySurfaceRotator, yuv420,
+         F.YUV420, W, H, 180.0),
+        ("rotate rgb 33.5", vali.PySurfaceRotator, rgb, F.RGB, W, H, 33.5))
+    for name, cls, src, fmt, w, h, angle in ops:
+        args = () if angle is None else (angle,)
+        outs = []
+        for gpu_id, s in ((0, src), (-1, cpu_copy(src))):
+            dst = vali.Surface.Make(fmt, w, h, gpu_id=gpu_id)
+            if cls(gpu_id=gpu_id).Run(s, dst, *args) != ok:
+                raise AssertionError(f"{name} failed (gpu_id={gpu_id})")
+            outs.append(dst)
+        op = cls(gpu_id=0)
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            op.Run(src, outs[0], *args)
+            times.append((time.perf_counter() - t0) * 1e3)
+        card, cpu = outs
+        for i, (a, b) in enumerate(zip(card.plane_tensors(),
+                                       cpu.plane_tensors())):
+            a = a.cpu()
+            if angle is not None and angle % 90 == 0:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} plane {i}: the card and "
+                                         f"the CPU differ")
+                log(f"{name} plane {i}: card == CPU, bit-equal")
+            else:
+                compare(torch, f"{name} plane {i} card vs CPU", a, b)
+        log(f"time {name} on the card, Run (host clock): "
+            f"ms={statistics.median(times[1:])} ({smi})")
+    log("surface_rotate_ud: ok, PySurfaceUD and PySurfaceRotator on the "
+        "card equal to the same ops on CPU copies of their inputs")
 
 
 def decode_phase(torch, np, dev):

@@ -1,7 +1,8 @@
 """CUDA-only tests of vali_tpu_torch: the Hopper kernels against their
 plain PyTorch versions on the card, the launch counters, the pipeline's
-pinned staging, and the Surface ops' streams. They skip where torch has no
-CUDA device.
+pinned staging, the Surface ops' streams, and the rotator and UD op on the
+card against the same ops on the CPU. They skip where torch has no CUDA
+device.
 
 This file imports no JAX, so on a machine with a card it runs alone:
 
@@ -24,6 +25,10 @@ from vali_tpu_torch.ops.nv12_preprocess import (nv12_preprocess,
                                                 nv12_preprocess_plain)
 from vali_tpu_torch.ops.yuv420_preprocess import (yuv420_preprocess,
                                                   yuv420_preprocess_plain)
+from vali_tpu_torch.ops.yuv422_preprocess import (yuv422_preprocess,
+                                                  yuv422_preprocess_plain)
+from vali_tpu_torch.ops.yuv444_preprocess import (yuv444_preprocess,
+                                                  yuv444_preprocess_plain)
 from vali_tpu_torch.pipeline.multistream import BatchStager, \
     preprocess_batch
 
@@ -59,14 +64,21 @@ def _planes(batch, fmt, w, h):
     return BatchStager(fmt, w, h, batch.device).split(batch)
 
 
+PLANAR = {
+    PixelFormat.YUV420: (yuv420_preprocess, yuv420_preprocess_plain),
+    PixelFormat.YUV420_10bit: (yuv420_preprocess, yuv420_preprocess_plain),
+    PixelFormat.YUV422: (yuv422_preprocess, yuv422_preprocess_plain),
+    PixelFormat.YUV444: (yuv444_preprocess, yuv444_preprocess_plain),
+}
+
+
 def _run(planes, fmt, w, h, dw, dh, plain, **kw):
     """Kernel (plain=False) or plain version on the same device planes."""
     geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
     if fmt in (PixelFormat.NV12, PixelFormat.P10, PixelFormat.P12):
         fn = nv12_preprocess_plain if plain else nv12_preprocess
         return fn(planes[0], **geo, **kw)
-    fn = yuv420_preprocess_plain if plain else yuv420_preprocess
-    return fn(*planes, **geo, **kw)
+    return PLANAR[fmt][int(plain)](*planes, **geo, **kw)
 
 
 CASES = [
@@ -76,6 +88,12 @@ CASES = [
     (PixelFormat.YUV420, {}),
     (PixelFormat.YUV420, {"out_dtype": torch.bfloat16, "normalize": NORM}),
     (PixelFormat.YUV420_10bit, {"out_dtype": torch.float32}),
+    (PixelFormat.YUV422, {"space": ColorSpace.BT_601,
+                          "crange": ColorRange.JPEG}),
+    (PixelFormat.YUV422, {"compute_dtype": torch.float32}),
+    (PixelFormat.YUV444, {}),
+    (PixelFormat.YUV444, {"out_dtype": torch.float32, "normalize": NORM}),
+    (PixelFormat.YUV444, {"out_dtype": torch.bfloat16, "normalize": NORM}),
 ]
 
 
@@ -111,7 +129,8 @@ def test_kernel_matches_plain(dev, geom, fmt, kw):
     _assert_close(out, ref, (fmt, geom, kw))
 
 
-@pytest.mark.parametrize("fmt", [PixelFormat.NV12, PixelFormat.YUV420])
+@pytest.mark.parametrize("fmt", [PixelFormat.NV12, PixelFormat.YUV420,
+                                 PixelFormat.YUV422, PixelFormat.YUV444])
 def test_kernel_padded_strided_views(dev, fmt):
     """Extra rows and a batch stride larger than the plane give the same
     output as contiguous planes."""
@@ -149,6 +168,30 @@ def test_launch_counters(dev):
     # the plain version on CPU tensors is not a launch
     nv12_preprocess(nv[0].cpu(), src_w=w, src_h=h, dst_w=16, dst_h=16)
     assert nv12_preprocess.launches == n0 + 1
+
+
+def test_planar_kernels_launch_counters(dev):
+    """The 4:2:2 and 4:4:4 kernels count their launches, inside
+    preprocess_batch too; the dense route and CPU calls are not launches."""
+    h, w = 64, 128
+    rng = np.random.default_rng(2)
+    for fmt in (PixelFormat.YUV422, PixelFormat.YUV444):
+        fn = PLANAR[fmt][0]
+        planes = _planes(torch.from_numpy(_frames(rng, fmt, 2, w, h)).to(
+            dev), fmt, w, h)
+        n0 = fn.launches
+        out = preprocess_batch(planes, fmt, w, h, 32, 32, planar=True)
+        assert fn.launches == n0 + 1
+        assert torch.equal(out, fn(*planes, src_w=w, src_h=h, dst_w=32,
+                                   dst_h=32))
+        preprocess_batch(planes, fmt, w, h, 32, 32, use_kernel=False)
+        fn(*(p.cpu() for p in planes), src_w=w, src_h=h, dst_w=16,
+           dst_h=16)
+        assert fn.launches == n0 + 2
+        with pytest.raises(ValueError):  # rows not contiguous
+            fn(planes[0].transpose(1, 2), *planes[1:], src_w=h, src_h=w,
+               dst_w=16, dst_h=16)
+        assert fn.launches == n0 + 2
 
 
 def test_staging_reuses_pinned_buffers_only_after_the_copy(dev):
@@ -350,3 +393,81 @@ def test_run_async_event_then_read_on_another_stream(dev):
     assert torch.equal(got_small, want.to_torch())
     cai = small.__cuda_array_interface__
     assert cai["shape"] == (360, 640, 3) and cai["data"][0] == view.data_ptr()
+
+
+# --- the rotator and the UD op: the card against the CPU ------------------
+
+
+def _surface_pair(vali, fmt, w, h, seed):
+    """The same random host frame uploaded to a CUDA and a CPU Surface."""
+    rng = np.random.default_rng(seed)
+    info = format_info(fmt)
+    n = info.host_size(w, h)
+    if info.dtype == np.float32:
+        frame = rng.random(n // 4, dtype=np.float32).view(np.uint8)
+    else:
+        frame = rng.integers(0, 256, n, dtype=np.uint8)
+        if info.dtype == np.uint16:
+            frame = (frame.view(np.uint16) & ((1 << info.bit_depth) - 1)
+                     ).view(np.uint8)
+    pair = []
+    for gpu_id in (0, -1):
+        s = vali.Surface.Make(fmt, w, h, gpu_id=gpu_id)
+        assert vali.PyFrameUploader(gpu_id=gpu_id).Run(frame, s)[0]
+        pair.append(s)
+    return pair
+
+
+def _planes_close(cuda_surf, cpu_surf, exact):
+    for a, b in zip(cuda_surf.plane_tensors(), cpu_surf.plane_tensors()):
+        a = a.cpu()
+        if exact:
+            assert torch.equal(a, b)
+        elif a.dtype == torch.float32:
+            assert ((a - b).abs() <= 1e-5 * b.abs().clamp(min=1.0)).all()
+        else:
+            # uint16 at 16-bit magnitudes: within 1 LSB on < 1e-2, as in
+            # _close_any
+            d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+            assert d.max().item() <= 1
+            frac = 1e-3 if a.dtype == torch.uint8 else 1e-2
+            assert (d > 0).double().mean().item() < frac
+
+
+@pytest.mark.parametrize("fmt,angle", [
+    (PixelFormat.YUV422, 90.0), (PixelFormat.YUV420, 180.0),
+    (PixelFormat.GRAY12, 270.0), (PixelFormat.RGB, 33.5),
+    (PixelFormat.RGB_32F_PLANAR, -17.25), (PixelFormat.YUV444, 200.5)])
+def test_rotator_on_the_card_matches_the_cpu(dev, fmt, angle):
+    """Right angles bit-equal; other angles within 1 LSB on < 1e-3."""
+    import vali_tpu_torch as vali
+
+    w, h = 256, 144
+    src, src_cpu = _surface_pair(vali, fmt, w, h, int(abs(angle)))
+    dw, dh = (h, w) if angle in (90.0, 270.0) else (w, h)
+    outs = []
+    for gpu_id, s in ((0, src), (-1, src_cpu)):
+        d = vali.Surface.Make(fmt, dw, dh, gpu_id=gpu_id)
+        assert vali.PySurfaceRotator(gpu_id=gpu_id).Run(s, d, angle) == (
+            True, vali.TaskExecInfo.SUCCESS)
+        outs.append(d)
+    _planes_close(*outs, exact=float(angle) % 90 == 0)
+
+
+@pytest.mark.parametrize("src_fmt,dst_fmt", [
+    (PixelFormat.NV12, PixelFormat.YUV444),
+    (PixelFormat.NV12, PixelFormat.RGB),
+    (PixelFormat.NV12, PixelFormat.RGB_32F_PLANAR),
+    (PixelFormat.YUV420, PixelFormat.YUV444),
+    (PixelFormat.P10, PixelFormat.YUV444_10bit)])
+def test_ud_on_the_card_matches_the_cpu(dev, src_fmt, dst_fmt):
+    import vali_tpu_torch as vali
+
+    src, src_cpu = _surface_pair(vali, src_fmt, 1920, 1080, 11)
+    outs = []
+    for gpu_id, s in ((0, src), (-1, src_cpu)):
+        d = vali.Surface.Make(dst_fmt, 960, 540, gpu_id=gpu_id)
+        assert vali.PySurfaceUD(gpu_id=gpu_id).Run(s, d) == (
+            True, vali.TaskExecInfo.SUCCESS)
+        outs.append(d)
+    _planes_close(*outs, exact=False)

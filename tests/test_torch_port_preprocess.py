@@ -203,6 +203,6 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(ValueError):  # mixed sample types
         yuv420_preprocess(y, c.to(torch.int32).to(torch.uint16), c, **geo)
     with pytest.raises(ValueError):  # no kernel for this format
-        kernel_preprocess((y, c, c), PixelFormat.YUV444, out_dtype=torch.uint8,
-                          method="lanczos_aa", normalize=None, **BT709,
-                          **geo)
+        kernel_preprocess((y, y, y), PixelFormat.YUV444_10bit,
+                          out_dtype=torch.uint8, method="lanczos_aa",
+                          normalize=None, **BT709, **geo)

@@ -39,6 +39,12 @@ def test_import_without_jax():
         "import vali_tpu_torch.pipeline.multistream\n"
         "import vali_tpu_torch.ops.nv12_preprocess\n"
         "import vali_tpu_torch.ops.yuv420_preprocess\n"
+        "import vali_tpu_torch.ops.yuv422_preprocess\n"
+        "import vali_tpu_torch.ops.yuv444_preprocess\n"
+        "import vali_tpu_torch.ops.rotate\n"
+        "import vali_tpu_torch.ops.ud\n"
+        "import vali_tpu_torch.engine.frame_converter\n"
+        "print(vali_tpu_torch.PySurfaceRotator.__name__)\n"
         "import vali_tpu_torch.ops._cuda_build\n"
         "import vali_tpu_torch.transforms\n"
         "import vali_tpu_torch.ops.nv12_to_rgb\n"
@@ -58,7 +64,7 @@ def test_import_without_jax():
                          cwd=os.path.dirname(os.path.dirname(
                              os.path.abspath(__file__))))
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split() == ["Surface", "NV12"]
+    assert res.stdout.split() == ["PySurfaceRotator", "Surface", "NV12"]
 
 
 def test_launcher_signatures_match_the_c_prototypes():
@@ -188,10 +194,11 @@ def test_compute_dtype_policy_matches():
 
 def test_kernel_formats_cover_the_decoded_path():
     fmts = banded.kernel_preprocess_formats()
-    assert {int(f) for f in fmts} <= {
+    assert {int(f) for f in fmts} == {
         int(f) for f in jpallas.pallas_preprocess_formats()}
     assert tenums.PixelFormat.YUV420 in fmts
     assert tenums.PixelFormat.NV12 in fmts
+    assert tenums.PixelFormat.YUV444_10bit not in fmts
 
 
 def test_host_frame_layout_matches():
@@ -200,7 +207,8 @@ def test_host_frame_layout_matches():
 
     rng = np.random.default_rng(4)
     for fmt in (jenums.PixelFormat.NV12, jenums.PixelFormat.P10,
-                jenums.PixelFormat.YUV420, jenums.PixelFormat.YUV420_10bit):
+                jenums.PixelFormat.YUV420, jenums.PixelFormat.YUV420_10bit,
+                jenums.PixelFormat.YUV422, jenums.PixelFormat.YUV444):
         size = jformats.format_info(fmt).host_size(64, 48)
         frame = rng.integers(0, 256, size, dtype=np.uint8)
         a = jhost.host_frame_to_planes(frame, fmt, 64, 48)

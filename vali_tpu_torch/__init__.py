@@ -54,9 +54,12 @@ _LAZY = {
     "CudaStreamEvent": ".utils.device",
     "PySurfaceConverter": ".transforms",
     "PySurfaceResizer": ".transforms",
+    "PySurfaceRotator": ".transforms",
+    "PySurfaceUD": ".transforms",
     "PyFrameUploader": ".transforms",
     "PySurfaceDownloader": ".transforms",
     "PyDecoder": ".engine.decoder",
+    "PyFrameConverter": ".engine.frame_converter",
     "PyNvEncoder": ".engine.encoder",
     "PyMuxer": ".engine.muxer",
     "MultiStreamPipeline": ".pipeline.multistream",

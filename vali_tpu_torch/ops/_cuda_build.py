@@ -40,6 +40,12 @@ _SIGNATURES = {
     "yuv420_preprocess_launch": [
         _P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I,
         _P, _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
+    "yuv422_preprocess_launch": [
+        _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P,
+        _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
+    "yuv444_preprocess_launch": [
+        _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P,
+        _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
     "plane_resize_launch": [
         _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
         _I, _P, _LL, _LL, _P],

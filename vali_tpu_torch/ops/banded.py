@@ -9,9 +9,15 @@ weights padded to the largest tap count (:func:`band_table`). A band is the
 nonzero extent of a dense row inside the plane, so the kernel never reads
 outside a plane and the staging buffers need no pad rows.
 
-Both kernels (``ops/nv12_preprocess.py``, ``ops/yuv420_preprocess.py``)
-use the same four tables: luma rows, chroma rows, luma columns, chroma
-columns, built from the same dense matrices the dense route uses.
+The four preprocess kernels (``ops/nv12_preprocess.py``,
+``ops/yuv420_preprocess.py``, ``ops/yuv422_preprocess.py``,
+``ops/yuv444_preprocess.py``) use the same four tables: luma rows, chroma
+rows, luma columns, chroma columns, built from the same dense matrices the
+dense route uses. The chroma layout decides the chroma pair
+(:func:`dense_weights`): 4:2:0 resamples both chroma axes with the
+half-resolution matrices, 4:2:2 reuses the luma row matrix, and 4:4:4
+reuses both luma matrices, so one kernel serves every layout with the same
+table arguments.
 
 The three resize kernels (``ops/plane_resize.py``, ``ops/packed_resize.py``,
 ``ops/nv12_resize.py``) use two tables per resampled image, rows and
@@ -82,21 +88,34 @@ def band_table(dense: np.ndarray, compute_dtype: torch.dtype
     return first.astype(np.int32), count, weights
 
 
+#: chroma layouts of the preprocess kernels: 4:2:0 (NV12, P10, P12,
+#: YUV420, YUV420_10bit), 4:2:2 (YUV422) and 4:4:4 (YUV444)
+LAYOUTS = ("420", "422", "444")
+
+
 class DenseWeights(NamedTuple):
     """The four dense resampling matrices of one geometry."""
     luma_h: np.ndarray    # [DH, H]
-    chroma_h: np.ndarray  # [DH, H/2]
+    chroma_h: np.ndarray  # [DH, H/2] (4:2:0) or the luma matrix
     luma_w: np.ndarray    # [DW, W]
-    chroma_w: np.ndarray  # [DW, W/2]
+    chroma_w: np.ndarray  # [DW, W/2] (4:2:0, 4:2:2) or the luma matrix
 
 
 def dense_weights(src_w: int, src_h: int, dst_w: int, dst_h: int,
-                  method: str) -> DenseWeights:
-    return DenseWeights(
-        resize_weights(src_h, dst_h, method),
-        _chroma_weights(src_h // 2, dst_h, src_h, method),
-        resize_weights(src_w, dst_w, method),
-        _chroma_weights(src_w // 2, dst_w, src_w, method))
+                  method: str, layout: str) -> DenseWeights:
+    """The matrices of ``layout``: 4:2:2 chroma rows are full height, so
+    they take the luma row matrix; 4:4:4 chroma takes both luma
+    matrices."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"chroma layout must be one of {LAYOUTS}, got "
+                         f"{layout!r}")
+    luma_h = resize_weights(src_h, dst_h, method)
+    luma_w = resize_weights(src_w, dst_w, method)
+    chroma_h = (_chroma_weights(src_h // 2, dst_h, src_h, method)
+                if layout == "420" else luma_h)
+    chroma_w = (luma_w if layout == "444"
+                else _chroma_weights(src_w // 2, dst_w, src_w, method))
+    return DenseWeights(luma_h, chroma_h, luma_w, chroma_w)
 
 
 class DeviceTables(NamedTuple):
@@ -116,10 +135,12 @@ class DeviceTables(NamedTuple):
 
 @functools.lru_cache(maxsize=32)
 def device_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
-                  method: str, compute_dtype: torch.dtype,
+                  method: str, layout: str, compute_dtype: torch.dtype,
                   device: torch.device) -> DeviceTables:
-    """Build and upload the band tables once per geometry and device."""
-    dw = dense_weights(src_w, src_h, dst_w, dst_h, method)
+    """Build and upload the band tables once per geometry, chroma layout
+    and device. The layout is part of the cache key: two layouts of one
+    geometry have different chroma tables."""
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, method, layout)
     tabs = [band_table(m, compute_dtype) for m in dw]
     index = np.concatenate([np.concatenate([s, c]) for s, c, _ in tabs])
     weights = np.concatenate([
@@ -160,23 +181,23 @@ def tail_params(space: ColorSpace, crange: ColorRange, scale: float,
 
 def banded_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
                  src_w: int, src_h: int, dst_w: int, dst_h: int,
-                 method: str, compute_dtype: torch.dtype,
+                 method: str, layout: str, compute_dtype: torch.dtype,
                  tail: np.ndarray, out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain PyTorch version of both banded kernels on planar y/u/v views.
+    """Plain PyTorch version of the banded preprocess kernels on planar
+    y/u/v views of chroma ``layout``.
 
     Same dense matrices and cast points as the kernels: weights rounded to
     the compute dtype, an fp32 product with TF32 off, the H-pass result
     rounded to the compute dtype, the W-pass product, the CSC and the
     quantise/normalise tail in fp32. Returns [B, 3, dst_h, dst_w]."""
-    dw = dense_weights(src_w, src_h, dst_w, dst_h, method)
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, method, layout)
     dev = y.device
     wyh, wch, wyw, wcw = (round_to(m, compute_dtype).to(dev) for m in dw)
+    ch = dw.chroma_h.shape[1]  # chroma rows the row matrix reads
     with exact_f32_matmul():
         yh = round_to(torch.matmul(wyh, to_f32(y[:, :src_h])), compute_dtype)
-        uh = round_to(torch.matmul(wch, to_f32(u[:, :src_h // 2])),
-                      compute_dtype)
-        vh = round_to(torch.matmul(wch, to_f32(v[:, :src_h // 2])),
-                      compute_dtype)
+        uh = round_to(torch.matmul(wch, to_f32(u[:, :ch])), compute_dtype)
+        vh = round_to(torch.matmul(wch, to_f32(v[:, :ch])), compute_dtype)
         yv = torch.matmul(yh, wyw.T) - float(tail[9])
         uv = torch.matmul(uh, wcw.T) - float(tail[10])
         vv = torch.matmul(vh, wcw.T) - float(tail[10])
@@ -194,6 +215,60 @@ def banded_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
     return torch.stack(chans, dim=1)
 
 
+def planar_u8_checked(fmt: str, y, u, v, *, src_w: int, src_h: int,
+                      chroma_w: int, space: ColorSpace, crange: ColorRange,
+                      out_dtype: torch.dtype, normalize, compute_dtype):
+    """Validate the arguments of a full-height planar 8-bit kernel (4:2:2,
+    4:4:4): y [B, >= H, W], u and v [B, >= H, chroma_w], all uint8 on one
+    device. Returns (compute dtype, packed tail)."""
+    if (y.dim() != 3 or u.dim() != 3 or v.dim() != 3
+            or y.shape[1] < src_h or y.shape[2] != src_w
+            or u.shape[1] < src_h or u.shape[2] != chroma_w
+            or u.shape != v.shape or y.shape[0] != u.shape[0]):
+        raise ValueError(
+            f"Plane shapes {tuple(y.shape)}/{tuple(u.shape)}/"
+            f"{tuple(v.shape)} do not match {fmt} {src_w}x{src_h}")
+    if not (y.dtype == u.dtype == v.dtype == torch.uint8):
+        raise ValueError(f"{fmt} planes must all be uint8, got "
+                         f"{y.dtype}/{u.dtype}/{v.dtype}")
+    if not (y.device == u.device == v.device):
+        raise ValueError(f"{fmt} planes must be on one device")
+    return (resolve_compute_dtype(compute_dtype),
+            tail_params(space, crange, 1.0, out_dtype, normalize))
+
+
+def launch_planar_u8(launcher: str, y, u, v, *, src_w: int, src_h: int,
+                     dst_w: int, dst_h: int, method: str, layout: str,
+                     compute_dtype: torch.dtype, tail: np.ndarray,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch ``launcher`` (``yuv422_preprocess_launch`` or
+    ``yuv444_preprocess_launch``) on checked CUDA planes; rows must be
+    contiguous, rows past H and a batch stride larger than the plane are
+    accepted. Returns [B, 3, dst_h, dst_w]."""
+    import ctypes
+
+    from ._cuda_build import check, load_kernels
+
+    if y.stride(2) != 1 or u.stride(2) != 1 or v.stride(2) != 1:
+        raise ValueError("plane rows must be contiguous (stride 1)")
+    lib = load_kernels()
+    B = y.shape[0]
+    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, layout,
+                         compute_dtype, y.device)
+    out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype, device=y.device)
+    with torch.cuda.device(y.device):
+        rc = getattr(lib, launcher)(
+            y.data_ptr(), u.data_ptr(), v.data_ptr(), y.stride(0),
+            y.stride(1), u.stride(0), u.stride(1), v.stride(0), v.stride(1),
+            B, src_h, src_w, dst_h, dst_w, tabs.index.data_ptr(),
+            tabs.weights.data_ptr(), *tabs.taps,
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            int(compute_dtype == torch.float32), out.data_ptr(),
+            OUT_KINDS[out_dtype], torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, launcher)
+    return out
+
+
 def kernel_preprocess_formats():
     """The formats a banded preprocess kernel covers — one source of truth
     for the pipeline's routing and the :func:`kernel_preprocess`
@@ -201,6 +276,7 @@ def kernel_preprocess_formats():
     return frozenset({
         PixelFormat.NV12, PixelFormat.P10, PixelFormat.P12,
         PixelFormat.YUV420, PixelFormat.YUV420_10bit,
+        PixelFormat.YUV422, PixelFormat.YUV444,
     })
 
 
@@ -214,6 +290,8 @@ def kernel_preprocess(planes, fmt, *, src_w: int, src_h: int, dst_w: int,
     an uncovered format raises. Output is planar [B, 3, dst_h, dst_w]."""
     from .nv12_preprocess import nv12_preprocess
     from .yuv420_preprocess import yuv420_preprocess
+    from .yuv422_preprocess import yuv422_preprocess
+    from .yuv444_preprocess import yuv444_preprocess
 
     fmt = PixelFormat(fmt)
     if fmt in (PixelFormat.NV12, PixelFormat.P10, PixelFormat.P12):
@@ -228,6 +306,13 @@ def kernel_preprocess(planes, fmt, *, src_w: int, src_h: int, dst_w: int,
             dst_w=dst_w, dst_h=dst_h, space=space, crange=crange,
             out_dtype=out_dtype, method=method, normalize=normalize,
             bit_depth=bd)
+    planar = {PixelFormat.YUV422: yuv422_preprocess,
+              PixelFormat.YUV444: yuv444_preprocess}.get(fmt)
+    if planar is not None:
+        return planar(
+            planes[0], planes[1], planes[2], src_w=src_w, src_h=src_h,
+            dst_w=dst_w, dst_h=dst_h, space=space, crange=crange,
+            out_dtype=out_dtype, method=method, normalize=normalize)
     raise ValueError(
         f"no preprocess kernel for {fmt!r} — "
         f"kernel_preprocess_formats() is out of sync with this dispatch")

@@ -47,8 +47,8 @@ def nv12_preprocess_plain(
                          normalize, compute_dtype)
     y, u, v = nv12_split(nv12, src_h)
     return banded_plain(y, u, v, src_w=src_w, src_h=src_h, dst_w=dst_w,
-                        dst_h=dst_h, method=method, compute_dtype=cdt,
-                        tail=tail, out_dtype=out_dtype)
+                        dst_h=dst_h, method=method, layout="420",
+                        compute_dtype=cdt, tail=tail, out_dtype=out_dtype)
 
 
 def nv12_preprocess(
@@ -89,7 +89,7 @@ def nv12_preprocess(
 
     lib = load_kernels()
     B = nv12.shape[0]
-    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, cdt,
+    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, "420", cdt,
                          nv12.device)
     out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype,
                       device=nv12.device)

@@ -57,8 +57,8 @@ def yuv420_preprocess_plain(
     cdt, tail = _checked(y, u, v, src_w, src_h, space, crange, out_dtype,
                          normalize, bit_depth, compute_dtype)
     return banded_plain(y, u, v, src_w=src_w, src_h=src_h, dst_w=dst_w,
-                        dst_h=dst_h, method=method, compute_dtype=cdt,
-                        tail=tail, out_dtype=out_dtype)
+                        dst_h=dst_h, method=method, layout="420",
+                        compute_dtype=cdt, tail=tail, out_dtype=out_dtype)
 
 
 def yuv420_preprocess(
@@ -102,7 +102,8 @@ def yuv420_preprocess(
 
     lib = load_kernels()
     B = y.shape[0]
-    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, cdt, y.device)
+    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, "420", cdt,
+                         y.device)
     out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype, device=y.device)
     with torch.cuda.device(y.device):
         rc = lib.yuv420_preprocess_launch(

@@ -497,9 +497,10 @@ def preprocess_batch(planes, src_fmt: PixelFormat, src_w: int, src_h: int,
                      pad_value: int = 114) -> torch.Tensor:
     """Fused preprocess over already-batched planes on one device.
 
-    On a CUDA device NV12/P10/P12/YUV420/YUV420_10bit route to the banded
-    kernels (ops/nv12_preprocess.py, ops/yuv420_preprocess.py); every
-    other format, and every format on the CPU, takes the dense
+    On a CUDA device NV12/P10/P12/YUV420/YUV420_10bit/YUV422/YUV444 route
+    to the banded kernels (ops/nv12_preprocess.py, ops/yuv420_preprocess.py,
+    ops/yuv422_preprocess.py, ops/yuv444_preprocess.py); every other
+    format (YUV444_10bit), and every format on the CPU, takes the dense
     ``fused_preprocess``. ``use_kernel=False`` forces the dense route,
     ``use_kernel=True`` the kernel route (its plain version on CPU
     tensors). ``letterbox=True`` resizes aspect-preserving onto a centered

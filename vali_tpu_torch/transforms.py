@@ -1,8 +1,10 @@
-"""Surface transform wrappers: converter, resizer, up/download.
+"""Surface transform wrappers: converter, resizer, rotator, UD,
+up/download.
 
 Counterpart of ``vali_tpu/transforms.py`` (reference
 src/python_vali/src/PySurfaceConverter.cpp, PySurfaceResizer.cpp,
-PyFrameUploader.cpp, PySurfaceDownloader.cpp). Each wraps the batched ops
+PySurfaceRotator.cpp, PySurfaceUD.cpp, PyFrameUploader.cpp,
+PySurfaceDownloader.cpp). Each wraps the batched ops
 in ``vali_tpu_torch.ops`` with N=1 and writes the result into the
 destination Surface's tensors in place.
 
@@ -25,7 +27,7 @@ import torch
 from .core.enums import PixelFormat, TaskExecInfo
 from .memory.host import host_frame_to_planes
 from .memory.surface import Surface
-from .ops import csc, resize
+from .ops import csc, resize, rotate, ud
 from .utils.device import get_stream
 from .utils.tracing import op_scope
 
@@ -207,6 +209,73 @@ class PySurfaceResizer(_SurfaceOp):
 
     def RunAsync(self, src, dst):
         """Resize src into dst without waiting for device completion."""
+        return self._run(src, dst, sync=False)
+
+
+class PySurfaceRotator(_SurfaceOp):
+    """Arbitrary-angle rotator (parity: nppiRotate, NPPI_INTER_LINEAR).
+
+    Multiples of 90 degrees with no shift (or the canonical one) are pure
+    data movement; every other angle and shift is a bilinear gather. One
+    code path serves every angle: nothing is compiled per angle."""
+
+    @property
+    def SupportedFormats(self):
+        """Pixel formats the rotator accepts."""
+        return list(rotate.SUPPORTED_FORMATS)
+
+    def _run(self, src: Surface, dst: Surface, angle, shift_x, shift_y,
+             sync: bool):
+        if src.Format != dst.Format:
+            return _fail(TaskExecInfo.SRC_DST_FMT_MISMATCH)
+        if src.Format not in rotate.SUPPORTED_FORMATS:
+            return _fail(TaskExecInfo.NOT_SUPPORTED)
+        if src.IsEmpty or dst.IsEmpty:
+            return _fail(TaskExecInfo.INVALID_INPUT)
+        planes = tuple(p[None] for p in src.plane_tensors())
+        with op_scope("RotateSurface"), self._stream.context():
+            out = rotate.rotate_batch(
+                planes, src.Format, src.Width, src.Height, dst.Width,
+                dst.Height, float(angle), float(shift_x), float(shift_y))
+            return self._finish(src, dst, out, sync)
+
+    def Run(self, src, dst, angle, shift_x=0.0, shift_y=0.0):
+        """Rotate src by ``angle`` degrees (with optional shift) into dst,
+        synchronously (parity: RotateSurface.cpp)."""
+        return self._run(src, dst, angle, shift_x, shift_y, sync=True)
+
+    def RunAsync(self, src, dst, angle, shift_x=0.0, shift_y=0.0):
+        """Rotate src into dst without waiting for device completion."""
+        return self._run(src, dst, angle, shift_x, shift_y, sync=False)
+
+
+class PySurfaceUD(_SurfaceOp):
+    """Fused upsample-downscale-convert (parity: UDSurface)."""
+
+    @staticmethod
+    def SupportedFormats():
+        """Supported (src, dst) pairs (parity: UDSurface.cpp:117-133)."""
+        return list(ud.SUPPORTED_CONVERSIONS)
+
+    def _run(self, src: Surface, dst: Surface, sync: bool):
+        if (src.Format, dst.Format) not in ud.SUPPORTED_CONVERSIONS:
+            return _fail(TaskExecInfo.NOT_SUPPORTED)
+        if src.IsEmpty or dst.IsEmpty:
+            return _fail(TaskExecInfo.INVALID_INPUT)
+        planes = tuple(p[None] for p in src.plane_tensors())
+        with op_scope("UDSurface"), self._stream.context():
+            out = ud.ud_batch(planes, src.Format, dst.Format, src.Width,
+                              src.Height, dst.Width, dst.Height)
+            return self._finish(src, dst, out, sync)
+
+    def Run(self, src, dst):
+        """Fused chroma-upsample + rescale + optional CSC, synchronously
+        (parity: UDSurface.cpp:135-182)."""
+        return self._run(src, dst, sync=True)
+
+    def RunAsync(self, src, dst):
+        """Fused upsample-downscale without waiting for device
+        completion."""
         return self._run(src, dst, sync=False)
 
 
