@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of vali_tpu_torch on one CUDA card.
 
-Drives the port's two main paths at full size. The batched preprocess
+Drives the port's main paths at full size. The batched preprocess
 path: host frames staged by MultiStreamPipeline into the banded preprocess
 kernels, 64 streams of 1080p -> 224x224 in NV12, YUV420, YUV422 (the MJPEG
 camera case) and YUV444. The Surface path (VALI's public
@@ -10,7 +10,11 @@ API): PyFrameUploader, PySurfaceConverter NV12 -> RGB and PySurfaceResizer
 DLPack; and a 4K NV12 Surface resized to 1080p (turbo), converted to
 YUV420, resized to 960x540 (turbo) and downloaded; then PySurfaceUD and
 PySurfaceRotator on 1080p Surfaces, each against the same op on a CPU copy
-of its input. It builds the CUDA
+of its input; and the NV12 kernel-variant lab's entry point
+(``vali_tpu_torch.lab.kernel_variants``: stream floor, phase knock-outs,
+convert-once and split-chroma variants, multi-frame blocks) at 64 x 1080p
+-> 224, each lab kernel against its plain version and the full-function
+ones against nv12_preprocess bit for bit. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -21,8 +25,10 @@ the host clock, and prints:
   - the card's name and power limit (nvidia-smi), torch/CUDA versions and
     the kernel build time;
   - one line per comparison and per timing;
-  - a JSON line {"kernels": [...]} with each kernel's launches on the main
-    path, its error against the plain version and both times;
+  - a JSON line {"kernels": [...]} with each kernel's launches on its
+    path, its error against the plain version, both times and its bound
+    (bytes over 3.35 TB/s or operations over 989 TFLOP/s, the H100 SXM
+    data sheet);
   - as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and ends the run with a non-zero exit code before the
@@ -38,11 +44,12 @@ import sys
 import tempfile
 import time
 
+from vali_tpu_torch.lab.timing import (CSC_OPS, TIMED_RUNS, bound_ms,
+                                       preprocess_work, resize_work, time_ms)
+
 B, H, W, DH, DW = 64, 1080, 1920, 224, 224
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 LETTERBOX = 640
-TIMED_RUNS = 21
-CALLS_PER_SAMPLE = 5
 MAIN_BATCHES = 3    # batches per stream on the checked main-path runs
 RATE_BATCHES = 30   # batches per stream on the timed pipeline run
 
@@ -111,33 +118,14 @@ def compare(torch, name, out, ref):
     return d.max().item()
 
 
-def time_ms(torch, fn, samples=TIMED_RUNS, calls=CALLS_PER_SAMPLE):
-    """Median ms of one call: ``samples`` samples, each CUDA events around
-    ``calls`` back-to-back calls (so host launch latency overlaps device
-    work), after warm-up."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def time_pair(torch, kern, plain):
+def time_pair(kern, plain):
     """(kernel ms, plain ms) taken plain, kernel, kernel, plain; each side
     keeps its better median. Plain versions take 5 single-call samples:
     some run ~100 ms a call."""
-    t_plain = time_ms(torch, plain, samples=5, calls=1)
-    t_kern = time_ms(torch, kern)
-    t_kern = min(t_kern, time_ms(torch, kern))
-    t_plain = min(t_plain, time_ms(torch, plain, samples=5, calls=1))
+    t_plain = time_ms(plain, samples=5, calls=1)
+    t_kern = time_ms(kern)
+    t_kern = min(t_kern, time_ms(kern))
+    t_plain = min(t_plain, time_ms(plain, samples=5, calls=1))
     return t_kern, t_plain
 
 
@@ -373,10 +361,10 @@ def main() -> int:
                       ("yuv444_preprocess", PixelFormat.YUV444)):
         kern, plain = run_pair(fmt)
         # plain, kernel, kernel, plain: take each side's better median
-        t_plain = time_ms(torch, plain)
-        t_kern = time_ms(torch, kern)
-        t_kern = min(t_kern, time_ms(torch, kern))
-        t_plain = min(t_plain, time_ms(torch, plain))
+        t_plain = time_ms(plain)
+        t_kern = time_ms(kern)
+        t_kern = min(t_kern, time_ms(kern))
+        t_plain = min(t_plain, time_ms(plain))
         times[name] = (t_kern, t_plain)
         gbs = (in_bytes[fmt] + out_bytes) / (t_kern * 1e-3) / 1e9
         log(f"time {name} {B}x{H}p->{DH}x{DW} u8/bf16: kernel_ms={t_kern} "
@@ -393,7 +381,7 @@ def main() -> int:
         t0 = time.perf_counter()
         np.stack(frames, out=pinned.numpy())
         stack_ms.append((time.perf_counter() - t0) * 1e3)
-    h2d_ms = time_ms(torch, lambda: pinned.to(dev, non_blocking=True))
+    h2d_ms = time_ms(lambda: pinned.to(dev, non_blocking=True))
     pipe = MultiStreamPipeline(sources(fmt, RATE_BATCHES), DW, DH, gpu_id=0,
                                batch_size=B, sync_streams=True, **bt709)
     t0 = time.perf_counter()
@@ -409,40 +397,30 @@ def main() -> int:
         f"host_stack_ms={statistics.median(stack_ms)} h2d_ms={h2d_ms} "
         f"h2d_GBps={pinned.nbytes / (h2d_ms * 1e-3) / 1e9} ({smi})")
 
-    kernels = surface_phases(torch, np, dev, host[PixelFormat.NV12], smi,
+    surface = surface_phases(torch, np, dev, host[PixelFormat.NV12], smi,
                              times["nv12_preprocess"][0])
     rotate_ud_phase(torch, np, host[PixelFormat.NV12][0],
                     host[PixelFormat.YUV422][0], smi)
-    kernels = [
-        {"name": "nv12_preprocess", "route": "cuda",
-         "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
-         "replaces": "vali_tpu/ops/pallas_fused.py:158",
-         "launches": launches["nv12_preprocess"],
-         "max_abs_err": err["kernel_nv12 u8/bf16"],
-         "ms": times["nv12_preprocess"][0],
-         "plain_ms": times["nv12_preprocess"][1]},
-        {"name": "yuv420_preprocess", "route": "cuda",
-         "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
-         "replaces": "vali_tpu/ops/pallas_fused.py:786",
-         "launches": launches["yuv420_preprocess"],
-         "max_abs_err": err["kernel_yuv420 u8/bf16"],
-         "ms": times["yuv420_preprocess"][0],
-         "plain_ms": times["yuv420_preprocess"][1]},
-        {"name": "yuv422_preprocess", "route": "cuda",
-         "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
-         "replaces": "vali_tpu/ops/pallas_fused.py:600",
-         "launches": launches["yuv422_preprocess"],
-         "max_abs_err": err["kernel_yuv422 u8/bf16 bt601/jpeg"],
-         "ms": times["yuv422_preprocess"][0],
-         "plain_ms": times["yuv422_preprocess"][1]},
-        {"name": "yuv444_preprocess", "route": "cuda",
-         "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
-         "replaces": "vali_tpu/ops/pallas_fused.py:359",
-         "launches": launches["yuv444_preprocess"],
-         "max_abs_err": err["kernel_yuv444 u8/bf16"],
-         "ms": times["yuv444_preprocess"][0],
-         "plain_ms": times["yuv444_preprocess"][1]},
-    ] + kernels
+    lab = lab_phase(torch, np, dev, smi)
+    # no single PyTorch call computes fused CSC + banded Lanczos:
+    # library_ms is null
+    preprocess = {  # wrapper: chroma layout, TPU kernel line, checked case
+        "nv12_preprocess": ("420", 158, "kernel_nv12 u8/bf16"),
+        "yuv420_preprocess": ("420", 786, "kernel_yuv420 u8/bf16"),
+        "yuv422_preprocess": ("422", 600,
+                              "kernel_yuv422 u8/bf16 bt601/jpeg"),
+        "yuv444_preprocess": ("444", 359, "kernel_yuv444 u8/bf16")}
+    kernels = []
+    for name, (layout, line, case) in preprocess.items():
+        bound, bound_by = bound_ms(*preprocess_work(B, W, H, DW, DH, layout))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
+            "replaces": f"vali_tpu/ops/pallas_fused.py:{line}",
+            "launches": launches[name], "max_abs_err": err[case],
+            "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+    kernels += surface + lab
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -711,7 +689,7 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
     for kname, case in list(timed.items()) + [
             ("packed_resize 640x360", "packed_resize rgb 1080p->640x360 u8"),
             ("plane_resize u/v", "plane_resize stacked u/v 4k->540p u8")]:
-        t_kern, t_plain = time_pair(torch, *cases[case])
+        t_kern, t_plain = time_pair(*cases[case])
         times[kname] = (t_kern, t_plain)
         log(f"time {case}: kernel_ms={t_kern} plain_ms={t_plain} ({smi})")
     in_out = {"nv12_to_rgb": nv12.nbytes + rgb.nbytes,
@@ -723,7 +701,7 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
         rgbp = csc.convert_batch((nv12,), F.NV12, F.RGB, W, H, cc)
         return resize.resize_batch(rgbp, F.RGB, W, H, DW, DH, lanczos_aa)
 
-    t_two = time_ms(torch, two_stage)
+    t_two = time_ms(two_stage)
     log(f"time two-stage convert+resize {B}x{H}p NV12->RGB->{DH}x{DW}: "
         f"ms={t_two} fps={B / (t_two * 1e-3)} beside fused nv12_preprocess "
         f"ms={fused_ms} ({smi})")
@@ -744,10 +722,126 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
                               "vali_tpu/ops/pallas_fused.py:1105"),
               "plane_resize": ("vali_tpu_torch/csrc/banded_resize.cu",
                                "vali_tpu/ops/pallas_fused.py:1272")}
-    return [{"name": k, "route": "cuda", "source": src_of[k][0],
-             "replaces": src_of[k][1], "launches": launches[k],
-             "max_abs_err": err[k], "ms": times[k][0],
-             "plain_ms": times[k][1]} for k in timed]
+    # work of each timed case; no single PyTorch call computes these
+    # Lanczos resizes or the bf16-cast-point CSC: library_ms is null
+    y4k_resize = resize_work(B4K, H4K, W4K, H, W)
+    uv4k_resize = resize_work(B4K, H4K // 2, W4K // 2, H // 2, W // 2, 2)
+    work = {"nv12_to_rgb": (nv12.nbytes + rgb.nbytes, CSC_OPS * B * H * W),
+            "packed_resize": resize_work(B, H, W, DH, DW, 3),
+            "nv12_resize": (y4k_resize[0] + uv4k_resize[0],
+                            y4k_resize[1] + uv4k_resize[1]),
+            "plane_resize": y4k_resize}
+    entries = []
+    for k in timed:
+        bound, bound_by = bound_ms(*work[k])
+        entries.append({
+            "name": k, "route": "cuda", "source": src_of[k][0],
+            "replaces": src_of[k][1], "launches": launches[k],
+            "max_abs_err": err[k], "ms": times[k][0],
+            "plain_ms": times[k][1], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None})
+    return entries
+
+
+LAB_REPLACES = {  # lab kernel -> its TPU notebook kernel
+    "stream_floor": "bench_kernel_variants.py:266",
+    "variant_kernel": "bench_kernel_variants.py:86",
+    "prod_like": "bench_kernel_variants.py:307",
+    "multiframe": "bench_kernel_variants.py:785",
+}
+
+
+def lab_phase(torch, np, dev, smi):
+    """The NV12 kernel-variant lab at 64 x 1080p -> 224: every lab kernel
+    against its plain version on the card (the full-function variants also
+    against nv12_preprocess, bit for bit), the floor's sink against the
+    frames, then the lab's entry point (``kernel_variants.run``) name by
+    name with the launch counts set to 0 just before and read just after,
+    and the plain versions' times. Returns the lab kernels' entries of the
+    JSON line."""
+    from vali_tpu_torch.lab import kernel_variants as kv
+    from vali_tpu_torch.ops.nv12_preprocess import nv12_preprocess
+
+    rows = H * 3 // 2
+    geo = dict(src_w=W, src_h=H, dst_w=DW, dst_h=DH)
+    frames = kv.make_frames(B, rows, W, dev)
+    product = nv12_preprocess(frames, **geo)
+    names = kv.DEFAULT_NAMES[1:]   # "A" is nv12_preprocess itself
+    cases = {n: kv.case(n, B, rows, **geo) for n in names}
+
+    # ---- phase 1: kernel against plain version on the card ---------------
+    err = {}
+    for name, c in cases.items():
+        out, ref = c.call(frames), c.plain(frames)
+        torch.cuda.synchronize()
+        err[name] = compare(torch, f"lab {name} vs plain", out, ref)
+        if name == "floor" and not torch.equal(out, ref):
+            raise AssertionError("stream_floor differs from its plain "
+                                 "version")
+        if c.full_function and not torch.equal(out, product):
+            raise AssertionError(f"lab {name} differs from nv12_preprocess")
+    sink = torch.zeros(kv.SINK_WORDS, dtype=torch.int32, device=dev)
+    kv.stream_floor(frames, rows=rows, W=W, DH=DH, DW=DW, sink=sink)
+    got = np.bitwise_xor.reduce(sink.cpu().numpy().view(np.uint32))
+    want = np.bitwise_xor.reduce(frames.cpu().numpy().view(np.uint32),
+                                 axis=None)
+    if got != want:
+        raise AssertionError("stream_floor's sink misses bytes of the "
+                             "frames")
+    full_fn = ", ".join(n for n in names if cases[n].full_function)
+    log(f"lab: every full-function variant ({full_fn}) equal to "
+        f"nv12_preprocess; the floor's sink equal to the XOR of every word "
+        f"of the frames")
+
+    # ---- phase 2: the lab's entry point, the counts read per name --------
+    for w in kv.WRAPPERS:
+        w.launches = 0
+    results = {}
+    for name in kv.DEFAULT_NAMES:
+        before = sum(w.launches for w in kv.WRAPPERS)
+        (row,) = kv.run([name], frames, **geo, log=log)
+        row["launches"] = sum(w.launches for w in kv.WRAPPERS) - before
+        results[name] = row
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in kv.WRAPPERS}
+    log(f"lab_path_launches={json.dumps(launches)}")
+    if min(launches.values()) < 1 or min(
+            results[n]["launches"] for n in names) < 1:
+        raise AssertionError("a kernel of the lab path was not launched")
+    # the full-function variants against nv12_preprocess bit for bit, the
+    # knock-outs against their plain versions within compare's 1 LSB
+    for n, r in results.items():
+        if r["maxdiff"] > (0 if n == "A" or cases[n].full_function else 1):
+            raise AssertionError(f"lab {n} differs from its reference")
+    ms = {n: r["ms"] for n, r in results.items()}
+    log(f"lab floor: {ms['floor']} ms = {results['floor']['gbps']} GB/s "
+        f"of input and output bytes ({smi})")
+    log(f"lab H/W split: full {ms['full']} ms, hpass {ms['hpass']} ms "
+        f"({ms['hpass'] / ms['full']}), wpass {ms['wpass']} ms "
+        f"({ms['wpass'] / ms['full']}) ({smi})")
+
+    # ---- phase 3: the plain versions' times -------------------------------
+    plain_ms = {}
+    for name in ("floor", "hpass", "wpass", "full"):
+        plain_ms[name] = time_ms(lambda c=cases[name]: c.plain(frames),
+                                 samples=5, calls=1)
+        log(f"time lab plain {name}: ms={plain_ms[name]} ({smi})")
+    entries = []
+    for name in names:
+        c = cases[name]
+        wrapper = c.wrapper.__name__
+        r = results[name]
+        entries.append({
+            "name": f"{wrapper} {name}", "route": "cuda",
+            "source": "vali_tpu_torch/csrc/nv12_variants.cu",
+            "replaces": LAB_REPLACES[wrapper], "launches": r["launches"],
+            "max_abs_err": err[name], "ms": r["ms"],
+            "plain_ms": plain_ms["full" if c.full_function else name],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            # no single PyTorch call streams a frame or computes fused
+            # CSC + banded Lanczos
+            "library_ms": None})
+    return entries
 
 
 def rotate_ud_phase(torch, np, nv12_frame, yuv422_frame, smi):

@@ -1,7 +1,8 @@
 """CUDA-only tests of vali_tpu_torch: the Hopper kernels against their
 plain PyTorch versions on the card, the launch counters, the pipeline's
-pinned staging, the Surface ops' streams, and the rotator and UD op on the
-card against the same ops on the CPU. They skip where torch has no CUDA
+pinned staging, the Surface ops' streams, the rotator and UD op on the
+card against the same ops on the CPU, and the NV12 kernel-variant lab's
+kernels against their plain versions. They skip where torch has no CUDA
 device.
 
 This file imports no JAX, so on a machine with a card it runs alone:
@@ -15,6 +16,7 @@ import torch
 
 from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
 from vali_tpu_torch.core.formats import format_info
+from vali_tpu_torch.lab import kernel_variants as kv
 from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
 from vali_tpu_torch.ops.nv12_to_rgb import nv12_to_rgb, nv12_to_rgb_plain
 from vali_tpu_torch.ops.packed_resize import (packed_resize,
@@ -471,3 +473,97 @@ def test_ud_on_the_card_matches_the_cpu(dev, src_fmt, dst_fmt):
             True, vali.TaskExecInfo.SUCCESS)
         outs.append(d)
     _planes_close(*outs, exact=False)
+
+
+# --- the NV12 kernel-variant lab (csrc/nv12_variants.cu) -------------------
+
+LAB_NAMES = [n for n in kv.DEFAULT_NAMES if n != "A"]
+
+
+@pytest.mark.parametrize("geom", [
+    (8, 144, 256, 64, 96),      # 16-byte loads
+    (8, 62, 130, 30, 34),       # widths that are not whole vectors
+    (8, 1080, 1920, 224, 224),  # the lab's size
+])
+@pytest.mark.parametrize("name", LAB_NAMES)
+def test_lab_kernels_match_plain(dev, geom, name):
+    """Each lab kernel against its plain version on a padded buffer; the
+    full-function variants (staged B/C, split D, every strip height, M*)
+    equal the product kernel bit for bit."""
+    b, h, w, dh, dw = geom
+    rows = h * 3 // 2 + 8
+    x = kv.make_frames(b, rows, w, dev, seed=h + w)
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    c = kv.case(name, b, rows, **geo)
+    out, ref = c.call(x), c.plain(x)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (b, 3, dh, dw)
+    if name == "floor":
+        assert torch.equal(out, ref)
+    else:
+        _assert_close(out, ref, (name, geom))
+    if c.full_function:
+        assert torch.equal(out, nv12_preprocess(x, **geo)), (name, geom)
+
+
+@pytest.mark.parametrize("name", ["B", "D", "M2", "hpass", "wpass", "floor"])
+def test_lab_kernels_padded_strided_views(dev, name):
+    """A padded row pitch and a larger batch stride give the output of the
+    contiguous buffer."""
+    b, h, w, dh, dw = 4, 96, 256, 40, 48
+    rows = h * 3 // 2
+    x = kv.make_frames(b, rows, w, dev, seed=5)
+    c = kv.case(name, b, rows, src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    big = torch.zeros((b, rows, w + 32), dtype=torch.uint8, device=dev)
+    big[:, :, :w] = x
+    assert torch.equal(c.call(big[:, :, :w]), c.call(x))
+
+
+def test_stream_floor_sink_reads_every_byte(dev):
+    """On a zeroed sink the XOR of its words is the XOR of every 32-bit
+    word of the frames, and one byte changed outside the two output
+    corners changes the sink but not the output."""
+    rows, w, dh, dw = 216, 256, 64, 96
+    x = kv.make_frames(2, rows, w, dev, seed=3)
+    fl = dict(rows=rows, W=w, DH=dh, DW=dw)
+
+    def run(frames):
+        sink = torch.zeros(kv.SINK_WORDS, dtype=torch.int32, device=dev)
+        out = kv.stream_floor(frames, **fl, sink=sink)
+        return out, sink.cpu().numpy().view(np.uint32)
+
+    out, sink = run(x)
+    words = x.cpu().numpy().view(np.uint32).ravel()
+    assert np.bitwise_xor.reduce(sink) == np.bitwise_xor.reduce(words)
+    y = x.clone()
+    y[1, rows - dh - 2, 200] ^= 1
+    out2, sink2 = run(y)
+    assert torch.equal(out2, out)
+    assert not np.array_equal(sink2, sink)
+
+
+def test_lab_wrappers_count_launches_and_reject_bad_input(dev):
+    h, w = 96, 256
+    x = kv.make_frames(4, h * 3 // 2, w, dev, seed=2)
+    geo = dict(src_w=w, src_h=h, dst_w=32, dst_h=32)
+    before = [f.launches for f in kv.WRAPPERS]
+    kv.stream_floor(x, rows=h * 3 // 2, W=w, DH=32, DW=32)
+    kv.prod_like(x, **geo, mode="wpass")
+    kv.variant_kernel(x, **geo, variant="D")
+    kv.multiframe(x, **geo, gframes=2)
+    after = [n + 1 for n in before]
+    assert [f.launches for f in kv.WRAPPERS] == after
+    kv.prod_like(x.cpu(), **geo)  # the plain version: not a launch
+    pitched = torch.zeros((4, h * 3 // 2, 2 * w), dtype=torch.uint8,
+                          device=dev)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        kv.variant_kernel(pitched, **geo)
+    with pytest.raises(ValueError, match="contiguous"):
+        kv.stream_floor(pitched, rows=h * 3 // 2, W=w, DH=32, DW=32)
+    with pytest.raises(ValueError, match="multiple"):
+        kv.multiframe(x, **geo, gframes=3)
+    big = kv.make_frames(1, 1620, 1920, dev)
+    with pytest.raises(RuntimeError, match="prod_like"):  # 40 rows: 307 KB
+        kv.prod_like(big, src_w=1920, src_h=1080, dst_w=224, dst_h=224,
+                     rows_per_block=40)
+    assert [f.launches for f in kv.WRAPPERS] == after

@@ -1,0 +1,594 @@
+// Lab variants of the banded NV12 preprocess kernel, and a stream floor,
+// for Hopper (sm_90a): measuring instruments beside the product kernel of
+// banded_preprocess.cu, on no product path.
+//
+// Replaces the TPU lab-notebook kernels of bench_kernel_variants.py:
+//   - dma_floor           -> nv12_stream_floor_launch
+//   - prod_like           -> nv12_variant_launch, mode full / hpass / wpass;
+//                            the TPU's H-pass tile becomes the strip height
+//   - variant_kernel B, C -> nv12_variant_launch, staged (convert once)
+//   - variant_kernel D    -> nv12_variant_launch, split chroma
+//   - multiframe_kernel   -> nv12_variant_launch, frames per block G
+//
+// What bounds them on this card: what bounds the product kernel. One 64 x
+// 1080p -> 224 batch reads ~199 MB and does a few GFLOP of FMAs, far under
+// the H100's ~295 FLOP/byte ridge, so device-memory reads bound it. The
+// stream floor measures how fast this card streams those bytes when
+// nothing else is done: every byte of every frame read once with a 16-byte
+// load and XORed into a small sink, so no load is dead. Its rate is the
+// measured bound the variants (and the product kernels) are held to.
+//
+// The variants keep the block design of banded_preprocess.cu: one block per
+// (frame, strip of `rows` output rows), the H pass into shared memory as
+// bf16 rows (banded_preprocess.cuh), then the W pass, CSC and round/clip
+// to uint8 (wpass_store, the product kernel's phase 2 with the knobs
+// below). Knobs, one at a time:
+//   mode full   the product kernel.
+//        hpass  the H pass only: out[c] = clip(round(yh[:, :DW] + ch[:, :DW]))
+//               on all three channels, ch interleaved.
+//        wpass  the H pass skipped: yh = bf16(frame rows o), ch = bf16(the
+//               last dst_h rows of the buffer as given), then W pass + tail.
+//   staged      (B, C) the block converts its strip's source window (the
+//               union of its output rows' luma bands, and of their chroma
+//               bands) to bf16 once into shared memory and runs the H pass
+//               from there. A 1080p strip of 8 rows spans 63 luma + 32 chroma
+//               source rows x 1920 (365 KB in bf16), more than a block
+//               holds, so the window is staged in column tiles: `tile_w`
+//               columns at a time, the widest power of two up to 512 that
+//               keeps the block within kStagedBudget (256 at 1080p -> 224:
+//               48.6 KB of window beside the 61.4 KB of H-pass rows). B casts
+//               u8 -> i32 -> f32 -> bf16, C u8 -> i32 -> bf16: equal values.
+//   split       (D) the chroma H-pass rows are stored deinterleaved, U then
+//               V (half width each), and the W pass reads the two halves
+//               with the per-plane chroma column bands.
+//   frames G    one block runs the same strip of G consecutive frames and
+//               first stages the strip's row tables and every column table
+//               in shared memory, then reuses them for each frame.
+// Only these combinations are instantiated, all uint8 in, uint8 out and
+// bf16 compute; every full-function variant gives the product kernel's
+// bits (same FMAs in the same order).
+//
+// Each launcher returns cudaGetLastError() after the launch, runs on the
+// caller's stream, and neither synchronises nor allocates.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "banded_preprocess.cuh"
+
+namespace {
+
+using banded::aligned16;
+using banded::allow_smem;
+using banded::Geometry;
+using banded::hpass;
+using banded::kSmemLimit;
+using banded::Mid;
+using banded::Out;
+using banded::tab;
+using banded::Tables;
+using banded::Tail;
+
+using M = Mid<false>;
+using T = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kStagedBudget = 113 * 1024;  // two staged blocks per SM
+constexpr int kMaxTile = 512;              // staged window columns
+
+enum Mode : int { kFull = 0, kHpass = 1, kWpass = 2 };
+enum Chain : int { kNoStage = 0, kChainB = 1, kChainC = 2 };
+
+struct Frames {
+  const uint8_t* src;  // frame 0 of [batch, buf_rows, src_w]
+  long long bs, rs;    // batch and row strides in bytes
+  int buf_rows;        // rows of the buffer as given (>= src_h * 3 / 2)
+  int vec;             // 1: aligned start, strides and width: 16-byte loads
+};
+
+struct Knobs {
+  int span_y, span_c;  // staged: source rows of the widest strip window
+  int tile_w;          // staged: window columns per tile
+  int frames;          // frames per block
+  int wy_k, wc_k;      // column taps, for staging the column tables
+};
+
+template <int CHAIN>
+__device__ __forceinline__ T to_bf16(unsigned x) {
+  if constexpr (CHAIN == kChainC)
+    return __int2bfloat16_rn(static_cast<int>(x));
+  else
+    return __float2bfloat16_rn(static_cast<float>(static_cast<int>(x)));
+}
+
+// n rows of ncols uint8 samples at src (row stride rs) -> bf16
+// dst[i * dst_w + x].
+template <int CHAIN>
+__device__ __forceinline__ void load_rows(const uint8_t* src, long long rs,
+                                          int n, int ncols, T* dst,
+                                          int dst_w, bool vec) {
+  if (vec) {
+    const int groups = ncols / 16;
+    for (int item = threadIdx.x; item < n * groups; item += blockDim.x) {
+      const int i = item / groups;
+      const int g = item - i * groups;
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(
+          src + static_cast<long long>(i) * rs + g * 16));
+      const unsigned w[4] = {q.x, q.y, q.z, q.w};
+      T* d = dst + i * dst_w + g * 16;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          d[4 * j + k] = to_bf16<CHAIN>((w[j] >> (8 * k)) & 0xFFu);
+    }
+  } else {
+    for (int item = threadIdx.x; item < n * ncols; item += blockDim.x) {
+      const int i = item / ncols;
+      const int x = item - i * ncols;
+      dst[i * dst_w + x] =
+          to_bf16<CHAIN>(__ldg(src + static_cast<long long>(i) * rs + x));
+    }
+  }
+}
+
+// Source rows [lo, lo + n) that output rows o0 .. o0 + rows - 1 read, the
+// extent ops/banded.py strip_spans computes on the host.
+__device__ __forceinline__ void strip_window(const int* start,
+                                             const int* count, int o0,
+                                             int rows, int span, int& lo,
+                                             int& n) {
+  int a = 0x7fffffff, b = -1;
+  for (int r = 0; r < rows; ++r) {
+    const int s = __ldg(start + o0 + r);
+    a = min(a, s);
+    b = max(b, s + __ldg(count + o0 + r) - 1);
+  }
+  lo = a;
+  n = min(max(b - a + 1, 0), span);  // the host sized the window
+}
+
+// H pass of `rows` output rows over columns [c0, c0 + tw) from a staged
+// window whose row i holds source row lo + i: the FMAs of
+// banded::hpass in the same order.
+__device__ __forceinline__ void hpass_window(
+    const T* win, int win_w, int lo, int tw, int o0, int rows,
+    const int* start, const int* count, const float* w, int k_max, T* dst,
+    int dst_w, int c0) {
+  for (int item = threadIdx.x; item < rows * tw; item += blockDim.x) {
+    const int r = item / tw;
+    const int x = item - r * tw;
+    const int o = o0 + r;
+    const int n = __ldg(count + o);
+    const float* wr = w + static_cast<long long>(o) * k_max;
+    const T* s = win + (__ldg(start + o) - lo) * win_w + x;
+    float acc = 0.0f;
+    for (int k = 0; k < n; ++k)
+      acc = fmaf(__ldg(wr + k), M::get(s[k * win_w]), acc);
+    dst[r * dst_w + c0 + x] = M::put(acc);
+  }
+}
+
+// W pass, CSC and round/clip of `rows` H-pass rows, the product kernel's
+// phase 2 with two knobs: luma row r at yh[r * W], chroma row r at
+// ch[r * W] — interleaved (U at 2j, V at 2j + 1), or with kSplit the U
+// samples then the V samples; tables read from shared memory with
+// kSharedTables. Output row r is o0 + r of the [3, dst_h, DW] planes at
+// `ob`.
+template <bool kSharedTables, bool kSplit>
+__device__ __forceinline__ void wpass_store(const T* yh, const T* ch, int W,
+                                            int rows, int o0, int dst_h,
+                                            int DW, const Tables& t,
+                                            const Tail& tl, uint8_t* ob) {
+  constexpr bool kS = kSharedTables;
+  const long long plane_sz = static_cast<long long>(dst_h) * DW;
+  for (int item = threadIdx.x; item < rows * DW; item += blockDim.x) {
+    const int r = item / DW;
+    const int p = item - r * DW;
+    const T* yrow = yh + r * W;
+    const T* crow = ch + r * W;
+
+    float ya = 0.0f;
+    const int ys = tab<kS>(t.wy_start + p), yn = tab<kS>(t.wy_count + p);
+    for (int k = 0; k < yn; ++k)
+      ya = fmaf(tab<kS>(t.wy_w + k * DW + p), M::get(yrow[ys + k]), ya);
+
+    float ua = 0.0f, va = 0.0f;
+    const int cs = tab<kS>(t.wc_start + p), cn = tab<kS>(t.wc_count + p);
+    for (int k = 0; k < cn; ++k) {
+      const float wk = tab<kS>(t.wc_w + k * DW + p);
+      if constexpr (kSplit) {
+        ua = fmaf(wk, M::get(crow[cs + k]), ua);
+        va = fmaf(wk, M::get(crow[W / 2 + cs + k]), va);
+      } else {
+        const int j = 2 * (cs + k);
+        ua = fmaf(wk, M::get(crow[j]), ua);
+        va = fmaf(wk, M::get(crow[j + 1]), va);
+      }
+    }
+    const float yv = __fsub_rn(ya, tl.y_off);
+    const float u = __fsub_rn(ua, tl.c_off);
+    const float v = __fsub_rn(va, tl.c_off);
+    const long long pix = static_cast<long long>(o0 + r) * DW + p;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // no FMA contraction: same rounding as three separate products
+      const float x = __fadd_rn(
+          __fadd_rn(__fmul_rn(tl.m[3 * c], yv), __fmul_rn(tl.m[3 * c + 1], u)),
+          __fmul_rn(tl.m[3 * c + 2], v));
+      Out<uint8_t>::store(ob + c * plane_sz + pix, x, c, tl);
+    }
+  }
+}
+
+template <int MODE, int CHAIN, bool SPLIT, bool MF>
+__global__ void __launch_bounds__(kThreads)
+nv12_variant_kernel(Frames f, Tables t, Tail tl, Geometry g, Knobs kn,
+                    uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = g.src_w;  // luma row and interleaved chroma row
+  const int DW = g.dst_w;
+  T* yh = reinterpret_cast<T*>(smem);  // [rows][W] luma
+  T* ch = yh + g.rows * W;             // [rows][W] U/V interleaved, or U | V
+  T* rest = ch + g.rows * W;           // window tiles, or staged tables
+  const int o0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, g.dst_h - o0);
+  const bool vec = f.vec != 0;
+
+  // the tables this block reads; row-table index of the strip's first row
+  Tables tb = t;
+  int ho = o0;
+  if constexpr (MF) {
+    int* hys = reinterpret_cast<int*>(rest);
+    int* hyc = hys + g.rows;
+    int* hcs = hyc + g.rows;
+    int* hcc = hcs + g.rows;
+    int* wys = hcc + g.rows;
+    int* wyc = wys + DW;
+    int* wcs = wyc + DW;
+    int* wcc = wcs + DW;
+    float* hyw = reinterpret_cast<float*>(wcc + DW);
+    float* hcw = hyw + g.rows * t.hy_k;
+    float* wyw = hcw + g.rows * t.hc_k;
+    float* wcw = wyw + kn.wy_k * DW;
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      hys[i] = __ldg(t.hy_start + o0 + i);
+      hyc[i] = __ldg(t.hy_count + o0 + i);
+      hcs[i] = __ldg(t.hc_start + o0 + i);
+      hcc[i] = __ldg(t.hc_count + o0 + i);
+    }
+    for (int i = threadIdx.x; i < rows * t.hy_k; i += blockDim.x)
+      hyw[i] = __ldg(t.hy_w + static_cast<long long>(o0) * t.hy_k + i);
+    for (int i = threadIdx.x; i < rows * t.hc_k; i += blockDim.x)
+      hcw[i] = __ldg(t.hc_w + static_cast<long long>(o0) * t.hc_k + i);
+    for (int i = threadIdx.x; i < DW; i += blockDim.x) {
+      wys[i] = __ldg(t.wy_start + i);
+      wyc[i] = __ldg(t.wy_count + i);
+      wcs[i] = __ldg(t.wc_start + i);
+      wcc[i] = __ldg(t.wc_count + i);
+    }
+    for (int i = threadIdx.x; i < kn.wy_k * DW; i += blockDim.x)
+      wyw[i] = __ldg(t.wy_w + i);
+    for (int i = threadIdx.x; i < kn.wc_k * DW; i += blockDim.x)
+      wcw[i] = __ldg(t.wc_w + i);
+    __syncthreads();
+    tb.hy_start = hys;
+    tb.hy_count = hyc;
+    tb.hy_w = hyw;
+    tb.hc_start = hcs;
+    tb.hc_count = hcc;
+    tb.hc_w = hcw;
+    tb.wy_start = wys;
+    tb.wy_count = wyc;
+    tb.wy_w = wyw;
+    tb.wc_start = wcs;
+    tb.wc_count = wcc;
+    tb.wc_w = wcw;
+    ho = 0;
+  }
+
+  const int G = MF ? kn.frames : 1;
+  for (int gi = 0; gi < G; ++gi) {
+    const int b = blockIdx.y * G + gi;
+    const uint8_t* frame = f.src + b * f.bs;
+    const uint8_t* uv = frame + static_cast<long long>(g.src_h) * f.rs;
+
+    // ---- phase 1: the H-pass rows in shared memory ---------------------
+    if constexpr (MODE == kWpass) {
+      load_rows<kChainB>(frame + static_cast<long long>(o0) * f.rs, f.rs,
+                         rows, W, yh, W, vec);
+      load_rows<kChainB>(
+          frame + static_cast<long long>(f.buf_rows - g.dst_h + o0) * f.rs,
+          f.rs, rows, W, ch, W, vec);
+    } else if constexpr (CHAIN != kNoStage) {
+      int ylo, yn, clo, cn;
+      strip_window(t.hy_start, t.hy_count, o0, rows, kn.span_y, ylo, yn);
+      strip_window(t.hc_start, t.hc_count, o0, rows, kn.span_c, clo, cn);
+      T* cwin = rest + kn.span_y * kn.tile_w;
+      for (int c0 = 0; c0 < W; c0 += kn.tile_w) {
+        const int tw = min(kn.tile_w, W - c0);
+        load_rows<CHAIN>(frame + static_cast<long long>(ylo) * f.rs + c0,
+                         f.rs, yn, tw, rest, kn.tile_w, vec);
+        load_rows<CHAIN>(uv + static_cast<long long>(clo) * f.rs + c0, f.rs,
+                         cn, tw, cwin, kn.tile_w, vec);
+        __syncthreads();
+        hpass_window(rest, kn.tile_w, ylo, tw, o0, rows, t.hy_start,
+                     t.hy_count, t.hy_w, t.hy_k, yh, W, c0);
+        hpass_window(cwin, kn.tile_w, clo, tw, o0, rows, t.hc_start,
+                     t.hc_count, t.hc_w, t.hc_k, ch, W, c0);
+        __syncthreads();  // the next tile overwrites the window
+      }
+    } else {
+      hpass<uint8_t, false, MF>(frame, f.rs, W, ho, rows, tb.hy_start,
+                                tb.hy_count, tb.hy_w, t.hy_k, yh, W, 1, 0,
+                                vec);
+      hpass<uint8_t, false, MF, SPLIT>(uv, f.rs, W, ho, rows, tb.hc_start,
+                                       tb.hc_count, tb.hc_w, t.hc_k, ch, W,
+                                       1, 0, vec);
+    }
+    __syncthreads();
+
+    // ---- phase 2 ---------------------------------------------------------
+    uint8_t* ob = out + static_cast<long long>(b) * 3 * g.dst_h * DW;
+    if constexpr (MODE == kHpass) {
+      const long long plane_sz = static_cast<long long>(g.dst_h) * DW;
+      for (int item = threadIdx.x; item < rows * DW; item += blockDim.x) {
+        const int r = item / DW;
+        const int p = item - r * DW;
+        float q = rintf(
+            __fadd_rn(M::get(yh[r * W + p]), M::get(ch[r * W + p])));
+        q = fminf(fmaxf(q, 0.0f), 255.0f);
+        const long long pix = static_cast<long long>(o0 + r) * DW + p;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          ob[c * plane_sz + pix] = static_cast<uint8_t>(q);
+      }
+    } else {
+      wpass_store<MF, SPLIT>(yh, ch, W, rows, o0, g.dst_h, DW, tb, tl, ob);
+    }
+    if (G > 1) __syncthreads();  // the next frame overwrites the rows
+  }
+}
+
+// Shared memory of a variant block.
+long long variant_smem(int rows, int src_w, int dst_w, bool staged, bool mf,
+                       const Knobs& kn, int hy_k, int hc_k) {
+  long long bytes = 2LL * rows * src_w * sizeof(T);
+  if (staged)
+    bytes += static_cast<long long>(kn.span_y + kn.span_c) * kn.tile_w *
+             sizeof(T);
+  if (mf)
+    bytes += 4LL * (4 * rows + 4 * dst_w) +
+             4LL * (static_cast<long long>(rows) * (hy_k + hc_k) +
+                    static_cast<long long>(dst_w) * (kn.wy_k + kn.wc_k));
+  return bytes;
+}
+
+template <int MODE, int CHAIN, bool SPLIT, bool MF>
+cudaError_t launch_variant(const Frames& f, const Tables& t, const Tail& tl,
+                           const Geometry& g, const Knobs& kn, size_t smem,
+                           void* out, cudaStream_t stream) {
+  auto kern = nv12_variant_kernel<MODE, CHAIN, SPLIT, MF>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((g.dst_h + g.rows - 1) / g.rows, g.batch / kn.frames);
+  kern<<<grid, kThreads, smem, stream>>>(f, t, tl, g, kn,
+                                         static_cast<uint8_t*>(out));
+  return cudaGetLastError();
+}
+
+bool vec_frames(const void* src, long long bs, long long rs, int src_w) {
+  return aligned16(src) && src_w % 16 == 0 && bs % 16 == 0 && rs % 16 == 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+nv12_stream_floor_kernel(Frames f, int W, int DH, int DW, unsigned* sink,
+                         int sink_words, uint8_t* __restrict__ out) {
+  const int rows = f.buf_rows;
+  const uint8_t* fr = f.src + blockIdx.y * f.bs;
+  const int nthreads = gridDim.x * blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned acc = 0;
+  if (f.vec) {
+    // (row, 16-byte group) of this thread's loads, stepped by nthreads
+    // groups at a time without a division per load
+    const int vpr = W / 16;
+    const int dr = nthreads / vpr, dc = nthreads - dr * vpr;
+    int r = tid / vpr, c = tid - (tid / vpr) * vpr;
+    while (r < rows) {
+      int rr[4], cc[4];
+      rr[0] = r;
+      cc[0] = c;
+#pragma unroll
+      for (int j = 1; j < 4; ++j) {
+        rr[j] = rr[j - 1] + dr;
+        cc[j] = cc[j - 1] + dc;
+        if (cc[j] >= vpr) {
+          cc[j] -= vpr;
+          ++rr[j];
+        }
+      }
+      uint4 q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = rr[j] < rows
+                   ? __ldg(reinterpret_cast<const uint4*>(
+                         fr + static_cast<long long>(rr[j]) * f.rs +
+                         cc[j] * 16))
+                   : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc ^= q[j].x ^ q[j].y ^ q[j].z ^ q[j].w;
+      r = rr[3] + dr;
+      c = cc[3] + dc;
+      if (c >= vpr) {
+        c -= vpr;
+        ++r;
+      }
+    }
+  } else {
+    const long long n = static_cast<long long>(rows) * W;
+    for (long long e = tid; e < n; e += nthreads) {
+      const long long r = e / W;
+      const int c = static_cast<int>(e - r * W);
+      acc ^= static_cast<unsigned>(__ldg(fr + r * f.rs + c)) << (8 * (c & 3));
+    }
+  }
+
+  // the output: two DH x DW corners of the frame, summed mod 256
+  const int npix = DH * DW;
+  uint8_t* ob = out + static_cast<long long>(blockIdx.y) * 3 * npix;
+  for (int e = tid; e < npix; e += nthreads) {
+    const int o = e / DW;
+    const int p = e - o * DW;
+    const unsigned v =
+        (__ldg(fr + static_cast<long long>(o) * f.rs + p) +
+         __ldg(fr + static_cast<long long>(rows - DH + o) * f.rs + p)) &
+        0xFFu;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ob[c * npix + e] = static_cast<uint8_t>(v);
+  }
+
+  // one word of the sink per block
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc ^= __shfl_xor_sync(0xffffffffu, acc, off);
+  __shared__ unsigned warp_acc[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_acc[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned x = 0;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) x ^= warp_acc[i];
+    atomicXor(sink + (blockIdx.y * gridDim.x + blockIdx.x) % sink_words, x);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// One NV12 variant over `src`, frame 0 of a [batch, buf_rows, src_w] uint8
+// buffer with the given batch and row strides (bytes); the interleaved UV
+// rows start at row src_h. Tables as nv12_preprocess_launch takes them
+// (bf16-rounded), `tail` the 18 floats of tail_params. Knobs, at most one
+// set: mode 0 full / 1 hpass / 2 wpass; staged 0 none / 1 cast chain B /
+// 2 cast chain C, with span_y and span_c the source rows of the widest
+// strip window (ops/banded.py strip_spans); split_chroma 1 for D;
+// frames_per_block G >= 1 for the multiframe block (0: one frame per
+// block, tables read from device memory). rows_per_block is the strip
+// height. out is a contiguous [batch, 3, dst_h, dst_w] uint8 tensor.
+int nv12_variant_launch(const void* src, long long batch_stride,
+                        long long row_stride, int buf_rows, int batch,
+                        int src_h, int src_w, int dst_h, int dst_w,
+                        const int* index, const float* weights, int hy_k,
+                        int hc_k, int wy_k, int wc_k, const float* tail,
+                        int mode, int staged, int split_chroma,
+                        int frames_per_block, int rows_per_block, int span_y,
+                        int span_c, void* out, void* stream) {
+  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
+  const int G = frames_per_block > 0 ? frames_per_block : 1;
+  const int knobs = (mode != kFull) + (staged != kNoStage) +
+                    (split_chroma != 0) + (frames_per_block > 0);
+  if (src_w <= 0 || (src_w & 1) || buf_rows < src_h * 3 / 2 ||
+      rows_per_block < 1 || frames_per_block < 0 || batch % G != 0 ||
+      mode < kFull || mode > kWpass || staged < kNoStage ||
+      staged > kChainC || knobs > 1 || (mode == kHpass && dst_w > src_w) ||
+      (mode == kWpass && dst_h > buf_rows) ||
+      (staged != kNoStage && (span_y < 1 || span_c < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  Frames f;
+  f.src = static_cast<const uint8_t*>(src);
+  f.bs = batch_stride;
+  f.rs = row_stride;
+  f.buf_rows = buf_rows;
+  f.vec = vec_frames(src, batch_stride, row_stride, src_w) ? 1 : 0;
+  const Tables t = banded::unpack_tables(index, weights, dst_h, dst_w, hy_k,
+                                         hc_k, wy_k);
+  const Tail tl = banded::unpack_tail(tail);
+  Geometry g;
+  g.batch = batch;
+  g.src_h = src_h;
+  g.src_w = src_w;
+  g.dst_h = dst_h;
+  g.dst_w = dst_w;
+  g.rows = rows_per_block < dst_h ? rows_per_block : dst_h;
+  Knobs kn;
+  kn.span_y = span_y;
+  kn.span_c = span_c;
+  kn.frames = G;
+  kn.wy_k = wy_k;
+  kn.wc_k = wc_k;
+  const bool is_staged = staged != kNoStage, mf = frames_per_block > 0;
+  kn.tile_w = 16;
+  while (is_staged && kn.tile_w < kMaxTile && kn.tile_w < src_w) {
+    Knobs wider = kn;
+    wider.tile_w = 2 * kn.tile_w;
+    if (variant_smem(g.rows, src_w, dst_w, true, false, wider, hy_k, hc_k) >
+        kStagedBudget)
+      break;
+    kn = wider;
+  }
+  const long long smem =
+      variant_smem(g.rows, src_w, dst_w, is_staged, mf, kn, hy_k, hc_k);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t sb = static_cast<size_t>(smem);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (mf)
+    e = launch_variant<kFull, kNoStage, false, true>(f, t, tl, g, kn, sb, out,
+                                                     s);
+  else if (staged == kChainB)
+    e = launch_variant<kFull, kChainB, false, false>(f, t, tl, g, kn, sb, out,
+                                                     s);
+  else if (staged == kChainC)
+    e = launch_variant<kFull, kChainC, false, false>(f, t, tl, g, kn, sb, out,
+                                                     s);
+  else if (split_chroma)
+    e = launch_variant<kFull, kNoStage, true, false>(f, t, tl, g, kn, sb, out,
+                                                     s);
+  else if (mode == kHpass)
+    e = launch_variant<kHpass, kNoStage, false, false>(f, t, tl, g, kn, sb,
+                                                       out, s);
+  else if (mode == kWpass)
+    e = launch_variant<kWpass, kNoStage, false, false>(f, t, tl, g, kn, sb,
+                                                       out, s);
+  else
+    e = launch_variant<kFull, kNoStage, false, false>(f, t, tl, g, kn, sb,
+                                                      out, s);
+  return static_cast<int>(e);
+}
+
+// The stream floor over `src`, frame 0 of a [batch, rows, src_w] uint8
+// buffer with the given batch and row strides (bytes): every byte read and
+// XORed into sink[block % sink_words] (int32 words, not cleared here), and
+// out[b, c] = (frame[:dst_h, :dst_w] + frame[rows - dst_h:, :dst_w]) & 255
+// for c = 0, 1, 2 into a contiguous [batch, 3, dst_h, dst_w] uint8 tensor.
+int nv12_stream_floor_launch(const void* src, long long batch_stride,
+                             long long row_stride, int batch, int rows,
+                             int src_w, int dst_h, int dst_w, void* sink,
+                             int sink_words, void* out, void* stream) {
+  if (batch <= 0 || rows <= 0 || src_w <= 0) return 0;
+  if (dst_h < 0 || dst_w < 0 || dst_h > rows || dst_w > src_w ||
+      sink_words < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Frames f;
+  f.src = static_cast<const uint8_t*>(src);
+  f.bs = batch_stride;
+  f.rs = row_stride;
+  f.buf_rows = rows;
+  f.vec = vec_frames(src, batch_stride, row_stride, src_w) ? 1 : 0;
+  // about eight 16-byte loads per thread
+  const long long vectors = static_cast<long long>(rows) * src_w / 16 + 1;
+  long long blocks = (vectors + 8LL * kThreads - 1) / (8LL * kThreads);
+  blocks = blocks < 1 ? 1 : (blocks > 65535 ? 65535 : blocks);
+  const dim3 grid(static_cast<unsigned>(blocks), batch);
+  nv12_stream_floor_kernel<<<grid, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      f, src_w, dst_h, dst_w, static_cast<unsigned*>(sink), sink_words,
+      static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

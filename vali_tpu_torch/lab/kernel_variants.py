@@ -1,0 +1,438 @@
+"""NV12 kernel-variant lab: the product preprocess kernel's design
+experiments, run on the card.
+
+Counterpart of the TPU notebook ``bench_kernel_variants.py`` (its ``main``,
+``main_floor``, ``main_modes`` and ``main_multiframe``). Four wrappers over
+the kernels of ``csrc/nv12_variants.cu``, each beside its plain PyTorch
+version, with the same dispatch as the product wrappers: a CUDA tensor
+launches the kernel, a CPU tensor runs the plain version, any other device
+raises.
+
+- :func:`stream_floor` (``dma_floor``): streams every byte of each
+  [rows, W] frame and writes ``(f[:DH, :DW] + f[rows-DH:, :DW]) & 255`` on
+  all three channels; its rate is the measured bound of the NV12 kernels.
+- :func:`prod_like` (``prod_like``): the product kernel with a phase
+  knocked out — ``mode`` full, hpass (H pass only) or wpass (H pass
+  skipped) — at a chosen strip height (the TPU's H-pass ``tile``).
+- :func:`variant_kernel` (``variant_kernel``): B and C convert each strip's
+  source window to bf16 once and run the H pass from that copy (two cast
+  chains, equal values); D keeps the chroma H-pass rows deinterleaved.
+- :func:`multiframe` (``multiframe_kernel``): G frames per block, the
+  strip's band tables staged in shared memory once.
+
+Every full-function variant (B, C, D, full, M*) computes the product
+kernel's function, so its plain version is ``nv12_preprocess_plain`` and on
+the card it must equal ``nv12_preprocess`` bit for bit. ``wpass`` and the
+floor read the last DH rows of the buffer as given, as the TPU functions
+do, so their results depend on the buffer's row count.
+
+Run the lab (64 x 1080p -> 224 on ``cuda:0``; ``--device cpu`` runs the
+plain versions at 8 x 256x144 -> 96x64 and times nothing)::
+
+    python -m vali_tpu_torch.lab.kernel_variants [NAME ...] [--device cpu]
+
+Names: ``A`` (the product kernel), ``B``, ``C``, ``D``, ``floor``,
+``full``, ``hpass``, ``wpass`` (a number after a mode sets the strip
+height: ``full16``), ``M2``, ``M4``, ``M8``. Each prints one line: ms per
+batch, spread, maxdiff against its reference, frames/s, and the bound.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.enums import ColorRange, ColorSpace
+from ..ops.banded import (dense_weights, device_tables, strip_spans,
+                          tail_params, w_pass_tail_plain)
+from ..ops.fused import exact_f32_matmul, to_f32
+from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
+from ..ops.resize import LANCZOS_AA, round_to
+from .timing import bound_ms, preprocess_work, time_cuda
+
+#: output rows per block of the product kernel (kMaxRows of
+#: csrc/banded_preprocess.cu)
+STRIP_ROWS = 8
+MODES = {"full": 0, "hpass": 1, "wpass": 2}
+VARIANTS = ("B", "C", "D")
+_CHAINS = {"B": 1, "C": 2}
+#: int32 words of the stream floor's sink
+SINK_WORDS = 64
+
+DEFAULT_NAMES = ("A", "B", "C", "D", "floor", "full", "hpass", "wpass",
+                 "full4", "full16", "full24", "M2", "M4", "M8")
+CARD_SIZE = (64, 1920, 1080, 224, 224)   # batch, W, H, DW, DH
+CPU_SIZE = (8, 256, 144, 96, 64)
+
+
+def _on_cpu(what: str, x: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    return False
+
+
+def _checked(nv12, src_w, src_h, space, crange) -> np.ndarray:
+    """Validate an NV12 uint8 buffer [B, >= H*3/2, W]; the packed tail."""
+    if (nv12.dim() != 3 or nv12.shape[1] < src_h * 3 // 2
+            or nv12.shape[2] != src_w):
+        raise ValueError(f"NV12 buffer shape {tuple(nv12.shape)} does not "
+                         f"match {src_w}x{src_h}")
+    if nv12.dtype != torch.uint8:
+        raise ValueError(f"the NV12 lab takes uint8 samples, got "
+                         f"{nv12.dtype}")
+    return tail_params(space, crange, 1.0, torch.uint8, None)
+
+
+def _launch(what: str, nv12: torch.Tensor, tail: np.ndarray, *, src_w: int,
+            src_h: int, dst_w: int, dst_h: int, mode: int = 0,
+            staged: int = 0, split: int = 0, frames: int = 0,
+            rows_per_block: int = STRIP_ROWS) -> torch.Tensor:
+    """One ``nv12_variant_launch`` on a checked CUDA buffer."""
+    from ..ops._cuda_build import check, load_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    lib = load_kernels()
+    tabs = device_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420",
+                         torch.bfloat16, nv12.device)
+    spans = (strip_spans(src_w, src_h, dst_w, dst_h, LANCZOS_AA,
+                         min(rows_per_block, dst_h)) if staged else (0, 0))
+    B = nv12.shape[0]
+    out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
+                      device=nv12.device)
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_variant_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
+            B, src_h, src_w, dst_h, dst_w, tabs.index.data_ptr(),
+            tabs.weights.data_ptr(), *tabs.taps,
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), mode,
+            staged, split, frames, rows_per_block, *spans, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, what)
+    return out
+
+
+def _floor_checked(nv12, rows, W, DH, DW) -> None:
+    if nv12.dim() != 3 or nv12.shape[1] != rows or nv12.shape[2] != W:
+        raise ValueError(f"buffer shape {tuple(nv12.shape)} is not "
+                         f"[B, {rows}, {W}]")
+    if nv12.dtype != torch.uint8:
+        raise ValueError(f"the stream floor takes uint8, got {nv12.dtype}")
+    if not (0 <= DH <= rows and 0 <= DW <= W):
+        raise ValueError(f"output {DW}x{DH} does not fit a {W}x{rows} "
+                         f"frame")
+
+
+def stream_floor_plain(nv12: torch.Tensor, *, rows: int, W: int, DH: int,
+                       DW: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stream_floor` (any device)."""
+    _floor_checked(nv12, rows, W, DH, DW)
+    s = (nv12[:, :DH, :DW].to(torch.int32)
+         + nv12[:, rows - DH:, :DW].to(torch.int32))
+    return (s & 255).to(torch.uint8).unsqueeze(1).expand(
+        -1, 3, -1, -1).contiguous()
+
+
+def stream_floor(nv12: torch.Tensor, *, rows: int, W: int, DH: int,
+                 DW: int, sink: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Stream every byte of each [rows, W] frame of ``nv12`` [B, rows, W]
+    uint8; returns [B, 3, DH, DW] = (f[:DH, :DW] + f[rows-DH:, :DW]) & 255.
+
+    On the card each block XORs the words it read into one of the int32
+    words of ``sink`` (a fresh zeroed one of SINK_WORDS when None), so the
+    XOR of the sink after a call on a zeroed sink is the XOR of every
+    32-bit word of the frames (16-byte aligned rows)."""
+    _floor_checked(nv12, rows, W, DH, DW)
+    if _on_cpu("stream_floor", nv12):
+        return stream_floor_plain(nv12, rows=rows, W=W, DH=DH, DW=DW)
+    from ..ops._cuda_build import check, load_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("rows must be contiguous (stride 1)")
+    if sink is None:
+        sink = torch.zeros(SINK_WORDS, dtype=torch.int32, device=nv12.device)
+    if (sink.dtype != torch.int32 or sink.device != nv12.device
+            or not sink.is_contiguous() or sink.numel() < 1):
+        raise ValueError("sink must be a contiguous int32 tensor on the "
+                         "frames' device")
+    lib = load_kernels()
+    B = nv12.shape[0]
+    out = torch.empty((B, 3, DH, DW), dtype=torch.uint8, device=nv12.device)
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_stream_floor_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), B, rows, W, DH,
+            DW, sink.data_ptr(), sink.numel(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "stream_floor")
+    stream_floor.launches += 1
+    return out
+
+
+def prod_like_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                    dst_w: int, dst_h: int, mode: str = "full",
+                    space: ColorSpace = ColorSpace.BT_709,
+                    crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """Plain PyTorch version of :func:`prod_like` (any device), with the
+    kernel's cast points: bf16 weights, fp32 products with TF32 off, the
+    H-pass rows rounded to bf16."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if mode == "full":
+        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
+    bf = torch.bfloat16
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420")
+    dev = nv12.device
+    if mode == "hpass":
+        wyh, wch = (round_to(m, bf).to(dev) for m in (dw.luma_h,
+                                                      dw.chroma_h))
+        uv = nv12[:, src_h:src_h * 3 // 2]   # interleaved U/V rows
+        with exact_f32_matmul():
+            yh = round_to(torch.matmul(wyh, to_f32(nv12[:, :src_h])), bf)
+            ch = round_to(torch.matmul(wch, to_f32(uv)), bf)
+        x = torch.clamp(torch.round(yh[..., :dst_w] + ch[..., :dst_w]),
+                        0.0, 255.0).to(torch.uint8)
+        return x.unsqueeze(1).expand(-1, 3, -1, -1).contiguous()
+    rows = nv12.shape[1]
+    yh = to_f32(nv12[:, :dst_h])
+    ch = to_f32(nv12[:, rows - dst_h:])
+    wyw, wcw = (round_to(m, bf).to(dev) for m in (dw.luma_w, dw.chroma_w))
+    return w_pass_tail_plain(yh, ch[..., 0::2], ch[..., 1::2], wyw, wcw,
+                             tail, torch.uint8)
+
+
+def prod_like(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
+              dst_h: int, mode: str = "full",
+              rows_per_block: int = STRIP_ROWS,
+              space: ColorSpace = ColorSpace.BT_709,
+              crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """The product NV12 kernel with a phase knocked out: ``mode`` full
+    (the product kernel), hpass (H pass only; out = clip(round(yh[:DH, :DW]
+    + ch[:DH, :DW])) on every channel, ch interleaved) or wpass (no H pass;
+    yh = frame rows 0..DH-1, ch = the buffer's last DH rows), on strips of
+    ``rows_per_block`` output rows. [B, 3, dst_h, dst_w] uint8."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    if rows_per_block < 1:
+        raise ValueError(f"rows_per_block must be >= 1, got "
+                         f"{rows_per_block}")
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    if mode == "hpass" and dst_w > src_w:
+        raise ValueError("hpass keeps the first dst_w H-pass columns: "
+                         "dst_w must not exceed src_w")
+    if mode == "wpass" and dst_h > nv12.shape[1]:
+        raise ValueError("wpass reads the buffer's last dst_h rows: dst_h "
+                         "must not exceed its rows")
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("prod_like", nv12):
+        return prod_like_plain(nv12, **geo, mode=mode, space=space,
+                               crange=crange)
+    out = _launch("prod_like", nv12, tail, **geo, mode=MODES[mode],
+                  rows_per_block=rows_per_block)
+    prod_like.launches += 1
+    return out
+
+
+def variant_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                   dst_w: int, dst_h: int,
+                   space: ColorSpace = ColorSpace.BT_709,
+                   crange: ColorRange = ColorRange.MPEG,
+                   variant: str = "B") -> torch.Tensor:
+    """The product function through a layout probe: B and C convert each
+    strip's source window to bf16 once (cast chains u8->i32->f32->bf16 and
+    u8->i32->bf16), D keeps chroma deinterleaved in shared memory.
+    [B, 3, dst_h, dst_w] uint8, equal to :func:`nv12_preprocess`."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("variant_kernel", nv12):
+        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
+    out = _launch("variant_kernel", nv12, tail, **geo,
+                  staged=_CHAINS.get(variant, 0), split=int(variant == "D"))
+    variant_kernel.launches += 1
+    return out
+
+
+def multiframe(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
+               dst_h: int, gframes: int = 4,
+               space: ColorSpace = ColorSpace.BT_709,
+               crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """The product function with ``gframes`` consecutive frames per block
+    (B % gframes == 0), the strip's band tables staged once per block.
+    [B, 3, dst_h, dst_w] uint8, equal to :func:`nv12_preprocess`."""
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    if gframes < 1 or nv12.shape[0] % gframes:
+        raise ValueError(f"batch {nv12.shape[0]} is not a multiple of "
+                         f"gframes={gframes}")
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("multiframe", nv12):
+        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
+    out = _launch("multiframe", nv12, tail, **geo, frames=gframes)
+    multiframe.launches += 1
+    return out
+
+
+#: kernel launches made by each wrapper (CPU calls are not counted)
+stream_floor.launches = 0
+prod_like.launches = 0
+variant_kernel.launches = 0
+multiframe.launches = 0
+WRAPPERS = (stream_floor, prod_like, variant_kernel, multiframe)
+
+
+# --- the lab ----------------------------------------------------------------
+
+class Case(NamedTuple):
+    """One lab name: the wrapper it launches, the call, the plain version
+    of its function, and whether that function is the product kernel's."""
+    wrapper: Callable
+    call: Callable[[torch.Tensor], torch.Tensor]
+    plain: Callable[[torch.Tensor], torch.Tensor]
+    full_function: bool
+    frames: int      # frames the call needs at least (multiframe G)
+    work: tuple      # (bytes, operations) of one batch of B frames
+
+
+def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
+         dst_w: int, dst_h: int) -> Case:
+    """The :class:`Case` of a lab name on [batch, rows, src_w] frames."""
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    full = preprocess_work(batch, src_w, src_h, dst_w, dst_h)
+    product = (lambda x: nv12_preprocess_plain(x, **geo))
+    if name == "A":
+        return Case(nv12_preprocess, lambda x: nv12_preprocess(x, **geo),
+                    product, True, 1, full)
+    if name in VARIANTS:
+        return Case(variant_kernel,
+                    lambda x: variant_kernel(x, **geo, variant=name),
+                    product, True, 1, full)
+    if name == "floor":
+        fl = dict(rows=rows, W=src_w, DH=dst_h, DW=dst_w)
+        out = batch * 3 * dst_h * dst_w
+        return Case(stream_floor, lambda x: stream_floor(x, **fl),
+                    lambda x: stream_floor_plain(x, **fl), False, 1,
+                    (batch * rows * src_w + out, batch * rows * src_w // 4
+                     + 2 * out))
+    m = re.fullmatch(r"M(\d+)", name)
+    if m:
+        g = int(m.group(1))
+        return Case(multiframe, lambda x: multiframe(x, **geo, gframes=g),
+                    product, True, g, full)
+    m = re.fullmatch(r"(full|hpass|wpass)(\d*)", name)
+    if m:
+        mode, strip = m.group(1), int(m.group(2) or STRIP_ROWS)
+        work = {"full": full,
+                "hpass": preprocess_work(batch, src_w, src_h, dst_w, dst_h,
+                                         w_pass=False),
+                "wpass": preprocess_work(batch, src_w, src_h, dst_w, dst_h,
+                                         h_pass=False)}[mode]
+        return Case(
+            prod_like,
+            lambda x: prod_like(x, **geo, mode=mode, rows_per_block=strip),
+            lambda x: prod_like_plain(x, **geo, mode=mode), mode == "full",
+            1, work)
+    raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES} "
+                     f"or a mode with a strip height (full16)")
+
+
+def make_frames(batch: int, rows: int, width: int, device,
+                seed: int = 0) -> torch.Tensor:
+    """[batch, rows, width] uint8 frames of uniform random samples from
+    ``numpy.random.default_rng(seed)``, as the TPU notebook makes them."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (batch, rows, width), dtype=np.uint8)
+    return torch.from_numpy(x).to(device)
+
+
+def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,
+        src_h: int, dst_w: int, dst_h: int,
+        log: Callable[[str], None] = print) -> List[Dict[str, object]]:
+    """Run each lab name on ``frames`` [B, rows, src_w]: its maxdiff on the
+    first max(2, G) frames against its reference (the product kernel for
+    the full-function variants, else the plain version), and on the card
+    its time per batch. Logs one line per name; returns one dict per
+    name."""
+    batch, rows = frames.shape[0], frames.shape[1]
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    on_card = frames.device.type == "cuda"
+    results = []
+    for name in names:
+        c = case(name, batch, rows, **geo)
+        head = frames[:max(2, c.frames)]
+        ref = (nv12_preprocess(head, **geo) if c.full_function
+               else c.plain(head))
+        maxdiff = int((c.call(head).int() - ref.int()).abs().max().item())
+        bound, bound_by = bound_ms(*c.work)
+        row = dict(name=name, maxdiff=maxdiff, bound_ms=bound,
+                   bound_by=bound_by, ms=None, spread=None)
+        if on_card:
+            ms, spread = time_cuda(c.call, frames)
+            row.update(ms=ms, spread=spread,
+                       fps=batch / (ms * 1e-3),
+                       gbps=c.work[0] / (ms * 1e-3) / 1e9)
+            log(f"{name}: {ms:.4f} ms/batch  spread={spread:.1%}  "
+                f"maxdiff={maxdiff}  fps={row['fps']:,.0f}  "
+                f"GB/s={row['gbps']:.1f}  bound={bound:.4f} ms "
+                f"({bound_by})")
+        else:
+            log(f"{name}: maxdiff={maxdiff} (plain version on the CPU; "
+                f"not timed)")
+        results.append(row)
+    times = {r["name"]: r["ms"] for r in results}
+    if on_card and all(times.get(k) for k in ("full", "hpass", "wpass")):
+        log(f"H/W split: hpass {times['hpass']:.4f} ms = "
+            f"{times['hpass'] / times['full']:.1%} of full "
+            f"{times['full']:.4f} ms, wpass {times['wpass']:.4f} ms = "
+            f"{times['wpass'] / times['full']:.1%}")
+    return results
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m vali_tpu_torch.lab.kernel_variants",
+        description=__doc__.split("\n\n")[0])
+    ap.add_argument("names", nargs="*", default=list(DEFAULT_NAMES))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            print("kernel_variants: no CUDA device (use --device cpu for "
+                  "the plain versions)", file=sys.stderr)
+            return 1
+        device = torch.device("cuda", 0)
+        batch, W, H, DW, DH = CARD_SIZE
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(f"{torch.cuda.get_device_name(0)} ({smi}) torch="
+              f"{torch.__version__} cuda={torch.version.cuda}", flush=True)
+    else:
+        device = torch.device("cpu")
+        batch, W, H, DW, DH = CPU_SIZE
+    rows = H * 3 // 2
+    print(f"{batch} x {W}x{H} NV12 (rows={rows}) -> {DW}x{DH} uint8, bf16 "
+          f"compute, BT.709 MPEG, lanczos_aa", flush=True)
+    frames = make_frames(batch, rows, W, device)
+    run(args.names, frames, src_w=W, src_h=H, dst_w=DW, dst_h=DH,
+        log=lambda s: print(s, flush=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,120 @@
+"""Kernel times on the card with CUDA events, and the least time the card
+could take for the same work.
+
+:func:`time_cuda` is the port's counterpart of the TPU notebook's
+two-point slope (``bench_kernel_variants.time_fn``): on the card a kernel
+is timed directly with CUDA events around back-to-back calls, so the host
+launch latency overlaps device work and needs no slope to cancel it.
+
+:func:`bound_ms` is the roofline bound: the larger of the bytes a function
+must move (each input read once, each output written once) over the
+card's memory rate and its operations over the card's peak rate, with the
+H100 SXM data-sheet figures below. The ``*_work`` helpers count those
+bytes and operations for the banded kernels from their band tables.
+"""
+
+from __future__ import annotations
+
+import statistics
+from typing import Callable, List, Tuple
+
+import torch
+
+from ..ops.banded import band_table, dense_weights
+from ..ops.resize import LANCZOS_AA, resize_weights
+
+#: H100 SXM data sheet (dense rates): device memory 3.35 TB/s, bf16
+#: tensor cores 989 TFLOP/s — the least time takes the fastest type that
+#: computes the bf16 cast points
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+#: operations of the CSC and quantise tail per output pixel: 3 offsets,
+#: 9 products, 6 sums, 3 round/clip
+CSC_OPS = 21
+
+TIMED_RUNS = 21
+CALLS_PER_SAMPLE = 5
+
+
+def _samples(fn: Callable[[], object], samples: int,
+             calls: int) -> List[float]:
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return times
+
+
+def time_ms(fn: Callable[[], object], samples: int = TIMED_RUNS,
+            calls: int = CALLS_PER_SAMPLE) -> float:
+    """Median ms of one call of ``fn()``: ``samples`` samples, each CUDA
+    events around ``calls`` back-to-back calls, after warm-up."""
+    return statistics.median(_samples(fn, samples, calls))
+
+
+def time_cuda(fn: Callable[[torch.Tensor], object],
+              x: torch.Tensor) -> Tuple[float, float]:
+    """(median ms of one call of ``fn(x)``, relative spread
+    (max - min) / median of the samples), timed as :func:`time_ms`."""
+    times = _samples(lambda: fn(x), TIMED_RUNS, CALLS_PER_SAMPLE)
+    med = statistics.median(times)
+    return med, (max(times) - min(times)) / med
+
+
+def bound_ms(nbytes: float, ops: float) -> Tuple[float, str]:
+    """(least ms, "bytes" or "operations": which of the two bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _taps(dense) -> int:
+    """Source samples all outputs of a dense resampling matrix read."""
+    return int(band_table(dense, torch.float32)[1].sum())
+
+
+def preprocess_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                    dst_h: int, layout: str = "420", h_pass: bool = True,
+                    w_pass: bool = True) -> Tuple[int, int]:
+    """(bytes, operations) of a uint8 -> uint8 lanczos_aa banded
+    preprocess batch of chroma ``layout``: the H pass over every luma and
+    chroma column, the W pass and the CSC tail (one FMA is two
+    operations). ``h_pass=False`` counts the work of the lab's wpass
+    knock-out (two dst_h-row slabs in, no H pass), ``w_pass=False`` that
+    of its hpass knock-out."""
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, layout)
+    cw = src_w if layout == "444" else src_w // 2   # one chroma plane row
+    c_rows = src_h // 2 if layout == "420" else src_h
+    out = batch * 3 * dst_h * dst_w
+    ops = 0
+    if h_pass:
+        ops += 2 * (_taps(dw.luma_h) * src_w + 2 * _taps(dw.chroma_h) * cw)
+        nbytes = batch * (src_h * src_w + 2 * c_rows * cw)
+    else:
+        nbytes = batch * 2 * dst_h * src_w
+    if w_pass:
+        ops += 2 * dst_h * (_taps(dw.luma_w) + 2 * _taps(dw.chroma_w))
+        ops += CSC_OPS * dst_h * dst_w
+    else:
+        ops += 2 * dst_h * dst_w
+    return nbytes + out, batch * ops
+
+
+def resize_work(batch: int, src_h: int, src_w: int, dst_h: int, dst_w: int,
+                channels: int = 1) -> Tuple[int, int]:
+    """(bytes, operations) of a uint8 lanczos_aa banded resize of
+    ``batch`` images of ``channels`` interleaved channels: H pass over
+    every source column, then W pass."""
+    taps_h = _taps(resize_weights(src_h, dst_h, LANCZOS_AA))
+    taps_w = _taps(resize_weights(src_w, dst_w, LANCZOS_AA))
+    nbytes = batch * channels * (src_h * src_w + dst_h * dst_w)
+    ops = 2 * batch * channels * (taps_h * src_w + dst_h * taps_w)
+    return nbytes, ops

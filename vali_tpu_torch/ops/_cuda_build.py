@@ -22,8 +22,8 @@ import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
-            "csrc/nv12_to_rgb.cu")
-_HEADERS = ("csrc/banded_common.cuh",)
+            "csrc/nv12_to_rgb.cu", "csrc/nv12_variants.cu")
+_HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,6 +56,11 @@ _SIGNATURES = {
         _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
         _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "nv12_to_rgb_launch": [_P, _LL, _LL, _I, _I, _I, _FP, _P, _P],
+    "nv12_variant_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
+        _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "nv12_stream_floor_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _I, _P, _P],
 }
 
 _lib = None

@@ -198,6 +198,17 @@ def banded_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
         yh = round_to(torch.matmul(wyh, to_f32(y[:, :src_h])), compute_dtype)
         uh = round_to(torch.matmul(wch, to_f32(u[:, :ch])), compute_dtype)
         vh = round_to(torch.matmul(wch, to_f32(v[:, :ch])), compute_dtype)
+    return w_pass_tail_plain(yh, uh, vh, wyw, wcw, tail, out_dtype)
+
+
+def w_pass_tail_plain(yh: torch.Tensor, uh: torch.Tensor, vh: torch.Tensor,
+                      wyw: torch.Tensor, wcw: torch.Tensor, tail: np.ndarray,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """The second half of :func:`banded_plain`: the W pass of the H-pass
+    rows ``yh``, ``uh``, ``vh`` [B, rows, cols] with the dense column
+    matrices ``wyw``, ``wcw`` [DW, cols], then the CSC and the
+    quantise/normalise tail in fp32. Returns [B, 3, rows, DW]."""
+    with exact_f32_matmul():
         yv = torch.matmul(yh, wyw.T) - float(tail[9])
         uv = torch.matmul(uh, wcw.T) - float(tail[10])
         vv = torch.matmul(vh, wcw.T) - float(tail[10])
@@ -213,6 +224,21 @@ def banded_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
                 out_dtype)
         chans.append(x)
     return torch.stack(chans, dim=1)
+
+
+@functools.lru_cache(maxsize=32)
+def strip_spans(src_w: int, src_h: int, dst_w: int, dst_h: int, method: str,
+                rows: int) -> Tuple[int, int]:
+    """(luma, chroma) source rows of the widest window that a strip of
+    ``rows`` output rows reads under the 4:2:0 row bands: the extent of the
+    shared-memory window of the NV12 lab variants that convert a strip's
+    source rows once (``csrc/nv12_variants.cu``, staged)."""
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, method, "420")
+    spans = []
+    for dense in (dw.luma_h, dw.chroma_h):
+        start, count, _ = band_table(dense, torch.float32)
+        spans.append(tile_window(start, count, rows))
+    return spans[0], spans[1]
 
 
 def planar_u8_checked(fmt: str, y, u, v, *, src_w: int, src_h: int,
