@@ -14,7 +14,11 @@ of its input; and the NV12 kernel-variant lab's entry point
 (``vali_tpu_torch.lab.kernel_variants``: stream floor, phase knock-outs,
 convert-once and split-chroma variants, multi-frame blocks) at 64 x 1080p
 -> 224, each lab kernel against its plain version and the full-function
-ones against nv12_preprocess bit for bit. It builds the CUDA
+ones against nv12_preprocess bit for bit; and the 4K NV12 resize lab's
+entry point (``vali_tpu_torch.lab.resize_diag``: phase knock-outs, aligned
+windows, the skewed H/W pipeline, streamed row bands) at 16 x 4K -> 1080p,
+each kernel against its plain version and the full-function ones against
+nv12_resize bit for bit. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -402,6 +406,7 @@ def main() -> int:
     rotate_ud_phase(torch, np, host[PixelFormat.NV12][0],
                     host[PixelFormat.YUV422][0], smi)
     lab = lab_phase(torch, np, dev, smi)
+    lab += resize_lab_phase(torch, np, dev, smi)
     # no single PyTorch call computes fused CSC + banded Lanczos:
     # library_ms is null
     preprocess = {  # wrapper: chroma layout, TPU kernel line, checked case
@@ -840,6 +845,111 @@ def lab_phase(torch, np, dev, smi):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no single PyTorch call streams a frame or computes fused
             # CSC + banded Lanczos
+            "library_ms": None})
+    return entries
+
+
+RESIZE_LAB_REPLACES = {  # resize-lab wrapper -> its TPU notebook kernel
+    "resize_phases": "resize_diag.py:66",
+    "streamed_resize": "resize_diag.py:164",
+    "aligned_resize": "resize_diag.py:290",
+    "skewed_resize": "resize_diag.py:408",
+}
+
+
+def resize_lab_phase(torch, np, dev, smi):
+    """The 4K NV12 resize lab at 16 x 4K -> 1080p: every lab kernel against
+    its plain version on the card (the full-function variants also against
+    nv12_resize bit for bit, ``both`` against its luma rows), the sinks of
+    dma_only and w_only against the frames, then the lab's entry point
+    (``resize_diag.run``) name by name with the launch counts set to 0 just
+    before and read just after, the H/W split, and the plain versions'
+    times. Returns the lab kernels' entries of the JSON line."""
+    from vali_tpu_torch.lab import resize_diag as rd
+    from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
+
+    geo = dict(src_w=W4K, src_h=H4K, dst_w=W, dst_h=H)
+    frames = rd.make_frames(B4K, H4K * 3 // 2, W4K, dev)
+    product = nv12_resize(frames, **geo)
+    names = rd.DEFAULT_NAMES[1:]   # "prod" is nv12_resize itself
+    cases = {n: rd.case(n, B4K, **geo) for n in names}
+
+    # ---- phase 1: kernel against plain version on the card ---------------
+    # one plain run of the full function serves every full-function variant
+    # and both (its luma rows); the 4K plain versions take ~0.1 s a call
+    plain_full = nv12_resize_plain(frames, **geo)
+    err = {}
+    for name, c in cases.items():
+        out = c.call(frames)
+        ref = (plain_full[:, :H] if name == "both" else plain_full
+               if c.exact else c.plain(frames))
+        torch.cuda.synchronize()
+        err[name] = compare(torch, f"resize lab {name} vs plain", out, ref)
+        if name == "dma_only" and not torch.equal(out, ref):
+            raise AssertionError("dma_only differs from its plain version")
+        want = product[:, :H] if name == "both" else product
+        if c.exact and not torch.equal(out, want):
+            raise AssertionError(f"resize lab {name} differs from "
+                                 f"nv12_resize")
+    del plain_full
+    want = np.bitwise_xor.reduce(frames.cpu().numpy().view(np.uint32),
+                                 axis=None)
+    for mode in ("dma_only", "w_only"):
+        sink = torch.zeros(rd.SINK_WORDS, dtype=torch.int32, device=dev)
+        rd.resize_phases(frames, **geo, mode=mode, sink=sink)
+        got = np.bitwise_xor.reduce(sink.cpu().numpy().view(np.uint32))
+        if got != want:
+            raise AssertionError(f"{mode}'s sink misses bytes of the frames")
+    exact = ", ".join(n for n in names if cases[n].exact)
+    log(f"resize lab: {exact} equal to nv12_resize (both: its luma rows); "
+        f"the dma_only and w_only sinks equal to the XOR of every word of "
+        f"the frames")
+
+    # ---- phase 2: the lab's entry point, the counts read per name --------
+    for w in rd.WRAPPERS:
+        w.launches = 0
+    results = {}
+    for name in rd.DEFAULT_NAMES:
+        before = sum(w.launches for w in rd.WRAPPERS)
+        (row,) = rd.run([name], frames, **geo, log=log)
+        row["launches"] = sum(w.launches for w in rd.WRAPPERS) - before
+        results[name] = row
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in rd.WRAPPERS}
+    log(f"resize_lab_path_launches={json.dumps(launches)}")
+    if min(launches.values()) < 1 or min(
+            results[n]["launches"] for n in names) < 1:
+        raise AssertionError("a kernel of the resize lab was not launched")
+    for n, r in results.items():
+        if r["maxdiff"] > (0 if n == "prod" or cases[n].exact else 1):
+            raise AssertionError(f"resize lab {n} differs from its reference")
+    ms = {n: r["ms"] for n, r in results.items()}
+    log("resize lab H/W split: " + ", ".join(
+        f"{k} {ms[k]} ms ({ms[k] / ms['prod']})"
+        for k in ("dma_only", "h_only", "w_only", "both"))
+        + f" of prod {ms['prod']} ms ({smi})")
+
+    # ---- phase 3: the plain versions' times (3 samples of 1 call) --------
+    plain_ms = {"full": time_ms(lambda: nv12_resize_plain(frames, **geo),
+                                samples=3, calls=1)}
+    for name in rd.MODES:
+        plain_ms[name] = time_ms(lambda c=cases[name]: c.plain(frames),
+                                 samples=3, calls=1)
+    log(f"time resize lab plain versions: {json.dumps(plain_ms)} ({smi})")
+    entries = []
+    for name in names:
+        c = cases[name]
+        wrapper = c.wrapper.__name__
+        r = results[name]
+        entries.append({
+            "name": f"{wrapper} {name}", "route": "cuda",
+            "source": "vali_tpu_torch/csrc/nv12_resize_variants.cu",
+            "replaces": RESIZE_LAB_REPLACES[wrapper],
+            "launches": r["launches"], "max_abs_err": err[name],
+            "ms": r["ms"],
+            "plain_ms": plain_ms[name if name in rd.MODES else "full"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            # no PyTorch call computes a banded Lanczos resize
             "library_ms": None})
     return entries
 

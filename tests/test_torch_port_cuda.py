@@ -1,9 +1,10 @@
 """CUDA-only tests of vali_tpu_torch: the Hopper kernels against their
 plain PyTorch versions on the card, the launch counters, the pipeline's
 pinned staging, the Surface ops' streams, the rotator and UD op on the
-card against the same ops on the CPU, and the NV12 kernel-variant lab's
-kernels against their plain versions. They skip where torch has no CUDA
-device.
+card against the same ops on the CPU, the NV12 kernel-variant lab's
+kernels against their plain versions, and the 4K NV12 resize lab's kernels
+against their plain versions and nv12_resize. They skip where torch has no
+CUDA device.
 
 This file imports no JAX, so on a machine with a card it runs alone:
 
@@ -17,6 +18,7 @@ import torch
 from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
 from vali_tpu_torch.core.formats import format_info
 from vali_tpu_torch.lab import kernel_variants as kv
+from vali_tpu_torch.lab import resize_diag as rd
 from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
 from vali_tpu_torch.ops.nv12_to_rgb import nv12_to_rgb, nv12_to_rgb_plain
 from vali_tpu_torch.ops.packed_resize import (packed_resize,
@@ -567,3 +569,111 @@ def test_lab_wrappers_count_launches_and_reject_bad_input(dev):
         kv.prod_like(big, src_w=1920, src_h=1080, dst_w=224, dst_h=224,
                      rows_per_block=40)
     assert [f.launches for f in kv.WRAPPERS] == after
+
+
+# --- the NV12 resize lab (csrc/nv12_resize_variants.cu) --------------------
+
+RESIZE_LAB_NAMES = [n for n in rd.DEFAULT_NAMES if n != "prod"]
+
+
+@pytest.mark.parametrize("geom", [
+    (3, 288, 512, 144, 256),    # the CPU tests' geometry
+    (2, 150, 322, 70, 202),     # dst_h % 8 != 0, tiles that do not divide DW
+])
+@pytest.mark.parametrize("name", RESIZE_LAB_NAMES)
+def test_resize_lab_kernels_match_plain(dev, geom, name):
+    """Each resize-lab kernel against its plain version; the full-function
+    variants equal nv12_resize bit for bit, and ``both`` its luma rows."""
+    b, h, w, dh, dw = geom
+    x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h + w)
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    c = rd.case(name, b, **geo)
+    out, ref = c.call(x), c.plain(x)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    if name == "dma_only":
+        assert torch.equal(out, ref)
+    else:
+        _assert_close(out, ref, (name, geom))
+    if c.exact:
+        assert torch.equal(out, c.reference(x)), (name, geom)
+
+
+@pytest.mark.parametrize("name", ["dma_only", "h_only", "w_only", "both",
+                                  "aligned8x32", "aligned4x8", "skewed",
+                                  "streamed64"])
+def test_resize_lab_kernels_padded_strided_views(dev, name):
+    """Extra rows, a padded row pitch (16-byte aligned, then not) and a
+    larger batch stride give the output of the contiguous buffer."""
+    b, h, w, dh, dw = 3, 96, 256, 40, 120
+    rows = h * 3 // 2
+    x = rd.make_frames(b, rows, w, dev, seed=5)
+    c = rd.case(name, b, src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    ref = c.call(x)
+    for pad_rows, pad_cols, off in ((6, 16, 0), (0, 3, 1)):
+        big = torch.zeros((b, rows + pad_rows, w + pad_cols + off),
+                          dtype=torch.uint8, device=dev)
+        big[:, :rows, off:off + w] = x
+        assert torch.equal(c.call(big[:, :, off:off + w]), ref), \
+            (name, pad_rows, pad_cols, off)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_skewed_resize_single_and_odd_batches(dev, b):
+    """The skew crosses frames: one frame (no overlap) and an odd count
+    (the last W pass from the other buffer) equal nv12_resize."""
+    geo = dict(src_w=512, src_h=288, dst_w=256, dst_h=144)
+    x = rd.make_frames(b, 432, 512, dev, seed=b)
+    assert torch.equal(rd.skewed_resize(x, **geo), nv12_resize(x, **geo))
+
+
+@pytest.mark.parametrize("mode", ["dma_only", "w_only"])
+def test_resize_phases_sink_reads_every_byte(dev, mode):
+    """On a zeroed sink the XOR of its words is the XOR of every 32-bit
+    word of the frames, and one byte changed outside the output corner and
+    the W pass's rows changes the sink but not the output."""
+    h, w = 144, 256
+    geo = dict(src_w=w, src_h=h, dst_w=128, dst_h=72)
+    x = rd.make_frames(2, h * 3 // 2, w, dev, seed=3)
+
+    def run(frames):
+        sink = torch.zeros(rd.SINK_WORDS, dtype=torch.int32, device=dev)
+        out = rd.resize_phases(frames, **geo, mode=mode, sink=sink)
+        return out, sink.cpu().numpy().view(np.uint32)
+
+    out, sink = run(x)
+    words = x.cpu().numpy().view(np.uint32).ravel()
+    assert np.bitwise_xor.reduce(sink) == np.bitwise_xor.reduce(words)
+    y = x.clone()
+    y[1, h + 10, 200] ^= 1
+    out2, sink2 = run(y)
+    assert torch.equal(out2, out)
+    assert not np.array_equal(sink2, sink)
+
+
+def test_resize_lab_wrappers_count_launches_and_reject_bad_input(dev):
+    h, w = 96, 256
+    geo = dict(src_w=w, src_h=h, dst_w=64, dst_h=48)
+    x = rd.make_frames(2, h * 3 // 2, w, dev, seed=2)
+    before = [f.launches for f in rd.WRAPPERS]
+    rd.resize_phases(x, **geo, mode="h_only")
+    rd.aligned_resize(x, **geo)
+    rd.skewed_resize(x, **geo)
+    rd.streamed_resize(x, **geo)
+    after = [n + 1 for n in before]
+    assert [f.launches for f in rd.WRAPPERS] == after
+    rd.skewed_resize(x.cpu(), **geo)  # the plain version: not a launch
+    pitched = torch.zeros((2, h * 3 // 2, 2 * w), dtype=torch.uint8,
+                          device=dev)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        rd.streamed_resize(pitched, **geo)
+    with pytest.raises(ValueError, match="contiguous"):
+        rd.resize_phases(pitched, **geo, mode="dma_only")
+    with pytest.raises(ValueError, match="sink"):
+        rd.resize_phases(x, **geo, mode="both",
+                         sink=torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="source rows of a strip"):
+        rd.streamed_resize(x, **geo, band=4)
+    with pytest.raises(RuntimeError, match="streamed_resize"):  # ring > smem
+        rd.streamed_resize(x, **geo, band=4096)
+    assert [f.launches for f in rd.WRAPPERS] == after

@@ -1,0 +1,465 @@
+"""4K NV12 resize lab: where the banded NV12 resize kernel's time goes,
+run on the card.
+
+Counterpart of the TPU notebook ``resize_diag.py`` (its ``main``,
+``main_aligned``, ``main_skewed`` and ``main_streamed``). Four wrappers
+over the kernels of ``csrc/nv12_resize_variants.cu``, each beside its plain
+PyTorch version, with the same dispatch as the product wrappers: a CUDA
+tensor launches the kernel, a CPU tensor runs the plain version, any other
+device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
+
+- :func:`resize_phases` (``variant``): the luma resize with a phase
+  knocked out, as the notebook computes it where unwritten scratch reads
+  as zero. ``both`` is the luma rows of :func:`nv12_resize`; ``h_only`` the
+  H pass of luma and chroma, with output lanes < LANE_TILE the luma H-pass
+  rows truncated to int and cut to their low byte; ``w_only`` the luma W
+  pass of H-pass rows that are the frame's first TILE rows, then zeros;
+  ``dma_only`` the frame's first TILE rows x LANE_TILE lanes. On the card
+  what a mode must not drop goes into a sink, so ``h_only - dma_only`` and
+  ``w_only - dma_only`` are the H and W costs over a stream of the same
+  bytes.
+- :func:`aligned_resize` (``aligned``): the full resize with each strip's
+  source-row window aligned to ``h_align`` rows and each output column's
+  tap range to ``w_align`` lanes (zero taps added); 16-byte loads when
+  ``w_align`` is a multiple of 16.
+- :func:`skewed_resize` (``skewed``): the full resize with frame b's H pass
+  beside frame b - 1's W pass inside one block.
+- :func:`streamed_resize` (``streamed``): the full resize with source rows
+  copied in bands of ``band`` rows into a ring two bands deep.
+
+Every full-function variant, and ``both``, equals :func:`nv12_resize` bit
+for bit on the card; on the CPU its plain version is the product's.
+
+Run the lab (16 x 4K -> 1080p on ``cuda:0``; ``--device cpu`` runs the
+plain versions at 3 x 512x288 -> 256x144 and times nothing)::
+
+    python -m vali_tpu_torch.lab.resize_diag [NAME ...] [--device cpu]
+
+Names: ``prod`` (:func:`nv12_resize` itself), ``dma_only``, ``h_only``,
+``w_only``, ``both``, ``aligned{h}x{w}`` (``aligned8x32``),
+``skewed``, ``streamed{band}`` (``streamed64``). Each prints one line: ms
+per batch, spread, maxdiff against its reference, GB/s and the bound; on
+the card also the H/W split as shares of ``prod``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import re
+import subprocess
+import sys
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.banded import (ResizeTables, STRIP_ROWS, band_table,
+                          pack_resize_tables, resize_tables)
+from ..ops.fused import exact_f32_matmul, to_f32
+from ..ops.nv12_resize import nv12_resize, nv12_resize_plain
+from ..ops.resize import LANCZOS_AA, resize_plane, resize_weights, round_to
+from .kernel_variants import SINK_WORDS, _on_cpu, make_frames
+from .timing import bound_ms, nv12_resize_work, time_cuda
+
+#: the TPU notebook's constants that define the knock-outs' outputs:
+#: H-pass rows per matrix-unit step, output lanes per W-pass step
+TILE = 32
+LANE_TILE = 128
+MODES = {"both": 0, "h_only": 1, "w_only": 2, "dma_only": 3}
+#: source lanes a streamed block's window aims at: narrow tiles, so that
+#: 16 frames x 2 planes give several blocks per SM at 4K -> 1080p
+STREAM_LANES = 320
+
+DEFAULT_NAMES = ("prod", "dma_only", "h_only", "w_only", "both",
+                 "aligned8x32", "aligned32x128", "aligned4x16", "skewed",
+                 "streamed64", "streamed256")
+CARD_SIZE = (16, 3840, 2160, 1920, 1080)   # batch, W, H, DW, DH
+CPU_SIZE = (3, 512, 288, 256, 144)
+
+_BF16 = torch.bfloat16
+
+
+def _checked(nv12, src_w, src_h, dst_w, dst_h) -> None:
+    """Validate a uint8 NV12 buffer [B, >= H*3/2, W] and the geometry."""
+    if (nv12.dim() != 3 or nv12.shape[1] < src_h * 3 // 2
+            or nv12.shape[2] != src_w):
+        raise ValueError(f"NV12 buffer shape {tuple(nv12.shape)} does not "
+                         f"match {src_w}x{src_h}")
+    if nv12.dtype != torch.uint8:
+        raise ValueError(f"the resize lab takes uint8 samples, got "
+                         f"{nv12.dtype}")
+    if (src_w % 2 or src_h % 2 or dst_w % 2 or dst_h % 2 or dst_w <= 0
+            or dst_h <= 0):
+        raise ValueError("NV12 resize needs even, positive dims")
+
+
+def _tables(src_w, src_h, dst_w, dst_h, device, build, **knobs):
+    """(luma, chroma) tables of ``build`` (a table builder of one plane,
+    keyed by channels and device)."""
+    return (build(src_h, dst_h, src_w, dst_w, channels=1, device=device,
+                  **knobs),
+            build(src_h // 2, dst_h // 2, src_w // 2, dst_w // 2,
+                  channels=2, device=device, **knobs))
+
+
+def _product_tables(src_h, dst_h, src_w, dst_w, *, channels, device):
+    return resize_tables(src_h, dst_h, src_w, dst_w, LANCZOS_AA, _BF16,
+                         channels, device)
+
+
+def _launch(what: str, launcher: str, nv12: torch.Tensor, tabs, knobs,
+            out: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
+            dst_h: int) -> torch.Tensor:
+    """One resize-lab launcher on a checked CUDA buffer."""
+    from ..ops._cuda_build import check, load_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    lib = load_kernels()
+    with torch.cuda.device(nv12.device):
+        rc = getattr(lib, launcher)(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],
+            src_h, src_w, dst_h, dst_w, *tabs[0].args(), *tabs[1].args(),
+            *knobs, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, what)
+    return out
+
+
+def _full_out(nv12, dst_w, dst_h) -> torch.Tensor:
+    return torch.empty((nv12.shape[0], dst_h * 3 // 2, dst_w),
+                       dtype=torch.uint8, device=nv12.device)
+
+
+# --- the knock-outs (notebook ``variant``) ---------------------------------
+
+def resize_phases_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                        dst_w: int, dst_h: int, mode: str) -> torch.Tensor:
+    """Plain PyTorch version of :func:`resize_phases` (any device)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    luma = nv12[:, :src_h]
+    if mode == "both":
+        return resize_plane(luma, dst_h, dst_w, LANCZOS_AA,
+                            compute_dtype=_BF16)
+    dev = nv12.device
+    out = torch.zeros((nv12.shape[0], dst_h, dst_w), dtype=torch.uint8,
+                      device=dev)
+    rows = min(TILE, dst_h, src_h * 3 // 2)
+    lanes = min(LANE_TILE, dst_w, src_w)
+    if mode == "dma_only":
+        out[:, :rows, :lanes] = nv12[:, :rows, :lanes]
+    elif mode == "h_only":
+        wh = round_to(resize_weights(src_h, dst_h, LANCZOS_AA), _BF16).to(dev)
+        with exact_f32_matmul():
+            yh = round_to(torch.matmul(wh, to_f32(luma[..., :lanes])), _BF16)
+        # the notebook's astype(int32).astype(uint8): truncate, low byte
+        out[..., :lanes] = (yh.to(torch.int32) & 255).to(torch.uint8)
+    else:   # w_only
+        ww = round_to(resize_weights(src_w, dst_w, LANCZOS_AA), _BF16).to(dev)
+        yh = torch.zeros((nv12.shape[0], dst_h, src_w), device=dev)
+        yh[:, :rows] = to_f32(nv12[:, :rows])
+        with exact_f32_matmul():
+            out = torch.clamp(torch.round(torch.matmul(yh, ww.T)), 0.0,
+                              255.0).to(torch.uint8)
+    return out
+
+
+def resize_phases(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
+                  dst_h: int, mode: str,
+                  sink: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The luma NV12 resize with phases knocked out -> [B, dst_h, dst_w]
+    uint8 (``mode``: both, h_only, w_only, dma_only; see the module).
+
+    On the card each block XORs into one of the int32 words of ``sink`` (a
+    fresh zeroed one of SINK_WORDS when None) what its mode would otherwise
+    drop: the H-pass values (h_only: luma and chroma; both: chroma), or its
+    share of the frame's bytes (w_only, dma_only: the XOR of the sink after
+    a call on a zeroed sink is then the XOR of every 32-bit word of the
+    frames' H*3/2 rows)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("resize_phases", nv12):
+        return resize_phases_plain(nv12, **geo, mode=mode)
+    if sink is None:
+        sink = torch.zeros(SINK_WORDS, dtype=torch.int32, device=nv12.device)
+    if (sink.dtype != torch.int32 or sink.device != nv12.device
+            or not sink.is_contiguous() or sink.numel() < 1):
+        raise ValueError("sink must be a contiguous int32 tensor on the "
+                         "frames' device")
+    out = torch.empty((nv12.shape[0], dst_h, dst_w), dtype=torch.uint8,
+                      device=nv12.device)
+    _launch("resize_phases", "nv12_resize_phases_launch", nv12,
+            _tables(src_w, src_h, dst_w, dst_h, nv12.device,
+                    _product_tables),
+            (MODES[mode], sink.data_ptr(), sink.numel()), out, **geo)
+    resize_phases.launches += 1
+    return out
+
+
+# --- aligned windows (notebook ``aligned``) --------------------------------
+
+def _rebase(start, count, weights, new_start, new_count):
+    """Bands moved to start at ``new_start`` with ``new_count`` taps:
+    weight k of a band goes to tap k + start - new_start, the added taps
+    weigh 0."""
+    taps = np.zeros((len(start), max(1, int(new_count.max(initial=0)))),
+                    np.float32)
+    off = start - new_start
+    for o in range(len(start)):
+        taps[o, off[o]:off[o] + count[o]] = weights[o, :count[o]]
+    return new_start.astype(np.int32), new_count.astype(np.int32), taps
+
+
+def align_rows(bands, rows: int, align: int, n_in: int):
+    """Row bands widened to their strip's window of source rows (strips of
+    ``rows`` output rows), which starts at a multiple of ``align`` and
+    ends at one, clamped to the ``n_in`` rows of the plane."""
+    start, count, weights = bands
+    lo = np.empty_like(start)
+    hi = np.empty_like(start)
+    for s in range(0, len(start), rows):
+        a = int(start[s:s + rows].min()) // align * align
+        b = -(-int((start + count)[s:s + rows].max()) // align) * align
+        lo[s:s + rows], hi[s:s + rows] = a, min(b, n_in)
+    return _rebase(start, count, weights, lo, hi - lo)
+
+
+def align_cols(bands, align: int, n_in: int):
+    """Column bands that start at a multiple of ``align`` source pixels,
+    their length rounded up to one, clamped to the ``n_in`` pixels of the
+    row."""
+    start, count, weights = bands
+    lo = start // align * align
+    hi = np.minimum(-(-(start + count) // align) * align, n_in)
+    return _rebase(start, count, weights, lo, hi - lo)
+
+
+@functools.lru_cache(maxsize=32)
+def aligned_tables(src_h: int, dst_h: int, src_w: int, dst_w: int, *,
+                   channels: int, device: torch.device, h_align: int,
+                   w_align: int) -> ResizeTables:
+    """The product's band tables with each strip's row window aligned to
+    ``h_align`` rows and each column's tap range to ``w_align`` lanes
+    (``w_align // channels`` pixels, at least 1)."""
+    rows = align_rows(band_table(resize_weights(src_h, dst_h, LANCZOS_AA),
+                                 _BF16), STRIP_ROWS, h_align, src_h)
+    cols = align_cols(band_table(resize_weights(src_w, dst_w, LANCZOS_AA),
+                                 _BF16), max(1, w_align // channels), src_w)
+    return pack_resize_tables(rows, cols, _BF16, channels, device)
+
+
+def aligned_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                   dst_w: int, dst_h: int, h_align: int = 8,
+                   w_align: int = 32) -> torch.Tensor:
+    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 through aligned
+    windows; equal to :func:`nv12_resize`."""
+    if h_align < 1 or w_align < 1:
+        raise ValueError(f"h_align and w_align must be >= 1, got "
+                         f"{h_align}, {w_align}")
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("aligned_resize", nv12):
+        return nv12_resize_plain(nv12, **geo)
+    tabs = _tables(src_w, src_h, dst_w, dst_h, nv12.device, aligned_tables,
+                   h_align=h_align, w_align=w_align)
+    out = _launch("aligned_resize", "nv12_resize_aligned_launch", nv12,
+                  tabs, (int(w_align % 16 == 0),),
+                  _full_out(nv12, dst_w, dst_h), **geo)
+    aligned_resize.launches += 1
+    return out
+
+
+# --- the skewed pipeline (notebook ``skewed``) -----------------------------
+
+def skewed_resize(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
+                  dst_h: int) -> torch.Tensor:
+    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with frame b's H pass
+    beside frame b - 1's W pass in each block; equal to
+    :func:`nv12_resize`."""
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("skewed_resize", nv12):
+        return nv12_resize_plain(nv12, **geo)
+    out = _launch("skewed_resize", "nv12_resize_skewed_launch", nv12,
+                  _tables(src_w, src_h, dst_w, dst_h, nv12.device,
+                          _product_tables), (),
+                  _full_out(nv12, dst_w, dst_h), **geo)
+    skewed_resize.launches += 1
+    return out
+
+
+# --- streamed row bands (notebook ``streamed``) ----------------------------
+
+@functools.lru_cache(maxsize=32)
+def _stream_tables(src_h, dst_h, src_w, dst_w, *, channels, device):
+    """The product's bands in narrow tiles (STREAM_LANES)."""
+    return pack_resize_tables(
+        band_table(resize_weights(src_h, dst_h, LANCZOS_AA), _BF16),
+        band_table(resize_weights(src_w, dst_w, LANCZOS_AA), _BF16),
+        _BF16, channels, device, target_lanes=STREAM_LANES)
+
+
+def streamed_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                    dst_w: int, dst_h: int, band: int = 64
+                    ) -> torch.Tensor:
+    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with each block's
+    source rows staged in bands of ``band`` rows (at least the source rows
+    of a strip); equal to :func:`nv12_resize`."""
+    if band < 1:
+        raise ValueError(f"band must be >= 1, got {band}")
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    on_cpu = _on_cpu("streamed_resize", nv12)
+    tabs = _tables(src_w, src_h, dst_w, dst_h, nv12.device, _stream_tables)
+    span = max(t.span for t in tabs)
+    if band < span:
+        raise ValueError(f"band={band} rows is less than the {span} source "
+                         f"rows of a strip")
+    if on_cpu:
+        return nv12_resize_plain(nv12, **geo)
+    out = _launch("streamed_resize", "nv12_resize_streamed_launch", nv12,
+                  tabs, (band,), _full_out(nv12, dst_w, dst_h), **geo)
+    streamed_resize.launches += 1
+    return out
+
+
+#: kernel launches made by each wrapper (CPU calls are not counted)
+resize_phases.launches = 0
+aligned_resize.launches = 0
+skewed_resize.launches = 0
+streamed_resize.launches = 0
+WRAPPERS = (resize_phases, aligned_resize, skewed_resize, streamed_resize)
+
+
+# --- the lab ----------------------------------------------------------------
+
+class Case(NamedTuple):
+    """One lab name: the wrapper it launches, the call, the plain version
+    of its function, the reference its maxdiff is taken against, whether
+    it must equal that reference bit for bit, and its work."""
+    wrapper: Callable
+    call: Callable[[torch.Tensor], torch.Tensor]
+    plain: Callable[[torch.Tensor], torch.Tensor]
+    reference: Callable[[torch.Tensor], torch.Tensor]
+    exact: bool
+    work: tuple      # (bytes, operations) of one batch of B frames
+
+
+def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
+         dst_h: int) -> Case:
+    """The :class:`Case` of a lab name on [batch, >= src_h*3/2, src_w]
+    frames. The full-function variants and ``both`` are held to
+    :func:`nv12_resize` (its luma rows for ``both``), the other knock-outs
+    to their plain versions."""
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    full = nv12_resize_work(batch, src_h, src_w, dst_h, dst_w)
+    product = (lambda x: nv12_resize(x, **geo))
+    plain = (lambda x: nv12_resize_plain(x, **geo))
+    if name == "prod":
+        return Case(nv12_resize, product, plain, product, True, full)
+    if name in MODES:
+        h, w = name in ("h_only", "both"), name in ("w_only", "both")
+        call = (lambda x: resize_phases(x, **geo, mode=name))
+        knock_plain = (lambda x: resize_phases_plain(x, **geo, mode=name))
+        ref = ((lambda x: nv12_resize(x, **geo)[:, :dst_h])
+               if name == "both" else knock_plain)
+        return Case(resize_phases, call, knock_plain, ref, name == "both",
+                    nv12_resize_work(batch, src_h, src_w, dst_h, dst_w,
+                                     h_pass=h, w_pass=w, chroma=False))
+    m = re.fullmatch(r"aligned(\d+)x(\d+)", name)
+    if m:
+        ha, wa = int(m.group(1)), int(m.group(2))
+        return Case(aligned_resize,
+                    lambda x: aligned_resize(x, **geo, h_align=ha,
+                                             w_align=wa),
+                    plain, product, True, full)
+    if name == "skewed":
+        return Case(skewed_resize, lambda x: skewed_resize(x, **geo), plain,
+                    product, True, full)
+    m = re.fullmatch(r"streamed(\d+)", name)
+    if m:
+        band = int(m.group(1))
+        return Case(streamed_resize,
+                    lambda x: streamed_resize(x, **geo, band=band), plain,
+                    product, True, full)
+    raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES}, "
+                     f"aligned{{h}}x{{w}} or streamed{{band}}")
+
+
+def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,
+        src_h: int, dst_w: int, dst_h: int,
+        log: Callable[[str], None] = print) -> List[Dict[str, object]]:
+    """Run each lab name on ``frames`` [B, >= src_h*3/2, src_w]: its maxdiff
+    on the first three frames against its reference, and on the card its
+    time per batch. Logs one line per name, and on the card the H/W split
+    as shares of ``prod``; returns one dict per name."""
+    batch = frames.shape[0]
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    on_card = frames.device.type == "cuda"
+    head = frames[:3]
+    results = []
+    for name in names:
+        c = case(name, batch, **geo)
+        maxdiff = int((c.call(head).int() - c.reference(head).int()).abs()
+                      .max().item())
+        bound, bound_by = bound_ms(*c.work)
+        row = dict(name=name, maxdiff=maxdiff, bound_ms=bound,
+                   bound_by=bound_by, ms=None, spread=None)
+        if on_card:
+            ms, spread = time_cuda(c.call, frames)
+            row.update(ms=ms, spread=spread,
+                       gbps=c.work[0] / (ms * 1e-3) / 1e9)
+            log(f"{name}: {ms:.4f} ms/batch  spread={spread:.1%}  "
+                f"maxdiff={maxdiff}  GB/s={row['gbps']:.1f}  "
+                f"bound={bound:.4f} ms ({bound_by})")
+        else:
+            log(f"{name}: maxdiff={maxdiff} (plain version on the CPU; "
+                f"not timed)")
+        results.append(row)
+    times = {r["name"]: r["ms"] for r in results}
+    if on_card and all(times.get(k) for k in ("prod",) + tuple(MODES)):
+        log("H/W split: " + ", ".join(
+            f"{k} {times[k]:.4f} ms = {times[k] / times['prod']:.1%}"
+            for k in ("dma_only", "h_only", "w_only", "both"))
+            + f" of prod {times['prod']:.4f} ms")
+    return results
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m vali_tpu_torch.lab.resize_diag",
+        description=__doc__.split("\n\n")[0])
+    ap.add_argument("names", nargs="*", default=list(DEFAULT_NAMES))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            print("resize_diag: no CUDA device (use --device cpu for the "
+                  "plain versions)", file=sys.stderr)
+            return 1
+        device = torch.device("cuda", 0)
+        batch, W, H, DW, DH = CARD_SIZE
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(f"{torch.cuda.get_device_name(0)} ({smi}) torch="
+              f"{torch.__version__} cuda={torch.version.cuda}", flush=True)
+    else:
+        device = torch.device("cpu")
+        batch, W, H, DW, DH = CPU_SIZE
+    rows = H * 3 // 2
+    print(f"{batch} x {W}x{H} NV12 (rows={rows}) -> {DW}x{DH} uint8, bf16 "
+          f"compute, lanczos_aa", flush=True)
+    frames = make_frames(batch, rows, W, device)
+    run(args.names, frames, src_w=W, src_h=H, dst_w=DW, dst_h=DH,
+        log=lambda s: print(s, flush=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

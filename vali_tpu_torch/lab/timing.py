@@ -108,6 +108,32 @@ def preprocess_work(batch: int, src_w: int, src_h: int, dst_w: int,
     return nbytes + out, batch * ops
 
 
+def nv12_resize_work(batch: int, src_h: int, src_w: int, dst_h: int,
+                     dst_w: int, h_pass: bool = True, w_pass: bool = True,
+                     chroma: bool = True) -> Tuple[int, int]:
+    """(bytes, operations) of a uint8 lanczos_aa banded NV12 resize batch:
+    the NV12 frames read once, the output written once, and the FMAs of
+    the bands (one FMA is two operations). Luma and the interleaved UV
+    rows resample as their own images (chroma on the half grid, both
+    channels of a pair). ``chroma=False`` counts the lab's knock-outs,
+    which write the luma rows only: no chroma W pass or output, while
+    their chroma H pass still counts with ``h_pass``. Alignment slack is
+    not work the function needs, so every full-function variant has the
+    product's count."""
+    luma_h = _taps(resize_weights(src_h, dst_h, LANCZOS_AA))
+    chroma_h = _taps(resize_weights(src_h // 2, dst_h // 2, LANCZOS_AA))
+    luma_w = _taps(resize_weights(src_w, dst_w, LANCZOS_AA))
+    chroma_w = _taps(resize_weights(src_w // 2, dst_w // 2, LANCZOS_AA))
+    out_rows = dst_h + (dst_h // 2 if chroma else 0)
+    fmas = 0
+    if h_pass:   # a chroma row has src_w lanes: src_w / 2 pairs
+        fmas += (luma_h + chroma_h) * src_w
+    if w_pass:
+        fmas += dst_h * luma_w + (dst_h // 2 * 2 * chroma_w if chroma else 0)
+    nbytes = batch * (src_h * 3 // 2 * src_w + out_rows * dst_w)
+    return nbytes, 2 * batch * fmas
+
+
 def resize_work(batch: int, src_h: int, src_w: int, dst_h: int, dst_w: int,
                 channels: int = 1) -> Tuple[int, int]:
     """(bytes, operations) of a uint8 lanczos_aa banded resize of

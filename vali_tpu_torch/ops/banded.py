@@ -400,16 +400,26 @@ class ResizeTables(NamedTuple):
 def resize_tables(src_h: int, dst_h: int, src_w: int, dst_w: int,
                   method: str, compute_dtype: torch.dtype, channels: int,
                   device: torch.device) -> ResizeTables:
-    """Build and upload one image's band tables once per geometry.
+    """Build and upload one image's band tables once per geometry
+    (:func:`pack_resize_tables`)."""
+    return pack_resize_tables(
+        band_table(resize_weights(src_h, dst_h, method), compute_dtype),
+        band_table(resize_weights(src_w, dst_w, method), compute_dtype),
+        compute_dtype, channels, device)
+
+
+def pack_resize_tables(row_bands, col_bands, compute_dtype: torch.dtype,
+                       channels: int, device: torch.device,
+                       target_lanes: int = TARGET_LANES) -> ResizeTables:
+    """Upload row and column bands ``(start, count, weights)`` of
+    :func:`band_table` as a :class:`ResizeTables`.
 
     The tile is the widest power of two of output columns whose source
-    window stays within TARGET_LANES lanes (one with at least 8 columns
-    otherwise), narrowed while the block's shared memory would pass
-    SMEM_BUDGET."""
-    hs, hc, hw = band_table(resize_weights(src_h, dst_h, method),
-                            compute_dtype)
-    ws, wc, ww = band_table(resize_weights(src_w, dst_w, method),
-                            compute_dtype)
+    window stays within ``target_lanes`` lanes (one with at least 8
+    columns otherwise), narrowed while the block's shared memory would
+    pass SMEM_BUDGET."""
+    hs, hc, hw = row_bands
+    ws, wc, ww = col_bands
     span = tile_window(hs, hc, STRIP_ROWS)
     elem = 4 if compute_dtype == torch.float32 else 2
 
@@ -417,7 +427,7 @@ def resize_tables(src_h: int, dst_h: int, src_w: int, dst_w: int,
         return STRIP_ROWS * (4 * span + elem * (window * channels + 6))
 
     tile = 512
-    while tile > 8 and tile_window(ws, wc, tile) * channels > TARGET_LANES:
+    while tile > 8 and tile_window(ws, wc, tile) * channels > target_lanes:
         tile //= 2
     while tile > 1 and smem(tile_window(ws, wc, tile)) > SMEM_BUDGET:
         tile //= 2
