@@ -16,9 +16,13 @@ convert-once and split-chroma variants, multi-frame blocks) at 64 x 1080p
 -> 224, each lab kernel against its plain version and the full-function
 ones against nv12_preprocess bit for bit; and the 4K NV12 resize lab's
 entry point (``vali_tpu_torch.lab.resize_diag``: phase knock-outs, aligned
-windows, the skewed H/W pipeline, streamed row bands) at 16 x 4K -> 1080p,
-each kernel against its plain version and the full-function ones against
-nv12_resize bit for bit. It builds the CUDA
+windows, the skewed H/W pipeline, streamed row bands, row-slab split-K
+sums, column stripes) at 16 x 4K -> 1080p, each kernel against its plain
+version and the full-function ones but slabs against nv12_resize bit for
+bit; and the NV12 -> RGB convert lab's entry point
+(``vali_tpu_torch.lab.convert_lab``: bf16-staged variants, read / store /
+quantisation / replication probes) at 64 x 1080p, each kernel against its
+plain version bit for bit and V1 / V2 against nv12_to_rgb. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -197,6 +201,13 @@ def main() -> int:
     _cuda_build.load_kernels()
     log(f"kernel_build_s={time.perf_counter() - t0:.3f} "
         f"library={_cuda_build.library_path()}")
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        """Log the host seconds since the last lap."""
+        now = time.perf_counter()
+        log(f"phase_s {phase}={now - clock[0]:.1f}")
+        clock[0] = now
 
     bt709 = dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG)
     jpeg601 = dict(space=ColorSpace.BT_601, crange=ColorRange.JPEG)
@@ -275,6 +286,8 @@ def main() -> int:
             raise AssertionError(f"{fn.__name__} outside the envelope of "
                                  f"the dense route")
 
+    lap("preprocess kernels vs plain and dense")
+
     # ---- main path: MultiStreamPipeline over 64 streams ------------------
     # Every stream is a HostFrameSource that hands the pipeline host frames
     # laid out as the decoder would; stream s yields frames s, s+1, ... of
@@ -342,6 +355,8 @@ def main() -> int:
         f"{LETTERBOX}x{LETTERBOX} (inner {iw}x{ih}) bf16+norm; every batch "
         f"equal to the kernel output")
 
+    lap("main path")
+
     # ---- decode -> pipeline, when the native engine builds here ----------
     from vali_tpu_torch.engine._loader import load_native
 
@@ -354,6 +369,8 @@ def main() -> int:
             f"on this machine: {detail}")
     else:
         decode_phase(torch, np, dev)
+
+    lap("decode")
 
     # ---- times at 64 x 1080p -> 224 --------------------------------------
     in_bytes = {fmt: host[fmt].nbytes for fmt in host}
@@ -401,12 +418,19 @@ def main() -> int:
         f"host_stack_ms={statistics.median(stack_ms)} h2d_ms={h2d_ms} "
         f"h2d_GBps={pinned.nbytes / (h2d_ms * 1e-3) / 1e9} ({smi})")
 
+    lap("preprocess times and pipeline rate")
     surface = surface_phases(torch, np, dev, host[PixelFormat.NV12], smi,
                              times["nv12_preprocess"][0])
+    lap("surface")
     rotate_ud_phase(torch, np, host[PixelFormat.NV12][0],
                     host[PixelFormat.YUV422][0], smi)
+    lap("rotate and ud")
     lab = lab_phase(torch, np, dev, smi)
+    lap("kernel-variant lab")
     lab += resize_lab_phase(torch, np, dev, smi)
+    lap("resize lab")
+    lab += convert_lab_phase(torch, np, dev, smi)
+    lap("convert lab")
     # no single PyTorch call computes fused CSC + banded Lanczos:
     # library_ms is null
     preprocess = {  # wrapper: chroma layout, TPU kernel line, checked case
@@ -854,13 +878,16 @@ RESIZE_LAB_REPLACES = {  # resize-lab wrapper -> its TPU notebook kernel
     "streamed_resize": "resize_diag.py:164",
     "aligned_resize": "resize_diag.py:290",
     "skewed_resize": "resize_diag.py:408",
+    "slabs_resize": "resize_diag.py:537",
+    "striped_resize": "resize_diag.py:697",
 }
 
 
 def resize_lab_phase(torch, np, dev, smi):
     """The 4K NV12 resize lab at 16 x 4K -> 1080p: every lab kernel against
-    its plain version on the card (the full-function variants also against
-    nv12_resize bit for bit, ``both`` against its luma rows), the sinks of
+    its plain version on the card (the full-function variants but slabs
+    also against nv12_resize bit for bit, ``both`` against its luma rows;
+    slabs' samples that differ from nv12_resize are counted), the sinks of
     dma_only and w_only against the frames, then the lab's entry point
     (``resize_diag.run``) name by name with the launch counts set to 0 just
     before and read just after, the H/W split, and the plain versions'
@@ -891,6 +918,10 @@ def resize_lab_phase(torch, np, dev, smi):
         if c.exact and not torch.equal(out, want):
             raise AssertionError(f"resize lab {name} differs from "
                                  f"nv12_resize")
+        if c.wrapper is rd.slabs_resize:
+            log(f"resize lab {name}: {int((out != product).sum().item())} "
+                f"of {out.numel()} samples differ from nv12_resize (split-K "
+                f"sums at the slab edges)")
     del plain_full
     want = np.bitwise_xor.reduce(frames.cpu().numpy().view(np.uint32),
                                  axis=None)
@@ -932,7 +963,13 @@ def resize_lab_phase(torch, np, dev, smi):
     # ---- phase 3: the plain versions' times (3 samples of 1 call) --------
     plain_ms = {"full": time_ms(lambda: nv12_resize_plain(frames, **geo),
                                 samples=3, calls=1)}
-    for name in rd.MODES:
+    # each knock-out's own plain version; one of each split full function
+    # stands for its names (their plain versions do the same products)
+    plain_of = {n: n if n in rd.MODES else "full" for n in names}
+    plain_of.update({n: "slabs4" for n in names if n.startswith("slabs")})
+    plain_of.update({n: "striped3dyn" for n in names
+                     if n.startswith("striped")})
+    for name in set(plain_of.values()) - {"full"}:
         plain_ms[name] = time_ms(lambda c=cases[name]: c.plain(frames),
                                  samples=3, calls=1)
     log(f"time resize lab plain versions: {json.dumps(plain_ms)} ({smi})")
@@ -947,9 +984,109 @@ def resize_lab_phase(torch, np, dev, smi):
             "replaces": RESIZE_LAB_REPLACES[wrapper],
             "launches": r["launches"], "max_abs_err": err[name],
             "ms": r["ms"],
-            "plain_ms": plain_ms[name if name in rd.MODES else "full"],
+            "plain_ms": plain_ms[plain_of[name]],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no PyTorch call computes a banded Lanczos resize
+            "library_ms": None})
+    return entries
+
+
+CONVERT_LAB_REPLACES = {  # convert-lab wrapper -> its TPU notebook kernel
+    "convert_variant": "convert_lab.py:84",
+    "convert_probe": "convert_lab.py:179",
+}
+
+
+def convert_lab_phase(torch, np, dev, smi):
+    """The NV12 -> RGB convert lab at 64 x 1080p: every lab kernel against
+    its plain version on the card bit for bit (V1 and V2 also against
+    nv12_to_rgb), the sinks of dma and inonly against the frames, then the
+    lab's entry point (``convert_lab.run``) name by name with the launch
+    counts set to 0 just before and read just after, the read / store /
+    quantisation / replication split of nv12_to_rgb, and the plain
+    versions' times. Returns the lab kernels' entries of the JSON line."""
+    from vali_tpu_torch.core.enums import ColorRange, ColorSpace
+    from vali_tpu_torch.lab import convert_lab as cl
+    from vali_tpu_torch.ops.nv12_to_rgb import nv12_to_rgb, nv12_to_rgb_plain
+
+    bt709 = dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG)
+    rows = H * 3 // 2
+    frames = cl.make_frames(B, rows, W, dev)
+    product = nv12_to_rgb(frames, src_w=W, src_h=H, **bt709)
+    names = cl.DEFAULT_NAMES[1:]   # "prod" is nv12_to_rgb itself
+    cases = {n: cl.case(n, B, rows, W, H) for n in names}
+
+    # ---- phase 1: kernel against plain version on the card ---------------
+    err = {}
+    for name, c in cases.items():
+        out, ref = c.call(frames), c.plain(frames)
+        torch.cuda.synchronize()
+        err[name] = compare(torch, f"convert lab {name} vs plain", out, ref)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"convert lab {name} differs from its plain "
+                                 f"version")
+        if name in cl.VARIANTS and not torch.equal(out, product):
+            raise AssertionError(f"convert lab {name} differs from "
+                                 f"nv12_to_rgb")
+    want = np.bitwise_xor.reduce(frames.cpu().numpy().view(np.uint32),
+                                 axis=None)
+    for mode in ("dma", "inonly"):
+        sink = torch.zeros(cl.SINK_WORDS, dtype=torch.int32, device=dev)
+        cl.convert_probe(frames, src_w=W, src_h=H, mode=mode, sink=sink)
+        got = np.bitwise_xor.reduce(sink.cpu().numpy().view(np.uint32))
+        if got != want:
+            raise AssertionError(f"{mode}'s sink misses bytes of the frames")
+    log(f"convert lab: {', '.join(cl.VARIANTS)} equal to nv12_to_rgb, every "
+        f"probe equal to its plain version; the dma and inonly sinks equal "
+        f"to the XOR of every word of the frames")
+
+    # ---- phase 2: the lab's entry point, the counts read per name --------
+    for w in cl.WRAPPERS:
+        w.launches = 0
+    results = {}
+    for name in cl.DEFAULT_NAMES:
+        before = sum(w.launches for w in cl.WRAPPERS)
+        (row,) = cl.run([name], frames, src_w=W, src_h=H, log=log)
+        row["launches"] = sum(w.launches for w in cl.WRAPPERS) - before
+        results[name] = row
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in cl.WRAPPERS}
+    log(f"convert_lab_path_launches={json.dumps(launches)}")
+    if min(launches.values()) < 1 or min(
+            results[n]["launches"] for n in names) < 1:
+        raise AssertionError("a kernel of the convert lab was not launched")
+    for n, r in results.items():
+        if r["maxdiff"] != 0:
+            raise AssertionError(f"convert lab {n} differs from its "
+                                 f"reference")
+    ms = {n: r["ms"] for n, r in results.items()}
+    p = ms["prod"]
+    log(f"convert lab split of nv12_to_rgb {p} ms: read (inonly) "
+        f"{ms['inonly'] / p}, store (outonly) {ms['outonly'] / p}, store in "
+        f"216-row blocks (outband) {ms['outband'] / p}, read + store (dma) "
+        f"{ms['dma'] / p}, quantisation (prod - noquant) "
+        f"{(p - ms['noquant']) / p}, replication (prod - noh) "
+        f"{(p - ms['noh']) / p} ({smi})")
+
+    # ---- phase 3: the plain versions' times (3 samples of 1 call) --------
+    plain_ms = {"prod": time_ms(lambda: nv12_to_rgb_plain(
+        frames, src_w=W, src_h=H, **bt709), samples=3, calls=1)}
+    for name in cl.PROBES:
+        plain_ms[name] = time_ms(lambda c=cases[name]: c.plain(frames),
+                                 samples=3, calls=1)
+    log(f"time convert lab plain versions: {json.dumps(plain_ms)} ({smi})")
+    entries = []
+    for name in names:
+        wrapper = cases[name].wrapper.__name__
+        r = results[name]
+        entries.append({
+            "name": f"{wrapper} {name}", "route": "cuda",
+            "source": "vali_tpu_torch/csrc/nv12_to_rgb_variants.cu",
+            "replaces": CONVERT_LAB_REPLACES[wrapper],
+            "launches": r["launches"], "max_abs_err": err[name],
+            "ms": r["ms"], "plain_ms": plain_ms.get(name, plain_ms["prod"]),
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            # no PyTorch call computes the bf16-cast-point CSC or the probes
             "library_ms": None})
     return entries
 

@@ -2,9 +2,10 @@
 plain PyTorch versions on the card, the launch counters, the pipeline's
 pinned staging, the Surface ops' streams, the rotator and UD op on the
 card against the same ops on the CPU, the NV12 kernel-variant lab's
-kernels against their plain versions, and the 4K NV12 resize lab's kernels
-against their plain versions and nv12_resize. They skip where torch has no
-CUDA device.
+kernels against their plain versions, the 4K NV12 resize lab's kernels
+against their plain versions and nv12_resize, and the NV12 -> RGB convert
+lab's kernels against their plain versions and nv12_to_rgb. They skip where
+torch has no CUDA device.
 
 This file imports no JAX, so on a machine with a card it runs alone:
 
@@ -17,6 +18,7 @@ import torch
 
 from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
 from vali_tpu_torch.core.formats import format_info
+from vali_tpu_torch.lab import convert_lab as cl
 from vali_tpu_torch.lab import kernel_variants as kv
 from vali_tpu_torch.lab import resize_diag as rd
 from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
@@ -601,7 +603,8 @@ def test_resize_lab_kernels_match_plain(dev, geom, name):
 
 @pytest.mark.parametrize("name", ["dma_only", "h_only", "w_only", "both",
                                   "aligned8x32", "aligned4x8", "skewed",
-                                  "streamed64"])
+                                  "streamed64", "slabs4", "striped3dyn",
+                                  "striped3relay", "striped2unroll"])
 def test_resize_lab_kernels_padded_strided_views(dev, name):
     """Extra rows, a padded row pitch (16-byte aligned, then not) and a
     larger batch stride give the output of the contiguous buffer."""
@@ -660,6 +663,8 @@ def test_resize_lab_wrappers_count_launches_and_reject_bad_input(dev):
     rd.aligned_resize(x, **geo)
     rd.skewed_resize(x, **geo)
     rd.streamed_resize(x, **geo)
+    rd.slabs_resize(x, **geo)
+    rd.striped_resize(x, **geo, store="relay")
     after = [n + 1 for n in before]
     assert [f.launches for f in rd.WRAPPERS] == after
     rd.skewed_resize(x.cpu(), **geo)  # the plain version: not a launch
@@ -676,4 +681,135 @@ def test_resize_lab_wrappers_count_launches_and_reject_bad_input(dev):
         rd.streamed_resize(x, **geo, band=4)
     with pytest.raises(RuntimeError, match="streamed_resize"):  # ring > smem
         rd.streamed_resize(x, **geo, band=4096)
+    with pytest.raises(ValueError, match="unroll"):
+        rd.striped_resize(x, **geo, nw=9, store="unroll")
+    with pytest.raises(ValueError, match="nslabs"):
+        rd.slabs_resize(x, **geo, nslabs=0)
     assert [f.launches for f in rd.WRAPPERS] == after
+
+
+def _straddling_rows(src_h, dst_h, slab):
+    """Output rows of the NV12 resize (luma, then chroma) whose row band
+    crosses a slab edge of the buffer's rows."""
+    from vali_tpu_torch.ops.banded import band_table
+    from vali_tpu_torch.ops.resize import LANCZOS_AA, resize_weights
+
+    out = []
+    for row0, n, dn in ((0, src_h, dst_h), (src_h, src_h // 2, dst_h // 2)):
+        start, count, _ = band_table(resize_weights(n, dn, LANCZOS_AA),
+                                     torch.bfloat16)
+        first = (row0 + start) // slab
+        last = (row0 + start + count - 1) // slab
+        out.append(first != last)
+    return torch.from_numpy(np.concatenate(out))
+
+
+@pytest.mark.parametrize("nslabs", [2, 4, 6, 16])
+def test_slabs_equal_nv12_resize_off_the_slab_edges(dev, nslabs):
+    """Rows whose band lies inside one slab sum one piece: nv12_resize's
+    bits. The rows whose band straddles an edge add two fp32 partials:
+    within 1 LSB of it."""
+    h, w, dh, dw = 288, 512, 144, 256
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = rd.make_frames(3, h * 3 // 2, w, dev, seed=nslabs)
+    out = rd.slabs_resize(x, **geo, nslabs=nslabs)
+    ref = nv12_resize(x, **geo)
+    edge = _straddling_rows(h, dh, rd.slab_rows(h, nslabs)).to(dev)
+    assert edge.any()
+    assert torch.equal(out[:, ~edge], ref[:, ~edge])
+    _assert_close(out, ref, nslabs)
+
+
+@pytest.mark.parametrize("nw,store", [(1, "dyn"), (8, "unroll"),
+                                      (7, "relay"), (3, "unroll")])
+def test_striped_stores_equal_nv12_resize(dev, nw, store):
+    """One stripe, the most the unroll store instantiates, and stripes
+    that do not divide the row: nv12_resize's bits."""
+    geo = dict(src_w=322, src_h=150, dst_w=202, dst_h=70)
+    x = rd.make_frames(2, 225, 322, dev, seed=nw)
+    assert torch.equal(rd.striped_resize(x, **geo, nw=nw, store=store),
+                       nv12_resize(x, **geo))
+
+
+# --- the NV12 -> RGB convert lab (csrc/nv12_to_rgb_variants.cu) -------------
+
+CONVERT_LAB_NAMES = [n for n in cl.DEFAULT_NAMES if n != "prod"]
+
+
+@pytest.mark.parametrize("geom", [
+    (3, 256, 144),     # the CPU lab's geometry
+    (2, 336, 150),     # a partial 128-pixel group, H % 32 != 0
+    (2, 1920, 1080),   # the card's geometry
+])
+@pytest.mark.parametrize("name", CONVERT_LAB_NAMES)
+def test_convert_lab_kernels_match_plain(dev, geom, name):
+    """Every convert-lab kernel equals its plain version bit for bit; V1
+    and V2 also nv12_to_rgb."""
+    b, w, h = geom
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=w + h)
+    c = cl.case(name, b, h * 3 // 2, w, h)
+    out, ref = c.call(x), c.plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), (name, geom)
+    assert torch.equal(out, c.reference(x)), (name, geom)
+
+
+@pytest.mark.parametrize("name", CONVERT_LAB_NAMES)
+def test_convert_lab_kernels_padded_views(dev, name):
+    """Extra rows, a padded 16-byte aligned row pitch and a larger batch
+    stride: the plain version of the same view (inonly and noh read the
+    rows past H*3/2 that the buffer has)."""
+    b, w, h = 2, 256, 144
+    rows = h * 3 // 2
+    big = torch.zeros((b, rows + 40, w + 32), dtype=torch.uint8, device=dev)
+    big[:, :, :w] = kv.make_frames(b, rows + 40, w, dev, seed=9)
+    view = big[:, :, :w]
+    c = cl.case(name, b, rows + 40, w, h)
+    assert torch.equal(c.call(view), c.plain(view)), name
+
+
+@pytest.mark.parametrize("mode", ["dma", "inonly"])
+def test_convert_probe_sink_reads_every_byte(dev, mode):
+    """On a zeroed sink the XOR of its words is the XOR of every 32-bit
+    word of the frames, and one byte changed in a row the output never
+    reads changes the sink but not the output."""
+    b, w, h = 2, 256, 144
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=4)
+
+    def run(frames):
+        sink = torch.zeros(cl.SINK_WORDS, dtype=torch.int32, device=dev)
+        out = cl.convert_probe(frames, src_w=w, src_h=h, mode=mode,
+                               sink=sink)
+        return out, sink.cpu().numpy().view(np.uint32)
+
+    out, sink = run(x)
+    words = x.cpu().numpy().view(np.uint32).ravel()
+    assert np.bitwise_xor.reduce(sink) == np.bitwise_xor.reduce(words)
+    y = x.clone()
+    y[1, h + 10, 200] ^= 1
+    out2, sink2 = run(y)
+    assert torch.equal(out2, out)
+    assert not np.array_equal(sink2, sink)
+
+
+def test_convert_lab_wrappers_count_launches_and_reject_bad_input(dev):
+    b, w, h = 2, 256, 144
+    geo = dict(src_w=w, src_h=h)
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=2)
+    before = [f.launches for f in cl.WRAPPERS]
+    cl.convert_variant(x, **geo, variant="V2")
+    cl.convert_probe(x, **geo, mode="noh")
+    after = [n + 1 for n in before]
+    assert [f.launches for f in cl.WRAPPERS] == after
+    cl.convert_variant(x.cpu(), **geo)  # the plain version: not a launch
+    unaligned = torch.zeros((b, h * 3 // 2, w + 8), dtype=torch.uint8,
+                            device=dev)[:, :, :w]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cl.convert_variant(unaligned, **geo)
+    narrow = kv.make_frames(b, h * 3 // 2, 200, dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cl.convert_probe(narrow, src_w=200, src_h=h, mode="dma")
+    with pytest.raises(ValueError, match="sink"):
+        cl.convert_probe(x, **geo, mode="dma",
+                         sink=torch.zeros(4, dtype=torch.int64, device=dev))
+    assert [f.launches for f in cl.WRAPPERS] == after

@@ -119,6 +119,44 @@ def test_streamed_matches_the_notebook(nv12, band):
     _assert_u8_close(j, t.numpy())
 
 
+@pytest.mark.parametrize("nslabs", [2, 4])
+def test_slabs_matches_the_notebook(nv12, nslabs):
+    """Split-K H-pass sums: within the envelope of the notebook and of the
+    unsplit product route (only the fp32 summation order differs)."""
+    j = nb.slabs(jnp.asarray(nv12), nslabs=nslabs)
+    x = torch.from_numpy(nv12)
+    t = rd.slabs_resize(x, **GEO, nslabs=nslabs)
+    _assert_u8_close(j, t.numpy())
+    _assert_u8_close(nv12_resize_plain(x, **GEO).numpy(), t.numpy())
+
+
+@pytest.mark.parametrize("store", ["dyn", "relay", "unroll"])
+@pytest.mark.parametrize("nw", [2, 4])
+def test_striped_matches_the_notebook(nv12, nw, store):
+    """Stripes never mix columns: equal to nv12_resize_plain bit for bit,
+    and within the envelope of the notebook."""
+    j = nb.striped(jnp.asarray(nv12), nw=nw, store=store)
+    x = torch.from_numpy(nv12)
+    t = rd.striped_resize(x, **GEO, nw=nw, store=store)
+    _assert_u8_close(j, t.numpy())
+    assert torch.equal(t, nv12_resize_plain(x, **GEO))
+
+
+@pytest.mark.parametrize("src_h,nslabs,want", [
+    (288, 2, 224), (288, 4, 128), (2160, 4, 832), (2160, 6, 544),
+    (2160, 1, 3264)])
+def test_slab_rows_round_up_to_32(src_h, nslabs, want):
+    assert rd.slab_rows(src_h, nslabs) == want
+
+
+@pytest.mark.parametrize("src_w,nw,edges", [
+    (512, 2, [0, 256, 512]), (512, 3, [0, 168, 336, 512]),
+    (3840, 3, [0, 1280, 2560, 3840]), (3840, 5, [0, 768, 1536, 2304, 3072,
+                                                 3840]), (66, 1, [0, 66])])
+def test_stripe_edges_are_multiples_of_4(src_w, nw, edges):
+    assert rd.stripe_edges(src_w, nw) == edges
+
+
 def test_full_function_variants_equal_the_product_route(nv12):
     """On the CPU every full-function variant is nv12_resize_plain bit for
     bit, and ``both`` is its luma rows."""
@@ -193,6 +231,18 @@ def test_wrappers_reject_bad_arguments(nv12):
         rd.aligned_resize(x[:, :, :W - 16], **GEO)
     with pytest.raises(ValueError, match="even"):
         rd.skewed_resize(x, src_w=W, src_h=H, dst_w=DW, dst_h=DH - 1)
+    with pytest.raises(ValueError, match="nslabs"):
+        rd.slabs_resize(x, **GEO, nslabs=0)
+    with pytest.raises(ValueError, match="align"):
+        rd.slabs_resize(x, **GEO, h_align=0)
+    with pytest.raises(ValueError, match="store"):
+        rd.striped_resize(x, **GEO, store="lanes")
+    with pytest.raises(ValueError, match="nw"):
+        rd.striped_resize(x, **GEO, nw=0)
+    with pytest.raises(ValueError, match="narrower"):
+        rd.striped_resize(x, **GEO, nw=200)
+    with pytest.raises(ValueError, match="unroll"):
+        rd.striped_resize(x, **GEO, nw=9, store="unroll")
     for wrapper in rd.WRAPPERS:
         kw = dict(mode="both") if wrapper is rd.resize_phases else {}
         with pytest.raises(ValueError, match="CUDA or CPU"):
@@ -201,6 +251,8 @@ def test_wrappers_reject_bad_arguments(nv12):
     assert [w.launches for w in rd.WRAPPERS] == before
     with pytest.raises(ValueError, match="unknown lab name"):
         rd.case("aligned8", B, **GEO)
+    with pytest.raises(ValueError, match="unknown lab name"):
+        rd.case("striped3", B, **GEO)
 
 
 def test_lab_entry_point_on_the_cpu(capsys):
@@ -222,7 +274,8 @@ def test_work_counts_the_frame_and_the_output():
     frame = B * H * 3 // 2 * W
     full = rd.case("prod", B, **GEO).work
     assert full[0] == frame + B * DH * 3 // 2 * DW
-    for name in ("aligned8x32", "skewed", "streamed64"):
+    for name in ("aligned8x32", "skewed", "streamed64", "slabs4",
+                 "striped3relay"):
         assert rd.case(name, B, **GEO).work == full
     for mode in rd.MODES:
         assert rd.case(mode, B, **GEO).work[0] == frame + B * DH * DW

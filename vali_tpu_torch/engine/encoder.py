@@ -33,10 +33,11 @@ class PyNvEncoder:
     """Video encoder with the reference's option-dict interface."""
 
     def __init__(self, settings: Dict[str, str], gpu_id: int = 0,
+                 stream: Optional[int] = None,
                  format: PixelFormat = PixelFormat.NV12,
                  verbose: bool = False):
-        """``gpu_id`` is accepted for API parity; encoding runs on the
-        host."""
+        """``gpu_id`` and ``stream`` are accepted for API parity (the
+        reference's order) and unused; encoding runs on the host."""
         settings = {opt_str(k): opt_str(v) for k, v in settings.items()}
         self._enc = load_native().Encoder(settings, int(PixelFormat(format)),
                                           bool(verbose))

@@ -2,7 +2,8 @@
 run on the card.
 
 Counterpart of the TPU notebook ``resize_diag.py`` (its ``main``,
-``main_aligned``, ``main_skewed`` and ``main_streamed``). Four wrappers
+``main_aligned``, ``main_skewed``, ``main_streamed``, ``main_slabs`` and
+``main_striped``). Six wrappers
 over the kernels of ``csrc/nv12_resize_variants.cu``, each beside its plain
 PyTorch version, with the same dispatch as the product wrappers: a CUDA
 tensor launches the kernel, a CPU tensor runs the plain version, any other
@@ -26,9 +27,18 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   beside frame b - 1's W pass inside one block.
 - :func:`streamed_resize` (``streamed``): the full resize with source rows
   copied in bands of ``band`` rows into a ring two bands deep.
+- :func:`slabs_resize` (``slabs``): the full resize with the NV12 buffer's
+  rows cut into ``nslabs`` slabs; each H-pass sum is one fp32 partial per
+  slab (one cp.async group each on the card), added in slab order. Equal
+  to :func:`nv12_resize` where no row band straddles a slab edge, within
+  1 LSB on fewer than 1e-3 of the samples elsewhere.
+- :func:`striped_resize` (``striped``): the full resize with each frame's
+  H pass cut into ``nw`` column stripes into a bf16 scratch in device
+  memory, then the W pass; ``store`` dyn, relay or unroll.
 
-Every full-function variant, and ``both``, equals :func:`nv12_resize` bit
-for bit on the card; on the CPU its plain version is the product's.
+Every full-function variant but ``slabs``, and ``both``, equals
+:func:`nv12_resize` bit for bit on the card; on the CPU its plain version
+is the product's, split as the variant splits it.
 
 Run the lab (16 x 4K -> 1080p on ``cuda:0``; ``--device cpu`` runs the
 plain versions at 3 x 512x288 -> 256x144 and times nothing)::
@@ -37,7 +47,8 @@ plain versions at 3 x 512x288 -> 256x144 and times nothing)::
 
 Names: ``prod`` (:func:`nv12_resize` itself), ``dma_only``, ``h_only``,
 ``w_only``, ``both``, ``aligned{h}x{w}`` (``aligned8x32``),
-``skewed``, ``streamed{band}`` (``streamed64``). Each prints one line: ms
+``skewed``, ``streamed{band}`` (``streamed64``), ``slabs{n}`` (``slabs4``),
+``striped{nw}{dyn|relay|unroll}`` (``striped3dyn``). Each prints one line: ms
 per batch, spread, maxdiff against its reference, GB/s and the bound; on
 the card also the H/W split as shares of ``prod``.
 """
@@ -58,7 +69,8 @@ from ..ops.banded import (ResizeTables, STRIP_ROWS, band_table,
                           pack_resize_tables, resize_tables)
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_resize import nv12_resize, nv12_resize_plain
-from ..ops.resize import LANCZOS_AA, resize_plane, resize_weights, round_to
+from ..ops.resize import (LANCZOS_AA, from_f32, resize_plane, resize_weights,
+                          round_to)
 from .kernel_variants import SINK_WORDS, _on_cpu, make_frames
 from .timing import bound_ms, nv12_resize_work, time_cuda
 
@@ -73,7 +85,9 @@ STREAM_LANES = 320
 
 DEFAULT_NAMES = ("prod", "dma_only", "h_only", "w_only", "both",
                  "aligned8x32", "aligned32x128", "aligned4x16", "skewed",
-                 "streamed64", "streamed256")
+                 "streamed64", "streamed256", "slabs2", "slabs4", "slabs6",
+                 "striped3dyn", "striped5dyn", "striped3relay",
+                 "striped3unroll")
 CARD_SIZE = (16, 3840, 2160, 1920, 1080)   # batch, W, H, DW, DH
 CPU_SIZE = (3, 512, 288, 256, 144)
 
@@ -327,12 +341,173 @@ def streamed_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
     return out
 
 
+# --- the plain versions' passes, split as the variants split them --------
+
+def _planes_plain(nv12, src_w, src_h, dst_w, dst_h, h_pass) -> torch.Tensor:
+    """The NV12 resize with ``h_pass(plane, row0, weights)`` (row0: the
+    plane's first buffer row) as each plane's fp32 H pass, then
+    resize_plane's bf16 cast point, W pass and quantise."""
+    out = []
+    for row0, n, oh, ow, ch in ((0, src_h, dst_h, dst_w, 1),
+                                (src_h, src_h // 2, dst_h // 2, dst_w // 2,
+                                 2)):
+        dev = nv12.device
+        wh = round_to(resize_weights(n, oh, LANCZOS_AA), _BF16).to(dev)
+        w = src_w // ch
+        ww = round_to(resize_weights(w, ow, LANCZOS_AA), _BF16).to(dev)
+        with exact_f32_matmul():
+            t = round_to(h_pass(to_f32(nv12[:, row0:row0 + n]), row0, wh),
+                         _BF16)
+            t = t.unflatten(2, (w, ch)).movedim(-1, -2)
+            t = torch.matmul(t, ww.T).movedim(-2, -1)
+        out.append(from_f32(t.reshape(nv12.shape[0], oh, ow * ch),
+                            torch.uint8))
+    return torch.cat(out, dim=1)
+
+
+# --- row slabs (notebook ``slabs``) ----------------------------------------
+
+def slab_rows(src_h: int, nslabs: int) -> int:
+    """Rows of one slab: the NV12 buffer's src_h*3/2 rows cut into
+    ``nslabs``, rounded up to 32 (notebook ``slabs``, whose row count may
+    also include the padding of its TPU block tables)."""
+    if nslabs < 1:
+        raise ValueError(f"nslabs must be >= 1, got {nslabs}")
+    per = -(-(src_h * 3 // 2) // nslabs)
+    return -(-per // 32) * 32
+
+
+def slabs_resize_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                       dst_w: int, dst_h: int, nslabs: int = 4
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`slabs_resize` (any device): each
+    plane's H pass summed as one fp32 product per slab, added in slab
+    order."""
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    slab = slab_rows(src_h, nslabs)
+
+    def h_pass(plane, row0, wh):
+        acc, a, n = None, 0, plane.shape[1]
+        while a < n:
+            e = min(n, ((row0 + a) // slab + 1) * slab - row0)
+            part = torch.matmul(wh[:, a:e], plane[:, a:e])
+            acc = part if acc is None else acc + part
+            a = e
+        return acc
+
+    return _planes_plain(nv12, src_w, src_h, dst_w, dst_h, h_pass)
+
+
+def slabs_resize(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
+                 dst_h: int, nslabs: int = 4, h_align: int = 8,
+                 w_align: int = 32) -> torch.Tensor:
+    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with the buffer's
+    rows cut into ``nslabs`` slabs of :func:`slab_rows` rows: each H-pass
+    sum is one fp32 partial per slab its window touches, the partials added
+    in slab order, through :func:`aligned_tables` windows. Equal to
+    :func:`nv12_resize` where no row band straddles a slab edge, within
+    1 LSB elsewhere."""
+    if h_align < 1 or w_align < 1:
+        raise ValueError(f"h_align and w_align must be >= 1, got "
+                         f"{h_align}, {w_align}")
+    slab = slab_rows(src_h, nslabs)
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("slabs_resize", nv12):
+        return slabs_resize_plain(nv12, **geo, nslabs=nslabs)
+    tabs = _tables(src_w, src_h, dst_w, dst_h, nv12.device, aligned_tables,
+                   h_align=h_align, w_align=w_align)
+    out = _launch("slabs_resize", "nv12_resize_slabs_launch", nv12, tabs,
+                  (slab,), _full_out(nv12, dst_w, dst_h), **geo)
+    slabs_resize.launches += 1
+    return out
+
+
+# --- column stripes (notebook ``striped``) ---------------------------------
+
+STORES = ("dyn", "relay", "unroll")
+#: stripes the unroll store instantiates (kMaxStripes of the kernel)
+MAX_UNROLL_STRIPES = 8
+
+
+def stripe_width(src_w: int, nw: int) -> int:
+    """Lanes of each of ``nw`` stripes of the NV12 rows but the last, which
+    takes the rest: ``src_w // nw`` rounded down to a multiple of 4 (even,
+    so no UV pair is split)."""
+    if nw < 1:
+        raise ValueError(f"nw must be >= 1, got {nw}")
+    sw = src_w // nw // 4 * 4
+    if sw < 4:
+        raise ValueError(f"{nw} stripes of a {src_w}-lane row are narrower "
+                         f"than 4 lanes")
+    return sw
+
+
+def stripe_edges(src_w: int, nw: int) -> List[int]:
+    """Lane edges of the ``nw`` stripes of :func:`stripe_width`."""
+    sw = stripe_width(src_w, nw)
+    return [s * sw for s in range(nw)] + [src_w]
+
+
+def striped_resize_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                         dst_w: int, dst_h: int, nw: int = 3
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`striped_resize` (any device): each
+    stripe's columns H-passed on their own, then the W pass of the
+    frame-wide rows."""
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    edges = stripe_edges(src_w, nw)
+
+    def h_pass(plane, row0, wh):
+        return torch.cat([torch.matmul(wh, plane[..., a:b])
+                          for a, b in zip(edges, edges[1:])], dim=-1)
+
+    return _planes_plain(nv12, src_w, src_h, dst_w, dst_h, h_pass)
+
+
+def striped_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                   dst_w: int, dst_h: int, nw: int = 3,
+                   store: str = "dyn") -> torch.Tensor:
+    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with each frame's H
+    pass cut into ``nw`` column stripes (:func:`stripe_edges`) into a bf16
+    scratch in device memory, then the W pass; ``store`` (dyn, relay,
+    unroll) is how a stripe writes the scratch. Equal to
+    :func:`nv12_resize`."""
+    if store not in STORES:
+        raise ValueError(f"store must be one of {STORES}, got {store!r}")
+    edges = stripe_edges(src_w, nw)
+    if store == "unroll" and nw > MAX_UNROLL_STRIPES:
+        raise ValueError(f"the unroll store instantiates at most "
+                         f"{MAX_UNROLL_STRIPES} stripes, got nw={nw}")
+    _checked(nv12, src_w, src_h, dst_w, dst_h)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("striped_resize", nv12):
+        return striped_resize_plain(nv12, **geo, nw=nw)
+    rows, dev = dst_h * 3 // 2, nv12.device
+    ldh = -(-src_w // 4) * 4
+    ldr = -(-(src_w - edges[-2]) // 4) * 4
+    hres = torch.empty((nv12.shape[0], rows, ldh), dtype=_BF16, device=dev)
+    relay = (torch.empty((nv12.shape[0], nw, rows, ldr), dtype=_BF16,
+                         device=dev) if store == "relay" else None)
+    out = _launch("striped_resize", "nv12_resize_striped_launch", nv12,
+                  _tables(src_w, src_h, dst_w, dst_h, dev, _product_tables),
+                  (nw, stripe_width(src_w, nw), STORES.index(store),
+                   hres.data_ptr(), ldh,
+                   None if relay is None else relay.data_ptr(), ldr),
+                  _full_out(nv12, dst_w, dst_h), **geo)
+    striped_resize.launches += 1
+    return out
+
+
 #: kernel launches made by each wrapper (CPU calls are not counted)
 resize_phases.launches = 0
 aligned_resize.launches = 0
 skewed_resize.launches = 0
 streamed_resize.launches = 0
-WRAPPERS = (resize_phases, aligned_resize, skewed_resize, streamed_resize)
+slabs_resize.launches = 0
+striped_resize.launches = 0
+WRAPPERS = (resize_phases, aligned_resize, skewed_resize, streamed_resize,
+            slabs_resize, striped_resize)
 
 
 # --- the lab ----------------------------------------------------------------
@@ -386,8 +561,22 @@ def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
         return Case(streamed_resize,
                     lambda x: streamed_resize(x, **geo, band=band), plain,
                     product, True, full)
+    m = re.fullmatch(r"slabs(\d+)", name)
+    if m:
+        n = int(m.group(1))
+        split = (lambda x: slabs_resize_plain(x, **geo, nslabs=n))
+        return Case(slabs_resize, lambda x: slabs_resize(x, **geo, nslabs=n),
+                    split, split, False, full)
+    m = re.fullmatch(r"striped(\d+)(dyn|relay|unroll)", name)
+    if m:
+        nw, store = int(m.group(1)), m.group(2)
+        return Case(striped_resize,
+                    lambda x: striped_resize(x, **geo, nw=nw, store=store),
+                    lambda x: striped_resize_plain(x, **geo, nw=nw),
+                    product, True, full)
     raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES}, "
-                     f"aligned{{h}}x{{w}} or streamed{{band}}")
+                     f"aligned{{h}}x{{w}}, streamed{{band}}, slabs{{n}} or "
+                     f"striped{{nw}}{{dyn|relay|unroll}}")
 
 
 def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,

@@ -134,6 +134,28 @@ def nv12_resize_work(batch: int, src_h: int, src_w: int, dst_h: int,
     return nbytes, 2 * batch * fmas
 
 
+def convert_work(batch: int, src_w: int, src_h: int, rows: int,
+                 probe: str = "") -> Tuple[int, int]:
+    """(bytes, operations) of a uint8 NV12 -> packed RGB batch on frames of
+    ``rows`` buffer rows: the NV12 frame read once, [H, 3W] written once,
+    CSC_OPS per pixel. ``probe`` counts the convert lab's probes instead:
+    ``dma`` reads every row of the buffer and ``inonly`` too (one XOR per
+    32-bit word, into the sink); ``inonly`` writes [8, 128] (its sums),
+    ``outonly`` and ``outband`` read 8 rows; none of those three does the
+    CSC. ``noquant`` and ``noh`` are the full function's work."""
+    out = 3 * src_h * src_w
+    frame = src_h * 3 // 2 * src_w
+    if probe in ("", "noquant", "noh"):
+        return batch * (frame + out), batch * CSC_OPS * src_h * src_w
+    read = 8 * src_w if probe in ("outonly", "outband") else rows * src_w
+    if probe == "inonly":
+        out = 8 * 128
+        sums = 8 * 128 * -(-rows // 512)
+    else:
+        sums = 0
+    return batch * (read + out), batch * (read // 4 + sums)
+
+
 def resize_work(batch: int, src_h: int, src_w: int, dst_h: int, dst_w: int,
                 channels: int = 1) -> Tuple[int, int]:
     """(bytes, operations) of a uint8 lanczos_aa banded resize of

@@ -239,7 +239,7 @@ class Surface:
         return Surface.from_torch(torch.from_dlpack(obj), format)
 
     @staticmethod
-    def from_cai(d, format: PixelFormat = PixelFormat.RGB,
+    def from_cai(d, format: PixelFormat = PixelFormat.RGB, *,
                  gpu_id: int = 0) -> "Surface":
         """Ingest an array-interface object (reference: PySurface.cpp:
         468-537).

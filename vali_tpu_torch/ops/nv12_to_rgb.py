@@ -19,6 +19,7 @@ offsets subtracted first): it stays within 2 LSB of it.
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -63,6 +64,24 @@ def _checked(nv12, src_w, src_h, space, crange, swap, compute_dtype):
     return coefficients(space, crange, swap, cdt)
 
 
+def csc_channels(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 k: np.ndarray) -> List[torch.Tensor]:
+    """The three float32 output channels of full-resolution float32 planes
+    in the kernel's order, ``(y*m0 + (u*m1 + v*m2)) + off``, with the 12
+    coefficients ``k`` of :func:`coefficients`."""
+    chans = []
+    for c in range(3):
+        m0, m1, m2 = (float(x) for x in k[3 * c:3 * c + 3])
+        chans.append((y * m0 + (u * m1 + v * m2)) + float(k[9 + c]))
+    return chans
+
+
+def pack_channels(chans: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Three uint8 [B, H, W] channels -> packed [B, H, 3W]."""
+    b, h, w = chans[0].shape
+    return torch.stack(list(chans), dim=-1).reshape(b, h, 3 * w)
+
+
 def nv12_to_rgb_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
                       space: ColorSpace = ColorSpace.BT_709,
                       crange: ColorRange = ColorRange.JPEG,
@@ -72,14 +91,8 @@ def nv12_to_rgb_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
     k = _checked(nv12, src_w, src_h, space, crange, swap, compute_dtype)
     y, u, v = (p.to(torch.float32) for p in nv12_split(nv12, src_h))
     u, v = upsample2x_nearest(u), upsample2x_nearest(v)
-    chans = []
-    for c in range(3):
-        m0, m1, m2 = (float(x) for x in k[3 * c:3 * c + 3])
-        x = (y * m0 + (u * m1 + v * m2)) + float(k[9 + c])
-        chans.append(torch.clamp(torch.round(x), 0.0, 255.0).to(
-            torch.uint8))
-    return torch.stack(chans, dim=-1).reshape(nv12.shape[0], src_h,
-                                              3 * src_w)
+    return pack_channels([torch.clamp(torch.round(x), 0.0, 255.0).to(
+        torch.uint8) for x in csc_channels(y, u, v, k)])
 
 
 def nv12_to_rgb(

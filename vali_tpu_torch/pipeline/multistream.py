@@ -201,6 +201,7 @@ class MultiStreamPipeline:
                  sync_streams: bool = False,
                  prefetch: int = 2,
                  decode_threads: Optional[int] = None,
+                 mesh=None,
                  letterbox: bool = False,
                  pad_value: int = 114):
         """``sources`` are URLs/paths, file-like objects, or decoder objects
@@ -217,10 +218,16 @@ class MultiStreamPipeline:
         over this many threads instead of one thread per stream (default:
         min(n_streams, 4*cpu_count); sync_streams always uses one thread
         per stream). ``gpu_id=-1`` runs the preprocess on the CPU.
-        ``letterbox=True`` keeps the source aspect ratio: content is
+        ``mesh`` keeps the reference's place in the signature; sharding a
+        batch over several cards is not ported yet, so anything but None
+        raises NotImplementedError. ``letterbox=True`` keeps the source aspect ratio: content is
         resized to fit inside dst_w x dst_h and centered on a
         ``pad_value`` canvas (see ops/fused.letterbox_params for mapping
         model outputs back to source coordinates)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "MultiStreamPipeline(mesh=...): sharding a batch over a "
+                "device mesh is not yet ported; pass mesh=None")
         if not sources:
             raise ValueError("Need at least one source")
         self.sources = list(sources)
