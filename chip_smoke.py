@@ -12,9 +12,12 @@ YUV420, resized to 960x540 (turbo) and downloaded; then PySurfaceUD and
 PySurfaceRotator on 1080p Surfaces, each against the same op on a CPU copy
 of its input; and the NV12 kernel-variant lab's entry point
 (``vali_tpu_torch.lab.kernel_variants``: stream floor, phase knock-outs,
-convert-once and split-chroma variants, multi-frame blocks) at 64 x 1080p
--> 224, each lab kernel against its plain version and the full-function
-ones against nv12_preprocess bit for bit; and the 4K NV12 resize lab's
+convert-once and split-chroma variants, multi-frame blocks, static
+windows — constant-bank row tables, aligned strip windows, multi-frame
+tall strips —, transposed chroma and the tensor-core H pass) at 64 x
+1080p -> 224, each lab kernel against its plain version and the
+full-function ones against nv12_preprocess bit for bit (the tensor-core
+one within the kernels' envelope); and the 4K NV12 resize lab's
 entry point (``vali_tpu_torch.lab.resize_diag``: phase knock-outs, aligned
 windows, the skewed H/W pipeline, streamed row bands, row-slab split-K
 sums, column stripes) at 16 x 4K -> 1080p, each kernel against its plain
@@ -777,17 +780,23 @@ LAB_REPLACES = {  # lab kernel -> its TPU notebook kernel
     "variant_kernel": "bench_kernel_variants.py:86",
     "prod_like": "bench_kernel_variants.py:307",
     "multiframe": "bench_kernel_variants.py:785",
+    "static_kernel": "bench_kernel_variants.py:570",
+    "static_kernel2": "bench_kernel_variants.py:674",
+    "combo_kernel": "bench_kernel_variants.py:1015",
+    "transposed_chroma": "bench_kernel_variants.py:904",
+    "grouped_kernel": "bench_kernel_variants.py:437",
 }
 
 
 def lab_phase(torch, np, dev, smi):
     """The NV12 kernel-variant lab at 64 x 1080p -> 224: every lab kernel
     against its plain version on the card (the full-function variants also
-    against nv12_preprocess, bit for bit), the floor's sink against the
-    frames, then the lab's entry point (``kernel_variants.run``) name by
-    name with the launch counts set to 0 just before and read just after,
-    and the plain versions' times. Returns the lab kernels' entries of the
-    JSON line."""
+    against nv12_preprocess, bit for bit, but G, the tensor-core H pass,
+    within the kernels' envelope with its differing samples counted), the
+    floor's sink against the frames, then the lab's entry point
+    (``kernel_variants.run``) name by name with the launch counts set to 0
+    just before and read just after, and the plain versions' times.
+    Returns the lab kernels' entries of the JSON line."""
     from vali_tpu_torch.lab import kernel_variants as kv
     from vali_tpu_torch.ops.nv12_preprocess import nv12_preprocess
 
@@ -807,7 +816,12 @@ def lab_phase(torch, np, dev, smi):
         if name == "floor" and not torch.equal(out, ref):
             raise AssertionError("stream_floor differs from its plain "
                                  "version")
-        if c.full_function and not torch.equal(out, product):
+        if c.full_function and not c.exact:
+            compare(torch, f"lab {name} vs nv12_preprocess", out, product)
+            log(f"lab {name}: {int((out != product).sum().item())} of "
+                f"{out.numel()} samples differ from nv12_preprocess "
+                f"(tensor-core sums)")
+        elif c.full_function and not torch.equal(out, product):
             raise AssertionError(f"lab {name} differs from nv12_preprocess")
     sink = torch.zeros(kv.SINK_WORDS, dtype=torch.int32, device=dev)
     kv.stream_floor(frames, rows=rows, W=W, DH=DH, DW=DW, sink=sink)
@@ -817,10 +831,11 @@ def lab_phase(torch, np, dev, smi):
     if got != want:
         raise AssertionError("stream_floor's sink misses bytes of the "
                              "frames")
-    full_fn = ", ".join(n for n in names if cases[n].full_function)
-    log(f"lab: every full-function variant ({full_fn}) equal to "
-        f"nv12_preprocess; the floor's sink equal to the XOR of every word "
-        f"of the frames")
+    full_fn = ", ".join(n for n in names
+                        if cases[n].full_function and cases[n].exact)
+    log(f"lab: every bit-exact full-function variant ({full_fn}) equal to "
+        f"nv12_preprocess, G within its envelope; the floor's sink equal to "
+        f"the XOR of every word of the frames")
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in kv.WRAPPERS:
@@ -840,7 +855,8 @@ def lab_phase(torch, np, dev, smi):
     # the full-function variants against nv12_preprocess bit for bit, the
     # knock-outs against their plain versions within compare's 1 LSB
     for n, r in results.items():
-        if r["maxdiff"] > (0 if n == "A" or cases[n].full_function else 1):
+        exact = n == "A" or (cases[n].full_function and cases[n].exact)
+        if r["maxdiff"] > (0 if exact else 1):
             raise AssertionError(f"lab {n} differs from its reference")
     ms = {n: r["ms"] for n, r in results.items()}
     log(f"lab floor: {ms['floor']} ms = {results['floor']['gbps']} GB/s "
@@ -848,10 +864,18 @@ def lab_phase(torch, np, dev, smi):
     log(f"lab H/W split: full {ms['full']} ms, hpass {ms['hpass']} ms "
         f"({ms['hpass'] / ms['full']}), wpass {ms['wpass']} ms "
         f"({ms['wpass'] / ms['full']}) ({smi})")
+    log(f"lab H-pass variants against A {ms['A']} ms: " + ", ".join(
+        f"{n} {ms[n]} ms ({ms[n] / ms['A']})"
+        for n in ("S", "Slong", "T", "G", "S2t16a8", "combo2x32"))
+        + f" ({smi})")
 
     # ---- phase 3: the plain versions' times -------------------------------
+    # the knock-outs' own plain versions, the product's for the variants
+    # that share it, and S2's and G's table-based ones
+    own_plain = ("floor", "hpass", "wpass", "full", "G") + tuple(
+        n for n in names if n.startswith("S2"))
     plain_ms = {}
-    for name in ("floor", "hpass", "wpass", "full"):
+    for name in own_plain:
         plain_ms[name] = time_ms(lambda c=cases[name]: c.plain(frames),
                                  samples=5, calls=1)
         log(f"time lab plain {name}: ms={plain_ms[name]} ({smi})")
@@ -862,10 +886,12 @@ def lab_phase(torch, np, dev, smi):
         r = results[name]
         entries.append({
             "name": f"{wrapper} {name}", "route": "cuda",
-            "source": "vali_tpu_torch/csrc/nv12_variants.cu",
+            "source": "vali_tpu_torch/csrc/" + (
+                "nv12_grouped.cu" if c.wrapper is kv.grouped_kernel
+                else "nv12_variants.cu"),
             "replaces": LAB_REPLACES[wrapper], "launches": r["launches"],
             "max_abs_err": err[name], "ms": r["ms"],
-            "plain_ms": plain_ms["full" if c.full_function else name],
+            "plain_ms": plain_ms[name if name in plain_ms else "full"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no single PyTorch call streams a frame or computes fused
             # CSC + banded Lanczos

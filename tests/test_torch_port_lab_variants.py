@@ -22,7 +22,8 @@ import bench_kernel_variants as bkv  # noqa: E402
 from vali_tpu.ops.pallas_fused import (pallas_nv12_preprocess,  # noqa: E402
                                        required_pad_rows)
 from vali_tpu_torch.lab import kernel_variants as kv  # noqa: E402
-from vali_tpu_torch.ops.nv12_preprocess import nv12_preprocess  # noqa: E402
+from vali_tpu_torch.ops.nv12_preprocess import (  # noqa: E402
+    nv12_preprocess, nv12_preprocess_plain)
 
 B, H, W, DH, DW = 4, 144, 256, 64, 96
 GEO = dict(src_w=W, src_h=H, dst_w=DW, dst_h=DH)
@@ -70,6 +71,96 @@ def test_multiframe_matches_the_notebook(nv12, gframes):
                               interpret=True)
     t = kv.multiframe(torch.from_numpy(nv12), **GEO, gframes=gframes)
     _assert_u8_close(j, t.numpy())
+
+
+@pytest.mark.parametrize("shortchain", [True, False])
+def test_static_kernel_matches_the_notebook(nv12, shortchain):
+    j = bkv.static_kernel(jnp.asarray(nv12), **GEO, shortchain=shortchain,
+                          interpret=True)
+    t = kv.static_kernel(torch.from_numpy(nv12), **GEO,
+                         shortchain=shortchain)
+    _assert_u8_close(j, t.numpy())
+
+
+S2_SWEEP = [(32, 8), (16, 8), (24, 8), (48, 8), (32, 32)]
+
+
+@pytest.mark.parametrize("tile,align", S2_SWEEP)
+def test_static_kernel2_matches_the_notebook(nv12, tile, align):
+    j = bkv.static_kernel2(jnp.asarray(nv12), **GEO, tile=tile, align=align,
+                           interpret=True)
+    t = kv.static_kernel2(torch.from_numpy(nv12), **GEO, tile=tile,
+                          align=align)
+    _assert_u8_close(j, t.numpy())
+
+
+@pytest.mark.parametrize("gframes,tile", [(2, 32), (4, 32), (2, 64),
+                                          (1, 64)])
+def test_combo_kernel_matches_the_notebook(nv12, gframes, tile):
+    j = bkv.combo_kernel(jnp.asarray(nv12), **GEO, gframes=gframes,
+                         tile=tile, interpret=True)
+    t = kv.combo_kernel(torch.from_numpy(nv12), **GEO, gframes=gframes,
+                        tile=tile)
+    _assert_u8_close(j, t.numpy())
+
+
+def test_grouped_kernel_matches_the_notebook(nv12):
+    j = bkv.grouped_kernel(jnp.asarray(nv12), **GEO, interpret=True)
+    t = kv.grouped_kernel(torch.from_numpy(nv12), **GEO)
+    _assert_u8_close(j, t.numpy())
+
+
+def test_transposed_chroma_matches_the_pallas_product(nv12):
+    """The notebook's T does not run in interpret mode on the CPU (its
+    bf16 x bf16 = f32 transposed products are unimplemented there); it
+    asserts its output equal to pallas_nv12_preprocess, so the port's T is
+    held to that."""
+    j = pallas_nv12_preprocess(jnp.asarray(nv12), **GEO, interpret=True)
+    t = kv.transposed_chroma(torch.from_numpy(nv12), **GEO)
+    _assert_u8_close(j, t.numpy())
+
+
+@pytest.mark.parametrize("name", ["S2t%da%d" % p for p in S2_SWEEP] + ["G"])
+def test_table_plain_versions_equal_the_product_plain(nv12, name):
+    """S2's and G's plain versions compute from their own host tables
+    (strip windows with zero taps; block-diagonal matrices over stacked
+    windows); both give the product's plain output bit for bit, which
+    checks the tables the kernels read."""
+    x = torch.from_numpy(nv12)
+    c = kv.case(name, B, nv12.shape[1], **GEO)
+    assert c.plain is not None
+    assert torch.equal(c.plain(x), nv12_preprocess_plain(x, **GEO))
+
+
+def test_column_ranges_cover_the_w_bands():
+    """At 1080p -> 224, strips of 32 and 48 rows run in 2 output-column
+    ranges and COMBO's 64-row strips (W tables staged beside) in 4, 16 and
+    24 rows at full width; each range's source columns hold every W band
+    of its output columns, start on 16-column boundaries and fit a
+    block."""
+    from vali_tpu_torch.ops import banded
+    from vali_tpu_torch.ops.resize import LANCZOS_AA
+
+    cpu = torch.device("cpu")
+    geo = (1920, 1080, 224, 224, LANCZOS_AA)
+    _, _, (ys, yc, _), (cs, cc, _) = banded._nv12_bands(*geo)
+    for rows, stage_w, n in ((8, False, 1), (16, False, 1), (24, False, 1),
+                             (32, False, 2), (48, False, 2), (32, True, 2),
+                             (64, True, 4)):
+        r = banded.column_ranges(*geo, rows, stage_w, cpu)
+        assert r.n == n, rows
+        ext = r.ext.numpy()
+        assert (ext % 16 == 0).all()
+        assert 2 * rows * (r.y_pitch + r.c_pitch) <= banded.SMEM_LIMIT
+        for z in range(n):
+            p = np.arange(z * 224 // n, (z + 1) * 224 // n)
+            assert ext[z, 0] <= ys[p].min() and (ys + yc)[p].max() <= ext[z, 1]
+            assert ext[z, 2] <= 2 * cs[p].min()
+            assert 2 * (cs + cc)[p].max() <= ext[z, 3]
+    assert banded.const_bank_bytes(*geo) == 43008
+    gt = banded.grouped_tables(*geo)
+    assert gt.a.shape == (14, 32, 192)
+    assert (gt.luma_rows, gt.chroma_rows) == (63, 32)
 
 
 def test_stream_floor_matches_the_notebook(nv12):
@@ -145,7 +236,29 @@ def test_wrappers_reject_bad_arguments(nv12):
         kv.stream_floor(x, rows=x.shape[1], W=W, DH=DH, DW=W + 1)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kv.prod_like(x.to("meta"), **GEO)
+    for tile, align in ((0, 8), (32, 0), (-1, 1)):
+        with pytest.raises(ValueError, match="tile and align"):
+            kv.static_kernel2(x, **GEO, tile=tile, align=align)
+    with pytest.raises(ValueError, match="tile"):
+        kv.combo_kernel(x, **GEO, gframes=2, tile=0)
+    for g in (3, 0, 8):  # B = 4
+        with pytest.raises(ValueError, match="multiple"):
+            kv.combo_kernel(x, **GEO, gframes=g)
+    with pytest.raises(ValueError, match="uint8"):
+        kv.grouped_kernel(x.float(), **GEO)
+    with pytest.raises(ValueError, match="does not match"):
+        kv.transposed_chroma(x[:, :H], **GEO)
+    # 3840x2160 -> 224: 81,536 B of H row tables, over the 64 KB bank
+    big = torch.zeros((1, 3240, 3840), dtype=torch.uint8)
+    geo4k = dict(src_w=3840, src_h=2160, dst_w=224, dst_h=224)
+    for call in (lambda: kv.static_kernel(big, **geo4k),
+                 lambda: kv.static_kernel(big, **geo4k, shortchain=False),
+                 lambda: kv.combo_kernel(big, **geo4k, gframes=1)):
+        with pytest.raises(ValueError, match="81536 B.*constant bank"):
+            call()
     kv.prod_like(x, **GEO, mode="hpass")  # a plain version: no launch
+    kv.grouped_kernel(x, **GEO)
+    kv.static_kernel2(x, **GEO, tile=16, align=8)
     # no launch was counted for plain versions or refusals
     assert [w.launches for w in kv.WRAPPERS] == before
 
@@ -179,3 +292,18 @@ def test_bounds_count_the_bytes_the_function_moves():
     assert by == "bytes" and ms == pytest.approx(
         full[0] / HBM_BYTES_PER_S * 1e3)
     assert bound_ms(1, 1e15)[1] == "operations"
+    # S2 and G move the product's bytes and count the FMAs they run, zero
+    # taps included: more operations than the product's bands
+    for name in ("S", "T", "combo2x32"):
+        assert kv.case(name, B, rows, **GEO).work == full
+    for name in ("S2t32a8", "S2t16a8", "G"):
+        work = kv.case(name, B, rows, **GEO).work
+        assert work[0] == full[0] and work[1] > full[1]
+    from vali_tpu_torch.lab.timing import preprocess_work
+    from vali_tpu_torch.ops.banded import grouped_tables
+    from vali_tpu_torch.ops.resize import LANCZOS_AA
+
+    no_h = preprocess_work(B, W, H, DW, DH, h_fmas=0)[1]
+    gt = grouped_tables(W, H, DW, DH, LANCZOS_AA)
+    assert kv.case("G", B, rows, **GEO).work[1] == \
+        no_h + 2 * B * gt.a.shape[0] * 32 * gt.k_pad * W

@@ -1,7 +1,8 @@
 // Device code shared by the banded preprocess kernels
-// (banded_preprocess.cu) and their lab variants (nv12_variants.cu): the
-// frame and table descriptions, the sample loaders and output stores, the
-// H pass of one plane segment, and the shared-memory sizing of a strip.
+// (banded_preprocess.cu) and their lab variants (nv12_variants.cu,
+// nv12_grouped.cu): the frame and table descriptions, the sample loaders
+// and output stores, the H pass of one plane segment, the shared-memory
+// sizing of a strip, and the lab variants' W pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -231,6 +232,71 @@ __device__ __forceinline__ void hpass(
 inline long long smem_bytes(int layout, int rows, int src_w, int elem) {
   return static_cast<long long>(rows) *
          (src_w + 2 * chroma_cols(layout, src_w)) * elem;
+}
+
+// How the lab variants keep their chroma H-pass rows in shared memory.
+enum ChromaRows : int {
+  kInterleaved = 0,  // row r at ch[r * pitch]: U at 2j, V at 2j + 1
+  kSplitUV = 1,      // row r at ch[r * pitch]: U samples, then V samples
+  kTransposed = 2,   // interleaved column j of row r at ch[j * pitch + r]
+};
+
+// The lab variants' phase 2 (nv12_variants.cu, nv12_grouped.cu): the
+// product kernel's W pass, CSC and round/clip to uint8 of `rows` bf16
+// H-pass rows, for output columns [p0, p0 + np). Luma row r is at
+// yh[r * y_pitch] and holds source columns from ylo on; the chroma rows
+// are laid out as kC says, interleaved columns from clo on (kSplitUV: a
+// full row); tables read from shared memory with kSharedTables. Output
+// row r is o0 + r of the [3, dst_h, DW] planes at `ob`.
+template <bool kSharedTables, int kC>
+__device__ __forceinline__ void wpass_store(
+    const __nv_bfloat16* yh, const __nv_bfloat16* ch, int y_pitch,
+    int c_pitch, int rows, int o0, int dst_h, int DW, int p0, int np,
+    int ylo, int clo, const Tables& t, const Tail& tl, uint8_t* ob) {
+  using M = Mid<false>;
+  constexpr bool kS = kSharedTables;
+  constexpr bool kSplit = kC == kSplitUV;
+  const long long plane_sz = static_cast<long long>(dst_h) * DW;
+  for (int item = threadIdx.x; item < rows * np; item += blockDim.x) {
+    const int r = item / np;
+    const int p = p0 + item - r * np;
+    const __nv_bfloat16* yrow = yh + r * y_pitch;
+    const __nv_bfloat16* crow =
+        kC == kTransposed ? ch + r : ch + r * c_pitch;
+    const int cstep = kC == kTransposed ? c_pitch : 1;
+
+    float ya = 0.0f;
+    const int ys = tab<kS>(t.wy_start + p) - ylo;
+    const int yn = tab<kS>(t.wy_count + p);
+    for (int k = 0; k < yn; ++k)
+      ya = fmaf(tab<kS>(t.wy_w + k * DW + p), M::get(yrow[ys + k]), ya);
+
+    float ua = 0.0f, va = 0.0f;
+    const int cs = tab<kS>(t.wc_start + p), cn = tab<kS>(t.wc_count + p);
+    for (int k = 0; k < cn; ++k) {
+      const float wk = tab<kS>(t.wc_w + k * DW + p);
+      if constexpr (kSplit) {
+        ua = fmaf(wk, M::get(crow[cs + k]), ua);
+        va = fmaf(wk, M::get(crow[c_pitch / 2 + cs + k]), va);
+      } else {
+        const int j = 2 * (cs + k) - clo;
+        ua = fmaf(wk, M::get(crow[j * cstep]), ua);
+        va = fmaf(wk, M::get(crow[(j + 1) * cstep]), va);
+      }
+    }
+    const float yv = __fsub_rn(ya, tl.y_off);
+    const float u = __fsub_rn(ua, tl.c_off);
+    const float v = __fsub_rn(va, tl.c_off);
+    const long long pix = static_cast<long long>(o0 + r) * DW + p;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // no FMA contraction: same rounding as three separate products
+      const float x = __fadd_rn(
+          __fadd_rn(__fmul_rn(tl.m[3 * c], yv), __fmul_rn(tl.m[3 * c + 1], u)),
+          __fmul_rn(tl.m[3 * c + 2], v));
+      Out<uint8_t>::store(ob + c * plane_sz + pix, x, c, tl);
+    }
+  }
 }
 
 }  // namespace banded

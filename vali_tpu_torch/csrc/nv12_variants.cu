@@ -9,6 +9,13 @@
 //   - variant_kernel B, C -> nv12_variant_launch, staged (convert once)
 //   - variant_kernel D    -> nv12_variant_launch, split chroma
 //   - multiframe_kernel   -> nv12_variant_launch, frames per block G
+//   - static_kernel       -> nv12_static_launch, S: H row tables in the
+//                            constant bank, short or long cast chain
+//   - static_kernel2      -> nv12_static_launch, S2: strip windows
+//   - combo_kernel        -> nv12_static_launch, COMBO: G frames x tall
+//                            strips x constant-bank H tables
+//   - transposed_chroma_kernel -> nv12_transposed_launch, T
+// (grouped_kernel, the H pass on the tensor cores, is nv12_grouped.cu.)
 //
 // What bounds them on this card: what bounds the product kernel. One 64 x
 // 1080p -> 224 batch reads ~199 MB and does a few GFLOP of FMAs, far under
@@ -48,6 +55,30 @@
 // bf16 compute; every full-function variant gives the product kernel's
 // bits (same FMAs in the same order).
 //
+// The static-window family (nv12_static_kernel) keeps the same block
+// design and changes where the H pass finds its windows:
+//   S      the TPU's trace-time window starts become row tables in the
+//          64 KB constant bank (43,008 B at 1080p -> 224), read through the
+//          constant cache instead of __ldg; a warp whose threads straddle
+//          two output rows reads two addresses and serialises.
+//   S2     strips of `tile` rows whose windows start at multiples of
+//          `align` rows and share the widest length: every output row runs
+//          over its strip's whole window, zero weights included (a zero
+//          tap adds +0, so the bits stay). The tables are in device memory
+//          (165 KB at tile 32, beyond the constant bank).
+//   COMBO  G frames per block on strips of `tile` rows, H tables in the
+//          constant bank, W tables staged in shared memory once per block.
+// Tall strips (S2 at 32 and 48 rows, COMBO at 32 and 64) do not fit
+// full-width H rows in a block, so they run in output-column ranges: a
+// block (frames, strip, range) runs the H pass only over the source
+// columns its W bands read, the same FMAs per H sample.
+//   T      the chroma H-pass rows are kept transposed in shared memory
+//          ([W][rows + pad], the pad making the pitch odd in 32-bit words so
+//          that a warp's 32 column stores hit 32 banks); the W pass reads
+//          U of column band j from row 2j, V from row 2j + 1. Its chroma H
+//          pass takes one column a thread (byte loads) so that the stores
+//          are conflict-free; the luma H pass is the product's.
+//
 // Each launcher returns cudaGetLastError() after the launch, runs on the
 // caller's stream, and neither synchronises nor allocates.
 
@@ -65,10 +96,10 @@ using banded::Geometry;
 using banded::hpass;
 using banded::kSmemLimit;
 using banded::Mid;
-using banded::Out;
 using banded::tab;
 using banded::Tables;
 using banded::Tail;
+using banded::wpass_store;
 
 using M = Mid<false>;
 using T = __nv_bfloat16;
@@ -167,58 +198,6 @@ __device__ __forceinline__ void hpass_window(
     for (int k = 0; k < n; ++k)
       acc = fmaf(__ldg(wr + k), M::get(s[k * win_w]), acc);
     dst[r * dst_w + c0 + x] = M::put(acc);
-  }
-}
-
-// W pass, CSC and round/clip of `rows` H-pass rows, the product kernel's
-// phase 2 with two knobs: luma row r at yh[r * W], chroma row r at
-// ch[r * W] — interleaved (U at 2j, V at 2j + 1), or with kSplit the U
-// samples then the V samples; tables read from shared memory with
-// kSharedTables. Output row r is o0 + r of the [3, dst_h, DW] planes at
-// `ob`.
-template <bool kSharedTables, bool kSplit>
-__device__ __forceinline__ void wpass_store(const T* yh, const T* ch, int W,
-                                            int rows, int o0, int dst_h,
-                                            int DW, const Tables& t,
-                                            const Tail& tl, uint8_t* ob) {
-  constexpr bool kS = kSharedTables;
-  const long long plane_sz = static_cast<long long>(dst_h) * DW;
-  for (int item = threadIdx.x; item < rows * DW; item += blockDim.x) {
-    const int r = item / DW;
-    const int p = item - r * DW;
-    const T* yrow = yh + r * W;
-    const T* crow = ch + r * W;
-
-    float ya = 0.0f;
-    const int ys = tab<kS>(t.wy_start + p), yn = tab<kS>(t.wy_count + p);
-    for (int k = 0; k < yn; ++k)
-      ya = fmaf(tab<kS>(t.wy_w + k * DW + p), M::get(yrow[ys + k]), ya);
-
-    float ua = 0.0f, va = 0.0f;
-    const int cs = tab<kS>(t.wc_start + p), cn = tab<kS>(t.wc_count + p);
-    for (int k = 0; k < cn; ++k) {
-      const float wk = tab<kS>(t.wc_w + k * DW + p);
-      if constexpr (kSplit) {
-        ua = fmaf(wk, M::get(crow[cs + k]), ua);
-        va = fmaf(wk, M::get(crow[W / 2 + cs + k]), va);
-      } else {
-        const int j = 2 * (cs + k);
-        ua = fmaf(wk, M::get(crow[j]), ua);
-        va = fmaf(wk, M::get(crow[j + 1]), va);
-      }
-    }
-    const float yv = __fsub_rn(ya, tl.y_off);
-    const float u = __fsub_rn(ua, tl.c_off);
-    const float v = __fsub_rn(va, tl.c_off);
-    const long long pix = static_cast<long long>(o0 + r) * DW + p;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      // no FMA contraction: same rounding as three separate products
-      const float x = __fadd_rn(
-          __fadd_rn(__fmul_rn(tl.m[3 * c], yv), __fmul_rn(tl.m[3 * c + 1], u)),
-          __fmul_rn(tl.m[3 * c + 2], v));
-      Out<uint8_t>::store(ob + c * plane_sz + pix, x, c, tl);
-    }
   }
 }
 
@@ -345,7 +324,8 @@ nv12_variant_kernel(Frames f, Tables t, Tail tl, Geometry g, Knobs kn,
           ob[c * plane_sz + pix] = static_cast<uint8_t>(q);
       }
     } else {
-      wpass_store<MF, SPLIT>(yh, ch, W, rows, o0, g.dst_h, DW, tb, tl, ob);
+      wpass_store<MF, SPLIT ? banded::kSplitUV : banded::kInterleaved>(
+          yh, ch, W, W, rows, o0, g.dst_h, DW, 0, DW, 0, 0, tb, tl, ob);
     }
     if (G > 1) __syncthreads();  // the next frame overwrites the rows
   }
@@ -464,6 +444,324 @@ nv12_stream_floor_kernel(Frames f, int W, int DH, int DW, unsigned* sink,
   }
 }
 
+// ---- static windows: S, S2, COMBO ------------------------------------------
+
+// The constant bank of S and COMBO: one geometry's H row tables, as
+// nv12_static_launch uploads them. Layout in 4-byte words: the luma row
+// starts and counts, the chroma row starts and counts ([dst_h] int32 each,
+// kept as their bits), then the luma row weights [dst_h, hy_k] and the
+// chroma row weights [dst_h, hc_k]. The bank holds ONE geometry at a time:
+// the launcher uploads the tables when the geometry differs from the last
+// upload on the device, so two streams running S or COMBO on two
+// geometries at once would race on it.
+constexpr int kBankBytes = 65536;
+__constant__ float c_bank[kBankBytes / 4];
+
+enum RowTables : int { kRowsDevice = 0, kRowsConst = 1 };
+enum Cast : int { kCastLong = 0, kCastShort = 1 };
+
+// One uint8 sample as the H pass multiplies it: u8 -> i32 -> f32 (long)
+// or u8 -> i32 -> bf16 -> f32 (short). Every uint8 is exact in bf16, so
+// the two give equal values.
+template <int CAST>
+__device__ __forceinline__ float sample(unsigned x) {
+  if constexpr (CAST == kCastShort)
+    return __bfloat162float(__int2bfloat16_rn(static_cast<int>(x)));
+  else
+    return static_cast<float>(static_cast<int>(x));
+}
+
+// The row bands of one plane: per output row o its first source row, its
+// count and its weights, from device memory or from the constant bank.
+template <int RT> struct RowBands;
+template <> struct RowBands<kRowsDevice> {
+  const int* start;
+  const int* count;
+  const float* w;
+  int k_max;
+  __device__ __forceinline__ int first(int o) const { return __ldg(start + o); }
+  __device__ __forceinline__ int n(int o) const { return __ldg(count + o); }
+  __device__ __forceinline__ float weight(int o, int k) const {
+    return __ldg(w + static_cast<long long>(o) * k_max + k);
+  }
+};
+template <> struct RowBands<kRowsConst> {
+  int start, count, w, k_max;  // word offsets into c_bank
+  __device__ __forceinline__ int first(int o) const {
+    return __float_as_int(c_bank[start + o]);
+  }
+  __device__ __forceinline__ int n(int o) const {
+    return __float_as_int(c_bank[count + o]);
+  }
+  __device__ __forceinline__ float weight(int o, int k) const {
+    return c_bank[w + o * k_max + k];
+  }
+};
+
+// H pass of `rows` output rows (table rows o0 ..) over source columns
+// [c0, c1) of a uint8 plane into dst[r * pitch + col - c0]: the FMAs of
+// banded::hpass in the same order. With vec, c0 and c1 - c0 are multiples
+// of 16 and the plane's rows 16-byte aligned.
+template <int CAST, typename Bands>
+__device__ __forceinline__ void hpass_cols(const uint8_t* plane, long long rs,
+                                           int c0, int c1, int o0, int rows,
+                                           const Bands& bd, T* dst, int pitch,
+                                           bool vec) {
+  const int ncols = c1 - c0;
+  const uint8_t* base = plane + c0;
+  if (vec) {
+    const int groups = ncols / 16;
+    for (int item = threadIdx.x; item < rows * groups; item += blockDim.x) {
+      const int r = item / groups;
+      const int gi = item - r * groups;
+      const int o = o0 + r;
+      const int n = bd.n(o);
+      const uint8_t* src =
+          base + static_cast<long long>(bd.first(o)) * rs + gi * 16;
+      float acc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+      for (int k = 0; k < n; ++k) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(
+            src + static_cast<long long>(k) * rs));
+        const unsigned wd[4] = {q.x, q.y, q.z, q.w};
+        const float wk = bd.weight(o, k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[4 * j + i] = fmaf(wk, sample<CAST>((wd[j] >> (8 * i)) & 0xFFu),
+                                  acc[4 * j + i]);
+      }
+      T* d = dst + r * pitch + gi * 16;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) d[i] = M::put(acc[i]);
+    }
+  } else {
+    for (int item = threadIdx.x; item < rows * ncols; item += blockDim.x) {
+      const int r = item / ncols;
+      const int col = item - r * ncols;
+      const int o = o0 + r;
+      const int n = bd.n(o);
+      const uint8_t* src = base + static_cast<long long>(bd.first(o)) * rs + col;
+      float acc = 0.0f;
+      for (int k = 0; k < n; ++k)
+        acc = fmaf(bd.weight(o, k),
+                   sample<CAST>(__ldg(src + static_cast<long long>(k) * rs)),
+                   acc);
+      dst[r * pitch + col] = M::put(acc);
+    }
+  }
+}
+
+// Output-column ranges of a block: ext[4 z .. 4 z + 3] are the luma source
+// columns [lo, hi) and the interleaved chroma columns [lo, hi) that the W
+// bands of output columns [z DW / n, (z + 1) DW / n) read, widened to
+// multiples of 16 (ops/banded.py column_ranges). n = 1 is the full row.
+struct Ranges {
+  const int* ext;
+  int n, y_pitch, c_pitch;
+};
+
+// S, S2 and COMBO: one block per (strip of g.rows output rows, G frames,
+// output-column range). The H pass reads its row tables from the constant
+// bank (S, COMBO) or from device memory (S2: strip-window tables), the W
+// pass its tables from device memory or, staged once per block, from
+// shared memory (COMBO); then the product's W pass and tail.
+template <int RT, int CAST, bool kStageW>
+__global__ void __launch_bounds__(kThreads)
+nv12_static_kernel(Frames f, Tables t, RowBands<RT> yb, RowBands<RT> cb,
+                   Tail tl, Geometry g, Ranges rg, int G, int wy_k, int wc_k,
+                   uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int DW = g.dst_w;
+  T* yh = reinterpret_cast<T*>(smem);  // [rows][y_pitch]
+  T* ch = yh + g.rows * rg.y_pitch;    // [rows][c_pitch] interleaved U/V
+  const int o0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, g.dst_h - o0);
+  const int z = blockIdx.z;
+  const int p0 = static_cast<int>(static_cast<long long>(z) * DW / rg.n);
+  const int p1 = static_cast<int>(static_cast<long long>(z + 1) * DW / rg.n);
+  const int ylo = __ldg(rg.ext + 4 * z), yhi = __ldg(rg.ext + 4 * z + 1);
+  const int clo = __ldg(rg.ext + 4 * z + 2), chi = __ldg(rg.ext + 4 * z + 3);
+  const bool vec = f.vec != 0;
+
+  Tables tb = t;
+  if constexpr (kStageW) {
+    const long long at = (2LL * g.rows * (rg.y_pitch + rg.c_pitch) + 15) &
+                         ~15LL;
+    int* wys = reinterpret_cast<int*>(smem + at);
+    int* wyc = wys + DW;
+    int* wcs = wyc + DW;
+    int* wcc = wcs + DW;
+    float* wyw = reinterpret_cast<float*>(wcc + DW);
+    float* wcw = wyw + wy_k * DW;
+    for (int i = threadIdx.x; i < DW; i += blockDim.x) {
+      wys[i] = __ldg(t.wy_start + i);
+      wyc[i] = __ldg(t.wy_count + i);
+      wcs[i] = __ldg(t.wc_start + i);
+      wcc[i] = __ldg(t.wc_count + i);
+    }
+    for (int i = threadIdx.x; i < wy_k * DW; i += blockDim.x)
+      wyw[i] = __ldg(t.wy_w + i);
+    for (int i = threadIdx.x; i < wc_k * DW; i += blockDim.x)
+      wcw[i] = __ldg(t.wc_w + i);
+    tb.wy_start = wys;
+    tb.wy_count = wyc;
+    tb.wy_w = wyw;
+    tb.wc_start = wcs;
+    tb.wc_count = wcc;
+    tb.wc_w = wcw;
+    // the first barrier below orders these stores before the W pass
+  }
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int b = blockIdx.y * G + gi;
+    const uint8_t* frame = f.src + b * f.bs;
+    const uint8_t* uv = frame + static_cast<long long>(g.src_h) * f.rs;
+    hpass_cols<CAST>(frame, f.rs, ylo, yhi, o0, rows, yb, yh, rg.y_pitch,
+                     vec);
+    hpass_cols<CAST>(uv, f.rs, clo, chi, o0, rows, cb, ch, rg.c_pitch, vec);
+    __syncthreads();
+    uint8_t* ob = out + static_cast<long long>(b) * 3 * g.dst_h * DW;
+    wpass_store<kStageW, banded::kInterleaved>(
+        yh, ch, rg.y_pitch, rg.c_pitch, rows, o0, g.dst_h, DW, p0, p1 - p0,
+        ylo, clo, tb, tl, ob);
+    if (G > 1) __syncthreads();  // the next frame overwrites the rows
+  }
+}
+
+// Shared memory of a static-window block.
+long long static_smem(int rows, const Ranges& rg, bool stage_w, int dst_w,
+                      int wy_k, int wc_k) {
+  long long bytes = 2LL * rows * (rg.y_pitch + rg.c_pitch);
+  if (stage_w)
+    bytes = ((bytes + 15) & ~15LL) + 16LL * dst_w +
+            4LL * dst_w * (wy_k + wc_k);
+  return bytes;
+}
+
+template <int RT, int CAST, bool kStageW>
+cudaError_t launch_static(const Frames& f, const Tables& t,
+                          const RowBands<RT>& yb, const RowBands<RT>& cb,
+                          const Tail& tl, const Geometry& g, const Ranges& rg,
+                          int G, int wy_k, int wc_k, size_t smem, void* out,
+                          cudaStream_t stream) {
+  auto kern = nv12_static_kernel<RT, CAST, kStageW>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((g.dst_h + g.rows - 1) / g.rows, g.batch / G, rg.n);
+  kern<<<grid, kThreads, smem, stream>>>(f, t, yb, cb, tl, g, rg, G, wy_k,
+                                         wc_k, static_cast<uint8_t*>(out));
+  return cudaGetLastError();
+}
+
+// The geometry whose row tables the constant bank holds, per device.
+struct BankKey {
+  const void* index;
+  const void* weights;
+  int src_h, src_w, dst_h, dst_w, hy_k, hc_k;
+  bool operator==(const BankKey& o) const {
+    return index == o.index && weights == o.weights && src_h == o.src_h &&
+           src_w == o.src_w && dst_h == o.dst_h && dst_w == o.dst_w &&
+           hy_k == o.hy_k && hc_k == o.hc_k;
+  }
+};
+constexpr int kMaxDevices = 64;
+BankKey g_bank[kMaxDevices];
+bool g_bank_set[kMaxDevices];
+
+// Upload the H row tables to the constant bank on `stream` when the
+// geometry differs from the last upload on this device.
+cudaError_t bank_upload(const BankKey& key, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_bank_set[dev] && g_bank[dev] == key) return cudaSuccess;
+  const size_t idx = 16ull * key.dst_h;
+  const size_t wts = 4ull * key.dst_h * (key.hy_k + key.hc_k);
+  e = cudaMemcpyToSymbolAsync(c_bank, key.index, idx, 0,
+                              cudaMemcpyDeviceToDevice, stream);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbolAsync(c_bank, key.weights, wts, idx,
+                                cudaMemcpyDeviceToDevice, stream);
+  g_bank_set[dev] = e == cudaSuccess;
+  g_bank[dev] = key;
+  return e;
+}
+
+// ---- T: the chroma H-pass rows transposed ----------------------------------
+
+// One block per (frame, strip of g.rows output rows), as the product; the
+// luma H pass is the product's, the chroma H pass stores interleaved column
+// j of strip row r at cht[j * pitch + r]. Its threads take one column each
+// (a warp: 32 consecutive columns of one row), so that with pitch / 2 odd
+// their 32 stores fall in 32 banks; the W pass then reads U of output
+// column band j from row 2j of the transpose and V from row 2j + 1.
+__global__ void __launch_bounds__(kThreads)
+nv12_transposed_kernel(Frames f, Tables t, Tail tl, Geometry g, int pitch,
+                       uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = g.src_w;
+  T* yh = reinterpret_cast<T*>(smem);  // [rows][W]
+  T* cht = yh + g.rows * W;            // [W][pitch]
+  const int b = blockIdx.y;
+  const int o0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, g.dst_h - o0);
+  const uint8_t* frame = f.src + b * f.bs;
+  const uint8_t* uv = frame + static_cast<long long>(g.src_h) * f.rs;
+
+  hpass<uint8_t, false>(frame, f.rs, W, o0, rows, t.hy_start, t.hy_count,
+                        t.hy_w, t.hy_k, yh, W, 1, 0, f.vec != 0);
+  for (int item = threadIdx.x; item < rows * W; item += blockDim.x) {
+    const int r = item / W;
+    const int col = item - r * W;
+    const int o = o0 + r;
+    const int n = __ldg(t.hc_count + o);
+    const float* wr = t.hc_w + static_cast<long long>(o) * t.hc_k;
+    const uint8_t* src =
+        uv + static_cast<long long>(__ldg(t.hc_start + o)) * f.rs + col;
+    float acc = 0.0f;
+    for (int k = 0; k < n; ++k)
+      acc = fmaf(__ldg(wr + k),
+                 static_cast<float>(__ldg(src + static_cast<long long>(k) *
+                                                    f.rs)),
+                 acc);
+    cht[col * pitch + r] = M::put(acc);
+  }
+  __syncthreads();
+  wpass_store<false, banded::kTransposed>(
+      yh, cht, W, pitch, rows, o0, g.dst_h, g.dst_w, 0, g.dst_w, 0, 0, t, tl,
+      out + static_cast<long long>(b) * 3 * g.dst_h * g.dst_w);
+}
+
+// Frames, tables and geometry of a lab launch; false when the arguments
+// are refused.
+bool lab_setup(const void* src, long long batch_stride, long long row_stride,
+               int buf_rows, int batch, int src_h, int src_w, int dst_h,
+               int dst_w, const int* index, const float* weights, int hy_k,
+               int hc_k, int wy_k, const float* tail, int rows_per_block,
+               Frames& f, Tables& t, Tail& tl, Geometry& g) {
+  if (src_w <= 0 || (src_w & 1) || buf_rows < src_h * 3 / 2 ||
+      rows_per_block < 1)
+    return false;
+  f.src = static_cast<const uint8_t*>(src);
+  f.bs = batch_stride;
+  f.rs = row_stride;
+  f.buf_rows = buf_rows;
+  f.vec = vec_frames(src, batch_stride, row_stride, src_w) ? 1 : 0;
+  t = banded::unpack_tables(index, weights, dst_h, dst_w, hy_k, hc_k, wy_k);
+  tl = banded::unpack_tail(tail);
+  g.batch = batch;
+  g.src_h = src_h;
+  g.src_w = src_w;
+  g.dst_h = dst_h;
+  g.dst_w = dst_w;
+  g.rows = rows_per_block < dst_h ? rows_per_block : dst_h;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -490,30 +788,19 @@ int nv12_variant_launch(const void* src, long long batch_stride,
   const int G = frames_per_block > 0 ? frames_per_block : 1;
   const int knobs = (mode != kFull) + (staged != kNoStage) +
                     (split_chroma != 0) + (frames_per_block > 0);
-  if (src_w <= 0 || (src_w & 1) || buf_rows < src_h * 3 / 2 ||
-      rows_per_block < 1 || frames_per_block < 0 || batch % G != 0 ||
-      mode < kFull || mode > kWpass || staged < kNoStage ||
-      staged > kChainC || knobs > 1 || (mode == kHpass && dst_w > src_w) ||
+  Frames f;
+  Tables t;
+  Tail tl;
+  Geometry g;
+  if (!lab_setup(src, batch_stride, row_stride, buf_rows, batch, src_h,
+                 src_w, dst_h, dst_w, index, weights, hy_k, hc_k, wy_k, tail,
+                 rows_per_block, f, t, tl, g) ||
+      frames_per_block < 0 || batch % G != 0 || mode < kFull ||
+      mode > kWpass || staged < kNoStage || staged > kChainC || knobs > 1 ||
+      (mode == kHpass && dst_w > src_w) ||
       (mode == kWpass && dst_h > buf_rows) ||
       (staged != kNoStage && (span_y < 1 || span_c < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-
-  Frames f;
-  f.src = static_cast<const uint8_t*>(src);
-  f.bs = batch_stride;
-  f.rs = row_stride;
-  f.buf_rows = buf_rows;
-  f.vec = vec_frames(src, batch_stride, row_stride, src_w) ? 1 : 0;
-  const Tables t = banded::unpack_tables(index, weights, dst_h, dst_w, hy_k,
-                                         hc_k, wy_k);
-  const Tail tl = banded::unpack_tail(tail);
-  Geometry g;
-  g.batch = batch;
-  g.src_h = src_h;
-  g.src_w = src_w;
-  g.dst_h = dst_h;
-  g.dst_w = dst_w;
-  g.rows = rows_per_block < dst_h ? rows_per_block : dst_h;
   Knobs kn;
   kn.span_y = span_y;
   kn.span_c = span_c;
@@ -588,6 +875,119 @@ int nv12_stream_floor_launch(const void* src, long long batch_stride,
                              static_cast<cudaStream_t>(stream)>>>(
       f, src_w, dst_h, dst_w, static_cast<unsigned*>(sink), sink_words,
       static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S, S2 and COMBO over `src` as nv12_variant_launch takes it, on strips of
+// rows_per_block output rows, frames_per_block G frames per block (batch
+// % G == 0) and n_ranges output-column ranges: `ranges` [n_ranges, 4]
+// int32 on the device (ops/banded.py column_ranges), y_pitch and c_pitch
+// the widest luma and interleaved chroma range. const_bank 1: the H row
+// tables (the first 4 dst_h ints of `index` and the first dst_h (hy_k +
+// hc_k) floats of `weights`) go to the constant bank, at most 64 KB,
+// uploaded on `stream` when the geometry differs from the last upload on
+// this device; 0: read from device memory (S2 passes its strip-window
+// tables there). short_chain 1 converts samples u8 -> i32 -> bf16, 0
+// u8 -> i32 -> f32. stage_w 1 stages the W tables in shared memory once
+// per block (COMBO). Instantiated: S (const_bank, either chain), S2 (device
+// tables, long chain), COMBO (const_bank, short chain, stage_w).
+int nv12_static_launch(const void* src, long long batch_stride,
+                       long long row_stride, int buf_rows, int batch,
+                       int src_h, int src_w, int dst_h, int dst_w,
+                       const int* index, const float* weights, int hy_k,
+                       int hc_k, int wy_k, int wc_k, const float* tail,
+                       int const_bank, int short_chain, int stage_w,
+                       int frames_per_block, int rows_per_block,
+                       const int* ranges, int n_ranges, int y_pitch,
+                       int c_pitch, void* out, void* stream) {
+  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
+  const int G = frames_per_block;
+  const bool s = const_bank && !stage_w, s2 = !const_bank && !short_chain &&
+                                               !stage_w,
+             combo = const_bank && short_chain && stage_w;
+  const long long bank = 16LL * dst_h + 4LL * dst_h * (hy_k + hc_k);
+  Frames f;
+  Tables t;
+  Tail tl;
+  Geometry g;
+  if (!lab_setup(src, batch_stride, row_stride, buf_rows, batch, src_h,
+                 src_w, dst_h, dst_w, index, weights, hy_k, hc_k, wy_k, tail,
+                 rows_per_block, f, t, tl, g) ||
+      G < 1 || batch % G != 0 || !(s || s2 || combo) || n_ranges < 1 ||
+      n_ranges > dst_w || y_pitch < 1 || y_pitch > src_w || c_pitch < 1 ||
+      c_pitch > src_w || (const_bank && bank > kBankBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Ranges rg;
+  rg.ext = ranges;
+  rg.n = n_ranges;
+  rg.y_pitch = y_pitch;
+  rg.c_pitch = c_pitch;
+  const long long smem =
+      static_smem(g.rows, rg, stage_w != 0, dst_w, wy_k, wc_k);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t sb = static_cast<size_t>(smem);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (s2) {
+    RowBands<kRowsDevice> yb{t.hy_start, t.hy_count, t.hy_w, hy_k};
+    RowBands<kRowsDevice> cb{t.hc_start, t.hc_count, t.hc_w, hc_k};
+    e = launch_static<kRowsDevice, kCastLong, false>(
+        f, t, yb, cb, tl, g, rg, G, wy_k, wc_k, sb, out, st);
+    return static_cast<int>(e);
+  }
+  e = bank_upload(BankKey{index, weights, src_h, src_w, dst_h, dst_w, hy_k,
+                          hc_k},
+                  st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const RowBands<kRowsConst> yb{0, dst_h, 4 * dst_h, hy_k};
+  const RowBands<kRowsConst> cb{2 * dst_h, 3 * dst_h,
+                                4 * dst_h + dst_h * hy_k, hc_k};
+  if (combo)
+    e = launch_static<kRowsConst, kCastShort, true>(f, t, yb, cb, tl, g, rg,
+                                                    G, wy_k, wc_k, sb, out,
+                                                    st);
+  else if (short_chain)
+    e = launch_static<kRowsConst, kCastShort, false>(f, t, yb, cb, tl, g, rg,
+                                                     G, wy_k, wc_k, sb, out,
+                                                     st);
+  else
+    e = launch_static<kRowsConst, kCastLong, false>(f, t, yb, cb, tl, g, rg,
+                                                    G, wy_k, wc_k, sb, out,
+                                                    st);
+  return static_cast<int>(e);
+}
+
+// T over `src` as nv12_variant_launch takes it, on strips of
+// rows_per_block output rows: the chroma H-pass rows kept transposed in
+// shared memory, [src_w][pitch] with pitch the strip height rounded up so
+// that pitch / 2 is odd.
+int nv12_transposed_launch(const void* src, long long batch_stride,
+                           long long row_stride, int buf_rows, int batch,
+                           int src_h, int src_w, int dst_h, int dst_w,
+                           const int* index, const float* weights, int hy_k,
+                           int hc_k, int wy_k, int wc_k, const float* tail,
+                           int rows_per_block, void* out, void* stream) {
+  (void)wc_k;
+  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
+  Frames f;
+  Tables t;
+  Tail tl;
+  Geometry g;
+  if (!lab_setup(src, batch_stride, row_stride, buf_rows, batch, src_h,
+                 src_w, dst_h, dst_w, index, weights, hy_k, hc_k, wy_k, tail,
+                 rows_per_block, f, t, tl, g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int pitch = (g.rows + 1) & ~1;
+  if ((pitch / 2) % 2 == 0) pitch += 2;
+  const long long smem = 2LL * src_w * (g.rows + pitch);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_smem(nv12_transposed_kernel,
+                                   static_cast<size_t>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((dst_h + g.rows - 1) / g.rows, batch);
+  nv12_transposed_kernel<<<grid, kThreads, static_cast<size_t>(smem),
+                           static_cast<cudaStream_t>(stream)>>>(
+      f, t, tl, g, pitch, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

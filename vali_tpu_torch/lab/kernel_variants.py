@@ -2,11 +2,12 @@
 experiments, run on the card.
 
 Counterpart of the TPU notebook ``bench_kernel_variants.py`` (its ``main``,
-``main_floor``, ``main_modes`` and ``main_multiframe``). Four wrappers over
-the kernels of ``csrc/nv12_variants.cu``, each beside its plain PyTorch
-version, with the same dispatch as the product wrappers: a CUDA tensor
-launches the kernel, a CPU tensor runs the plain version, any other device
-raises.
+``main_floor``, ``main_modes``, ``main_multiframe``, ``main_static``,
+``main_sweep2``, ``main_combo``, ``main_transposed`` and ``main_grouped``).
+Nine wrappers over the kernels of ``csrc/nv12_variants.cu`` and
+``csrc/nv12_grouped.cu``, each beside its plain PyTorch version, with the
+same dispatch as the product wrappers: a CUDA tensor launches the kernel,
+a CPU tensor runs the plain version, any other device raises.
 
 - :func:`stream_floor` (``dma_floor``): streams every byte of each
   [rows, W] frame and writes ``(f[:DH, :DW] + f[rows-DH:, :DW]) & 255`` on
@@ -19,10 +20,25 @@ raises.
   chains, equal values); D keeps the chroma H-pass rows deinterleaved.
 - :func:`multiframe` (``multiframe_kernel``): G frames per block, the
   strip's band tables staged in shared memory once.
+- :func:`static_kernel` (``static_kernel``): the H row tables in the
+  64 KB constant bank, two cast chains.
+- :func:`static_kernel2` (``static_kernel2``): strips of ``tile`` rows over
+  windows aligned to ``align`` rows, zero taps included.
+- :func:`combo_kernel` (``combo_kernel``): G frames per block on strips of
+  ``tile`` rows, constant-bank H tables, W tables staged once per block.
+- :func:`transposed_chroma` (``transposed_chroma_kernel``): the chroma
+  H-pass rows kept transposed in shared memory.
+- :func:`grouped_kernel` (``grouped_kernel``): the H pass as a dense
+  block-diagonal product on the tensor cores (mma.sync).
+Strips too tall for full-width H rows in one block run in output-column
+ranges; the lab line says so.
 
-Every full-function variant (B, C, D, full, M*) computes the product
-kernel's function, so its plain version is ``nv12_preprocess_plain`` and on
-the card it must equal ``nv12_preprocess`` bit for bit. ``wpass`` and the
+Every full-function variant (B, C, D, full, M*, S*, combo*, T, G) computes
+the product kernel's function, so on the card it is held to
+``nv12_preprocess``: bit for bit, except G (the tensor cores sum in their
+own order), held to the kernels' envelope with its differing samples
+counted. Their plain version is ``nv12_preprocess_plain``, except S2's and
+G's, which compute from their own host tables. ``wpass`` and the
 floor read the last DH rows of the buffer as given, as the TPU functions
 do, so their results depend on the buffer's row count.
 
@@ -33,14 +49,17 @@ plain versions at 8 x 256x144 -> 96x64 and times nothing)::
 
 Names: ``A`` (the product kernel), ``B``, ``C``, ``D``, ``floor``,
 ``full``, ``hpass``, ``wpass`` (a number after a mode sets the strip
-height: ``full16``), ``M2``, ``M4``, ``M8``. Each prints one line: ms per
-batch, spread, maxdiff against its reference, frames/s, and the bound.
+height: ``full16``), ``M2``, ``M4``, ``M8``, ``S``, ``Slong``,
+``S2t{tile}a{align}`` (``S2t32a8``), ``combo{G}x{tile}`` (``combo2x32``),
+``T``, ``G``. Each prints one line: ms per batch, spread, maxdiff against
+its reference, frames/s, and the bound.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import re
 import subprocess
 import sys
@@ -50,8 +69,10 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
-from ..ops.banded import (dense_weights, device_tables, strip_spans,
-                          tail_params, w_pass_tail_plain)
+from ..ops.banded import (CONST_BANK_BYTES, DeviceTables, column_ranges,
+                          const_bank_bytes, dense_weights, device_tables,
+                          grouped_tables, strip_spans, strip_window_bands,
+                          tail_params, w_pass_tail_plain, window_tables)
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
 from ..ops.resize import LANCZOS_AA, round_to
@@ -67,7 +88,10 @@ _CHAINS = {"B": 1, "C": 2}
 SINK_WORDS = 64
 
 DEFAULT_NAMES = ("A", "B", "C", "D", "floor", "full", "hpass", "wpass",
-                 "full4", "full16", "full24", "M2", "M4", "M8")
+                 "full4", "full16", "full24", "M2", "M4", "M8", "S", "Slong",
+                 "S2t32a8", "S2t16a8", "S2t24a8", "S2t48a8", "S2t32a32",
+                 "combo2x32", "combo4x32", "combo2x64", "combo1x64", "T",
+                 "G")
 CARD_SIZE = (64, 1920, 1080, 224, 224)   # batch, W, H, DW, DH
 CPU_SIZE = (8, 256, 144, 96, 64)
 
@@ -94,33 +118,48 @@ def _checked(nv12, src_w, src_h, space, crange) -> np.ndarray:
     return tail_params(space, crange, 1.0, torch.uint8, None)
 
 
-def _launch(what: str, nv12: torch.Tensor, tail: np.ndarray, *, src_w: int,
-            src_h: int, dst_w: int, dst_h: int, mode: int = 0,
-            staged: int = 0, split: int = 0, frames: int = 0,
-            rows_per_block: int = STRIP_ROWS) -> torch.Tensor:
-    """One ``nv12_variant_launch`` on a checked CUDA buffer."""
+def _call(what: str, launcher: str, nv12: torch.Tensor, tail: np.ndarray,
+          tabs: DeviceTables, *knobs, src_w: int, src_h: int, dst_w: int,
+          dst_h: int) -> torch.Tensor:
+    """One launch of a lab launcher that takes the frames, the geometry,
+    ``tabs`` and the tail, then its ``knobs``, the output and the stream,
+    on a checked CUDA buffer."""
     from ..ops._cuda_build import check, load_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("NV12 rows must be contiguous (stride 1)")
     lib = load_kernels()
-    tabs = device_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420",
-                         torch.bfloat16, nv12.device)
-    spans = (strip_spans(src_w, src_h, dst_w, dst_h, LANCZOS_AA,
-                         min(rows_per_block, dst_h)) if staged else (0, 0))
     B = nv12.shape[0]
     out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
                       device=nv12.device)
     with torch.cuda.device(nv12.device):
-        rc = lib.nv12_variant_launch(
+        rc = getattr(lib, launcher)(
             nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
             B, src_h, src_w, dst_h, dst_w, tabs.index.data_ptr(),
             tabs.weights.data_ptr(), *tabs.taps,
-            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), mode,
-            staged, split, frames, rows_per_block, *spans, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), *knobs,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(lib, rc, what)
     return out
+
+
+def _product_tables(nv12: torch.Tensor, src_w: int, src_h: int, dst_w: int,
+                    dst_h: int) -> DeviceTables:
+    return device_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420",
+                         torch.bfloat16, nv12.device)
+
+
+def _launch(what: str, nv12: torch.Tensor, tail: np.ndarray, *, src_w: int,
+            src_h: int, dst_w: int, dst_h: int, mode: int = 0,
+            staged: int = 0, split: int = 0, frames: int = 0,
+            rows_per_block: int = STRIP_ROWS) -> torch.Tensor:
+    """One ``nv12_variant_launch`` on a checked CUDA buffer."""
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    spans = (strip_spans(src_w, src_h, dst_w, dst_h, LANCZOS_AA,
+                         min(rows_per_block, dst_h)) if staged else (0, 0))
+    return _call(what, "nv12_variant_launch", nv12, tail,
+                 _product_tables(nv12, **geo), mode, staged, split, frames,
+                 rows_per_block, *spans, **geo)
 
 
 def _floor_checked(nv12, rows, W, DH, DW) -> None:
@@ -287,12 +326,239 @@ def multiframe(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
     return out
 
 
+def _bank_checked(src_w, src_h, dst_w, dst_h) -> None:
+    """Refuse a geometry whose H row tables overflow the constant bank."""
+    need = const_bank_bytes(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+    if need > CONST_BANK_BYTES:
+        raise ValueError(f"the H row tables of {src_w}x{src_h} -> "
+                         f"{dst_w}x{dst_h} take {need} B, more than the "
+                         f"{CONST_BANK_BYTES} B constant bank")
+
+
+def _static_call(what, nv12, tail, tabs, *, const_bank, short_chain,
+                 stage_w, frames, rows, **geo) -> torch.Tensor:
+    """One ``nv12_static_launch`` (S, S2, COMBO) in the fewest output-column
+    ranges whose strips fit a block."""
+    ranges = column_ranges(geo["src_w"], geo["src_h"], geo["dst_w"],
+                           geo["dst_h"], LANCZOS_AA, rows, stage_w,
+                           nv12.device)
+    return _call(what, "nv12_static_launch", nv12, tail, tabs,
+                 int(const_bank), int(short_chain), int(stage_w), frames,
+                 rows, *ranges.args(), **geo)
+
+
+def static_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                  dst_w: int, dst_h: int, shortchain: bool = True,
+                  space: ColorSpace = ColorSpace.BT_709,
+                  crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """S: the product function with the H row tables in the constant bank
+    (the TPU's trace-time window starts), samples converted u8 -> i32 ->
+    bf16 (``shortchain``) or u8 -> i32 -> f32: equal values. A geometry
+    whose H tables pass 64 KB is refused. [B, 3, dst_h, dst_w] uint8,
+    equal to :func:`nv12_preprocess`."""
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    _bank_checked(src_w, src_h, dst_w, dst_h)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("static_kernel", nv12):
+        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
+    out = _static_call("static_kernel", nv12, tail,
+                       _product_tables(nv12, **geo), const_bank=True,
+                       short_chain=shortchain, stage_w=False, frames=1,
+                       rows=STRIP_ROWS, **geo)
+    static_kernel.launches += 1
+    return out
+
+
+def _plain_from_row_bands(nv12, luma, chroma, tail, *, src_w, src_h,
+                          dst_w, dst_h) -> torch.Tensor:
+    """The product's plain version with the H pass taken from row bands
+    ``(start, count, weights)`` as dense products."""
+    dev = nv12.device
+    bf = torch.bfloat16
+    dense = []
+    for (start, count, w), n_in in ((luma, src_h), (chroma, src_h // 2)):
+        d = np.zeros((len(start), n_in), np.float32)
+        for o in range(len(start)):
+            d[o, start[o]:start[o] + count[o]] = w[o, :count[o]]
+        dense.append(torch.from_numpy(d).to(dev))
+    uv = nv12[:, src_h:src_h * 3 // 2]   # interleaved U/V rows
+    with exact_f32_matmul():
+        yh = round_to(torch.matmul(dense[0], to_f32(nv12[:, :src_h])), bf)
+        ch = round_to(torch.matmul(dense[1], to_f32(uv)), bf)
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420")
+    wyw, wcw = (round_to(m, bf).to(dev) for m in (dw.luma_w, dw.chroma_w))
+    return w_pass_tail_plain(yh, ch[..., 0::2], ch[..., 1::2], wyw, wcw,
+                             tail, torch.uint8)
+
+
+def static_kernel2_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                         dst_w: int, dst_h: int, tile: int = 32,
+                         align: int = 8,
+                         space: ColorSpace = ColorSpace.BT_709,
+                         crange: ColorRange = ColorRange.MPEG
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`static_kernel2` (any device): the
+    product's plain version with its H pass built from S2's strip-window
+    tables, so that it checks them."""
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    luma, chroma = strip_window_bands(src_w, src_h, dst_w, dst_h,
+                                      LANCZOS_AA, tile, align)
+    return _plain_from_row_bands(nv12, luma, chroma, tail, **geo)
+
+
+def static_kernel2(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                   dst_w: int, dst_h: int, tile: int = 32, align: int = 8,
+                   space: ColorSpace = ColorSpace.BT_709,
+                   crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """S2: the product function on strips of ``tile`` output rows whose
+    source windows start at multiples of ``align`` rows and share one
+    length; every output row runs over its strip's whole window, zero
+    weights included. Tall strips run in output-column ranges.
+    [B, 3, dst_h, dst_w] uint8, equal to :func:`nv12_preprocess`."""
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    tabs_key = (src_w, src_h, dst_w, dst_h, LANCZOS_AA, tile, align)
+    strip_window_bands(*tabs_key)   # refuses tile or align < 1
+    if _on_cpu("static_kernel2", nv12):
+        return static_kernel2_plain(nv12, **geo, tile=tile, align=align,
+                                    space=space, crange=crange)
+    out = _static_call("static_kernel2", nv12, tail,
+                       window_tables(*tabs_key, nv12.device),
+                       const_bank=False, short_chain=False, stage_w=False,
+                       frames=1, rows=tile, **geo)
+    static_kernel2.launches += 1
+    return out
+
+
+def combo_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                 dst_w: int, dst_h: int, gframes: int = 2, tile: int = 32,
+                 space: ColorSpace = ColorSpace.BT_709,
+                 crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """COMBO: ``gframes`` frames per block (B % gframes == 0) on strips of
+    ``tile`` output rows, the H row tables in the constant bank, the W
+    tables staged in shared memory once per block, the short cast chain.
+    Tall strips run in output-column ranges. [B, 3, dst_h, dst_w] uint8,
+    equal to :func:`nv12_preprocess`."""
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    if gframes < 1 or nv12.shape[0] % gframes:
+        raise ValueError(f"batch {nv12.shape[0]} is not a multiple of "
+                         f"gframes={gframes}")
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    _bank_checked(src_w, src_h, dst_w, dst_h)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("combo_kernel", nv12):
+        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
+    out = _static_call("combo_kernel", nv12, tail,
+                       _product_tables(nv12, **geo), const_bank=True,
+                       short_chain=True, stage_w=True, frames=gframes,
+                       rows=tile, **geo)
+    combo_kernel.launches += 1
+    return out
+
+
+def transposed_chroma(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                      dst_w: int, dst_h: int,
+                      space: ColorSpace = ColorSpace.BT_709,
+                      crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """T: the product function with the chroma H-pass rows kept transposed
+    in shared memory; the W pass reads U of column band j from row 2j and
+    V from row 2j + 1. [B, 3, dst_h, dst_w] uint8, equal to
+    :func:`nv12_preprocess`."""
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("transposed_chroma", nv12):
+        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
+    out = _call("transposed_chroma", "nv12_transposed_launch", nv12, tail,
+                _product_tables(nv12, **geo), STRIP_ROWS, **geo)
+    transposed_chroma.launches += 1
+    return out
+
+
+def _group_rows(src_h: int, gt) -> np.ndarray:
+    """[groups, k_pad] frame rows of each group's stacked window in G's
+    tables ``gt``: two luma windows, two chroma windows (under the src_h
+    luma rows), then row 0 for the zero columns of the padding."""
+    ly, lc = gt.luma_rows, gt.chroma_rows
+    rows = np.zeros((gt.a.shape[0], gt.k_pad), np.int64)
+    for g, (y0, y1, c0, c1) in enumerate(gt.starts):
+        rows[g, :2 * (ly + lc)] = np.concatenate([
+            y0 + np.arange(ly), y1 + np.arange(ly),
+            src_h + c0 + np.arange(lc), src_h + c1 + np.arange(lc)])
+    return rows
+
+
+def grouped_kernel_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                         dst_w: int, dst_h: int,
+                         space: ColorSpace = ColorSpace.BT_709,
+                         crange: ColorRange = ColorRange.MPEG
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grouped_kernel` (any device): G's
+    block-diagonal matrices times the stacked windows, fp32 with TF32 off,
+    rounded to bf16, then the product's W pass and tail."""
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    dev = nv12.device
+    bf = torch.bfloat16
+    gt = grouped_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+    rows = torch.from_numpy(_group_rows(src_h, gt)).to(dev)
+    x = to_f32(nv12[:, rows])                     # [B, groups, K, W]
+    with exact_f32_matmul():
+        h = round_to(torch.matmul(torch.from_numpy(gt.a).to(dev), x), bf)
+    B = nv12.shape[0]
+    yh = h[:, :, :16].reshape(B, -1, src_w)[:, :dst_h]
+    ch = h[:, :, 16:].reshape(B, -1, src_w)[:, :dst_h]
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420")
+    wyw, wcw = (round_to(m, bf).to(dev) for m in (dw.luma_w, dw.chroma_w))
+    return w_pass_tail_plain(yh, ch[..., 0::2], ch[..., 1::2], wyw, wcw,
+                             tail, torch.uint8)
+
+
+@functools.lru_cache(maxsize=8)
+def _grouped_device(src_w, src_h, dst_w, dst_h, device):
+    """G's tables on ``device``: A in bf16, the window starts."""
+    gt = grouped_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+    return (gt, torch.from_numpy(gt.a).to(device, torch.bfloat16),
+            torch.from_numpy(gt.starts).to(device))
+
+
+def grouped_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                   dst_w: int, dst_h: int,
+                   space: ColorSpace = ColorSpace.BT_709,
+                   crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """G: the product function with the H pass on the tensor cores, one
+    block per two 8-row strips: a [32, K] bf16 block-diagonal matrix (two
+    luma and two chroma strips over their stacked windows) times the
+    window, mma.sync m16n8k16 with fp32 sums, rounded to bf16; then the
+    product's W pass and tail. [B, 3, dst_h, dst_w] uint8, within the
+    kernels' envelope of :func:`nv12_preprocess` (the tensor cores sum in
+    their own order)."""
+    tail = _checked(nv12, src_w, src_h, space, crange)
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    if _on_cpu("grouped_kernel", nv12):
+        return grouped_kernel_plain(nv12, **geo, space=space, crange=crange)
+    gt, a, starts = _grouped_device(src_w, src_h, dst_w, dst_h, nv12.device)
+    out = _call("grouped_kernel", "nv12_grouped_launch", nv12, tail,
+                _product_tables(nv12, **geo), a.data_ptr(),
+                starts.data_ptr(), gt.luma_rows, gt.chroma_rows, gt.k_pad,
+                **geo)
+    grouped_kernel.launches += 1
+    return out
+
+
 #: kernel launches made by each wrapper (CPU calls are not counted)
 stream_floor.launches = 0
 prod_like.launches = 0
 variant_kernel.launches = 0
 multiframe.launches = 0
-WRAPPERS = (stream_floor, prod_like, variant_kernel, multiframe)
+static_kernel.launches = 0
+static_kernel2.launches = 0
+combo_kernel.launches = 0
+transposed_chroma.launches = 0
+grouped_kernel.launches = 0
+WRAPPERS = (stream_floor, prod_like, variant_kernel, multiframe,
+            static_kernel, static_kernel2, combo_kernel, transposed_chroma,
+            grouped_kernel)
 
 
 # --- the lab ----------------------------------------------------------------
@@ -306,6 +572,14 @@ class Case(NamedTuple):
     full_function: bool
     frames: int      # frames the call needs at least (multiframe G)
     work: tuple      # (bytes, operations) of one batch of B frames
+    exact: bool = True   # bit-equal to its reference (G: the envelope)
+    note: str = ""       # how the kernel ran, for the lab line
+
+
+def _ranges_note(src_w, src_h, dst_w, dst_h, rows, stage_w) -> str:
+    n = column_ranges(src_w, src_h, dst_w, dst_h, LANCZOS_AA, rows, stage_w,
+                      torch.device("cpu")).n
+    return f"in {n} column ranges" if n > 1 else ""
 
 
 def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
@@ -333,6 +607,43 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
         g = int(m.group(1))
         return Case(multiframe, lambda x: multiframe(x, **geo, gframes=g),
                     product, True, g, full)
+    if name in ("S", "Slong"):
+        short = name == "S"
+        return Case(static_kernel,
+                    lambda x: static_kernel(x, **geo, shortchain=short),
+                    product, True, 1, full)
+    if name == "T":
+        return Case(transposed_chroma,
+                    lambda x: transposed_chroma(x, **geo), product, True, 1,
+                    full)
+    if name == "G":
+        gt = grouped_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+        return Case(grouped_kernel, lambda x: grouped_kernel(x, **geo),
+                    lambda x: grouped_kernel_plain(x, **geo), True, 1,
+                    preprocess_work(batch, src_w, src_h, dst_w, dst_h,
+                                    h_fmas=gt.a.shape[0] * 32 * gt.k_pad
+                                    * src_w), exact=False)
+    m = re.fullmatch(r"S2t(\d+)a(\d+)", name)
+    if m:
+        tile, align = int(m.group(1)), int(m.group(2))
+        luma, chroma = strip_window_bands(src_w, src_h, dst_w, dst_h,
+                                          LANCZOS_AA, tile, align)
+        fmas = (int(luma[1].sum()) + int(chroma[1].sum())) * src_w
+        return Case(
+            static_kernel2,
+            lambda x: static_kernel2(x, **geo, tile=tile, align=align),
+            lambda x: static_kernel2_plain(x, **geo, tile=tile, align=align),
+            True, 1, preprocess_work(batch, src_w, src_h, dst_w, dst_h,
+                                     h_fmas=fmas),
+            note=_ranges_note(src_w, src_h, dst_w, dst_h, tile, False))
+    m = re.fullmatch(r"combo(\d+)x(\d+)", name)
+    if m:
+        g, tile = int(m.group(1)), int(m.group(2))
+        return Case(combo_kernel,
+                    lambda x: combo_kernel(x, **geo, gframes=g, tile=tile),
+                    product, True, g, full,
+                    note=_ranges_note(src_w, src_h, dst_w, dst_h, tile,
+                                      True))
     m = re.fullmatch(r"(full|hpass|wpass)(\d*)", name)
     if m:
         mode, strip = m.group(1), int(m.group(2) or STRIP_ROWS)
@@ -346,8 +657,9 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
             lambda x: prod_like(x, **geo, mode=mode, rows_per_block=strip),
             lambda x: prod_like_plain(x, **geo, mode=mode), mode == "full",
             1, work)
-    raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES} "
-                     f"or a mode with a strip height (full16)")
+    raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES}, "
+                     f"a mode with a strip height (full16), M{{G}}, "
+                     f"S2t{{tile}}a{{align}} or combo{{G}}x{{tile}}")
 
 
 def make_frames(batch: int, rows: int, width: int, device,
@@ -376,10 +688,16 @@ def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,
         head = frames[:max(2, c.frames)]
         ref = (nv12_preprocess(head, **geo) if c.full_function
                else c.plain(head))
-        maxdiff = int((c.call(head).int() - ref.int()).abs().max().item())
+        diff = (c.call(head).int() - ref.int()).abs()
+        maxdiff = int(diff.max().item())
+        ndiff = int((diff > 0).sum().item())
         bound, bound_by = bound_ms(*c.work)
-        row = dict(name=name, maxdiff=maxdiff, bound_ms=bound,
+        row = dict(name=name, maxdiff=maxdiff, ndiff=ndiff, bound_ms=bound,
                    bound_by=bound_by, ms=None, spread=None)
+        # G's differing samples (of the head frames), and how a kernel ran
+        extra = "".join(
+            [f"  differing={ndiff} of {diff.numel()}" if not c.exact else "",
+             f"  ({c.note})" if c.note else ""])
         if on_card:
             ms, spread = time_cuda(c.call, frames)
             row.update(ms=ms, spread=spread,
@@ -388,10 +706,10 @@ def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,
             log(f"{name}: {ms:.4f} ms/batch  spread={spread:.1%}  "
                 f"maxdiff={maxdiff}  fps={row['fps']:,.0f}  "
                 f"GB/s={row['gbps']:.1f}  bound={bound:.4f} ms "
-                f"({bound_by})")
+                f"({bound_by}){extra}")
         else:
             log(f"{name}: maxdiff={maxdiff} (plain version on the CPU; "
-                f"not timed)")
+                f"not timed){extra}")
         results.append(row)
     times = {r["name"]: r["ms"] for r in results}
     if on_card and all(times.get(k) for k in ("full", "hpass", "wpass")):

@@ -23,7 +23,8 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
             "csrc/nv12_to_rgb.cu", "csrc/nv12_variants.cu",
-            "csrc/nv12_resize_variants.cu", "csrc/nv12_to_rgb_variants.cu")
+            "csrc/nv12_grouped.cu", "csrc/nv12_resize_variants.cu",
+            "csrc/nv12_to_rgb_variants.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
@@ -62,6 +63,15 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "nv12_stream_floor_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    "nv12_static_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
+        _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+    "nv12_transposed_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
+        _I, _P, _P],
+    "nv12_grouped_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
+        _P, _P, _I, _I, _I, _P, _P],
     "nv12_convert_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _FP, _I, _P, _P],
     "nv12_convert_probe_launch": [

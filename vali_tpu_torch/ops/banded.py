@@ -141,7 +141,13 @@ def device_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
     and device. The layout is part of the cache key: two layouts of one
     geometry have different chroma tables."""
     dw = dense_weights(src_w, src_h, dst_w, dst_h, method, layout)
-    tabs = [band_table(m, compute_dtype) for m in dw]
+    return pack_tables([band_table(m, compute_dtype) for m in dw], device)
+
+
+def pack_tables(tabs, device: torch.device) -> DeviceTables:
+    """Upload the four bands ``(start, count, weights)`` of
+    :func:`band_table` — luma rows, chroma rows, luma columns, chroma
+    columns — as a :class:`DeviceTables`."""
     index = np.concatenate([np.concatenate([s, c]) for s, c, _ in tabs])
     weights = np.concatenate([
         tabs[0][2].reshape(-1), tabs[1][2].reshape(-1),
@@ -239,6 +245,201 @@ def strip_spans(src_w: int, src_h: int, dst_w: int, dst_h: int, method: str,
         start, count, _ = band_table(dense, torch.float32)
         spans.append(tile_window(start, count, rows))
     return spans[0], spans[1]
+
+
+# --- host tables of the NV12 lab's static-window and grouped variants ------
+# (csrc/nv12_variants.cu nv12_static_launch, csrc/nv12_grouped.cu)
+
+#: the constant bank that holds S's and COMBO's H row tables
+CONST_BANK_BYTES = 65536
+#: dynamic shared memory one block may use on sm_90 (kSmemLimit)
+SMEM_LIMIT = 232448
+
+
+@functools.lru_cache(maxsize=16)
+def _nv12_bands(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                method: str):
+    """The four bf16 bands of a 4:2:0 geometry (:func:`band_table`)."""
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, method, "420")
+    return tuple(band_table(m, torch.bfloat16) for m in dw)
+
+
+@functools.lru_cache(maxsize=32)
+def const_bank_bytes(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                     method: str) -> int:
+    """Bytes of the H row tables in the constant bank: four int32 tables
+    of dst_h (row starts and counts) and the luma and chroma row weights,
+    as float32 padded to their largest tap count."""
+    hy, hc = _nv12_bands(src_w, src_h, dst_w, dst_h, method)[:2]
+    return 16 * dst_h + 4 * dst_h * (hy[2].shape[1] + hc[2].shape[1])
+
+
+def _strip_windows(start, count, weights, n_in: int, tile: int,
+                   align: int):
+    """Bands of ``tile``-row strips over shared windows: each strip's
+    window starts at a multiple of ``align`` source rows (pulled back to
+    stay inside the ``n_in`` rows) and all have the length the TPU's
+    ``_banded_blocks_from_dense`` gives, the widest strip band rounded up
+    past one more ``align``. Returns per output row (window start, window
+    length, weights over the window: the row's band at its place, zeros
+    elsewhere)."""
+    n_out = len(start)
+    idx = np.arange(0, n_out, tile)
+    lo = np.minimum.reduceat(start, idx)
+    hi = np.maximum.reduceat(start + count, idx)
+    span = int((hi - lo).max())
+    length = min(-(-(span + align) // align) * align, n_in)
+    ws = np.minimum(lo // align * align, n_in - length).astype(np.int32)
+    row_ws = np.repeat(ws, tile)[:n_out]
+    w = np.zeros((n_out, length), np.float32)
+    for o in range(n_out):
+        off = int(start[o] - row_ws[o])
+        if off < 0 or off + count[o] > length:
+            raise ValueError(f"row {o}'s band leaves its strip window")
+        w[o, off:off + count[o]] = weights[o, :count[o]]
+    return row_ws, np.full(n_out, length, np.int32), w
+
+
+@functools.lru_cache(maxsize=16)
+def strip_window_bands(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                       method: str, tile: int, align: int):
+    """S2's luma and chroma row bands over strip windows
+    (:func:`_strip_windows`, strips of ``tile`` rows aligned to
+    ``align``)."""
+    if tile < 1 or align < 1:
+        raise ValueError(f"tile and align must be >= 1, got tile={tile}, "
+                         f"align={align}")
+    hy, hc = _nv12_bands(src_w, src_h, dst_w, dst_h, method)[:2]
+    return (_strip_windows(*hy, src_h, tile, align),
+            _strip_windows(*hc, src_h // 2, tile, align))
+
+
+@functools.lru_cache(maxsize=16)
+def window_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  method: str, tile: int, align: int, device: torch.device
+                  ) -> DeviceTables:
+    """S2's tables: the row bands of :func:`strip_window_bands`, the
+    column bands of :func:`device_tables`."""
+    wy, wc = _nv12_bands(src_w, src_h, dst_w, dst_h, method)[2:]
+    return pack_tables([*strip_window_bands(src_w, src_h, dst_w, dst_h,
+                                            method, tile, align), wy, wc],
+                       device)
+
+
+def _ceil16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+class ColumnRanges(NamedTuple):
+    """Output-column ranges of a strip kernel's blocks: ``ext`` [n, 4]
+    int32 — per range the luma source columns [lo, hi) and the
+    interleaved chroma columns [lo, hi) its W bands read, widened to
+    multiples of 16 — and the widest of each (the shared-memory row
+    pitches)."""
+    ext: torch.Tensor
+    y_pitch: int
+    c_pitch: int
+
+    @property
+    def n(self) -> int:
+        return self.ext.shape[0]
+
+    def args(self):
+        """The ranges as nv12_static_launch takes them."""
+        return (self.ext.data_ptr(), self.n, self.y_pitch, self.c_pitch)
+
+
+@functools.lru_cache(maxsize=32)
+def column_ranges(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  method: str, rows: int, stage_w: bool,
+                  device: torch.device) -> ColumnRanges:
+    """The fewest output-column ranges whose H rows fit one block: a strip
+    of ``rows`` output rows keeps its luma and interleaved chroma H rows
+    in bf16 for the source columns its range's W bands read (plus the W
+    tables with ``stage_w``, COMBO). One range is the full row."""
+    _, _, (ys, yc, yw), (cs, cc, cw) = _nv12_bands(src_w, src_h, dst_w,
+                                                   dst_h, method)
+    rows = min(rows, dst_h)
+    extra = 16 * dst_w + 4 * dst_w * (yw.shape[1] + cw.shape[1])
+    for n in range(1, dst_w + 1):
+        if n == 1:
+            ext = np.array([[0, src_w, 0, src_w]], np.int32)
+        else:
+            ext = np.zeros((n, 4), np.int32)
+            for z in range(n):
+                p0, p1 = z * dst_w // n, (z + 1) * dst_w // n
+                ext[z] = (ys[p0:p1].min() // 16 * 16,
+                          min(src_w, _ceil16(int((ys + yc)[p0:p1].max()))),
+                          2 * cs[p0:p1].min() // 16 * 16,
+                          min(src_w, _ceil16(2 * int((cs + cc)[p0:p1].max()))))
+        y_pitch = int((ext[:, 1] - ext[:, 0]).max())
+        c_pitch = int((ext[:, 3] - ext[:, 2]).max())
+        smem = 2 * rows * (y_pitch + c_pitch)
+        if stage_w:
+            smem = _ceil16(smem) + extra
+        if smem <= SMEM_LIMIT:
+            return ColumnRanges(torch.from_numpy(ext).to(device), y_pitch,
+                                c_pitch)
+    raise ValueError(f"{rows}-row strips of {src_w}-wide rows do not fit a "
+                     f"block in any column ranges")
+
+
+class GroupedTables(NamedTuple):
+    """G's tables (csrc/nv12_grouped.cu): ``a`` [groups, 32, k_pad] — per
+    group of two 8-row strips the block-diagonal weights, rows 0-15 the
+    two luma strips over their windows of ``luma_rows`` rows, rows 16-31
+    the two chroma strips over windows of ``chroma_rows`` interleaved
+    chroma rows, K padded with zeros to a multiple of 16 — and ``starts``
+    [groups, 4] int32, the first plane row of each window."""
+    a: np.ndarray
+    starts: np.ndarray
+    luma_rows: int
+    chroma_rows: int
+
+    @property
+    def k_pad(self) -> int:
+        return self.a.shape[2]
+
+
+#: output rows of one of G's strips, and strips per group
+GROUP_STRIP = 8
+
+
+@functools.lru_cache(maxsize=16)
+def grouped_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                   method: str) -> GroupedTables:
+    """Build G's block-diagonal tables from the bf16 row bands: each
+    strip's window is the union of its rows' bands, all windows of a plane
+    one length (the widest), pulled back to stay inside the plane."""
+    hy, hc = _nv12_bands(src_w, src_h, dst_w, dst_h, method)[:2]
+    s = GROUP_STRIP
+    wins = []
+    for (start, count, w), n_in in ((hy, src_h), (hc, src_h // 2)):
+        idx = np.arange(0, dst_h, s)
+        lo = np.minimum.reduceat(start, idx)
+        hi = np.maximum.reduceat(start + count, idx)
+        length = int((hi - lo).max())
+        wins.append((np.minimum(lo, n_in - length), length, start, count, w))
+    ly, lc = wins[0][1], wins[1][1]
+    groups = -(-dst_h // (2 * s))
+    a = np.zeros((groups, 32, _ceil16(2 * (ly + lc))), np.float32)
+    starts = np.zeros((groups, 4), np.int32)
+    for g in range(groups):
+        for j in range(2):
+            strip = min(2 * g + j, len(wins[0][0]) - 1)
+            for p, (ws, length, start, count, w) in enumerate(wins):
+                starts[g, 2 * p + j] = ws[strip]
+                if 2 * g + j != strip:   # no second strip: zero rows
+                    continue
+                col0 = 2 * ly * p + length * j
+                for r in range(s):
+                    o = strip * s + r
+                    if o >= dst_h:
+                        break
+                    off = col0 + int(start[o] - ws[strip])
+                    a[g, 16 * p + s * j + r, off:off + count[o]] = \
+                        w[o, :count[o]]
+    return GroupedTables(a, starts, ly, lc)
 
 
 def planar_u8_checked(fmt: str, y, u, v, *, src_w: int, src_h: int,
