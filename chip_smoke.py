@@ -36,10 +36,17 @@ the host clock, and prints:
   - the card's name and power limit (nvidia-smi), torch/CUDA versions and
     the kernel build time;
   - one line per comparison and per timing;
+  - for the Surface path's four kernels, each main path's launches read
+    on their own (Surface paths A and B, the two-stage convert + resize),
+    and every timed shape's kernel and plain times, bound and main-path
+    launches at that shape;
   - a JSON line {"kernels": [...]} with each kernel's launches on its
     path, its error against the plain version, both times and its bound
     (bytes over 3.35 TB/s or operations over 989 TFLOP/s, the H100 SXM
-    data sheet);
+    data sheet) at its batched shape; the Surface kernels' entries also
+    list every timed shape with its main-path launches ("shapes"; at
+    N = 1 a wrapper call's time, host work included) and the mean time
+    over those launches ("launch_weighted_ms");
   - as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and ends the run with a non-zero exit code before the
@@ -687,22 +694,50 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
                 or down.Run(half, host_out) != ok):
             raise AssertionError(f"surface path B failed on frame {i}")
 
-    for w in wrappers.values():
-        w.launches = 0
-    for i in range(B):
-        surface_a(i)
-        if not torch.equal(view, want_a[i].view(SURFACE_H, SURFACE_W, 3)):
-            raise AssertionError(f"surface path A frame {i} differs from "
-                                 f"the batched kernels")
-    for i in range(B4K):
-        surface_b(i)
-        if not np.array_equal(host_out, want_b[i]):
-            raise AssertionError(f"surface path B frame {i} differs from "
-                                 f"the batched kernels")
-    torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    log(f"surface_path_launches={json.dumps(launches)}")
-    if min(launches.values()) < 1:
+    def counted(run):
+        """{wrapper: launches} of ``run()``: every count set to 0 just
+        before and read just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        run()
+        torch.cuda.synchronize()
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def path_a():
+        for i in range(B):
+            surface_a(i)
+            if not torch.equal(view,
+                               want_a[i].view(SURFACE_H, SURFACE_W, 3)):
+                raise AssertionError(f"surface path A frame {i} differs "
+                                     f"from the batched kernels")
+
+    def path_b():
+        for i in range(B4K):
+            surface_b(i)
+            if not np.array_equal(host_out, want_b[i]):
+                raise AssertionError(f"surface path B frame {i} differs "
+                                     f"from the batched kernels")
+
+    def two_stage():
+        rgbp = csc.convert_batch((nv12,), F.NV12, F.RGB, W, H, cc)
+        return resize.resize_batch(rgbp, F.RGB, W, H, DW, DH, lanczos_aa)
+
+    def two_stage_checked():
+        if not torch.equal(two_stage()[0],
+                           outs["packed_resize rgb 1080p->224 u8"]):
+            raise AssertionError("two-stage convert + resize differs from "
+                                 "the batched kernels")
+
+    # each main path read on its own; one frame of B shows that its plane
+    # launches are one Y and one stacked U/V resize a frame
+    runs = {"surface_a": counted(path_a), "surface_b": counted(path_b),
+            "two_stage": counted(two_stage_checked)}
+    per_b_frame = counted(lambda: surface_b(0))["plane_resize"]
+    launches = {name: sum(r[name] for r in runs.values())
+                for name in wrappers}
+    log(f"main_path_launches_by_path={json.dumps(runs)} "
+        f"plane_resize_per_b_frame={per_b_frame}")
+    if min(launches.values()) < 1 or per_b_frame != 2:
         raise AssertionError("a kernel of the Surface path was not launched")
     log(f"surface_path: ok, A: {B} 1080p NV12 frames uploaded, converted "
         f"to RGB and resized to {SURFACE_W}x{SURFACE_H} with RunAsync on a "
@@ -710,28 +745,87 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
         f"through a DLPack view taken before the first Run; B: {B4K} 4K "
         f"NV12 frames resized to 1080p (turbo), converted to YUV420, "
         f"resized to {HALF_W}x{HALF_H} (turbo) and downloaded, each equal "
-        f"to the batched kernels")
+        f"to the batched kernels; two-stage convert + resize equal to the "
+        f"batched kernels")
 
-    # ---- phase 4: times --------------------------------------------------
-    timed = {"nv12_to_rgb": "nv12_to_rgb rgb bt709/mpeg bf16",
-             "packed_resize": "packed_resize rgb 1080p->224 u8",
-             "nv12_resize": "nv12_resize 4k->1080p bf16",
-             "plane_resize": "plane_resize y 4k->1080p u8"}
+    # ---- phase 4: times at every timed shape ----------------------------
+    # the batched shapes, then each shape the Surface path launches at N = 1
+    lanczos = dict(method=resize.LANCZOS)
+    y_half_in, c_half_in = y1[:1], torch.cat([u1[:1], v1[:1]])
+    n1_cases = {
+        "nv12_to_rgb N=1 1080p bt709/mpeg": pair(
+            nv12_to_rgb, nv12_to_rgb_plain, nv12[:1], **to_rgb, **bt709),
+        "packed_resize N=1 rgb 1080p->640x360 lanczos": pair(
+            packed_resize, packed_resize_plain, rgb[:1], **to_360,
+            **lanczos),
+        "nv12_resize N=1 4k->1080p lanczos": pair(
+            nv12_resize, nv12_resize_plain, nv4k[:1], **to_1080, **lanczos),
+        "plane_resize N=1 y 1080p->540p lanczos": pair(
+            plane_resize, plane_resize_plain, y_half_in, src_h=H,
+            dst_h=HALF_H, dst_w=HALF_W, **lanczos),
+        "plane_resize B=2 u/v 540p->270p lanczos": pair(
+            plane_resize, plane_resize_plain, c_half_in, src_h=H // 2,
+            dst_h=HALF_H // 2, dst_w=HALF_W // 2, **lanczos),
+    }
+    cases.update(n1_cases)
+    # (bytes, operations) of one call of each timed case
+    aa = resize.LANCZOS_AA
+
+    def nv12_work(b, method):
+        y = resize_work(b, H4K, W4K, H, W, 1, method)
+        c = resize_work(b, H4K // 2, W4K // 2, H // 2, W // 2, 2, method)
+        return y[0] + c[0], y[1] + c[1]
+
+    timed = {  # case: (kernel, work, main-path launches at this shape)
+        "nv12_to_rgb rgb bt709/mpeg bf16": (
+            "nv12_to_rgb", (nv12.nbytes + rgb.nbytes, CSC_OPS * B * H * W),
+            runs["two_stage"]["nv12_to_rgb"]),
+        "packed_resize rgb 1080p->224 u8": (
+            "packed_resize", resize_work(B, H, W, DH, DW, 3, aa),
+            runs["two_stage"]["packed_resize"]),
+        "packed_resize rgb 1080p->640x360 u8": (
+            "packed_resize", resize_work(B, H, W, SURFACE_H, SURFACE_W, 3,
+                                         aa), 0),
+        "nv12_resize 4k->1080p bf16": ("nv12_resize", nv12_work(B4K, aa), 0),
+        "nv12_resize 4k->1080p f32": ("nv12_resize", nv12_work(B4K, aa), 0),
+        "plane_resize y 4k->1080p u8": (
+            "plane_resize", resize_work(B4K, H4K, W4K, H, W, 1, aa), 0),
+        "plane_resize stacked u/v 4k->540p u8": (
+            "plane_resize", resize_work(2 * B4K, H4K // 2, W4K // 2, H // 2,
+                                        W // 2, 1, aa), 0),
+        "nv12_to_rgb N=1 1080p bt709/mpeg": (
+            "nv12_to_rgb", (nv12[:1].nbytes + rgb[:1].nbytes,
+                            CSC_OPS * H * W),
+            runs["surface_a"]["nv12_to_rgb"]),
+        "packed_resize N=1 rgb 1080p->640x360 lanczos": (
+            "packed_resize", resize_work(1, H, W, SURFACE_H, SURFACE_W, 3,
+                                         resize.LANCZOS),
+            runs["surface_a"]["packed_resize"]),
+        "nv12_resize N=1 4k->1080p lanczos": (
+            "nv12_resize", nv12_work(1, resize.LANCZOS),
+            runs["surface_b"]["nv12_resize"]),
+        "plane_resize N=1 y 1080p->540p lanczos": (
+            "plane_resize", resize_work(1, H, W, HALF_H, HALF_W, 1,
+                                        resize.LANCZOS),
+            runs["surface_b"]["plane_resize"] // 2),
+        "plane_resize B=2 u/v 540p->270p lanczos": (
+            "plane_resize", resize_work(2, H // 2, W // 2, HALF_H // 2,
+                                        HALF_W // 2, 1, resize.LANCZOS),
+            runs["surface_b"]["plane_resize"] // 2),
+    }
     times = {}
-    for kname, case in list(timed.items()) + [
-            ("packed_resize 640x360", "packed_resize rgb 1080p->640x360 u8"),
-            ("plane_resize u/v", "plane_resize stacked u/v 4k->540p u8")]:
+    for case, (kname, work, n) in timed.items():
         t_kern, t_plain = time_pair(*cases[case])
-        times[kname] = (t_kern, t_plain)
-        log(f"time {case}: kernel_ms={t_kern} plain_ms={t_plain} ({smi})")
-    in_out = {"nv12_to_rgb": nv12.nbytes + rgb.nbytes,
-              "nv12_resize": nv4k.nbytes + nv_1080.nbytes}
-    for k, nbytes in in_out.items():
-        log(f"{k} read+write GB/s={nbytes / (times[k][0] * 1e-3) / 1e9}")
-
-    def two_stage():
-        rgbp = csc.convert_batch((nv12,), F.NV12, F.RGB, W, H, cc)
-        return resize.resize_batch(rgbp, F.RGB, W, H, DW, DH, lanczos_aa)
+        bound, bound_by = bound_ms(*work)
+        times[case] = (t_kern, t_plain, bound, bound_by, n)
+        log(f"time {case}: kernel_ms={t_kern} plain_ms={t_plain} "
+            f"bound_ms={bound} bound_by={bound_by} main_path_launches={n} "
+            f"({smi})")
+    for case, nbytes in (("nv12_to_rgb rgb bt709/mpeg bf16",
+                          nv12.nbytes + rgb.nbytes),
+                         ("nv12_resize 4k->1080p bf16",
+                          nv4k.nbytes + nv_1080.nbytes)):
+        log(f"{case} read+write GB/s={nbytes / (times[case][0] * 1e-3) / 1e9}")
 
     t_two = time_ms(two_stage)
     log(f"time two-stage convert+resize {B}x{H}p NV12->RGB->{DH}x{DW}: "
@@ -754,24 +848,33 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
                               "vali_tpu/ops/pallas_fused.py:1105"),
               "plane_resize": ("vali_tpu_torch/csrc/banded_resize.cu",
                                "vali_tpu/ops/pallas_fused.py:1272")}
-    # work of each timed case; no single PyTorch call computes these
-    # Lanczos resizes or the bf16-cast-point CSC: library_ms is null
-    y4k_resize = resize_work(B4K, H4K, W4K, H, W)
-    uv4k_resize = resize_work(B4K, H4K // 2, W4K // 2, H // 2, W // 2, 2)
-    work = {"nv12_to_rgb": (nv12.nbytes + rgb.nbytes, CSC_OPS * B * H * W),
-            "packed_resize": resize_work(B, H, W, DH, DW, 3),
-            "nv12_resize": (y4k_resize[0] + uv4k_resize[0],
-                            y4k_resize[1] + uv4k_resize[1]),
-            "plane_resize": y4k_resize}
+    # ms, plain_ms and bound_ms are each kernel's at its batched shape;
+    # "shapes" holds every timed shape with its main-path launches, where
+    # the N = 1 times are wrapper calls whose host work outlasts the
+    # kernel, and launch_weighted_ms the mean over the main-path launches.
+    # No single PyTorch call computes these Lanczos resizes or the
+    # bf16-cast-point CSC: library_ms is null
+    batched = {"nv12_to_rgb": "nv12_to_rgb rgb bt709/mpeg bf16",
+               "packed_resize": "packed_resize rgb 1080p->224 u8",
+               "nv12_resize": "nv12_resize 4k->1080p bf16",
+               "plane_resize": "plane_resize y 4k->1080p u8"}
     entries = []
-    for k in timed:
-        bound, bound_by = bound_ms(*work[k])
+    for k, case in batched.items():
+        t_kern, t_plain, bound, bound_by, _ = times[case]
+        shapes = [{"case": c, "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+                   "bound_by": v[3], "launches": v[4],
+                   "timed": ("wrapper call incl. host work"
+                             if c in n1_cases else "kernel")}
+                  for c, v in times.items() if timed[c][0] == k]
+        n = sum(sh["launches"] for sh in shapes)
         entries.append({
             "name": k, "route": "cuda", "source": src_of[k][0],
             "replaces": src_of[k][1], "launches": launches[k],
-            "max_abs_err": err[k], "ms": times[k][0],
-            "plain_ms": times[k][1], "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None})
+            "max_abs_err": err[k], "ms": t_kern, "plain_ms": t_plain,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "launch_weighted_ms": sum(sh["ms"] * sh["launches"]
+                                      for sh in shapes) / n,
+            "shapes": shapes})
     return entries
 
 

@@ -27,6 +27,7 @@ from vali_tpu_torch.ops.packed_resize import (packed_resize,
                                               packed_resize_plain)
 from vali_tpu_torch.ops.plane_resize import (plane_resize,
                                              plane_resize_plain)
+from vali_tpu_torch.ops.resize import LANCZOS
 from vali_tpu_torch.ops.nv12_preprocess import (nv12_preprocess,
                                                 nv12_preprocess_plain)
 from vali_tpu_torch.ops.yuv420_preprocess import (yuv420_preprocess,
@@ -269,6 +270,13 @@ def _resize_shape(kind, b, h, w):
     (64, 64, 64, 64),         # identity
     (2160, 3840, 1080, 1920),  # 4K -> 1080p
     (1080, 1920, 224, 224),
+    # (h, w, dh, dw, batch): dst_h not a multiple of the stage or strip
+    # height, dst_w not a multiple of the tile; one frame, an odd batch
+    (150, 322, 70, 202, 1),
+    (150, 322, 70, 202, 3),
+    (1080, 1920, 360, 640, 1),  # the Surface path's shapes
+    (1080, 1920, 540, 960, 1),
+    (540, 960, 270, 480, 2),
 ])
 @pytest.mark.parametrize("kind,dtype,kw", [
     ("plane", torch.uint8, {}),
@@ -279,13 +287,16 @@ def _resize_shape(kind, b, h, w):
     ("packed", torch.float32, {}),
     ("nv12", torch.uint8, {}),
     ("nv12", torch.uint16, {}),
+    ("plane", torch.uint8, {"method": LANCZOS}),
+    ("packed", torch.uint8, {"method": LANCZOS}),
+    ("nv12", torch.uint8, {"method": LANCZOS}),
 ])
 def test_resize_kernels_match_plain(dev, geo, kind, dtype, kw):
-    h, w, dh, dw = geo
-    b = 1 if h > 1000 else 2
+    h, w, dh, dw = geo[:4]
+    b = geo[4] if len(geo) > 4 else 1 if h > 1000 else 2
     x = _rand(dev, _resize_shape(kind, b, h, w), dtype, h + w)
-    out = _resize_call(kind, x, geo, **kw)
-    ref = _resize_call(kind, x, geo, plain=True, **kw)
+    out = _resize_call(kind, x, geo[:4], **kw)
+    ref = _resize_call(kind, x, geo[:4], plain=True, **kw)
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == ref.dtype
     _close_any(out, ref, (kind, geo, dtype, kw))
@@ -321,6 +332,33 @@ def test_nv12_to_rgb_matches_plain(dev, geom, kw):
     out = nv12_to_rgb(x, src_w=w, src_h=h, **kw)
     ref = nv12_to_rgb_plain(x, src_w=w, src_h=h, **kw)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("geom", [
+    (3, 288, 512, 144, 256),     # the resize lab's CPU geometry
+    (2, 150, 322, 70, 202),      # ragged strips and tiles
+    (1, 2160, 3840, 1080, 1920),  # 4K -> 1080p, one frame
+])
+def test_nv12_resize_equals_the_lab_both_and_striped(dev, geom):
+    """The lab's ``both`` (luma rows) and ``striped`` keep the earlier
+    8-row-strip arithmetic in csrc/nv12_resize_variants.cu: the streaming
+    kernel's bits are theirs."""
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h)
+    out = nv12_resize(x, **geo)
+    assert torch.equal(rd.resize_phases(x, **geo, mode="both"), out[:, :dh])
+    assert torch.equal(rd.striped_resize(x, **geo, nw=3, store="dyn"), out)
+
+
+def test_resize_geometry_that_does_not_fit_raises_before_launch(dev):
+    """A ring of tens of thousands of rows does not fit a block: the
+    wrapper raises before any launch."""
+    x = torch.zeros((1, 100000, 64), dtype=torch.uint8, device=dev)
+    before = plane_resize.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        plane_resize(x, src_h=100000, dst_h=8, dst_w=32)
+    assert plane_resize.launches == before
 
 
 def test_nv12_to_rgb_padded_strided_views(dev):

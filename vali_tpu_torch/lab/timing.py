@@ -161,12 +161,14 @@ def convert_work(batch: int, src_w: int, src_h: int, rows: int,
 
 
 def resize_work(batch: int, src_h: int, src_w: int, dst_h: int, dst_w: int,
-                channels: int = 1) -> Tuple[int, int]:
-    """(bytes, operations) of a uint8 lanczos_aa banded resize of
-    ``batch`` images of ``channels`` interleaved channels: H pass over
-    every source column, then W pass."""
-    taps_h = _taps(resize_weights(src_h, dst_h, LANCZOS_AA))
-    taps_w = _taps(resize_weights(src_w, dst_w, LANCZOS_AA))
-    nbytes = batch * channels * (src_h * src_w + dst_h * dst_w)
+                channels: int = 1, method: str = LANCZOS_AA,
+                sample_bytes: int = 1) -> Tuple[int, int]:
+    """(bytes, operations) of a banded resize of ``batch`` images of
+    ``channels`` interleaved channels of ``sample_bytes``-byte samples:
+    H pass over every source column, then W pass."""
+    taps_h = _taps(resize_weights(src_h, dst_h, method))
+    taps_w = _taps(resize_weights(src_w, dst_w, method))
+    nbytes = sample_bytes * batch * channels * (src_h * src_w
+                                                + dst_h * dst_w)
     ops = 2 * batch * channels * (taps_h * src_w + dst_h * taps_w)
     return nbytes, ops

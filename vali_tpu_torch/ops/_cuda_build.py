@@ -50,13 +50,13 @@ _SIGNATURES = {
         _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
     "plane_resize_launch": [
         _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-        _I, _P, _LL, _LL, _P],
+        _I, _I, _I, _P, _LL, _LL, _P],
     "packed_resize_launch": [
         _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-        _I, _P, _LL, _LL, _P],
+        _I, _I, _I, _P, _LL, _LL, _P],
     "nv12_resize_launch": [
         _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-        _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+        _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "nv12_to_rgb_launch": [_P, _LL, _LL, _I, _I, _I, _FP, _P, _P],
     "nv12_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,

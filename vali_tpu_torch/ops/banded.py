@@ -21,7 +21,9 @@ table arguments.
 
 The three resize kernels (``ops/plane_resize.py``, ``ops/packed_resize.py``,
 ``ops/nv12_resize.py``) use two tables per resampled image, rows and
-columns, built straight from ``resize_weights`` (:func:`resize_tables`):
+columns, built straight from ``resize_weights`` (:func:`stream_bands`;
+:func:`resize_tables` packs them for the earlier 8-row design, which the
+resize lab keeps):
 NV12 chroma is resized as its own half-size image, so its tables are
 ``resize_weights(H/2, DH/2)`` and ``resize_weights(W/2, DW/2)``, never the
 chroma-to-luma-grid matrices of the preprocess kernels.
@@ -639,3 +641,226 @@ def pack_resize_tables(row_bands, col_bands, compute_dtype: torch.dtype,
         torch.from_numpy(np.ascontiguousarray(weights)).to(device),
         (int(hw.shape[1]), int(ww.shape[1])), tile,
         tile_window(ws, wc, tile), span)
+
+
+# --- the streaming block geometry of csrc/banded_resize.cu ------------------
+# A block is (frame, column tile, strip of output rows). It walks its strip
+# top to bottom in stages of `stage_rows` output rows; the source rows of the
+# tile's window pass through a ring of `ring_rows` rows in shared memory,
+# each fetched once per block, one stage ahead of the stage being summed.
+
+#: threads of one block (kThreads)
+STREAM_THREADS = 256
+#: bytes each thread fetches and sums per H-pass item: 16-byte copies
+STREAM_VEC_BYTES = 16
+#: shared memory of one SM, and what the card reserves per block
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+#: blocks per SM the kernel's registers allow (about 64 a thread)
+MAX_BLOCKS_PER_SM = 4
+#: sample dtype -> bytes
+SAMPLE_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.float32: 4}
+#: output rows per stage the packer considers
+STAGE_ROWS = (1, 2, 3, 4, 6, 8)
+#: output rows one thread resamples together in the W pass (kRowBlock)
+W_ROW_BLOCK = 4
+#: stages whose rows are in flight while one is summed (kLookahead)
+LOOKAHEAD = 2
+#: the estimate's cost of a block's first fetch, in stage-cost units
+#: (issue slots of one thread times blocks per SM): about 4 us of device
+#: memory latency under load (about 2,000 units at ~2 us a stage)
+FETCH_LATENCY = 2000
+
+
+def ring_rows(start: np.ndarray, count: np.ndarray, stage_rows: int) -> int:
+    """Source rows the ring must hold so that the rows fetched for stage
+    t + LOOKAHEAD never overwrite a row that stage t still reads: the
+    most, over stages of ``stage_rows`` output rows, of the highest row
+    fetched so far through stage t + LOOKAHEAD less the first row of stage
+    t, plus one (rows with an empty band read none). Raises where a stage
+    starts above the next one: the ring only slides down the image."""
+    idx = np.arange(0, len(start), stage_rows)
+    has = count > 0
+    lo = np.minimum.reduceat(np.where(has, start, np.iinfo(np.int32).max),
+                             idx)
+    hi = np.maximum.reduceat(np.where(has, start + count - 1, -1), idx)
+    live = lo <= hi
+    lo, hi = lo[live], hi[live]
+    if np.any(np.diff(lo) < 0):
+        raise ValueError("row bands start out of order: a sliding ring of "
+                         "source rows cannot serve them")
+    top = np.maximum.accumulate(hi)
+    ahead = top[np.minimum(np.arange(len(top)) + LOOKAHEAD, len(top) - 1)]
+    return int((ahead - lo + 1).max(initial=1))
+
+
+def tile_lanes(start: np.ndarray, count: np.ndarray, tile: int,
+               channels: int, vec: int) -> np.ndarray:
+    """Per column tile of ``tile`` output pixels, the lanes of its source
+    window, from its first lane rounded down to ``vec`` lanes, for samples
+    of ``channels`` interleaved lanes."""
+    idx = np.arange(0, len(start), tile)
+    lo = np.minimum.reduceat(start, idx) * channels // vec * vec
+    return np.maximum.reduceat(start + count, idx) * channels - lo
+
+
+class StreamTables(NamedTuple):
+    """Band tables and block geometry of the streaming resize kernel
+    (``csrc/banded_resize.cu``) for one batch size, uploaded to one
+    device.
+
+    ``index`` and ``weights`` are packed as :class:`ResizeTables`'s. A
+    block covers ``tile_w`` output pixels, whose source window spans at
+    most ``pitch`` lanes (a multiple of 16 bytes of samples), and a strip
+    of ``strip_rows`` output rows, which it sums ``stage_rows`` rows per
+    stage from a ring of ``ring_rows`` source rows; it takes ``smem`` bytes
+    of shared memory, so that ``blocks_per_sm`` blocks fit on one SM."""
+    index: torch.Tensor
+    weights: torch.Tensor
+    taps: Tuple[int, int]
+    tile_w: int
+    pitch: int
+    stage_rows: int
+    ring_rows: int
+    strip_rows: int
+    smem: int
+    blocks_per_sm: int
+
+    def args(self):
+        """The tables as a launcher takes them."""
+        return (self.index.data_ptr(), self.weights.data_ptr(), *self.taps,
+                self.tile_w, self.pitch, self.stage_rows, self.ring_rows,
+                self.strip_rows)
+
+
+def stream_smem(pitch: int, stage_rows: int, ring: int, tile: int,
+                w_taps: int, sample_bytes: int, mid_bytes: int) -> int:
+    """Shared memory of one block (the kernel's ``smem_bytes``): the ring
+    of source rows, two stages of H rows in the compute type, and the
+    tile's column weights (per pixel, padded to an odd count), starts and
+    counts."""
+    return (ring * pitch * sample_bytes + 2 * stage_rows * pitch * mid_bytes
+            + tile * (4 * (w_taps | 1) + 8))
+
+
+def stream_candidates(row_bands, col_bands, channels: int,
+                      sample_bytes: int, mid_bytes: int, batch: int,
+                      sms: int):
+    """Every block geometry that fits in shared memory, as (estimated
+    cost, (tile_w, pitch, stage_rows, ring_rows, strip_rows, smem,
+    blocks_per_sm)), for ``batch`` images on ``sms`` SMs.
+
+    A stage costs the issue slots of its slowest thread — H items of 16
+    bytes of window lanes by output row, each the row taps long, and W
+    items of one output lane by W_ROW_BLOCK rows, each the column taps
+    long, in rounds of STREAM_THREADS — times the blocks that share the
+    SM (a third more where one block is alone: nothing hides its barriers
+    and fetches). A block costs its stages plus FETCH_LATENCY, the first
+    fetch that nothing hides; the grid costs its waves of blocks. Ties go
+    to the taller stage, the narrower tile, the taller strip."""
+    hs, hc, _ = row_bands
+    ws, wc, ww = col_bands
+    dst_h, dst_w = len(hs), len(ws)
+    vec = STREAM_VEC_BYTES // sample_bytes
+    w_taps = int(ww.shape[1])
+    cvt = 0 if sample_bytes == 4 else 2     # u8 / u16 -> f32 per use
+    h_item = float(np.mean(hc)) * (vec * (cvt + 1) + 4)
+    w_item = w_taps * (3 * W_ROW_BLOCK + 1)
+    t = STREAM_THREADS
+    rings = {g: ring_rows(hs, hc, g) for g in STAGE_ROWS}
+    for tile in sorted({-(-dst_w // n) for n in range(1, min(dst_w, 64) + 1)}):
+        lanes = tile_lanes(ws, wc, tile, channels, vec)
+        pitch = -(-int(lanes.max()) // vec) * vec
+        chunks = pitch // vec
+        tiles = -(-dst_w // tile)
+        for g, ring in rings.items():
+            smem = stream_smem(pitch, g, ring, tile, w_taps, sample_bytes,
+                               mid_bytes)
+            if smem > SMEM_LIMIT:
+                continue
+            bps = min(SM_SMEM // (smem + BLOCK_RESERVED_SMEM),
+                      MAX_BLOCKS_PER_SM)
+            rounds_h = -(-g * chunks // t)
+            rounds_w = -(-(-(-g // W_ROW_BLOCK)) * tile * channels // t)
+            stage = (bps * (rounds_h * h_item + rounds_w * w_item)
+                     * (4 / 3 if bps < 2 else 1))
+            stages = -(-dst_h // g)
+            for per in sorted({min(1 << k, stages) for k in range(12)}):
+                strips = -(-stages // per)
+                waves = -(-batch * tiles * strips // (sms * bps))
+                cost = waves * (per * stage + FETCH_LATENCY)
+                yield ((cost, -g, tile, -per),
+                       (tile, pitch, g, ring, per * g, smem, bps))
+
+
+def stream_geometry(row_bands, col_bands, channels: int, sample_bytes: int,
+                    mid_bytes: int, batch: int, sms: int):
+    """(tile_w, pitch, stage_rows, ring_rows, strip_rows, smem,
+    blocks_per_sm) of the block that fits in shared memory and is
+    estimated fastest for ``batch`` images on ``sms`` SMs
+    (:func:`stream_candidates`). Raises when no tile and stage fit."""
+    best = min(stream_candidates(row_bands, col_bands, channels,
+                                 sample_bytes, mid_bytes, batch, sms),
+               default=None)
+    if best is None:
+        raise ValueError(
+            f"no column tile of a {len(col_bands[0])}-pixel row fits a "
+            f"block's shared memory ({SMEM_LIMIT} bytes) with its ring of "
+            f"source rows")
+    return best[1]
+
+
+class StreamBands(NamedTuple):
+    """One image's row and column bands (host arrays of
+    :func:`band_table`) and their upload: ``index`` and ``weights`` as
+    :class:`ResizeTables`'s."""
+    rows: tuple
+    cols: tuple
+    index: torch.Tensor
+    weights: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def stream_bands(src_h: int, dst_h: int, src_w: int, dst_w: int,
+                 method: str, compute_dtype: torch.dtype,
+                 device: torch.device) -> StreamBands:
+    """Build and upload one image's band tables once per geometry, method,
+    compute type and device: every sample type, channel count and batch
+    size shares them."""
+    rows = band_table(resize_weights(src_h, dst_h, method), compute_dtype)
+    cols = band_table(resize_weights(src_w, dst_w, method), compute_dtype)
+    index = np.concatenate([rows[0], rows[1], cols[0], cols[1]])
+    weights = np.concatenate([rows[2].reshape(-1), cols[2].T.reshape(-1)])
+    return StreamBands(
+        rows, cols, torch.from_numpy(index).to(device),
+        torch.from_numpy(np.ascontiguousarray(weights)).to(device))
+
+
+def stream_tables(bands: StreamBands, geometry) -> StreamTables:
+    """``bands`` with a block ``geometry`` of :func:`stream_candidates`."""
+    return StreamTables(bands.index, bands.weights,
+                        (int(bands.rows[2].shape[1]),
+                         int(bands.cols[2].shape[1])), *geometry)
+
+
+@functools.lru_cache(maxsize=256)
+def stream_resize_tables(src_h: int, dst_h: int, src_w: int, dst_w: int,
+                         method: str, compute_dtype: torch.dtype,
+                         channels: int, sample_dtype: torch.dtype,
+                         batch: int, sms: int,
+                         device: torch.device) -> StreamTables:
+    """One image's band tables (:func:`stream_bands`, uploaded once per
+    geometry) with the streaming kernel's block geometry for ``batch``
+    images of ``channels`` interleaved ``sample_dtype`` lanes on ``sms``
+    SMs, chosen once per such call."""
+    bands = stream_bands(src_h, dst_h, src_w, dst_w, method, compute_dtype,
+                         device)
+    return stream_tables(bands, stream_geometry(
+        bands.rows, bands.cols, channels, SAMPLE_BYTES[sample_dtype],
+        4 if compute_dtype == torch.float32 else 2, batch, sms))
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

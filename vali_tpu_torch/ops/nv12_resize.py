@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from .banded import IN_KINDS, resize_compute_dtype, resize_tables
+from .banded import (IN_KINDS, resize_compute_dtype, sm_count,
+                     stream_resize_tables)
 from .resize import LANCZOS_AA, resize_plane
 
 
@@ -80,18 +81,20 @@ def nv12_resize(
 
     lib = load_kernels()
     B = nv12.shape[0]
-    luma = resize_tables(src_h, dst_h, src_w, dst_w, method, cdt, 1,
-                         nv12.device)
-    chroma = resize_tables(src_h // 2, dst_h // 2, src_w // 2, dst_w // 2,
-                           method, cdt, 2, nv12.device)
+    sms = sm_count(nv12.device)
+    luma = stream_resize_tables(src_h, dst_h, src_w, dst_w, method, cdt, 1,
+                                nv12.dtype, B, sms, nv12.device)
+    chroma = stream_resize_tables(src_h // 2, dst_h // 2, src_w // 2,
+                                  dst_w // 2, method, cdt, 2, nv12.dtype, B,
+                                  sms, nv12.device)
     out = torch.empty((B, dst_h * 3 // 2, dst_w), dtype=nv12.dtype,
                       device=nv12.device)
     with torch.cuda.device(nv12.device):
         rc = lib.nv12_resize_launch(
             nv12.data_ptr(), IN_KINDS[nv12.dtype], nv12.stride(0),
-            nv12.stride(1), B, src_h, src_w, dst_h, dst_w, *luma.args(),
-            *chroma.args(), int(cdt == torch.float32), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            nv12.stride(1), B, src_h, src_w, dst_h, dst_w,
+            *luma.args(), *chroma.args(), int(cdt == torch.float32),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(lib, rc, "nv12_resize")
     nv12_resize.launches += 1
     return out

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from .banded import IN_KINDS, resize_compute_dtype, resize_tables
+from .banded import (IN_KINDS, resize_compute_dtype, sm_count,
+                     stream_resize_tables)
 from .resize import LANCZOS_AA, resize_plane
 
 CHANNELS = 3
@@ -72,8 +73,9 @@ def packed_resize(
 
     lib = load_kernels()
     B = plane.shape[0]
-    tabs = resize_tables(src_h, dst_h, src_w, dst_w, method, cdt, CHANNELS,
-                         plane.device)
+    tabs = stream_resize_tables(src_h, dst_h, src_w, dst_w, method, cdt,
+                                CHANNELS, plane.dtype, B,
+                                sm_count(plane.device), plane.device)
     out = torch.empty((B, dst_h, dst_w * CHANNELS), dtype=plane.dtype,
                       device=plane.device)
     with torch.cuda.device(plane.device):

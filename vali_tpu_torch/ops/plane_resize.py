@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from .banded import IN_KINDS, resize_compute_dtype, resize_tables
+from .banded import (IN_KINDS, resize_compute_dtype, sm_count,
+                     stream_resize_tables)
 from .resize import LANCZOS_AA, resize_plane
 
 
@@ -66,8 +67,9 @@ def plane_resize(
 
     lib = load_kernels()
     B, _, W = plane.shape
-    tabs = resize_tables(src_h, dst_h, W, dst_w, method, cdt, 1,
-                         plane.device)
+    tabs = stream_resize_tables(src_h, dst_h, W, dst_w, method, cdt, 1,
+                                plane.dtype, B, sm_count(plane.device),
+                                plane.device)
     out = torch.empty((B, dst_h, dst_w), dtype=plane.dtype,
                       device=plane.device)
     with torch.cuda.device(plane.device):
