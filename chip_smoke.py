@@ -167,12 +167,12 @@ def preprocess_kernels():
 
 def kernel_and_plain(torch, p, fmt, **kw):
     """(kernel call, plain-version call) with the same arguments on the same
-    1080p device planes ``p``; BT.709 / MPEG unless ``kw`` names another
-    colour space and range."""
+    1080p device planes ``p``; BT.709 / MPEG and 224x224 unless ``kw``
+    names another colour space and range or output size."""
     from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
 
-    kw = dict(dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG), **kw,
-              src_w=W, src_h=H, dst_w=DW, dst_h=DH)
+    kw = dict(dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG,
+                   dst_w=DW, dst_h=DH), **kw, src_w=W, src_h=H)
     kern, plain = preprocess_kernels()[PixelFormat(fmt)]
     if fmt in (PixelFormat.NV12, PixelFormat.P10):
         p = p[:1]
@@ -320,12 +320,19 @@ def main() -> int:
         for name, fmt, kw, dw, dh in runs}
     wrappers = (nv12_preprocess, yuv420_preprocess, yuv422_preprocess,
                 yuv444_preprocess)
-    for w in wrappers:
-        w.launches = 0
-    main = {name: list(pipe) for name, pipe in pipes.items()}
-    torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in wrappers}
-    log(f"main_path_launches={json.dumps(launches)}")
+    # each pipeline run read on its own: every count set to 0 just before
+    # and read just after, so that each launch shape has its own count
+    main, per_run = {}, {}
+    for name, pipe in pipes.items():
+        for w in wrappers:
+            w.launches = 0
+        main[name] = list(pipe)
+        torch.cuda.synchronize()
+        per_run[name] = {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: sum(r[w.__name__] for r in per_run.values())
+                for w in wrappers}
+    log(f"main_path_launches={json.dumps(launches)} "
+        f"by_run={json.dumps(per_run)}")
     if min(launches.values()) < 1:
         raise AssertionError("a kernel of the main path was not launched")
 
@@ -382,25 +389,45 @@ def main() -> int:
 
     lap("decode")
 
-    # ---- times at 64 x 1080p -> 224 --------------------------------------
-    in_bytes = {fmt: host[fmt].nbytes for fmt in host}
-    out_bytes = B * 3 * DH * DW
-    times = {}
-    for name, fmt in (("nv12_preprocess", PixelFormat.NV12),
-                      ("yuv420_preprocess", PixelFormat.YUV420),
-                      ("yuv422_preprocess", PixelFormat.YUV422),
-                      ("yuv444_preprocess", PixelFormat.YUV444)):
-        kern, plain = run_pair(fmt)
-        # plain, kernel, kernel, plain: take each side's better median
-        t_plain = time_ms(plain)
-        t_kern = time_ms(kern)
-        t_kern = min(t_kern, time_ms(kern))
-        t_plain = min(t_plain, time_ms(plain))
-        times[name] = (t_kern, t_plain)
-        gbs = (in_bytes[fmt] + out_bytes) / (t_kern * 1e-3) / 1e9
-        log(f"time {name} {B}x{H}p->{DH}x{DW} u8/bf16: kernel_ms={t_kern} "
-            f"plain_ms={t_plain} kernel_fps={B / (t_kern * 1e-3)} "
-            f"kernel_GBps={gbs} ({smi})")
+    # ---- times at every shape the main path launches a kernel at --------
+    # (case, wrapper, format, main-path run, chroma layout, keywords, dst)
+    letterbox = dict(out_dtype=torch.bfloat16, normalize=NORM)
+    shapes = (
+        (f"nv12 {H}p->{DW}x{DH} u8/bf16", "nv12_preprocess", PixelFormat.NV12,
+         "nv12", "420", {}, (DW, DH)),
+        (f"yuv420 {H}p->{DW}x{DH} u8/bf16", "yuv420_preprocess",
+         PixelFormat.YUV420, "yuv420", "420", {}, (DW, DH)),
+        (f"yuv420 letterbox {H}p->{iw}x{ih} bf16+norm",
+         "yuv420_preprocess", PixelFormat.YUV420, "yuv420 letterbox", "420",
+         letterbox, (iw, ih)),
+        (f"yuv422 {H}p->{DW}x{DH} u8/bf16 bt601/jpeg", "yuv422_preprocess",
+         PixelFormat.YUV422, "yuv422", "422", jpeg601, (DW, DH)),
+        (f"yuv444 {H}p->{DW}x{DH} u8/bf16", "yuv444_preprocess",
+         PixelFormat.YUV444, "yuv444", "444", {}, (DW, DH)))
+    times, timed_shapes = {}, {}
+    for case, name, fmt, run, layout, kw, (dw, dh) in shapes:
+        kern, plain = kernel_and_plain(torch, planes[fmt], fmt, dst_w=dw,
+                                       dst_h=dh, **kw)
+        # held to the plain version at this shape, then timed
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        shape_err = compare(torch, f"kernel_{name} {case}", out, ref)
+        del out, ref
+        t_kern, t_plain = time_pair(kern, plain)
+        out_b = 2 if kw.get("out_dtype") == torch.bfloat16 else 1
+        nbytes, ops = preprocess_work(B, W, H, dw, dh, layout,
+                                      out_bytes=out_b)
+        bound, bound_by = bound_ms(nbytes, ops)
+        n = per_run[run][name]
+        timed_shapes.setdefault(name, []).append({
+            "case": case, "ms": t_kern, "plain_ms": t_plain,
+            "bound_ms": bound, "bound_by": bound_by, "launches": n,
+            "max_abs_err": shape_err, "timed": "kernel"})
+        times.setdefault(name, (t_kern, t_plain))
+        log(f"time {name} {B}x {case}: kernel_ms={t_kern} "
+            f"plain_ms={t_plain} bound_ms={bound} bound_by={bound_by} "
+            f"main_path_launches={n} kernel_fps={B / (t_kern * 1e-3)} "
+            f"kernel_GBps={nbytes / (t_kern * 1e-3) / 1e9} ({smi})")
 
     # ---- pipeline rate: decode replaced by a host copy -------------------
     fmt = PixelFormat.YUV420
@@ -449,16 +476,26 @@ def main() -> int:
         "yuv422_preprocess": ("422", 600,
                               "kernel_yuv422 u8/bf16 bt601/jpeg"),
         "yuv444_preprocess": ("444", 359, "kernel_yuv444 u8/bf16")}
+    # ms, plain_ms and bound_ms are each kernel's at 64 x 1080p -> 224;
+    # "shapes" holds every shape the main path launches it at, with the
+    # launches and the error against the plain version there,
+    # launch_weighted_ms the mean over those launches, and max_abs_err
+    # the largest error of all its comparisons
     kernels = []
     for name, (layout, line, case) in preprocess.items():
         bound, bound_by = bound_ms(*preprocess_work(B, W, H, DW, DH, layout))
+        sh = timed_shapes[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
             "replaces": f"vali_tpu/ops/pallas_fused.py:{line}",
-            "launches": launches[name], "max_abs_err": err[case],
+            "launches": launches[name],
+            "max_abs_err": max([err[case]] + [x["max_abs_err"] for x in sh]),
             "ms": times[name][0], "plain_ms": times[name][1],
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "launch_weighted_ms": sum(x["ms"] * x["launches"] for x in sh)
+            / max(1, sum(x["launches"] for x in sh)),
+            "shapes": sh})
     kernels += surface + lab
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -821,6 +858,29 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
         log(f"time {case}: kernel_ms={t_kern} plain_ms={t_plain} "
             f"bound_ms={bound} bound_by={bound_by} main_path_launches={n} "
             f"({smi})")
+    # the N = 1 convert once more through one prepared ctypes call: the
+    # kernel alone, without the wrapper's host work
+    import ctypes
+
+    from vali_tpu_torch.ops import _cuda_build
+    from vali_tpu_torch.ops import nv12_to_rgb as n2r_mod
+
+    lib = _cuda_build.load_kernels()
+    one = nv12[:1]
+    coef = n2r_mod._checked(one, W, H, ColorSpace.BT_709, ColorRange.MPEG,
+                            False, None)
+    out_one = torch.empty((1, H, 3 * W), dtype=torch.uint8, device=dev)
+    n2r_args = (one.data_ptr(), one.stride(0), one.stride(1), 1, H, W,
+                coef.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                out_one.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if lib.nv12_to_rgb_launch(*n2r_args) != 0 or not torch.equal(
+            out_one, nv12_to_rgb(one, **to_rgb, **bt709)):
+        raise AssertionError("prepared nv12_to_rgb call differs")
+    n1_alone = {"nv12_to_rgb N=1 1080p bt709/mpeg": time_ms(
+        lambda: lib.nv12_to_rgb_launch(*n2r_args))}
+    log(f"time nv12_to_rgb N=1 1080p bt709/mpeg, kernel alone (one "
+        f"prepared ctypes call): kernel_ms="
+        f"{n1_alone['nv12_to_rgb N=1 1080p bt709/mpeg']} ({smi})")
     for case, nbytes in (("nv12_to_rgb rgb bt709/mpeg bf16",
                           nv12.nbytes + rgb.nbytes),
                          ("nv12_resize 4k->1080p bf16",
@@ -861,10 +921,13 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
     entries = []
     for k, case in batched.items():
         t_kern, t_plain, bound, bound_by, _ = times[case]
-        shapes = [{"case": c, "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
-                   "bound_by": v[3], "launches": v[4],
-                   "timed": ("wrapper call incl. host work"
-                             if c in n1_cases else "kernel")}
+        shapes = [dict({"case": c, "ms": v[0], "plain_ms": v[1],
+                        "bound_ms": v[2], "bound_by": v[3],
+                        "launches": v[4],
+                        "timed": ("wrapper call incl. host work"
+                                  if c in n1_cases else "kernel")},
+                       **({"kernel_alone_ms": n1_alone[c]}
+                          if c in n1_alone else {}))
                   for c, v in times.items() if timed[c][0] == k]
         n = sum(sh["launches"] for sh in shapes)
         entries.append({

@@ -122,6 +122,11 @@ def _assert_close(out, ref, what):
     (2, 96, 256, 32, 64),     # 16-byte vector loads
     (1, 62, 130, 30, 34),     # widths that are not whole vectors
     (2, 1080, 1920, 224, 224),
+    # dst_h not a multiple of the stage or strip height, dst_w not a
+    # multiple of the tile, an odd batch
+    (3, 150, 322, 70, 202),
+    (5, 96, 256, 37, 61),
+    (1, 1080, 1920, 360, 640),  # the letterbox launch's shape, one frame
 ])
 @pytest.mark.parametrize("fmt,kw", CASES)
 def test_kernel_matches_plain(dev, geom, fmt, kw):
@@ -155,6 +160,16 @@ def test_kernel_padded_strided_views(dev, fmt):
         padded.append(big[:, :, :p.shape[2]])
     out = _run(tuple(padded), fmt, w, h, dw, dh, False)
     assert torch.equal(out, ref)
+
+
+def test_preprocess_geometry_that_does_not_fit_raises_before_launch(dev):
+    """Rings of tens of thousands of rows do not fit a block: the wrapper
+    raises before any launch."""
+    x = torch.zeros((1, 150000, 64), dtype=torch.uint8, device=dev)
+    before = nv12_preprocess.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        nv12_preprocess(x, src_w=64, src_h=100000, dst_w=32, dst_h=8)
+    assert nv12_preprocess.launches == before
 
 
 def test_launch_counters(dev):
@@ -589,6 +604,58 @@ def test_static_bank_follows_alternating_geometries(dev):
             assert torch.equal(out, nv12_preprocess(xs[i], **geos[i])), i
         out = kv.combo_kernel(xs[i], **geos[i], gframes=2, tile=16)
         assert torch.equal(out, nv12_preprocess(xs[i], **geos[i])), i
+
+
+@pytest.mark.parametrize("geom", [
+    (8, 1080, 1920, 224, 224),  # the lab's size
+    (3, 150, 322, 70, 202),     # ragged stages and tiles, an odd batch
+    (1, 62, 130, 30, 34),       # widths that are not whole vectors
+])
+def test_nv12_preprocess_equals_the_lab_full_and_slong(dev, geom):
+    """The lab's ``full`` (8-row strips) and ``Slong`` (constant-bank row
+    tables) keep the earlier arithmetic in csrc/nv12_variants.cu: the
+    streaming kernel's bits are theirs."""
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=h + dw)
+    out = nv12_preprocess(x, **geo)
+    for name in ("full", "Slong"):
+        assert torch.equal(kv.case(name, b, h * 3 // 2, **geo).call(x),
+                           out), (name, geom)
+
+
+@pytest.mark.parametrize("kind", ["nv12", "i420", "422", "444"])
+def test_swept_tile19_geometry_is_bit_equal(dev, kind):
+    """A sweep of 64 x 1080p -> 224 NV12 once gave other bits at the block
+    of column tile 19, 4-row stages and one 224-row strip, in a build whose
+    H items summed four rows. Forced through the launcher, that block gives
+    the product wrapper's bits on each of 20 launches in every layout, and
+    the wrapper agrees with the plain version."""
+    from vali_tpu_torch.lab import preprocess_ab as ab
+    from vali_tpu_torch.ops import _cuda_build, banded
+    from vali_tpu_torch.ops.resize import LANCZOS_AA
+
+    geo = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
+    planes = ab.make_planes(kind, 64, 1920, 1080, dev, seed=19)
+    cdt, _ = ab.checked(kind, planes, geo, {})
+    layout = ab.KINDS[kind][2]
+    bands = banded._layout_bands(1920, 1080, 224, 224, LANCZOS_AA,
+                                 "420" if layout == "nv12" else layout, cdt)
+    block = next(b for _, b in banded.preprocess_candidates(
+        bands, layout, 1, 2, 64, banded.sm_count(dev))
+        if b[0] == 19 and b[3] == 4 and b[4] == 224)
+    if kind == "nv12":
+        assert block[:7] == (19, 224, 224, 4, 224, 82, 41)
+    want = ab.product_call(kind, planes, geo, {})
+    fn = ab.launcher(_cuda_build.load_kernels(), kind, planes, geo, {},
+                     False, ab.tables_for(kind, planes, geo, cdt,
+                                          block=block))
+    for i in range(20):
+        assert torch.equal(ab.bits(fn()), ab.bits(want)), (kind, i)
+    plain = {"nv12": nv12_preprocess_plain, "i420": yuv420_preprocess_plain,
+             "422": yuv422_preprocess_plain,
+             "444": yuv444_preprocess_plain}[kind]
+    _assert_close(want, plain(*planes, **geo), (kind, block))
 
 
 @pytest.mark.parametrize("name", ["S2t32a8", "S2t48a8", "combo2x32",

@@ -276,7 +276,9 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     """``t``'s samples as integers of their width (compare bit patterns)."""
     if t.dtype == torch.float32:
         return t.view(torch.int32)
-    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+    if t.dtype in (torch.uint16, torch.bfloat16):
+        return t.view(torch.int16)
+    return t
 
 
 def quick_ms(fn, calls: int = 3) -> float:

@@ -84,10 +84,12 @@ def _taps(dense) -> int:
 def preprocess_work(batch: int, src_w: int, src_h: int, dst_w: int,
                     dst_h: int, layout: str = "420", h_pass: bool = True,
                     w_pass: bool = True,
-                    h_fmas: Optional[int] = None) -> Tuple[int, int]:
-    """(bytes, operations) of a uint8 -> uint8 lanczos_aa banded
-    preprocess batch of chroma ``layout``: the H pass over every luma and
-    chroma column, the W pass and the CSC tail (one FMA is two
+                    h_fmas: Optional[int] = None, sample_bytes: int = 1,
+                    out_bytes: int = 1) -> Tuple[int, int]:
+    """(bytes, operations) of a lanczos_aa banded preprocess batch of
+    chroma ``layout``, ``sample_bytes`` a source sample and ``out_bytes``
+    an output sample (uint8 -> uint8 by default): the H pass over every
+    luma and chroma column, the W pass and the CSC tail (one FMA is two
     operations). ``h_pass=False`` counts the work of the lab's wpass
     knock-out (two dst_h-row slabs in, no H pass), ``w_pass=False`` that
     of its hpass knock-out. ``h_fmas`` replaces the H pass's FMAs per
@@ -96,12 +98,12 @@ def preprocess_work(batch: int, src_w: int, src_h: int, dst_w: int,
     dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, layout)
     cw = src_w if layout == "444" else src_w // 2   # one chroma plane row
     c_rows = src_h // 2 if layout == "420" else src_h
-    out = batch * 3 * dst_h * dst_w
+    out = batch * 3 * dst_h * dst_w * out_bytes
     ops = 0
     if h_pass:
         ops += 2 * (h_fmas if h_fmas is not None else
                     _taps(dw.luma_h) * src_w + 2 * _taps(dw.chroma_h) * cw)
-        nbytes = batch * (src_h * src_w + 2 * c_rows * cw)
+        nbytes = batch * (src_h * src_w + 2 * c_rows * cw) * sample_bytes
     else:
         nbytes = batch * 2 * dst_h * src_w
     if w_pass:

@@ -35,19 +35,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _FP = ctypes.POINTER(ctypes.c_float)
+_IP = ctypes.POINTER(ctypes.c_int)
+# the preprocess launchers' planar heads, then the shared tail: batch,
+# geometry, tables, taps, block geometry, CSC tail, compute, out, stream
+_PREPROCESS = [_I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _IP, _FP, _I, _P,
+               _I, _P]
 _SIGNATURES = {
-    "nv12_preprocess_launch": [
-        _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
-        _I, _P, _I, _P],
-    "yuv420_preprocess_launch": [
-        _P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I,
-        _P, _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
-    "yuv422_preprocess_launch": [
-        _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P,
-        _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
-    "yuv444_preprocess_launch": [
-        _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P,
-        _P, _I, _I, _I, _I, _FP, _I, _P, _I, _P],
+    "nv12_preprocess_launch": [_P, _I, _LL, _LL] + _PREPROCESS,
+    "yuv420_preprocess_launch": [_P, _P, _P, _I] + [_LL] * 6 + _PREPROCESS,
+    "yuv422_preprocess_launch": [_P, _P, _P] + [_LL] * 6 + _PREPROCESS,
+    "yuv444_preprocess_launch": [_P, _P, _P] + [_LL] * 6 + _PREPROCESS,
     "plane_resize_launch": [
         _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
         _I, _I, _I, _P, _LL, _LL, _P],

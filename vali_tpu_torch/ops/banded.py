@@ -31,6 +31,7 @@ chroma-to-luma-grid matrices of the preprocess kernels.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Tuple
 
@@ -473,24 +474,23 @@ def launch_planar_u8(launcher: str, y, u, v, *, src_w: int, src_h: int,
     """Launch ``launcher`` (``yuv422_preprocess_launch`` or
     ``yuv444_preprocess_launch``) on checked CUDA planes; rows must be
     contiguous, rows past H and a batch stride larger than the plane are
-    accepted. Returns [B, 3, dst_h, dst_w]."""
-    import ctypes
-
+    accepted; the block geometry is the packer's for this batch
+    (:func:`stream_preprocess_tables`). Returns [B, 3, dst_h, dst_w]."""
     from ._cuda_build import check, load_kernels
 
     if y.stride(2) != 1 or u.stride(2) != 1 or v.stride(2) != 1:
         raise ValueError("plane rows must be contiguous (stride 1)")
     lib = load_kernels()
     B = y.shape[0]
-    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, layout,
-                         compute_dtype, y.device)
+    tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h, method,
+                                    layout, compute_dtype, y.dtype, B,
+                                    sm_count(y.device), y.device)
     out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype, device=y.device)
     with torch.cuda.device(y.device):
         rc = getattr(lib, launcher)(
             y.data_ptr(), u.data_ptr(), v.data_ptr(), y.stride(0),
             y.stride(1), u.stride(0), u.stride(1), v.stride(0), v.stride(1),
-            B, src_h, src_w, dst_h, dst_w, tabs.index.data_ptr(),
-            tabs.weights.data_ptr(), *tabs.taps,
+            B, src_h, src_w, dst_h, dst_w, *tabs.args(),
             tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             int(compute_dtype == torch.float32), out.data_ptr(),
             OUT_KINDS[out_dtype], torch.cuda.current_stream().cuda_stream)
@@ -864,3 +864,206 @@ def stream_resize_tables(src_h: int, dst_h: int, src_w: int, dst_w: int,
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# --- the streaming block geometry of csrc/banded_preprocess.cu --------------
+# A block is (frame, column tile, strip of output rows), walked top to bottom
+# in stages of `stage_rows` output rows, as the resize's. Luma and chroma
+# each pass through their own ring of source rows (4:2:0 chroma rows slide
+# at half the luma rate, so each plane's depth comes from its own bands),
+# fetched once per block by 16-byte cp.async copies two stages ahead of the
+# stage that reads them; the H pass converts the samples it loads.
+
+#: output rows an H item sums, each source sample converted once for both
+#: (BANDED_PREPROCESS_H_ROWS)
+PREPROCESS_H_ROWS = 2
+#: blocks per SM the kernel is compiled for (__launch_bounds__(256, 2)):
+#: its registers allow no more
+PREPROCESS_BLOCKS_PER_SM = 2
+
+
+#: the estimate's cost of a block's first fetch and column tables, in
+#: stage-cost units (twice the resize's FETCH_LATENCY: its tables are two
+#: sets of column weights, and a sweep of block geometries on the card
+#: favoured fewer, taller strips)
+PREPROCESS_BLOCK_COST = 4000
+
+
+def preprocess_w_rows(layout: str, sample_bytes: int) -> int:
+    """Output rows a W item resamples (the kernel's w_rows): 2 for 4:4:4,
+    whose chroma column taps are twice as many, and for uint16 samples,
+    else 4 (the faster of the two on the card, PERF.md section 6)."""
+    return 2 if layout == "444" or sample_bytes == 2 else 4
+
+
+#: chroma planes a ring holds, and lanes per chroma sample in one of them
+_CHROMA_RINGS = {"nv12": (1, 2), "420": (2, 1), "422": (2, 1), "444": (2, 1)}
+
+
+def _ceil(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def preprocess_smem(y_pitch: int, c_pitch: int, stage_rows: int,
+                    strip_rows: int, y_ring: int, c_ring: int, tile: int,
+                    wy_taps: int, wc_taps: int, layout: str,
+                    sample_bytes: int, mid_bytes: int) -> int:
+    """Shared memory of one block (the kernel's ``carve``): the rings of
+    luma and chroma (one interleaved UV plane for NV12, U and V planes
+    otherwise), two stages of H rows in the compute type, the tile's column weights (per pixel, padded to an odd count),
+    offsets and counts, and the luma and chroma source rows of each stage
+    of the strip (four int32); each part starts on 16 bytes."""
+    nc = _CHROMA_RINGS[layout][0]
+    parts = (y_ring * y_pitch * sample_bytes,
+             nc * c_ring * c_pitch * sample_bytes,
+             2 * stage_rows * (y_pitch + nc * c_pitch) * mid_bytes,
+             tile * (4 * (wy_taps | 1) + 4 * (wc_taps | 1) + 16),
+             16 * (strip_rows // stage_rows))
+    return sum(_ceil(p, 16) for p in parts)
+
+
+class PreprocessTables(NamedTuple):
+    """Band tables (:func:`device_tables`) and block geometry of the
+    streaming preprocess kernel for one batch size, uploaded to one device.
+
+    A block covers ``tile_w`` output pixels, whose luma and chroma source
+    windows span at most ``y_pitch`` and ``c_pitch`` lanes (multiples of 16
+    bytes of samples; a chroma lane is one U or V sample), and a strip of
+    ``strip_rows`` output rows, summed ``stage_rows`` rows a stage. Source
+    rows pass through rings of ``y_ring`` and ``c_ring`` rows. The block
+    takes ``smem`` bytes of shared memory, so
+    that ``blocks_per_sm`` blocks fit on one SM."""
+    index: torch.Tensor
+    weights: torch.Tensor
+    taps: Tuple[int, int, int, int]
+    tile_w: int
+    y_pitch: int
+    c_pitch: int
+    stage_rows: int
+    strip_rows: int
+    y_ring: int
+    c_ring: int
+    smem: int
+    blocks_per_sm: int
+    geometry: np.ndarray   # int32 [7], tile_w .. c_ring, as the kernel reads
+
+    def args(self):
+        """The tables and geometry as a launcher takes them: table
+        pointers, the four tap counts, the host geometry array."""
+        return (self.index.data_ptr(), self.weights.data_ptr(), *self.taps,
+                self.geometry.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+
+
+def preprocess_candidates(bands, layout: str, sample_bytes: int,
+                          mid_bytes: int, batch: int, sms: int):
+    """Every block geometry that fits in shared memory, as (estimated cost,
+    (tile_w, y_pitch, c_pitch, stage_rows, strip_rows, y_ring, c_ring,
+    smem, blocks_per_sm)), for ``batch`` frames of the four ``bands``
+    (:func:`band_table` of luma rows, chroma rows, luma columns, chroma
+    columns) on ``sms`` SMs; ``layout`` is "nv12" for interleaved chroma
+    rows, else the planar layout.
+
+    The estimate is :func:`stream_candidates`'s: a stage costs the
+    instruction slots of its slowest thread (H items of 16 bytes of window lanes by
+    PREPROCESS_H_ROWS output rows over their bands, W items of one output
+    pixel by :func:`preprocess_w_rows` rows over the luma and both chroma
+    column taps), times the blocks that share an SM; a block costs its stages plus
+    PREPROCESS_BLOCK_COST; the grid its waves."""
+    (hys, hyc, _), (hcs, hcc, _), (wys, wyc, wyw), (wcs, wcc, wcw) = bands
+    dst_h, dst_w = len(hys), len(wys)
+    nc, cc = _CHROMA_RINGS[layout]
+    vr = STREAM_VEC_BYTES // sample_bytes   # lanes an H item sums
+    wy_t, wc_t = int(wyw.shape[1]), int(wcw.shape[1])
+    # source rows a stage brings, per plane: the rows advance per output row
+    y_adv = (hys[-1] + hyc[-1] - hys[0]) / max(dst_h, 1)
+    c_adv = (hcs[-1] + hcc[-1] - hcs[0]) / max(dst_h, 1)
+    hr = PREPROCESS_H_ROWS
+
+    def h_item(taps, adv):
+        """Instruction slots of an H item: each source row of its rows' bands
+        loaded once (one slot), converted once (two a lane) and tested per
+        row, each tap an FMA a lane and a weight load."""
+        walk = taps + (hr - 1) * adv
+        return walk * (2 * vr + 1 + 3 * hr) + hr * taps * (vr + 1)
+    y_item = h_item(float(np.mean(hyc)), y_adv)
+    c_item = h_item(float(np.mean(hcc)), c_adv)
+    wr = preprocess_w_rows(layout, sample_bytes)
+    w_item = (wy_t + 2 * wc_t) * (3 * wr + 1) + 30 * wr
+    t = STREAM_THREADS
+    depth = {g: (ring_rows(hys, hyc, g), ring_rows(hcs, hcc, g))
+             for g in STAGE_ROWS}
+    for tile in sorted({-(-dst_w // n) for n in range(1, min(dst_w, 64) + 1)}):
+        y_pitch = _ceil(int(tile_lanes(wys, wyc, tile, 1, vr).max()), vr)
+        c_pitch = _ceil(int(tile_lanes(wcs, wcc, tile, cc, vr).max()), vr)
+        tiles = -(-dst_w // tile)
+        for g, (yr, cr) in depth.items():
+            blocks = -(-g // hr)
+            rounds_h = (-(-blocks * y_pitch // vr // t) * y_item
+                        + -(-blocks * nc * c_pitch // vr // t) * c_item)
+            rounds_w = -(-(-(-g // wr)) * tile // t) * w_item
+            stages = -(-dst_h // g)
+            for per in sorted({min(1 << k, stages) for k in range(12)}):
+                smem = preprocess_smem(y_pitch, c_pitch, g, per * g, yr, cr,
+                                       tile, wy_t, wc_t, layout,
+                                       sample_bytes, mid_bytes)
+                if smem > SMEM_LIMIT:
+                    continue
+                bps = min(SM_SMEM // (smem + BLOCK_RESERVED_SMEM),
+                          PREPROCESS_BLOCKS_PER_SM)
+                stage = (bps * (rounds_h + rounds_w)
+                         * (4 / 3 if bps < 2 else 1))
+                strips = -(-stages // per)
+                waves = -(-batch * tiles * strips // (sms * bps))
+                cost = waves * (per * stage + PREPROCESS_BLOCK_COST)
+                yield ((cost, -g, tile, -per),
+                       (tile, y_pitch, c_pitch, g, per * g, yr, cr, smem,
+                        bps))
+
+
+@functools.lru_cache(maxsize=256)
+def stream_preprocess_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                             method: str, layout: str,
+                             compute_dtype: torch.dtype,
+                             sample_dtype: torch.dtype, batch: int, sms: int,
+                             device: torch.device) -> PreprocessTables:
+    """The band tables of one geometry and chroma layout
+    (:func:`device_tables`, uploaded once per geometry) with the streaming
+    preprocess kernel's block geometry for ``batch`` frames of
+    ``sample_dtype`` on ``sms`` SMs, chosen once per such call: the
+    candidate of :func:`preprocess_candidates` estimated fastest.
+    ``layout`` is "nv12" for interleaved chroma rows or one of
+    :data:`LAYOUTS` for planar chroma. Raises when no block fits, and where
+    row bands start or end out of order (the kernel's H items and rings
+    rely on bands that slide down the image)."""
+    dense = "420" if layout == "nv12" else layout
+    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, dense,
+                         compute_dtype, device)
+    bands = _layout_bands(src_w, src_h, dst_w, dst_h, method, dense,
+                          compute_dtype)
+    for start, count, _ in bands[:2]:
+        live = count > 0
+        if (np.any(np.diff(start[live]) < 0)
+                or np.any(np.diff((start + count)[live]) < 0)):
+            raise ValueError("row bands start or end out of order: the "
+                             "streaming kernel cannot serve them")
+    cands = list(preprocess_candidates(
+        bands, layout, SAMPLE_BYTES[sample_dtype],
+        4 if compute_dtype == torch.float32 else 2, batch, sms))
+    # a lone block's eight warps hide no latency: two or more an SM where
+    # any geometry allows it
+    best = min((c for c in cands if c[1][-1] >= 2), default=None) or min(
+        cands, default=None)
+    if best is None:
+        raise ValueError(
+            f"no column tile of a {dst_w}-pixel row fits a block's shared "
+            f"memory ({SMEM_LIMIT} bytes) with its rings of source rows")
+    return PreprocessTables(tabs.index, tabs.weights, tabs.taps, *best[1],
+                            np.array(best[1][:7], np.int32))
+
+
+@functools.lru_cache(maxsize=32)
+def _layout_bands(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  method: str, layout: str, compute_dtype: torch.dtype):
+    """The four host bands (:func:`band_table`) of :func:`device_tables`."""
+    return tuple(band_table(m, compute_dtype) for m in dense_weights(
+        src_w, src_h, dst_w, dst_h, method, layout))

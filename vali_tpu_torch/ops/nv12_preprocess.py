@@ -13,8 +13,8 @@ import ctypes
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
-from .banded import (OUT_KINDS, banded_plain, device_tables,
-                     resolve_compute_dtype, tail_params)
+from .banded import (OUT_KINDS, banded_plain, resolve_compute_dtype,
+                     sm_count, stream_preprocess_tables, tail_params)
 from .csc import nv12_split
 from .resize import LANCZOS_AA
 
@@ -89,16 +89,16 @@ def nv12_preprocess(
 
     lib = load_kernels()
     B = nv12.shape[0]
-    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, "420", cdt,
-                         nv12.device)
+    tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h, method,
+                                    "nv12", cdt, nv12.dtype, B,
+                                    sm_count(nv12.device), nv12.device)
     out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype,
                       device=nv12.device)
     with torch.cuda.device(nv12.device):
         rc = lib.nv12_preprocess_launch(
             nv12.data_ptr(), nv12.element_size(), nv12.stride(0),
             nv12.stride(1), B, src_h, src_w, dst_h, dst_w,
-            tabs.index.data_ptr(), tabs.weights.data_ptr(), *tabs.taps,
-            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            *tabs.args(), tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             int(cdt == torch.float32), out.data_ptr(), OUT_KINDS[out_dtype],
             torch.cuda.current_stream().cuda_stream)
     check(lib, rc, "nv12_preprocess")

@@ -15,8 +15,8 @@ import ctypes
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
-from .banded import (OUT_KINDS, banded_plain, device_tables,
-                     resolve_compute_dtype, tail_params)
+from .banded import (OUT_KINDS, banded_plain, resolve_compute_dtype,
+                     sm_count, stream_preprocess_tables, tail_params)
 from .resize import LANCZOS_AA
 
 
@@ -102,16 +102,16 @@ def yuv420_preprocess(
 
     lib = load_kernels()
     B = y.shape[0]
-    tabs = device_tables(src_w, src_h, dst_w, dst_h, method, "420", cdt,
-                         y.device)
+    tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h, method,
+                                    "420", cdt, y.dtype, B,
+                                    sm_count(y.device), y.device)
     out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype, device=y.device)
     with torch.cuda.device(y.device):
         rc = lib.yuv420_preprocess_launch(
             y.data_ptr(), u.data_ptr(), v.data_ptr(), y.element_size(),
             y.stride(0), y.stride(1), u.stride(0), u.stride(1), v.stride(0),
             v.stride(1), B, src_h, src_w, dst_h, dst_w,
-            tabs.index.data_ptr(), tabs.weights.data_ptr(), *tabs.taps,
-            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            *tabs.args(), tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             int(cdt == torch.float32), out.data_ptr(), OUT_KINDS[out_dtype],
             torch.cuda.current_stream().cuda_stream)
     check(lib, rc, "yuv420_preprocess")
