@@ -25,7 +25,13 @@ version and the full-function ones but slabs against nv12_resize bit for
 bit; and the NV12 -> RGB convert lab's entry point
 (``vali_tpu_torch.lab.convert_lab``: bf16-staged variants, read / store /
 quantisation / replication probes) at 64 x 1080p, each kernel against its
-plain version bit for bit and V1 / V2 against nv12_to_rgb. It builds the CUDA
+plain version bit for bit and V1 / V2 against nv12_to_rgb; then the
+inference path (the JAX bench's config 4: MultiStreamPipeline over 64
+YUV420 1080p streams -> 224x224 float32 normalised through the
+yuv420_preprocess kernel -> the full bf16 FCN, its logits held to the same
+model on the CPU) and the batched QC ops at 1080p (histograms, luma
+statistics, scene cuts, PSNR / SSIM, HDR tone mapping, the device stage
+of JPEG encode), each held to the same function on the CPU. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -63,7 +69,8 @@ import tempfile
 import time
 
 from vali_tpu_torch.lab.timing import (CSC_OPS, TIMED_RUNS, bound_ms,
-                                       preprocess_work, resize_work, time_ms)
+                                       fcn_work, preprocess_work,
+                                       resize_work, time_ms)
 
 B, H, W, DH, DW = 64, 1080, 1920, 224, 224
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
@@ -468,6 +475,14 @@ def main() -> int:
     lap("resize lab")
     lab += convert_lab_phase(torch, np, dev, smi)
     lap("convert lab")
+    infer_shape, infer_launches = inference_phase(
+        torch, np, dev, host[PixelFormat.YUV420], planes[PixelFormat.YUV420],
+        smi)
+    timed_shapes["yuv420_preprocess"].append(infer_shape)
+    launches["yuv420_preprocess"] += infer_launches
+    lap("inference")
+    analysis_phase(torch, np, dev, planes[PixelFormat.YUV420], smi)
+    lap("analysis")
     # no single PyTorch call computes fused CSC + banded Lanczos:
     # library_ms is null
     preprocess = {  # wrapper: chroma layout, TPU kernel line, checked case
@@ -502,6 +517,303 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+INFER_BATCHES = 12   # batches per stream on the pipeline + FCN run
+
+
+def inference_phase(torch, np, dev, host, planes, smi):
+    """The JAX bench's config 4 chain on the card: MultiStreamPipeline
+    over 64 in-memory YUV420 1080p streams -> 224x224 float32, normalised
+    with ImageNet mean and std, BT.709 MPEG (the yuv420_preprocess kernel;
+    the golden oracle's settings) -> the full bf16 FCN with weights from a
+    seeded numpy draw. Holds the card's logits of one batch to the same
+    model on the CPU (the golden oracle's envelope), the classes of the
+    kernel's batch to those of the plain version's batch, and the kernel's
+    launches on this path; times the FCN forward (CUDA events), pipeline +
+    FCN (host clock over 11 batches) and the card's busy share. Returns
+    the kernel's shape entry and its launches on this path."""
+    from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
+    from vali_tpu_torch.models import fcn
+    from vali_tpu_torch.ops.yuv420_preprocess import (
+        yuv420_preprocess, yuv420_preprocess_plain)
+    from vali_tpu_torch.pipeline.multistream import MultiStreamPipeline
+    from vali_tpu_torch.utils.synth import HostFrameSource
+
+    kw = dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG,
+              out_dtype=torch.float32, normalize=NORM)
+    params = fcn.numpy_params(np.random.default_rng(4))
+    model = fcn.params_from_numpy(params, dev, dtype=torch.bfloat16)
+    sources = [HostFrameSource([host[(s + k) % B]
+                                for k in range(INFER_BATCHES)],
+                               PixelFormat.YUV420, W, H) for s in range(B)]
+    pipe = MultiStreamPipeline(sources, DW, DH, gpu_id=0, batch_size=B,
+                               sync_streams=True, **kw)
+    with torch.inference_mode():
+        yuv420_preprocess.launches = 0
+        n = 0
+        for batch, ids in pipe:
+            classes = fcn.predict_classes(model, batch)
+            if n == 0:
+                first, first_ids, first_classes = batch, ids, classes
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            n += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = yuv420_preprocess.launches
+        log("inference_path_launches=" + json.dumps(
+            {"yuv420_preprocess": launches}))
+        if n != INFER_BATCHES or launches < 1:
+            raise AssertionError(f"inference path: {n} batches, "
+                                 f"{launches} kernel launches")
+        if first_ids != list(range(B)) or first.shape != (B, DH, DW, 3):
+            raise AssertionError("inference path: bad first batch")
+
+        # the card's logits against the same model on the CPU
+        logits = fcn.apply(model, first)
+        host_model = fcn.params_from_numpy(params, torch.device("cpu"),
+                                           dtype=torch.bfloat16)
+        want = fcn.apply(host_model, first.cpu()).float()
+        got = logits.float().cpu()
+        scale = max(want.abs().max().item(), 1.0)
+        rel = (got - want).abs().max().item() / scale
+        hist_g = torch.stack([torch.bincount(g.argmax(-1).reshape(-1),
+                                             minlength=21) for g in got])
+        hist_w = torch.stack([torch.bincount(w.argmax(-1).reshape(-1),
+                                             minlength=21) for w in want])
+        agree = (torch.minimum(hist_g, hist_w).sum(1)
+                 / hist_w.sum(1)).min().item()
+        log(f"fcn card vs cpu ({B}x{DH} bf16): max_abs_diff/max_logit={rel} "
+            f"min_class_hist_agreement={agree}")
+        if not torch.isfinite(got).all() or rel > 0.02 or agree <= 0.98:
+            raise AssertionError("fcn: the card's logits are outside the "
+                                 "golden envelope of the CPU's")
+
+        # the kernel's batch against the plain version's, and its classes
+        plain_fn = (lambda: yuv420_preprocess_plain(
+            *planes, src_w=W, src_h=H, dst_w=DW, dst_h=DH, **kw))
+        kern_fn = (lambda: yuv420_preprocess(
+            *planes, src_w=W, src_h=H, dst_w=DW, dst_h=DH, **kw))
+        plain = plain_fn().movedim(1, -1)
+        err = compare(torch, "inference batch kernel vs plain (yuv420 "
+                      "f32+norm)", first, plain)
+        same = (fcn.predict_classes(model, plain) == first_classes)
+        agree_k = same.double().mean().item()
+        log(f"fcn classes, kernel batch vs plain batch: agreement={agree_k}")
+        if agree_k <= 0.98:
+            raise AssertionError("fcn classes of the kernel's batch differ "
+                                 "from the plain version's")
+
+        t_kern, t_plain = time_pair(kern_fn, plain_fn)
+        fcn_ms = time_ms(lambda: fcn.apply(model, first))
+        io_b, layer_b, ops = fcn_work(B, DH, DW, fcn.WIDTHS,
+                                         fcn.NUM_CLASSES)
+        fcn_bound, fcn_by = bound_ms(io_b, ops)
+        layer_bound, layer_by = bound_ms(layer_b, ops)
+        profiled = MultiStreamPipeline(
+            [HostFrameSource([host[(s + k) % B] for k in range(8)],
+                             PixelFormat.YUV420, W, H) for s in range(B)],
+            DW, DH, gpu_id=0, batch_size=B, sync_streams=True, **kw)
+        busy, busy_ms, prof_ms = device_busy_share(
+            torch, profiled, lambda item: fcn.predict_classes(model,
+                                                              item[0]))
+    timed = n - 1
+    fps = timed * B / (wall_ms * 1e-3)
+    nbytes, pops = preprocess_work(B, W, H, DW, DH, "420", out_bytes=4)
+    bound, bound_by = bound_ms(nbytes, pops)
+    log(f"time yuv420_preprocess {B}x {H}p->{DW}x{DH} f32+norm: "
+        f"kernel_ms={t_kern} plain_ms={t_plain} bound_ms={bound} "
+        f"bound_by={bound_by} inference_path_launches={launches} ({smi})")
+    log(f"time fcn forward {B}x{DH}x{DW} bf16: ms_per_batch={fcn_ms} "
+        f"bound_ms={fcn_bound} bound_by={fcn_by} (input read and logits "
+        f"written once, {ops / 1e9:.2f} GFLOP) layer_by_layer_bound_ms="
+        f"{layer_bound} bound_by={layer_by} ({layer_b / 1e9:.3f} GB with "
+        f"each layer's bf16 activations written and read once) ({smi})")
+    log(f"time pipeline+fcn {B} streams YUV420 {H}p->{DH}x{DW} f32+norm -> "
+        f"FCN classes, host clock over {timed} batches: "
+        f"ms_per_batch={wall_ms / timed} fps={fps} "
+        f"busy_share_from_event_times={timed * (t_kern + fcn_ms) / wall_ms} "
+        f"profiler_busy_share={busy} (device {busy_ms} ms of {prof_ms} ms, "
+        f"batches 3-8 of 8 under torch.profiler) ({smi})")
+    log("inference: ok, MultiStreamPipeline -> yuv420_preprocess f32+norm "
+        "-> FCN bf16; card logits within the golden envelope of the CPU's, "
+        "kernel and plain classes agree")
+    shape = {"case": f"yuv420 inference {H}p->{DW}x{DH} f32+norm",
+             "ms": t_kern, "plain_ms": t_plain, "bound_ms": bound,
+             "bound_by": bound_by, "launches": launches,
+             "max_abs_err": err, "timed": "kernel"}
+    return shape, launches
+
+
+def tonemap_toe_outliers(got, want, d, peak):
+    """Samples more than 1 LSB apart whose linear light (the codes
+    through the display gamma 2.4) also differs by more than 1e-4 of full
+    scale. Near black the 1/2.4 gamma's slope is unbounded: float32
+    noise of the two devices' power functions, amplified by the gamut
+    matrix's cancellation at the clip boundary, moves dark codes by a few
+    LSB while their light agrees."""
+    lin = ((got.double() / peak) ** 2.4
+           - (want.double() / peak) ** 2.4).abs()
+    return int(((d > 1) & (lin > 1e-4)).sum().item())
+
+
+def device_busy_share(torch, items, consume, skip=2):
+    """(busy share, device ms, wall ms) of ``consume(item)`` over the items
+    of ``items`` after the first ``skip`` (the steady window), under
+    torch.profiler: the union of the card's kernel and copy intervals
+    over the host wall time; the share is None where the trace holds no
+    device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    items = iter(items)
+    for _ in range(skip):
+        consume(next(items))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for item in items:
+            consume(item)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    if not spans:
+        return None, None, wall_ms
+    return busy_us / 1e3 / wall_ms, busy_us / 1e3, wall_ms
+
+
+def analysis_phase(torch, np, dev, planes, smi):
+    """The batched QC ops on the card at the sizes users run, each held to
+    the same port function on the CPU with the same inputs copied back and
+    timed with CUDA events: histograms, luma statistics and scene-change
+    scores of the 64 x 1080p luma planes of the preprocess sources; PSNR
+    and SSIM between the yuv420 kernel's and its plain version's
+    64 x 224 outputs, and on 16 x 1080p luma pairs; tone mapping (PQ,
+    BT.2390 -> uint8) of 16 x 1080p uint16 RGB with P010-style MSB codes;
+    the device stage of JPEG encode (RGB, 4:2:0, q = 85) on the 64 x 224
+    uint8 batch and on the 16 x 1080p tone-mapped RGB."""
+    from vali_tpu_torch.core.enums import PixelFormat
+    from vali_tpu_torch.ops import analytics, jpeg, metrics, tonemap
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(5)
+    luma = planes[0][:, :H]
+
+    def timed(name, fn, samples=5, calls=2):
+        ms = time_ms(fn, samples=samples, calls=calls)
+        log(f"time {name}: ms_per_batch={ms} ({smi})")
+        return ms
+
+    def close(name, got, want, rtol):
+        torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=0,
+                                   msg=lambda m: f"{name}: {m}")
+        log(f"{name} card vs cpu: within rtol {rtol}")
+
+    def equal(name, got, want):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name}: the card and the CPU differ")
+        log(f"{name} card vs cpu: equal")
+
+    # exposure and shot analytics on the 64 luma planes
+    luma_c = luma.cpu()
+    equal(f"histogram_batch {B}x{H}p", analytics.histogram_batch(luma),
+          analytics.histogram_batch(luma_c))
+    st, st_c = analytics.luma_stats_batch(luma), \
+        analytics.luma_stats_batch(luma_c)
+    for k in st:
+        close(f"luma_stats_batch[{k}] {B}x{H}p", st[k], st_c[k], 1e-5)
+    close(f"scene_change_scores {B}x{H}p",
+          analytics.scene_change_scores(luma),
+          analytics.scene_change_scores(luma_c), 1e-5)
+    n_cuts = []
+    for threshold in (0.3, 0.1):   # the default, and one the frames cross
+        cuts = analytics.detect_scene_changes(luma, threshold)
+        cuts_c = analytics.detect_scene_changes(luma_c, threshold)
+        if not np.array_equal(cuts, cuts_c):
+            raise AssertionError(f"scene cuts at {threshold} differ: "
+                                 f"{cuts} / {cuts_c}")
+        n_cuts.append(len(cuts))
+    log(f"detect_scene_changes {B}x{H}p card vs cpu: equal, {n_cuts} cuts "
+        f"at thresholds 0.3, 0.1")
+    if not any(n_cuts):
+        raise AssertionError("no scene cut found: the comparison is empty")
+    timed(f"histogram_batch {B}x{H}p", lambda: analytics.histogram_batch(
+        luma))
+    timed(f"luma_stats_batch {B}x{H}p",
+          lambda: analytics.luma_stats_batch(luma))
+    timed(f"scene_change_scores {B}x{H}p",
+          lambda: analytics.scene_change_scores(luma))
+
+    # quality metrics: the kernel's 224 batch against the plain version's
+    kern, plain = kernel_and_plain(torch, planes, PixelFormat.YUV420)
+    a, b = kern().movedim(1, -1), plain().movedim(1, -1)
+    a_c, b_c = a.cpu(), b.cpu()
+    for fn in (metrics.psnr_batch, metrics.ssim_batch):
+        close(f"{fn.__name__} {B}x{DH} kernel vs plain", fn(a, b),
+              fn(a_c, b_c), 1e-5)
+        timed(f"{fn.__name__} {B}x{DH}x{DW}x3", lambda: fn(a, b))
+    x = luma[:16]
+    noise = torch.from_numpy(rng.integers(-8, 9, tuple(x.shape),
+                                          dtype=np.int16)).to(dev)
+    y = (x.to(torch.int16) + noise).clamp(0, 255).to(torch.uint8)
+    x_c, y_c = x.cpu(), y.cpu()
+    close(f"ssim_batch 16x{H}p luma pairs", metrics.ssim_batch(x, y),
+          metrics.ssim_batch(x_c, y_c), 1e-4)
+    close(f"psnr_batch 16x{H}p luma pairs", metrics.psnr_batch(x, y),
+          metrics.psnr_batch(x_c, y_c), 1e-5)
+    timed(f"ssim_batch 16x{H}p", lambda: metrics.ssim_batch(x, y))
+
+    # HDR -> SDR: P010-style MSB codes
+    hdr = torch.from_numpy(rng.integers(0, 1024, (16, H, W, 3),
+                                        dtype=np.uint16) << 6).to(dev)
+    sdr = tonemap.tonemap_batch(hdr)
+    sdr_c = tonemap.tonemap_batch(hdr.cpu())
+    d = (sdr.cpu().int() - sdr_c.int()).abs()
+    frac = (d > 0).double().mean().item()
+    toe = tonemap_toe_outliers(sdr.cpu(), sdr_c, d, 255.0)
+    log(f"tonemap_batch pq/bt2390 16x{H}p u16->u8 card vs cpu: "
+        f"max_abs_diff={d.max().item()} frac_diff={frac} "
+        f"beyond_1_lsb_outside_the_toe={toe}")
+    if toe or frac >= 1e-3:
+        raise AssertionError("tonemap_batch: the card and the CPU differ "
+                             "beyond the envelope")
+    timed(f"tonemap_batch 16x{H}p", lambda: tonemap.tonemap_batch(hdr))
+
+    # the device stage of JPEG encode
+    def jpeg_pair(name, rgb):
+        n, h, w, _ = rgb.shape
+        kw = dict(src_fmt=int(PixelFormat.RGB), width=w, height=h,
+                  quality=85, subsample420=True)
+        packed = rgb.reshape(n, h, 3 * w)
+        got = jpeg.jpeg_transform_batch((packed,), **kw)
+        want = jpeg.jpeg_transform_batch((packed.cpu(),), **kw)
+        for plane, g, c in zip("y cb cr".split(), got, want):
+            d = (g.cpu().int() - c.int()).abs()
+            frac = (d > 0).double().mean().item()
+            log(f"{name} {plane} card vs cpu: max_abs_diff="
+                f"{d.max().item()} frac_diff={frac}")
+            if g.dtype != torch.int16 or d.max().item() > 1 or frac >= 1e-4:
+                raise AssertionError(f"{name} {plane}: the card and the CPU "
+                                     f"differ")
+        return timed(f"jpeg_device_ms_per_batch {name}",
+                     lambda: jpeg.jpeg_transform_batch((packed,), **kw))
+
+    jpeg_224 = jpeg_pair(f"jpeg_transform_batch {B}x{DH}x{DW} rgb 4:2:0 q85",
+                         a)
+    jpeg_1080 = jpeg_pair(f"jpeg_transform_batch 16x{H}p rgb 4:2:0 q85", sdr)
+    log(f"analysis: ok, histograms and cuts equal, statistics, scores, "
+        f"PSNR and SSIM within rtol, tone mapping within 1 LSB on < 1e-3 "
+        f"(beyond it only in the gamma's toe), JPEG coefficients within 1 "
+        f"on < 1e-4; jpeg_device_ms_per_batch={jpeg_224} "
+        f"({B}x{DH}) {jpeg_1080} (16x{H}p) ({smi})")
 
 
 # 4K sources of the resize phases: batch, geometry

@@ -1003,3 +1003,146 @@ def test_convert_lab_wrappers_count_launches_and_reject_bad_input(dev):
         cl.convert_probe(x, **geo, mode="dma",
                          sink=torch.zeros(4, dtype=torch.int64, device=dev))
     assert [f.launches for f in cl.WRAPPERS] == after
+
+
+# ---- the inference and analysis slice: the card against the CPU ---------
+
+def _golden_envelope(got, want):
+    """tests/test_e2e_segmentation.py's envelope on [N, h, w, C] logits:
+    max |difference| <= 0.02 x max |logit|, per-frame class histograms
+    agreeing > 0.98."""
+    got, want = got.float().cpu().numpy(), want.float().numpy()
+    scale = max(float(np.abs(want).max()), 1.0)
+    assert np.abs(got - want).max() / scale <= 0.02
+    for g, w in zip(got, want):
+        c = w.shape[-1]
+        hg = np.bincount(g.argmax(-1).reshape(-1), minlength=c)
+        hw = np.bincount(w.argmax(-1).reshape(-1), minlength=c)
+        assert np.minimum(hg, hw).sum() / hw.sum() > 0.98, (hg, hw)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (2, 65, 47, 3)])
+def test_fcn_on_the_card_matches_the_cpu(dev, shape):
+    """bf16 at the golden envelope; f32 (TF32 off) within rtol 1e-4, atol
+    1e-5; uint8 input too; the default device is the card."""
+    from vali_tpu_torch.models import fcn
+
+    rng = np.random.default_rng(sum(shape))
+    params = fcn.numpy_params(rng)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    u8 = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            card = fcn.params_from_numpy(params, dtype=dtype)
+            assert card.conv0.weight.device == dev
+            host = fcn.params_from_numpy(params, cpu, dtype=dtype)
+            for inp in (x, u8):
+                got = fcn.apply(card, inp.to(dev))
+                want = fcn.apply(host, inp)
+                assert got.dtype == dtype and got.device == dev
+                if dtype == torch.bfloat16:
+                    _golden_envelope(got, want)
+                else:
+                    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                               atol=1e-5)
+        classes = fcn.predict_classes(card, x.to(dev))
+        assert classes.shape == want.shape[:3] and classes.device == dev
+    assert fcn.init_params().head.weight.device == dev
+
+
+def test_metrics_and_analytics_on_the_card_match_the_cpu(dev):
+    """Histograms and cuts equal; statistics, scores, PSNR and SSIM
+    within rtol 1e-5 (float32 reductions in another order)."""
+    from vali_tpu_torch.ops import analytics, metrics
+
+    rng = np.random.default_rng(41)
+    luma = rng.integers(0, 256, (8, 72, 128), dtype=np.uint8)
+    luma[4:] = np.clip(luma[4:].astype(int) // 3 + 170, 0, 255)
+    hdr = rng.integers(0, 1024, (3, 40, 64), dtype=np.uint16) << 6
+    for frames in (luma, hdr):
+        t = torch.from_numpy(frames)
+        g = t.to(dev)
+        assert torch.equal(analytics.histogram_batch(g).cpu(),
+                           analytics.histogram_batch(t))
+        assert torch.equal(analytics.histogram_batch(g, 37, (30.0, 900.0))
+                           .cpu(), analytics.histogram_batch(t, 37,
+                                                             (30.0, 900.0)))
+        sg, sc = analytics.luma_stats_batch(g), analytics.luma_stats_batch(t)
+        for k in sc:
+            torch.testing.assert_close(sg[k].cpu(), sc[k], rtol=1e-5,
+                                       atol=0)
+        torch.testing.assert_close(analytics.scene_change_scores(g).cpu(),
+                                   analytics.scene_change_scores(t),
+                                   rtol=1e-5, atol=1e-7)
+    cuts = analytics.detect_scene_changes(luma)   # numpy: to the card
+    assert list(cuts) == list(analytics.detect_scene_changes(
+        luma, device=torch.device("cpu"))) == [4]
+    a = rng.integers(0, 256, (4, 64, 96, 3), dtype=np.uint8)
+    b = np.clip(a + rng.integers(-9, 10, a.shape), 0, 255).astype(np.uint8)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for fn in (metrics.mse_batch, metrics.psnr_batch, metrics.ssim_batch):
+        torch.testing.assert_close(fn(ta.to(dev), tb.to(dev)).cpu(),
+                                   fn(ta, tb), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("transfer,method,out", [
+    ("pq", "bt2390", torch.uint8), ("hlg", "hable", torch.uint16),
+    ("pq", "reinhard", torch.float32)])
+def test_tonemap_on_the_card_matches_the_cpu(dev, transfer, method, out):
+    """Within 1 LSB of the output codes (float: of a 16-bit code), or, in
+    the toe of the 1/2.4 display gamma, within 1e-4 of full scale in
+    linear light: near black its slope is unbounded, and float32 noise of
+    the two devices' power functions, amplified by the gamut matrix's
+    cancellation at the clip boundary, moves dark codes by a few LSB."""
+    from vali_tpu_torch.ops import tonemap
+
+    rng = np.random.default_rng(42)
+    x = torch.from_numpy(rng.integers(0, 1024, (2, 48, 64, 3),
+                                      dtype=np.uint16) << 6)
+    kw = dict(transfer=transfer, method=method, out_dtype=out)
+    got = tonemap.tonemap_batch(x.to(dev), **kw).cpu()
+    want = tonemap.tonemap_batch(x, **kw)
+    assert got.dtype == out
+    top = 1.0 if out == torch.float32 else float(torch.iinfo(out).max)
+    g, w = got.to(torch.float64) / top, want.to(torch.float64) / top
+    lsb = 1.0 / (65535.0 if out == torch.float32 else top)
+    beyond = ((g - w).abs() > lsb) & ((g ** 2.4 - w ** 2.4).abs() > 1e-4)
+    assert not beyond.any()
+
+
+@pytest.mark.parametrize("fmt,w,h", [(PixelFormat.RGB, 96, 64),
+                                     (PixelFormat.RGB, 101, 91),
+                                     (PixelFormat.YUV420, 128, 96)])
+def test_jpeg_transform_on_the_card_matches_the_cpu(dev, fmt, w, h,
+                                                    monkeypatch):
+    """Coefficients equal, or +-1 where the exact (float64) quotient is
+    within 1e-3 of k + 0.5 (a rounding tie of another summation order)."""
+    from vali_tpu_torch.ops import jpeg
+
+    rng = np.random.default_rng(43)
+    if fmt == PixelFormat.RGB:
+        planes = (rng.integers(0, 256, (3, h, 3 * w), dtype=np.uint8),)
+    else:
+        planes = (rng.integers(0, 256, (3, h, w), dtype=np.uint8),
+                  *(rng.integers(0, 256, (3, h // 2, w // 2), dtype=np.uint8)
+                    for _ in range(2)))
+    tp = tuple(torch.from_numpy(p) for p in planes)
+    kw = dict(src_fmt=int(fmt), width=w, height=h, quality=85)
+    got = jpeg.jpeg_transform_batch(tuple(p.to(dev) for p in tp), **kw)
+    want = jpeg.jpeg_transform_batch(tp, **kw)
+
+    def exact(plane, qtable, center=128.0):
+        d = torch.from_numpy(jpeg.dct_matrix()).double()
+        blocks = jpeg._blockify(plane.double() - center)
+        return (torch.matmul(torch.matmul(d, blocks), d.T)
+                / torch.from_numpy(qtable).double())
+
+    monkeypatch.setattr(jpeg, "_dct_quant", exact)
+    quotients = jpeg.jpeg_transform_batch(tp, **kw)
+    for g, c, e in zip(got, want, quotients):
+        assert g.device == dev and g.dtype == torch.int16
+        d = (g.cpu().int() - c.int()).abs()
+        e = e[d != 0]
+        assert d.max().item() <= 1
+        assert ((e - e.floor() - 0.5).abs() < 1e-3).all()

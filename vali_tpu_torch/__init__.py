@@ -62,6 +62,8 @@ _LAZY = {
     "PyFrameConverter": ".engine.frame_converter",
     "PyNvEncoder": ".engine.encoder",
     "PyMuxer": ".engine.muxer",
+    "PyNvJpegEncoder": ".engine.jpeg",
+    "NvJpegEncodeContext": ".engine.jpeg",
     "MultiStreamPipeline": ".pipeline.multistream",
 }
 

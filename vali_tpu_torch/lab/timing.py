@@ -162,6 +162,27 @@ def convert_work(batch: int, src_w: int, src_h: int, rows: int,
     return batch * (read + out), batch * (read // 4 + sums)
 
 
+def fcn_work(batch: int, h: int, w: int, widths: Tuple[int, ...],
+             num_classes: int, in_bytes: int = 4, act_bytes: int = 2
+             ) -> Tuple[int, int, int]:
+    """(bytes, layer bytes, operations) of one FCN forward
+    (``models/fcn.py``) on a [batch, h, w, 3] input of ``in_bytes``
+    samples: the input read once and the logits written once; the same
+    plus every layer's ``act_bytes`` activations written and read back
+    once (what a layer-by-layer run must move); and two operations per
+    multiply-add of the convolutions at their SAME output sizes."""
+    ops, acts, cin, oh, ow = 0, 0, 3, h, w
+    layers = [(3, 2 if 0 < i < 4 else 1, c) for i, c in enumerate(widths)]
+    for k, s, cout in layers + [(1, 1, num_classes)]:
+        oh, ow = -(-oh // s), -(-ow // s)
+        ops += 2 * oh * ow * cout * cin * k * k
+        acts += oh * ow * cout
+        cin = cout
+    io = h * w * 3 * in_bytes + oh * ow * num_classes * act_bytes
+    inner = (acts - oh * ow * num_classes) * 2 * act_bytes
+    return batch * io, batch * (io + inner), batch * ops
+
+
 def resize_work(batch: int, src_h: int, src_w: int, dst_h: int, dst_w: int,
                 channels: int = 1, method: str = LANCZOS_AA,
                 sample_bytes: int = 1) -> Tuple[int, int]:

@@ -57,14 +57,18 @@ def _chroma_weights(n_in: int, n_out: int, full_res: int, method: str):
 
 @contextlib.contextmanager
 def exact_f32_matmul():
-    """Run fp32 matrix products in full IEEE fp32 (TF32 off) inside the
-    block, restoring the caller's setting afterwards."""
+    """Run fp32 matrix products and cuDNN convolutions in full IEEE fp32
+    (TF32 off for both) inside the block, restoring the caller's settings
+    afterwards."""
     prev = torch.get_float32_matmul_precision()
+    prev_conv = torch.backends.cudnn.allow_tf32
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+        torch.backends.cudnn.allow_tf32 = prev_conv
 
 
 def to_f32(x: torch.Tensor) -> torch.Tensor:
