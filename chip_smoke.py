@@ -31,7 +31,14 @@ YUV420 1080p streams -> 224x224 float32 normalised through the
 yuv420_preprocess kernel -> the full bf16 FCN, its logits held to the same
 model on the CPU) and the batched QC ops at 1080p (histograms, luma
 statistics, scene cuts, PSNR / SSIM, HDR tone mapping, the device stage
-of JPEG encode), each held to the same function on the CPU. It builds the CUDA
+of JPEG encode), each held to the same function on the CPU; then the
+device half of ``python -m vali_tpu_torch transcode`` (64 seeded 1080p
+YUV420 host frames staged through the decoder's ring into a Surface on
+the card, resized to 720p by two plane_resize launches, converted to NV12
+and read back through the encoder's download), each frame held to the
+same loop on CPU Surfaces, with async uploads bit-equal across the ring's
+wrap; and, where the native engine loads, the CLI's transcode of a
+synthesised clip. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -382,15 +389,9 @@ def main() -> int:
     lap("main path")
 
     # ---- decode -> pipeline, when the native engine builds here ----------
-    from vali_tpu_torch.engine._loader import load_native
-
-    try:
-        load_native()
-    except ImportError as e:
-        lines = str(e).splitlines()
-        detail = " | ".join(lines[:1] + lines[-3:])
-        log(f"pipeline_decode: skipped: the native engine cannot be built "
-            f"on this machine: {detail}")
+    no_engine = native_engine_missing()
+    if no_engine:
+        log(f"pipeline_decode: skipped: {no_engine}")
     else:
         decode_phase(torch, np, dev)
 
@@ -483,6 +484,23 @@ def main() -> int:
     lap("inference")
     analysis_phase(torch, np, dev, planes[PixelFormat.YUV420], smi)
     lap("analysis")
+    transcode_shapes, transcode_launches = transcode_device_phase(
+        torch, np, dev, smi)
+    lap("transcode device half")
+    if no_engine:
+        log(f"transcode: skipped: {no_engine}")
+    else:
+        transcode_phase(torch, np, dev, smi)
+    lap("transcode")
+    # transcode's two shapes join plane_resize's entry of the Surface path
+    pr = next(e for e in surface if e["name"] == "plane_resize")
+    pr["shapes"] += transcode_shapes
+    pr["launches"] += transcode_launches
+    pr["max_abs_err"] = max([pr["max_abs_err"]] + [
+        x["max_abs_err"] for x in transcode_shapes])
+    pr["launch_weighted_ms"] = sum(
+        x["ms"] * x["launches"] for x in pr["shapes"]) / sum(
+        x["launches"] for x in pr["shapes"])
     # no single PyTorch call computes fused CSC + banded Lanczos:
     # library_ms is null
     preprocess = {  # wrapper: chroma layout, TPU kernel line, checked case
@@ -1666,6 +1684,258 @@ def rotate_ud_phase(torch, np, nv12_frame, yuv422_frame, smi):
             f"ms={statistics.median(times[1:])} ({smi})")
     log("surface_rotate_ud: ok, PySurfaceUD and PySurfaceRotator on the "
         "card equal to the same ops on CPU copies of their inputs")
+
+
+TRANSCODE_N = 64                  # 1080p frames through the device half
+TRANSCODE_W, TRANSCODE_H = 1280, 720
+CLIP_N = 16                       # frames of transcode_phase's clip
+
+
+def native_engine_missing():
+    """Why the native engine (FFmpeg decode and encode) cannot load on
+    this machine, or "" when it loads."""
+    from vali_tpu_torch.engine._loader import load_native
+
+    try:
+        load_native()
+    except ImportError as e:
+        lines = str(e).splitlines()
+        return ("the native engine cannot be built on this machine: "
+                + " | ".join(lines[:1] + lines[-3:]))
+    return ""
+
+
+def copy_into(frame):
+    """A StagingRing fill that writes ``frame`` into the buffer, where the
+    decoder's native copy_frame writes a decoded frame."""
+    def fill(buf):
+        buf[:] = frame
+        return buf.nbytes
+    return fill
+
+
+def transcode_loop(torch, np, frames, device, sync=True, steps=None):
+    """transcode's device half: ``python -m vali_tpu_torch transcode``'s
+    loop without the codecs. Each flat 1080p YUV420 host frame is staged
+    and copied into a Surface on ``device`` by StagingRing.upload, as
+    PyDecoder.DecodeSingleSurface does with a decoded frame (pinned
+    buffers on the card, async unless ``sync``); resized to 720p and
+    converted to NV12 by the CLI's ToNV12 step (turbo resize: one Y and
+    one stacked U/V plane_resize); and read back by download_host_frame,
+    as PyNvEncoder.EncodeSingleSurface reads it. Returns the [n, bytes]
+    NV12 frames; ``steps`` collects each step's host seconds."""
+    from vali_tpu_torch.__main__ import ToNV12
+    from vali_tpu_torch.core.enums import PixelFormat as F
+    from vali_tpu_torch.engine.decoder import StagingRing
+    from vali_tpu_torch.memory.host import download_host_frame
+    from vali_tpu_torch.memory.surface import Surface
+
+    tw, th = TRANSCODE_W, TRANSCODE_H
+    ring = StagingRing(device)
+    src = Surface.Make(F.YUV420, W, H, device=device)
+    step = ToNV12(F.YUV420, tw, th, device)
+    out = np.empty((len(frames), tw * th * 3 // 2), np.uint8)
+    steps = {} if steps is None else steps
+    for i, frame in enumerate(frames):
+        t = [time.perf_counter()]
+        fill = copy_into(frame)
+
+        def timed_fill(buf):
+            written = fill(buf)
+            t.append(time.perf_counter())
+            return written
+        ring.upload(timed_fill, F.YUV420, W, H, src, sync)
+        t.append(time.perf_counter())
+        step.resize(src)
+        t.append(time.perf_counter())
+        nv12 = step.convert()
+        t.append(time.perf_counter())
+        out[i] = download_host_frame(nv12)
+        t.append(time.perf_counter())
+        for k, name in enumerate(("stage", "upload", "resize", "convert",
+                                  "download")):
+            steps[name] = steps.get(name, 0.0) + t[k + 1] - t[k]
+    return out
+
+
+def transcode_device_phase(torch, np, dev, smi):
+    """transcode's device half at full size on the card: 64 seeded 1080p
+    YUV420 host frames through transcode_loop to 720p NV12, each held to
+    the same loop on CPU Surfaces (the plain versions); the loop once more
+    with async uploads over a ring shorter than the frames, bit-equal; the
+    async uploads alone into 64 Surfaces, each bit-equal to its host frame
+    before and after the ring wraps; the two plane_resize shapes held to
+    the plain version and timed. Returns those shapes' entries and the
+    plane_resize launches of the main-path run."""
+    from vali_tpu_torch.core.enums import PixelFormat as F
+    from vali_tpu_torch.engine.decoder import STAGING_SLOTS, StagingRing
+    from vali_tpu_torch.memory.surface import Surface
+    from vali_tpu_torch.ops import nv12_resize, nv12_to_rgb, packed_resize
+    from vali_tpu_torch.ops.plane_resize import (plane_resize,
+                                                 plane_resize_plain,
+                                                 prepare_plane_resize)
+    from vali_tpu_torch.ops.resize import LANCZOS
+
+    n, tw, th = TRANSCODE_N, TRANSCODE_W, TRANSCODE_H
+    frames = make_frames(np, np.random.default_rng(11), F.YUV420, n, W, H)
+    transcode_loop(torch, np, frames[:2], dev)   # tables, streams, pinned
+    torch.cuda.synchronize()
+    wrappers = [k for k, _ in preprocess_kernels().values()] + [
+        nv12_to_rgb.nv12_to_rgb, packed_resize.packed_resize,
+        nv12_resize.nv12_resize, plane_resize]
+    for wr in wrappers:
+        wr.launches = 0
+    steps = {}
+    t0 = time.perf_counter()
+    card = transcode_loop(torch, np, frames, dev, steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {wr.__name__: wr.launches for wr in wrappers}
+    log(f"transcode_device main_path_launches={json.dumps(launches)}")
+    if launches.pop("plane_resize") != 2 * n or any(launches.values()):
+        raise AssertionError("transcode's device half did not launch "
+                             "plane_resize twice a frame (and nothing else)")
+    per_step = {k: v / n * 1e3 for k, v in steps.items()}
+    log(f"time transcode device half {n} x {W}x{H} YUV420 -> {tw}x{th} "
+        f"NV12, sync uploads (host clock): ms_per_frame={wall / n * 1e3} "
+        f"fps={n / wall} steps_ms_per_frame={json.dumps(per_step)} "
+        f"shares={json.dumps({k: v / (wall / n * 1e3) for k, v in per_step.items()})} "
+        f"({smi})")
+
+    cpu = transcode_loop(torch, np, frames, torch.device("cpu"))
+    worst = (0, 0.0)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        frac = float((d > 0).mean())
+        if d.max() > 1 or frac >= 1e-3:
+            raise AssertionError(f"transcode frame {i}: card vs CPU "
+                                 f"max_abs_diff={d.max()} frac_diff={frac}")
+        worst = max(worst, (int(d.max()), frac))
+    log(f"transcode_device card vs CPU Surfaces, {n} NV12 frames: worst "
+        f"max_abs_diff={worst[0]} frac_diff={worst[1]}")
+
+    t0 = time.perf_counter()
+    card_async = transcode_loop(torch, np, frames, dev, sync=False)
+    torch.cuda.synchronize()
+    wall_async = time.perf_counter() - t0
+    if not np.array_equal(card_async, card):
+        raise AssertionError("transcode with async uploads differs from "
+                             "the sync run")
+    log(f"time transcode device half, async uploads over a "
+        f"{STAGING_SLOTS}-slot ring (host clock): ms_per_frame="
+        f"{wall_async / n * 1e3}; every frame equal to the sync run")
+
+    # the staging race on its own: 64 async uploads into 64 Surfaces
+    ring = StagingRing(dev)
+    want = torch.from_numpy(frames).to(dev)
+    surfs = [Surface.Make(F.YUV420, W, H, device=dev) for _ in range(n)]
+
+    def held(i):
+        return torch.equal(torch.cat([p.reshape(-1) for p in
+                                      surfs[i].plane_tensors()]), want[i])
+
+    for i in range(n):
+        ring.upload(copy_into(frames[i]), F.YUV420, W, H, surfs[i],
+                    sync=False)
+        if i == STAGING_SLOTS - 1:
+            ring.stream.synchronize()
+            if not all(held(j) for j in range(i + 1)):
+                raise AssertionError("an async upload differs from its "
+                                     "host frame before the ring wraps")
+    ring.stream.synchronize()
+    if not all(held(i) for i in range(n)):
+        raise AssertionError("an async upload differs from its host frame "
+                             "after the ring wrapped")
+    log(f"transcode_device async uploads: {n} Surfaces bit-equal to their "
+        f"host frames before and after the {STAGING_SLOTS}-slot ring "
+        f"wrapped")
+    del surfs, want
+
+    # the two plane_resize shapes, at N = 1 as the Surface op launches them
+    y = torch.from_numpy(frames[0, :W * H].reshape(1, H, W)).to(dev)
+    uv = torch.from_numpy(frames[0, W * H:].reshape(2, H // 2, W // 2)).to(
+        dev)
+    shapes = []
+    for case, x, sh in (
+            (f"transcode N=1 y {H}p->{th}p lanczos", y, (H, th, tw)),
+            (f"transcode B=2 u/v {H // 2}p->{th // 2}p lanczos", uv,
+             (H // 2, th // 2, tw // 2))):
+        kw = dict(src_h=sh[0], dst_h=sh[1], dst_w=sh[2], method=LANCZOS)
+        out, ref = plane_resize(x, **kw), plane_resize_plain(x, **kw)
+        torch.cuda.synchronize()
+        e = compare(torch, f"plane_resize {case}", out, ref)
+        alone, alone_out = prepare_plane_resize(x, **kw)
+        alone()
+        torch.cuda.synchronize()
+        if not torch.equal(alone_out, out):
+            raise AssertionError(f"prepared plane_resize call differs at "
+                                 f"{case}")
+        t_kern, t_plain = time_pair(lambda: plane_resize(x, **kw),
+                                    lambda: plane_resize_plain(x, **kw))
+        t_alone = time_ms(alone)
+        bound, bound_by = bound_ms(*resize_work(x.shape[0], sh[0], x.shape[2],
+                                                sh[1], sh[2], 1, LANCZOS))
+        shapes.append({"case": case, "ms": t_kern, "plain_ms": t_plain,
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "launches": n, "max_abs_err": e,
+                       "timed": "wrapper call incl. host work",
+                       "kernel_alone_ms": t_alone})
+        log(f"time plane_resize {case}: wrapper_ms={t_kern} "
+            f"kernel_alone_ms={t_alone} plain_ms={t_plain} bound_ms={bound} "
+            f"bound_by={bound_by} main_path_launches={n} ({smi})")
+    return shapes, 2 * n
+
+
+def transcode_phase(torch, np, dev, smi):
+    """``python -m vali_tpu_torch transcode`` on a synthesised 1080p clip
+    to 720p, in-process through the CLI's function on ``dev``; the output
+    decoded on the host: its frame count, size, and each frame within
+    35 dB PSNR of the device half's NV12 on the same decoded frames."""
+    from vali_tpu_torch.__main__ import cmd_transcode
+    from vali_tpu_torch.core.enums import PixelFormat as F
+    from vali_tpu_torch.engine.decoder import PyDecoder
+    from vali_tpu_torch.utils.synth import synthesize_clip
+
+    tw, th = TRANSCODE_W, TRANSCODE_H
+
+    def decode(path):
+        dec = PyDecoder(path, {}, gpu_id=-1)
+        frame = np.zeros(dec.HostFrameSize, np.uint8)
+        out = []
+        while dec.DecodeSingleFrame(frame)[0]:
+            out.append(frame.copy())
+        return dec, out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = synthesize_clip(f"{tmp}/in.mp4", W, H, n=CLIP_N,
+                               chroma="sweep")
+        out_path = f"{tmp}/out.h264"
+        t0 = time.perf_counter()
+        cmd_transcode([clip, out_path, f"{tw}x{th}"], dev)
+        secs = time.perf_counter() - t0
+        src_dec, src = decode(clip)
+        out_dec, out = decode(out_path)
+    if src_dec.Format != F.YUV420 or len(src) != CLIP_N:
+        raise AssertionError("decoding the synthesised clip failed")
+    if (len(out) != CLIP_N or (out_dec.Width, out_dec.Height) != (tw, th)
+            or out_dec.Format != F.YUV420):
+        raise AssertionError(f"transcode gave {len(out)} frames of "
+                             f"{out_dec.Width}x{out_dec.Height}")
+    want = transcode_loop(torch, np, np.stack(src), dev)
+    psnr = []
+    for got, nv in zip(out, want):
+        uv = nv[tw * th:].reshape(th // 2, tw)
+        i420 = np.concatenate([nv[:tw * th], uv[:, 0::2].reshape(-1),
+                               uv[:, 1::2].reshape(-1)]).astype(np.float64)
+        mse = float(np.mean((got.astype(np.float64) - i420) ** 2))
+        psnr.append(float("inf") if mse == 0
+                    else 10 * np.log10(255.0 ** 2 / mse))
+    log(f"transcode: {CLIP_N} frames {W}x{H} -> {tw}x{th} in {secs:.3f}s "
+        f"(host clock, decode + device half + encode); PSNR against the "
+        f"device half min={min(psnr)} mean={sum(psnr) / len(psnr)} ({smi})")
+    if min(psnr) < 35.0:
+        raise AssertionError("transcode output below 35 dB of the device "
+                             "half")
 
 
 def decode_phase(torch, np, dev):

@@ -1146,3 +1146,109 @@ def test_jpeg_transform_on_the_card_matches_the_cpu(dev, fmt, w, h,
         e = e[d != 0]
         assert d.max().item() <= 1
         assert ((e - e.floor() - 0.5).abs() < 1e-3).all()
+
+
+def _host_frames(rng, fmt, n, w, h):
+    """n flat host frames of ``fmt`` in the decoder's layout."""
+    return list(_frames(rng, fmt, n, w, h))
+
+
+@pytest.mark.parametrize("fmt", [PixelFormat.YUV420, PixelFormat.NV12,
+                                 PixelFormat.P10])
+@pytest.mark.parametrize("sync", [True, False], ids=["sync", "async"])
+def test_upload_host_frame_over_a_wrapping_ring(dev, fmt, sync):
+    """Frames staged through the decoder's pinned ring into 10 Surfaces:
+    every Surface bit-equal to its host frame, checked as the ring first
+    fills and again after it has wrapped. Without the ring's wait a later
+    decode would overwrite a buffer that a queued copy still reads."""
+    from vali_tpu_torch.engine.decoder import STAGING_SLOTS, StagingRing
+    from vali_tpu_torch.memory.host import host_frame_to_planes
+    from vali_tpu_torch.memory.surface import Surface
+
+    w, h, n = 320, 180, 10
+    frames = _host_frames(np.random.default_rng(int(fmt)), fmt, n, w, h)
+    ring = StagingRing(dev)
+    surfs = [Surface.Make(fmt, w, h, device=dev) for _ in range(n)]
+
+    def check(i):
+        want = host_frame_to_planes(frames[i], fmt, w, h)
+        for plane, p in zip(surfs[i].plane_tensors(), want):
+            assert np.array_equal(plane.cpu().numpy(), p), i
+
+    for i, f in enumerate(frames):
+        def fill(buf, f=f):
+            buf[:] = f
+            return buf.nbytes
+        assert ring.upload(fill, fmt, w, h, surfs[i], sync) == f.nbytes
+        event = ring._events[i % STAGING_SLOTS]
+        assert isinstance(event, torch.cuda.Event)
+        assert ring._bufs[i % STAGING_SLOTS].is_pinned()
+        if sync:
+            assert event.query()
+        if i == STAGING_SLOTS - 1:
+            torch.cuda.synchronize()
+            for j in range(i + 1):
+                check(j)
+    torch.cuda.synchronize()
+    for i in range(n):
+        check(i)
+
+
+@pytest.mark.parametrize("fmt", [PixelFormat.YUV420, PixelFormat.NV12,
+                                 PixelFormat.P10, PixelFormat.RGB])
+def test_download_host_frame_inverts_the_upload(dev, fmt):
+    from vali_tpu_torch.memory.host import (download_host_frame,
+                                            upload_host_frame)
+    from vali_tpu_torch.memory.surface import Surface
+    from vali_tpu_torch.utils.device import get_stream
+
+    w, h = 256, 144
+    frame = _host_frames(np.random.default_rng(9), fmt, 1, w, h)[0]
+    surf = Surface.Make(fmt, w, h, device=dev)
+    upload_host_frame(torch.from_numpy(frame), fmt, w, h, surf,
+                      get_stream(None, 0))
+    out = download_host_frame(surf)
+    assert out.dtype == np.uint8 and np.array_equal(out, frame)
+
+
+def _transcode_device_half(frames, device, w, h, dw, dh, async_):
+    """transcode's device half (the CLI's loop without the codecs): each
+    host YUV420 frame staged into a Surface on ``device`` as the decoder
+    does it, through the CLI's resize and NV12 step, downloaded as the
+    encoder reads it."""
+    from vali_tpu_torch.__main__ import ToNV12
+    from vali_tpu_torch.engine.decoder import StagingRing
+    from vali_tpu_torch.memory.host import download_host_frame
+    from vali_tpu_torch.memory.surface import Surface
+
+    F = PixelFormat
+    ring = StagingRing(device)
+    src = Surface.Make(F.YUV420, w, h, device=device)
+    step = ToNV12(F.YUV420, dw, dh, device)
+    out = []
+    for f in frames:
+        def fill(buf, f=f):
+            buf[:] = f
+            return buf.nbytes
+        ring.upload(fill, F.YUV420, w, h, src, sync=not async_)
+        out.append(download_host_frame(step(src)).copy())
+    return out
+
+
+@pytest.mark.parametrize("async_", [False, True], ids=["sync", "async"])
+def test_transcode_device_half_matches_the_cpu(dev, async_):
+    """256x144 -> 128x72: two plane_resize launches a frame on the card,
+    the NV12 frames within 1 LSB on < 1e-3 of the samples of the same
+    loop on CPU Surfaces (the kernels' plain versions)."""
+    w, h, dw, dh = 256, 144, 128, 72
+    frames = _host_frames(np.random.default_rng(10), PixelFormat.YUV420, 6,
+                          w, h)
+    before = plane_resize.launches
+    card = _transcode_device_half(frames, dev, w, h, dw, dh, async_)
+    assert plane_resize.launches - before == 2 * len(frames)
+    cpu = _transcode_device_half(frames, torch.device("cpu"), w, h, dw, dh,
+                                 async_)
+    for a, b in zip(card, cpu):
+        assert a.shape == b.shape == (dw * dh * 3 // 2,)
+        d = np.abs(a.astype(int) - b.astype(int))
+        assert d.max() <= 1 and (d > 0).mean() < 1e-3

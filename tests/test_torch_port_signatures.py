@@ -21,12 +21,18 @@ from vali_tpu_torch.pipeline import multistream as port_ms
 #: place: the port's kernels are CUDA, not Pallas
 RENAMED = {"use_pallas": "use_kernel"}
 #: keyword-only parameters of the port's own, as (owner, parameter): a
-#: Surface made from host memory on the CPU or a chosen card
-PORT_ONLY = {("Surface.from_cai", "gpu_id")}
-#: classes both packages export: the names both lazy maps hold, and the
-#: memory and event classes the reference imports eagerly
-NAMES = sorted((set(ref._LAZY) & set(port._LAZY))
-               | {"Surface", "SurfacePlane", "CudaBuffer", "CudaStreamEvent"})
+#: Surface made from host memory on the CPU or a chosen card; the device
+#: a decoder's Surface path writes to (the CPU for tests, where gpu_id
+#: alone would ask for a card)
+PORT_ONLY = {("Surface.from_cai", "gpu_id"), ("PyDecoder.__init__", "device")}
+#: names both lazy maps hold, and the memory and event classes the
+#: reference imports eagerly
+_SHARED = sorted((set(ref._LAZY) & set(port._LAZY))
+                 | {"Surface", "SurfacePlane", "CudaBuffer",
+                    "CudaStreamEvent"})
+#: the classes among them, and the module-level functions
+NAMES = [n for n in _SHARED if inspect.isclass(getattr(ref, n))]
+FUNCTIONS = [n for n in _SHARED if n not in NAMES]
 
 
 def _classes(name):
@@ -75,6 +81,28 @@ def test_positional_parameters_keep_the_reference_order(name):
     for m in _methods(a, b):
         faults += _faults(f"{name}.{m}", getattr(a, m), getattr(b, m))
     assert not faults, "\n".join(faults)
+
+
+def test_the_shared_names_hold_the_engine_functions():
+    assert FUNCTIONS == ["GetNvencParams", "SetFFMpegLogLevel"]
+    assert {"BufferedReader", "PyDecoder", "PyNvEncoder"} <= set(NAMES)
+
+
+@pytest.mark.parametrize("name", FUNCTIONS)
+def test_functions_keep_the_reference_parameters(name):
+    a, b = getattr(ref, name), getattr(port, name)
+    assert callable(a) and callable(b)
+    assert _params(b) == _params(a)
+    assert not _faults(name, a, b)
+
+
+@pytest.mark.parametrize("name", ["PyDecoder", "PyNvEncoder"])
+def test_engine_classes_have_every_public_member(name):
+    """Every public member of the reference's decoder and encoder
+    (methods and properties) exists in the port."""
+    a, b = _classes(name)
+    missing = {m for m in dir(a) if not m.startswith("_")} - set(dir(b))
+    assert not missing, sorted(missing)
 
 
 def test_the_check_finds_a_shifted_parameter():

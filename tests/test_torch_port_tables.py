@@ -56,6 +56,11 @@ def test_import_without_jax():
         "import vali_tpu_torch.engine.encoder\n"
         "import vali_tpu_torch.engine.muxer\n"
         "import vali_tpu_torch.utils.synth\n"
+        "from vali_tpu_torch.memory.host import (download_host_frame,\n"
+        "                                        upload_host_frame)\n"
+        "from vali_tpu_torch.engine.decoder import StagingRing\n"
+        "from vali_tpu_torch.__main__ import ToNV12, main\n"
+        "assert main(['bench']) == 2 and 'bench' not in sys.modules\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vali_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print(vali_tpu_torch.PixelFormat.NV12.name)\n")
@@ -65,6 +70,30 @@ def test_import_without_jax():
                              os.path.abspath(__file__))))
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["PySurfaceRotator", "Surface", "NV12"]
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    """No import statement of the port's modules or of chip_smoke.py, at
+    the top or inside a function, names JAX or vali_tpu."""
+    import ast
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = [os.path.join(root, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(root, "vali_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, root)}:{node.lineno} {m}"
+                    for m in mods if m.split(".")[0] in ("jax", "vali_tpu")]
+    assert not bad, bad
 
 
 def test_launcher_signatures_match_the_c_prototypes():

@@ -59,6 +59,9 @@ _LAZY = {
     "PyFrameUploader": ".transforms",
     "PySurfaceDownloader": ".transforms",
     "PyDecoder": ".engine.decoder",
+    "BufferedReader": ".engine.decoder",
+    "SetFFMpegLogLevel": ".engine.decoder",
+    "GetNvencParams": ".engine.encoder",
     "PyFrameConverter": ".engine.frame_converter",
     "PyNvEncoder": ".engine.encoder",
     "PyMuxer": ".engine.muxer",

@@ -18,6 +18,7 @@ cover, and every other format takes this one.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -55,20 +56,44 @@ def _chroma_weights(n_in: int, n_out: int, full_res: int, method: str):
     return (w / np.where(s == 0.0, 1.0, s)).astype(np.float32)
 
 
+#: exact_f32_matmul's shared state: the blocks open in any thread, and
+#: the caller's settings saved by the first of them
+_exact_lock = threading.Lock()
+_exact_depth = 0
+_exact_saved: Optional[Tuple[str, bool]] = None
+
+
 @contextlib.contextmanager
 def exact_f32_matmul():
     """Run fp32 matrix products and cuDNN convolutions in full IEEE fp32
     (TF32 off for both) inside the block, restoring the caller's settings
-    afterwards."""
-    prev = torch.get_float32_matmul_precision()
-    prev_conv = torch.backends.cudnn.allow_tf32
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cudnn.allow_tf32 = False
+    afterwards.
+
+    Both settings are process-global, so the blocks of all threads share
+    one count under a lock: the first block to open saves the settings and
+    turns TF32 off, nested and concurrent blocks only raise the count, and
+    the last block to close restores what the first one saved. While any
+    block is open, fp32 products in every thread of the process run exact:
+    slower, never less exact. A change to either setting made while any
+    block is open, from any thread, does not last: the last block to close
+    puts back the values saved before the first one opened."""
+    global _exact_depth, _exact_saved
+    with _exact_lock:
+        if _exact_depth == 0:
+            _exact_saved = (torch.get_float32_matmul_precision(),
+                            torch.backends.cudnn.allow_tf32)
+            torch.set_float32_matmul_precision("highest")
+            torch.backends.cudnn.allow_tf32 = False
+        _exact_depth += 1
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
-        torch.backends.cudnn.allow_tf32 = prev_conv
+        with _exact_lock:
+            _exact_depth -= 1
+            if _exact_depth == 0:
+                precision, conv = _exact_saved
+                torch.set_float32_matmul_precision(precision)
+                torch.backends.cudnn.allow_tf32 = conv
 
 
 def to_f32(x: torch.Tensor) -> torch.Tensor:

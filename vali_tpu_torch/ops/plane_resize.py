@@ -60,6 +60,22 @@ def plane_resize(
     if plane.device.type != "cuda":
         raise ValueError(f"plane_resize runs on CUDA or CPU tensors, got "
                          f"{plane.device}")
+    launch, out = prepare_plane_resize(plane, src_h=src_h, dst_h=dst_h,
+                                       dst_w=dst_w, method=method,
+                                       compute_dtype=compute_dtype)
+    launch()
+    plane_resize.launches += 1
+    return out
+
+
+def prepare_plane_resize(plane: torch.Tensor, *, src_h: int, dst_h: int,
+                         dst_w: int, method: str = LANCZOS_AA,
+                         compute_dtype=None):
+    """The kernel's launch on a CUDA ``plane``, prepared: ``(launch,
+    out)``. ``launch()`` runs the kernel into ``out`` on the stream that
+    was current when it was prepared, without the wrapper's host work
+    (tables, output, arguments) and without counting; :func:`plane_resize`
+    launches through it once a call."""
     cdt = _checked(plane, src_h, dst_h, dst_w, compute_dtype)
     if plane.stride(2) != 1:
         raise ValueError("plane rows must be contiguous (stride 1)")
@@ -73,14 +89,16 @@ def plane_resize(
     out = torch.empty((B, dst_h, dst_w), dtype=plane.dtype,
                       device=plane.device)
     with torch.cuda.device(plane.device):
-        rc = lib.plane_resize_launch(
-            plane.data_ptr(), IN_KINDS[plane.dtype], plane.stride(0),
-            plane.stride(1), B, src_h, W, dst_h, dst_w, *tabs.args(),
-            int(cdt == torch.float32), out.data_ptr(), out.stride(0),
-            out.stride(1), torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, "plane_resize")
-    plane_resize.launches += 1
-    return out
+        args = (plane.data_ptr(), IN_KINDS[plane.dtype], plane.stride(0),
+                plane.stride(1), B, src_h, W, dst_h, dst_w, *tabs.args(),
+                int(cdt == torch.float32), out.data_ptr(), out.stride(0),
+                out.stride(1), torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        with torch.cuda.device(plane.device):
+            rc = lib.plane_resize_launch(*args)
+        check(lib, rc, "plane_resize")
+    return launch, out
 
 
 #: kernel launches made by the wrapper (CPU calls are not counted)

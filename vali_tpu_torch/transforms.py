@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .core.enums import PixelFormat, TaskExecInfo
-from .memory.host import host_frame_to_planes
+from .memory.host import download_host_frame, upload_host_frame
 from .memory.surface import Surface
 from .ops import csc, resize, rotate, ud
 from .utils.device import get_stream
@@ -289,21 +289,21 @@ class PyFrameUploader:
         """Copy a host frame into the device surface, synchronously: the
         bytes as of the call (parity: PyFrameUploader.cpp — size
         mismatches fail with INVALID_INPUT; only the DOWNLOADER
-        auto-resizes in the reference)."""
+        auto-resizes in the reference). The copy is
+        :func:`~vali_tpu_torch.memory.host.upload_host_frame`, the one
+        the decoder's Surface path makes."""
         try:
             flat = np.ascontiguousarray(src).reshape(-1).view(np.uint8)
             if flat.nbytes != dst.HostSize or dst.IsEmpty:
                 return _fail(TaskExecInfo.INVALID_INPUT)
-            host_planes = host_frame_to_planes(
-                flat, dst.Format, dst.Width, dst.Height)
+            with op_scope("CudaUploadFrame"):
+                # a pageable host source: the copy has read it when the
+                # call returns, so the caller may reuse its buffer at once
+                upload_host_frame(torch.from_numpy(flat), dst.Format,
+                                  dst.Width, dst.Height, dst, self._stream,
+                                  sync=True)
         except (ValueError, TypeError):
             return _fail(TaskExecInfo.INVALID_INPUT)
-        with op_scope("CudaUploadFrame"), self._stream.context():
-            for plane, host in zip(dst.plane_tensors(), host_planes):
-                # a pageable host source: copy_ returns once the bytes are
-                # read, so the caller may reuse its buffer at once
-                plane.copy_(torch.from_numpy(host))
-        self._stream.synchronize()
         return _OK
 
 
@@ -318,12 +318,16 @@ class PySurfaceDownloader:
 
     def Run(self, src: Surface, dst: np.ndarray):
         """Copy a device surface into the host array (parity:
-        PySurfaceDownloader.cpp)."""
+        PySurfaceDownloader.cpp). The copy is
+        :func:`~vali_tpu_torch.memory.host.download_host_frame`, the one
+        the encoder's Surface path makes."""
         if src.IsEmpty:
             return _fail(TaskExecInfo.INVALID_INPUT)
-        with op_scope("CudaDownloadSurface"), self._stream.context():
-            flat = torch.cat([p.reshape(-1).view(torch.uint8)
-                              for p in src.plane_tensors()]).cpu().numpy()
+        try:
+            with op_scope("CudaDownloadSurface"):
+                flat = download_host_frame(src, self._stream)
+        except ValueError:
+            return _fail(TaskExecInfo.INVALID_INPUT)
         if flat.nbytes % dst.dtype.itemsize:
             return _fail(TaskExecInfo.INVALID_INPUT)
         if dst.nbytes != flat.nbytes:
