@@ -38,7 +38,13 @@ the card, resized to 720p by two plane_resize launches, converted to NV12
 and read back through the encoder's download), each frame held to the
 same loop on CPU Surfaces, with async uploads bit-equal across the ring's
 wrap; and, where the native engine loads, the CLI's transcode of a
-synthesised clip. It builds the CUDA
+synthesised clip; then the multi-device slice (``parallel/mesh.py``): the
+pipeline on a mesh of the machine's own cards, and on four positions of
+this card with the NV12 preprocess and resize kernels run per data block,
+each equal to one unsharded launch bit for bit; the dense preprocess
+split over rows (data 1 x spatial 2 x model 2) with the halo bytes each
+position receives, the tensor-parallel FCN and one training step, each
+held to its unsharded run. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -501,6 +507,8 @@ def main() -> int:
     pr["launch_weighted_ms"] = sum(
         x["ms"] * x["launches"] for x in pr["shapes"]) / sum(
         x["launches"] for x in pr["shapes"])
+    mesh = mesh_phase(torch, np, dev, host, planes, smi)
+    lap("mesh")
     # no single PyTorch call computes fused CSC + banded Lanczos:
     # library_ms is null
     preprocess = {  # wrapper: chroma layout, TPU kernel line, checked case
@@ -530,6 +538,18 @@ def main() -> int:
             / max(1, sum(x["launches"] for x in sh)),
             "shapes": sh})
     kernels += surface + lab
+    # the mesh path's launches and shapes join each kernel's entry
+    for entry in kernels:
+        if entry["name"] not in mesh:
+            continue
+        shapes, n = mesh[entry["name"]]
+        entry["launches"] += n
+        entry["shapes"] += shapes
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+            x["max_abs_err"] for x in shapes])
+        entry["launch_weighted_ms"] = sum(
+            x["ms"] * x["launches"] for x in entry["shapes"]) / max(
+            1, sum(x["launches"] for x in entry["shapes"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1980,6 +2000,269 @@ def decode_phase(torch, np, dev):
             f"same decoded frames", batch, ref)
     log(f"pipeline_decode: ok {n_batches} batches of {B} streams "
         f"{fmt.name} {W}x{H} in {secs:.3f}s (host clock)")
+
+MESH_POSITIONS = 4      # positions of the one-card data mesh
+MESH_TRAIN_B = 8        # frames of the data x spatial x model step
+MESH_CLASSES = 16       # the dry run's head (21 does not divide by 2)
+
+
+def mesh_phase(torch, np, dev, host, planes, smi):
+    """The multi-device slice (``parallel/mesh.py``) on the card.
+
+    A mesh over the machine's own cards (``make_mesh()``): the pipeline
+    over 64 in-memory 1080p YUV420 streams -> 224, batch for batch equal
+    to the pipeline without a mesh. Four positions on this card: the
+    NV12 preprocess kernel per data block (4 x 16 frames) and the same
+    pipeline with NV12 streams, each equal to one unsharded launch; the
+    NV12 resize per data block at 16 x 4K -> 1080p (4 x 4 frames), equal
+    to one unsharded launch; the whole sharded call and each position's
+    launch timed against the single launch. data 1 x spatial 2 x model 2:
+    the dense preprocess split over rows at 8 x 1080p NV12 -> 224 f32
+    against the unsharded route, with the halo bytes each position
+    receives; the tensor-parallel FCN (full widths, 16 classes) against
+    the unsharded FCN; one training step (a replica of the model per
+    spatial place, each on half the frames, the gradients summed) against
+    the unsharded step: its loss, gradients and update. Each shape the
+    mesh path launches a kernel at is held to the plain version once and
+    timed. Every count is set to 0 just before each mesh run and read
+    just after. Returns {kernel: (shape entries, launches on the mesh path)}."""
+    from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
+    from vali_tpu_torch.models import fcn
+    from vali_tpu_torch.ops.fused import fused_preprocess
+    from vali_tpu_torch.ops.nv12_preprocess import (nv12_preprocess,
+                                                    nv12_preprocess_plain)
+    from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
+    from vali_tpu_torch.ops.yuv420_preprocess import (
+        yuv420_preprocess, yuv420_preprocess_plain)
+    from vali_tpu_torch.parallel import dryrun
+    from vali_tpu_torch.parallel.mesh import (Mesh, P, distribute, make_mesh,
+                                              map_over_data, shard_planes,
+                                              sharded_kernel_preprocess)
+    from vali_tpu_torch.pipeline.multistream import MultiStreamPipeline
+    from vali_tpu_torch.utils.synth import HostFrameSource
+
+    bt709 = dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG)
+    geo = dict(src_w=W, src_h=H, dst_w=DW, dst_h=DH)
+    wrappers = (nv12_preprocess, yuv420_preprocess, nv12_resize)
+    out = {w.__name__: ([], 0) for w in wrappers}
+
+    def counted(run):
+        """run() with every count set to 0 just before and read just
+        after; the launches join each kernel's mesh-path total."""
+        for w in wrappers:
+            w.launches = 0
+        result = run()
+        torch.cuda.synchronize()
+        got = {w.__name__: w.launches for w in wrappers}
+        for name, n in got.items():
+            out[name] = (out[name][0], out[name][1] + n)
+        return result, got
+
+    def sources(fmt):
+        return [HostFrameSource([host[fmt][(s + k) % B]
+                                 for k in range(MAIN_BATCHES)], fmt, W, H)
+                for s in range(B)]
+
+    def pipeline(fmt, mesh):
+        pipe = MultiStreamPipeline(sources(fmt), DW, DH, gpu_id=0,
+                                   batch_size=B, sync_streams=True,
+                                   mesh=mesh, **bt709)
+        return [(b, ids) for b, ids in pipe]
+
+    def held_and_timed(case, kern, plain):
+        """kern() against plain() once on the card, checked as every
+        shape is (``compare``), then both timed: (the error against the
+        plain version, kernel ms, plain ms). These launches lie outside
+        the counted runs."""
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = compare(torch, f"kernel_{case}", got, ref)
+        del got, ref
+        return (err,) + time_pair(kern, plain)
+
+    def same_batches(name, got, want):
+        if len(got) != len(want) or len(got) != MAIN_BATCHES:
+            raise AssertionError(f"{name}: {len(got)} batches")
+        for k, ((batch, ids), (ref, rids)) in enumerate(zip(got, want)):
+            if ids != rids or not torch.equal(batch.gather(dev), ref):
+                raise AssertionError(f"{name}: batch {k} differs")
+
+    # ---- the machine's own cards ----------------------------------------
+    own = make_mesh()
+    n_own = own.shape["data"]
+    whole = pipeline(PixelFormat.YUV420, None)
+    split, got = counted(lambda: pipeline(PixelFormat.YUV420, own))
+    same_batches(f"mesh pipeline on make_mesh() ({n_own} card)", split,
+                 whole)
+    if got["yuv420_preprocess"] != MAIN_BATCHES * n_own:
+        raise AssertionError(f"make_mesh() pipeline launches {got}")
+    own_b = B // n_own
+    own_planes = tuple(p[:own_b] for p in planes[PixelFormat.YUV420])
+    own_err, t_kern, t_plain = held_and_timed(
+        f"yuv420_preprocess mesh make_mesh() {own_b} x {H}p",
+        lambda: yuv420_preprocess(*own_planes, **geo, **bt709),
+        lambda: yuv420_preprocess_plain(*own_planes, **geo, **bt709))
+    nbytes, ops = preprocess_work(own_b, W, H, DW, DH, "420")
+    bound, bound_by = bound_ms(nbytes, ops)
+    out["yuv420_preprocess"][0].append({
+        "case": f"mesh make_mesh() pipeline {n_own} x {own_b} x {H}p->"
+                f"{DW}x{DH} u8/bf16", "ms": t_kern, "plain_ms": t_plain,
+        "bound_ms": bound, "bound_by": bound_by,
+        "launches": got["yuv420_preprocess"], "max_abs_err": own_err,
+        "timed": "kernel"})
+    log(f"mesh make_mesh(): {own.shape} pipeline {B} YUV420 streams x "
+        f"{MAIN_BATCHES} batches equal to the pipeline without a mesh; "
+        f"launches={json.dumps(got)} kernel_ms={t_kern} ({smi})")
+
+    # ---- four positions on this card: the data split -------------------
+    grid = np.empty(MESH_POSITIONS, dtype=object)
+    grid[:] = [dev] * MESH_POSITIONS
+    quad = Mesh(grid, ("data",))
+    per = B // MESH_POSITIONS
+    nv12 = planes[PixelFormat.NV12][0]
+    single = nv12_preprocess(nv12, **geo, **bt709)
+    blocks = distribute(nv12, quad, P("data"))
+    serve = sharded_kernel_preprocess(quad, W, H, DW, DH, **bt709)
+    sharded, got_serve = counted(lambda: serve(blocks))
+    if got_serve["nv12_preprocess"] != MESH_POSITIONS or not torch.equal(
+            sharded.gather(dev), single):
+        raise AssertionError(f"sharded_kernel_preprocess: {got_serve}, or "
+                             f"it differs from one unsharded launch")
+    ref = single.movedim(1, -1)
+    split, got_pipe = counted(lambda: pipeline(PixelFormat.NV12, quad))
+    same_batches("mesh pipeline nv12 on 4 positions", split,
+                 [(torch.roll(ref, -k, 0), list(range(B)))
+                  for k in range(MAIN_BATCHES)])
+    if got_pipe["nv12_preprocess"] != MAIN_BATCHES * MESH_POSITIONS:
+        raise AssertionError(f"4-position pipeline launches {got_pipe}")
+    t_single = time_ms(lambda: nv12_preprocess(nv12, **geo, **bt709))
+    t_call = time_ms(lambda: serve(blocks))
+    t_pos = [time_ms(lambda x=sh.data: nv12_preprocess(x, **geo, **bt709))
+             for sh in blocks.shards]
+    block0 = blocks.shards[0].data
+    block_err, t_kern, t_plain = held_and_timed(
+        f"nv12_preprocess mesh position block {per} x {H}p",
+        lambda: nv12_preprocess(block0, **geo, **bt709),
+        lambda: nv12_preprocess_plain(block0, **geo, **bt709))
+    nbytes, ops = preprocess_work(per, W, H, DW, DH, "420")
+    bound, bound_by = bound_ms(nbytes, ops)
+    out["nv12_preprocess"][0].append({
+        "case": f"mesh {MESH_POSITIONS} positions x {per} x {H}p->{DW}x{DH} "
+                f"u8/bf16 (sharded_kernel_preprocess and the pipeline)",
+        "ms": t_kern, "plain_ms": t_plain, "bound_ms": bound,
+        "bound_by": bound_by, "launches": got_serve["nv12_preprocess"]
+        + got_pipe["nv12_preprocess"], "max_abs_err": block_err,
+        "timed": "kernel", "whole_call_ms": t_call,
+        "position_ms": t_pos, "single_launch_ms": t_single})
+    log(f"time mesh sharded_kernel_preprocess {MESH_POSITIONS} x {per} x "
+        f"{H}p NV12->{DW}x{DH} on one card: whole_call_ms={t_call} "
+        f"position_launch_ms={t_pos} single_{B}_frame_launch_ms={t_single} "
+        f"bound_ms={bound} per position ({smi})")
+    log(f"mesh 4 positions: sharded_kernel_preprocess and the NV12 pipeline "
+        f"equal one unsharded launch bit for bit; launches "
+        f"{json.dumps(got_serve)} {json.dumps(got_pipe)}")
+
+    # the resize leg: 16 x 4K NV12 -> 1080p, 4 frames a position
+    rng = np.random.default_rng(13)
+    nv4k = torch.from_numpy(make_frames(np, rng, PixelFormat.NV12, B4K, W4K,
+                                        H4K)).to(dev).view(B4K, H4K * 3 // 2,
+                                                           W4K)
+    rgeo = dict(src_w=W4K, src_h=H4K, dst_w=W, dst_h=H)
+    single = nv12_resize(nv4k, **rgeo)
+    rblocks = distribute(nv4k, quad, P("data"))
+    resize = map_over_data(lambda x: nv12_resize(x, **rgeo), quad)
+    small, got_resize = counted(lambda: resize(rblocks))
+    if got_resize["nv12_resize"] != MESH_POSITIONS or not torch.equal(
+            small.gather(dev), single):
+        raise AssertionError(f"sharded nv12_resize: {got_resize}, or it "
+                             f"differs from one unsharded launch")
+    t_single = time_ms(lambda: nv12_resize(nv4k, **rgeo))
+    t_call = time_ms(lambda: resize(rblocks))
+    t_pos = [time_ms(lambda x=sh.data: nv12_resize(x, **rgeo))
+             for sh in rblocks.shards]
+    rblock0 = rblocks.shards[0].data
+    rper = B4K // MESH_POSITIONS
+    resize_err, t_kern, t_plain = held_and_timed(
+        f"nv12_resize mesh position block {rper} x 4k->1080p",
+        lambda: nv12_resize(rblock0, **rgeo),
+        lambda: nv12_resize_plain(rblock0, **rgeo))
+    y = resize_work(rper, H4K, W4K, H, W, 1)
+    c = resize_work(rper, H4K // 2, W4K // 2, H // 2, W // 2, 2)
+    bound, bound_by = bound_ms(y[0] + c[0], y[1] + c[1])
+    out["nv12_resize"][0].append({
+        "case": f"mesh {MESH_POSITIONS} positions x {rper} x 4k->1080p "
+                f"bf16", "ms": t_kern, "plain_ms": t_plain,
+        "bound_ms": bound, "bound_by": bound_by,
+        "launches": got_resize["nv12_resize"], "max_abs_err": resize_err,
+        "timed": "kernel", "whole_call_ms": t_call, "position_ms": t_pos,
+        "single_launch_ms": t_single})
+    log(f"time mesh nv12_resize {MESH_POSITIONS} x {rper} x 4K->1080p on "
+        f"one card: whole_call_ms={t_call} position_launch_ms={t_pos} "
+        f"single_{B4K}_frame_launch_ms={t_single} bound_ms={bound} per "
+        f"position; equal to one unsharded launch bit for bit ({smi})")
+    del nv4k, rblocks, small, single, blocks, sharded, split
+
+    # ---- data 1 x spatial 2 x model 2 on this card ---------------------
+    mesh = dryrun.mesh3([dev] * 4)
+    x = nv12[:MESH_TRAIN_B]
+    prep_whole = fused_preprocess((x,), PixelFormat.NV12, W, H, DW, DH,
+                                  **bt709, out_dtype=torch.float32)
+    model = fcn.params_from_numpy(
+        fcn.numpy_params(np.random.default_rng(5), num_classes=MESH_CLASSES),
+        dev, dtype=torch.bfloat16)
+    reps = dryrun.replicas(model, mesh, fcn.param_specs(model))
+    logits_h = -(-DH // 8)
+    labels = torch.from_numpy(np.random.default_rng(6).integers(
+        0, MESH_CLASSES, (MESH_TRAIN_B, logits_h, -(-DW // 8))))
+    nv12_sh = shard_planes((x,), mesh)
+    loss, prep = dryrun.loss_and_grads(mesh, reps, nv12_sh, labels, W, H,
+                                       DW, DH)
+    rgb = prep(nv12_sh)
+    d = (rgb.gather(dev) - prep_whole).abs().max().item()
+    group = x.numel() * x.element_size()
+    log(f"mesh data1 x spatial2 x model2 sharded_preprocess {MESH_TRAIN_B} x "
+        f"{H}p NV12->{DW}x{DH} f32 vs the unsharded dense route: "
+        f"max_abs_diff={d}; halo bytes received per position "
+        f"{json.dumps({str(k): v for k, v in prep.received.items()})}, "
+        f"held {json.dumps({str(k): v for k, v in prep.held.items()})}, "
+        f"of {group} input bytes")
+    if d > 1e-5 or any(v + prep.held[k] >= group
+                       for k, v in prep.received.items()):
+        raise AssertionError("sharded_preprocess: outside the dense "
+                             "route's envelope, or a position received "
+                             "the whole input")
+    # the tensor-parallel forward against the unsharded FCN
+    with torch.no_grad():
+        tp = fcn.apply_sharded(reps[(0, 0)], prep_whole).float()
+        want = fcn.apply(model, prep_whole).float()
+    scale = max(want.abs().max().item(), 1.0)
+    rel = (tp - want).abs().max().item() / scale
+    log(f"mesh tensor-parallel FCN (widths {fcn.WIDTHS}, {MESH_CLASSES} "
+        f"classes, model 2) vs unsharded: max_abs_diff/max_logit={rel}")
+    if not torch.isfinite(tp).all() or rel > 0.02:
+        raise AssertionError("tensor-parallel FCN outside the bf16 "
+                             "envelope of the unsharded FCN")
+    # one training step against the unsharded step
+    model.zero_grad()
+    loss_w = dryrun.unsharded_loss_and_grads(model, x, labels, W, H, DW, DH)
+    lrel, worst = dryrun.step_differences(reps, loss, model, loss_w)
+    # the update p - 1e-3 g: element for element on every replica, and
+    # against the unsharded step's in units of 1e-3 max|g|
+    wrong, moved, off = dryrun.update_differences(reps, model)
+    log(f"mesh training step (data1 x spatial2 x model2, {MESH_TRAIN_B} x "
+        f"{H}p NV12, one replica per spatial place on {MESH_TRAIN_B // 2} "
+        f"frames): loss={loss.item()} unsharded={loss_w.item()} "
+        f"rel={lrel}; max |grad diff| / max |grad| = {worst}; update: "
+        f"{wrong} elements off p - lr*g, {moved} moved, max |update diff| "
+        f"beyond one bf16 ulp / (lr max|g|) = {off}")
+    if not np.isfinite(loss.item()) or lrel > dryrun.LOSS_RTOL \
+            or worst > dryrun.GRAD_TOL or wrong or not moved \
+            or off > dryrun.GRAD_TOL:
+        raise AssertionError("the sharded training step is outside the "
+                             "envelope of the unsharded step")
+    log("mesh: ok, the machine's mesh, 4 positions (kernels, pipeline, "
+        "resize) and data x spatial x model (halo, FCN, training step)")
+    return out
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@ plain PyTorch versions on the card, the launch counters, the pipeline's
 pinned staging, the Surface ops' streams, the rotator and UD op on the
 card against the same ops on the CPU, the NV12 kernel-variant lab's
 kernels against their plain versions, the 4K NV12 resize lab's kernels
-against their plain versions and nv12_resize, and the NV12 -> RGB convert
-lab's kernels against their plain versions and nv12_to_rgb. They skip where
-torch has no CUDA device.
+against their plain versions and nv12_resize, the NV12 -> RGB convert
+lab's kernels against their plain versions and nv12_to_rgb, and the
+multi-device slice on one card (per-position streams over reused pinned
+buffers, record_stream, the sharded kernels and pipeline against one
+launch). They skip where torch has no CUDA device.
 
 This file imports no JAX, so on a machine with a card it runs alone:
 
@@ -1252,3 +1254,146 @@ def test_transcode_device_half_matches_the_cpu(dev, async_):
         assert a.shape == b.shape == (dw * dh * 3 // 2,)
         d = np.abs(a.astype(int) - b.astype(int))
         assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+# --- the multi-device slice on one card (parallel/mesh.py) ----------------
+
+
+def _quad(dev, n=4):
+    """A "data" mesh of ``n`` positions, all on ``dev``."""
+    from vali_tpu_torch.parallel.mesh import Mesh
+
+    grid = np.empty(n, dtype=object)
+    grid[:] = [dev] * n
+    return Mesh(grid, ("data",))
+
+
+def test_mesh_staging_reuses_pinned_buffers_only_after_every_copy(dev):
+    """[cuda:0]*4: while the caller's stream is busy, batches of 7 frames
+    (padded to 8, cut back to 7) are staged through one pinned buffer
+    each, every position's rows copied on its own stream; a buffer is
+    reused only after all four copy events, so no batch is overwritten."""
+    from vali_tpu_torch.parallel.mesh import ShardedTensor
+
+    fmt, h, w = PixelFormat.YUV420, 64, 128
+    stager = BatchStager(fmt, w, h, dev, keep=2)
+    mesh = _quad(dev)
+    size = format_info(fmt).host_size(w, h)
+    streams = []
+
+    def dispatch(planes):
+        streams.append(torch.cuda.current_stream(dev).cuda_stream)
+        return torch.cat([p.flatten(1) for p in planes], dim=1).clone()
+
+    outs, want = [], []
+    torch.cuda._sleep(200_000_000)  # keep the caller's stream busy
+    for i in range(6):
+        frames = [np.full(size, 10 * i + j, np.uint8) for j in range(7)]
+        want.append(np.stack(frames))
+        outs.append(stager.run_on_mesh(frames, mesh, dispatch))
+    assert all(len(events) == 4 for _, events in stager._inflight)
+    torch.cuda.synchronize()
+    for got, exp in zip(outs, want):
+        assert isinstance(got, ShardedTensor) and got.shape[0] == 7
+        assert np.array_equal(got.numpy(), exp)
+    default = torch.cuda.default_stream(dev).cuda_stream
+    assert len(set(streams[:4])) == 4 and default not in streams
+    # the next batch finds the six buffers free again
+    stager.run_on_mesh(want[0], mesh, dispatch)
+    assert len(stager._inflight) == 1
+
+
+def test_position_streams_keep_freed_inputs_alive(dev):
+    """record_stream: inputs the caller frees while each position's stream
+    still reads them are not handed to another stream's allocations."""
+    from vali_tpu_torch.parallel.mesh import on_position_streams
+
+    n = 1 << 22
+    xs = [torch.full((n,), float(k + 1), device=dev) for k in range(4)]
+
+    def job(x):
+        torch.cuda._sleep(100_000_000)  # still reading when freed below
+        return x * 2
+
+    outs, events = on_position_streams(
+        [(dev, [x], (lambda x=x: job(x))) for x in xs])
+    assert len(events) == 4
+    del xs
+    other = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(other):
+        junk = [torch.zeros(n, device=dev) for _ in range(8)]
+    torch.cuda.synchronize()
+    for k, out in enumerate(outs):
+        assert torch.equal(out, torch.full((n,), 2.0 * (k + 1),
+                                           device=dev))
+    del junk
+
+
+def test_sharded_kernel_preprocess_equals_one_launch(dev):
+    """Four positions of 4 frames each on one card: four launches, bit for
+    bit the single 16-frame launch."""
+    from vali_tpu_torch.parallel.mesh import sharded_kernel_preprocess
+
+    frames = _frames(np.random.default_rng(51), PixelFormat.NV12, 16, 256,
+                     144)
+    nv12 = torch.from_numpy(frames).to(dev).view(16, 216, 256)
+    single = nv12_preprocess(nv12, src_w=256, src_h=144, dst_w=96, dst_h=64)
+    fn = sharded_kernel_preprocess(_quad(dev), 256, 144, 96, 64)
+    n0 = nv12_preprocess.launches
+    out = fn(nv12)
+    torch.cuda.synchronize()
+    assert nv12_preprocess.launches == n0 + 4
+    assert torch.equal(out.gather(dev), single)
+    assert [tuple(s.data.shape) for s in out.shards] == [(4, 3, 64, 96)] * 4
+
+
+def test_mesh_pipeline_equals_the_pipeline_without_one(dev):
+    """The pipeline on [cuda:0]*4 gives the mesh-less pipeline's batches
+    bit for bit, with an EOS tail of 3 frames padded and cut back."""
+    from vali_tpu_torch.pipeline.multistream import MultiStreamPipeline
+    from vali_tpu_torch.utils.synth import HostFrameSource
+
+    fmt, w, h = PixelFormat.NV12, 256, 144
+    frames = list(_frames(np.random.default_rng(52), fmt, 7, w, h))
+
+    def run(mesh):
+        pipe = MultiStreamPipeline([HostFrameSource(frames, fmt, w, h)],
+                                   96, 64, gpu_id=0, batch_size=4,
+                                   mesh=mesh)
+        return [(b.gather(dev) if mesh is not None else b, ids)
+                for b, ids in pipe]
+
+    whole, split = run(None), run(_quad(dev))
+    assert [ids for _, ids in split] == [ids for _, ids in whole] == [
+        [0] * 4, [0] * 3]
+    for (a, _), (b, _) in zip(whole, split):
+        assert torch.equal(a, b)
+
+
+def test_sharded_preprocess_and_tensor_parallel_fcn_match_the_cpu(dev):
+    """data 1 x spatial 2 x model 2 on one card: the row-split dense
+    preprocess within the dense route's float32 envelope (1e-5) of the
+    CPU's, the tensor-parallel FCN within the bf16 golden envelope of the
+    CPU's."""
+    from vali_tpu_torch.models import fcn
+    from vali_tpu_torch.parallel import dryrun
+    from vali_tpu_torch.parallel.mesh import shard_planes, sharded_preprocess
+
+    cpu = torch.device("cpu")
+    nv12 = dryrun.make_planes(2, 144, 256, seed=53)
+    outs, logits = [], []
+    for d in (dev, cpu):
+        mesh = dryrun.mesh3([d] * 4)
+        fn = sharded_preprocess(mesh, PixelFormat.NV12, 256, 144, 96, 64,
+                                out_dtype=torch.float32)
+        rgb = fn(shard_planes((nv12,), mesh)).gather(d)
+        outs.append(rgb.cpu())
+        model = fcn.params_from_numpy(fcn.numpy_params(
+            np.random.default_rng(54), num_classes=16), d,
+            dtype=torch.bfloat16)
+        with torch.no_grad():
+            logits.append(fcn.apply_sharded(
+                fcn.shard_params(model, mesh), rgb))
+        assert max(fn.received.values()) > 0
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-5
+    _golden_envelope(logits[0], logits[1])

@@ -14,7 +14,11 @@ import pytest
 
 import vali_tpu as ref
 import vali_tpu_torch as port
+import torch
+
+from vali_tpu.parallel import mesh as ref_mesh
 from vali_tpu.pipeline import multistream as ref_ms
+from vali_tpu_torch.parallel import mesh as port_mesh
 from vali_tpu_torch.pipeline import multistream as port_ms
 
 #: reference name -> the port's name for the same parameter in the same
@@ -163,13 +167,52 @@ def _defaults(ms):
     return [p.default for p in ps.values()]
 
 
-@pytest.mark.parametrize("mesh", [object(), "data", np.zeros(1)])
-def test_port_pipeline_refuses_a_mesh(clip, mesh):
-    """Sharding a batch over a mesh is not ported: anything but None
-    raises, by keyword and in the reference's positional place, and is
-    never taken as letterbox."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_ms.MultiStreamPipeline([clip], 32, 32, gpu_id=-1, mesh=mesh)
-    args = [clip], 32, 32, -1, None, None, *_defaults(port_ms)[7:16], None
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_ms.MultiStreamPipeline(*args, mesh)
+def _meshes(case):
+    """(reference mesh, port mesh, batch_size) of a refusal case."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    cpus = [torch.device("cpu")] * 2
+    if case == "no data axis":
+        return (JaxMesh(np.array(jax.devices()[:2]), ("x",)),
+                port_mesh.Mesh(np.array(cpus, dtype=object), ("x",)), 2)
+    if case == "batch does not divide":
+        return (ref_mesh.make_mesh(2, 1, jax.devices()[:2]),
+                port_mesh.make_mesh(2, 1, devices=cpus), 3)
+    return object(), object(), 2
+
+
+@pytest.mark.parametrize("case", ["no data axis", "batch does not divide",
+                                  "not a mesh"])
+def test_port_pipeline_refuses_the_meshes_the_reference_refuses(clip,
+                                                                 case):
+    """A mesh without a "data" axis, a batch the data axis does not
+    divide, and an object that is no mesh: the reference refuses each (the
+    last with AttributeError, as it reads ``axis_names``), the port each
+    with ValueError, by keyword and in the reference's positional place
+    (never taken as letterbox)."""
+    ref, ours, batch = _meshes(case)
+    with pytest.raises((ValueError, AttributeError)):
+        ref_ms.MultiStreamPipeline([clip], 32, 32, gpu_id=0,
+                                   batch_size=batch, mesh=ref)
+    with pytest.raises(ValueError, match="mesh"):
+        port_ms.MultiStreamPipeline([clip], 32, 32, gpu_id=-1,
+                                    batch_size=batch, mesh=ours)
+    args = ([clip], 32, 32, -1, None, batch, *_defaults(port_ms)[7:16],
+            None, ours)
+    with pytest.raises(ValueError, match="mesh"):
+        port_ms.MultiStreamPipeline(*args)
+
+
+#: the public functions of parallel/mesh.py, reference name -> port name
+MESH_FUNCTIONS = {"make_mesh": "make_mesh", "shard_planes": "shard_planes",
+                  "sharded_preprocess": "sharded_preprocess",
+                  "sharded_pallas_preprocess": "sharded_kernel_preprocess"}
+
+
+@pytest.mark.parametrize("name", sorted(MESH_FUNCTIONS))
+def test_mesh_functions_keep_the_reference_parameters(name):
+    a = getattr(ref_mesh, name)
+    b = getattr(port_mesh, MESH_FUNCTIONS[name])
+    assert _params(a) == _params(b)
+    assert not _faults(name, a, b)

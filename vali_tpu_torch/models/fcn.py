@@ -19,14 +19,23 @@ The convolutions are cuDNN's (``F.conv2d``) on channels-last tensors: the
 NHWC input permuted to NCHW is already channels-last in memory, so no
 layout copy is made. The JAX package leaves them to XLA, outside any
 Pallas kernel. With float32 weights they run with TF32 off
-(``ops.fused.exact_f32_matmul``). ``param_specs`` (tensor-parallel
-sharding) is not ported yet: it comes with ``parallel/mesh.py``.
+(``ops.fused.exact_f32_matmul``).
+
+Tensor parallelism (the multi-device dry run, ``parallel/dryrun.py``):
+:func:`param_specs` shards every layer's output channels over the mesh's
+"model" axis, as the JAX model's does; :func:`shard_params` cuts a model
+into one :class:`FCNShard` per "model" position of one (data, spatial)
+place (a replica: the reference replicates the parameters over "data"
+and "spatial"), and :func:`apply_sharded` runs them: each position
+computes its channels of a layer from the whole input of that layer, and
+the slices are gathered along channels, in position order, before the
+next layer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused import exact_f32_matmul
+from ..parallel.mesh import Mesh, P, PartitionSpec
 from ..utils.device import get_device
 
 WIDTHS = (32, 64, 128, 256)
@@ -99,15 +109,118 @@ class FCN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[N, H, W, 3] uint8 or float -> [N, H', W', num_classes] logits
         in the weights' dtype."""
-        h = x.to(torch.bfloat16)
-        if x.dtype == torch.uint8:
-            h = h / 255.0
-        h = h.permute(0, 3, 1, 2)
+        h = _model_input(x)
         *convs, head = self.layers()
         with exact_f32_matmul():
             for conv in convs:
                 h = torch.relu(_conv(h, conv))
             return _conv(h, head).permute(0, 2, 3, 1)
+
+
+def _model_input(x: torch.Tensor) -> torch.Tensor:
+    """The model's first cast points: bfloat16 (a uint8 input divided by
+    255 in bfloat16), NHWC -> NCHW."""
+    h = x.to(torch.bfloat16)
+    if x.dtype == torch.uint8:
+        h = h / 255.0
+    return h.permute(0, 3, 1, 2)
+
+
+def param_specs(model: nn.Module) -> Dict[str, PartitionSpec]:
+    """Tensor-parallel specs: output channels sharded over 'model'.
+
+    Keyed by parameter name; the port's weights are OIHW, so a weight's
+    spec names axis 0 (``P("model", None, None, None)``) where the JAX
+    model's HWIO spec names axis 3: the same output channels."""
+    return {name: P("model", None, None, None) if p.dim() == 4
+            else P("model") for name, p in model.named_parameters()}
+
+
+class FCNShard(nn.Module):
+    """One "model" position's slice of an :class:`FCN`: every layer's
+    output channels ``[k*c/M, (k+1)*c/M)`` over all of its input
+    channels, on that position's device."""
+
+    def __init__(self, model: FCN, specs: Dict[str, PartitionSpec],
+                 position: int, parts: int, device: torch.device):
+        super().__init__()
+        self.position, self.device = position, device
+        self.num_layers = model.num_layers
+        params = dict(model.named_parameters())
+        for name, conv in zip([f"conv{i}" for i in range(model.num_layers)]
+                              + ["head"], model.layers()):
+            part = nn.utils.skip_init(
+                nn.Conv2d, conv.in_channels, conv.out_channels // parts,
+                conv.kernel_size, stride=conv.stride, device=device,
+                dtype=conv.weight.dtype)
+            with torch.no_grad():
+                for attr in ("weight", "bias"):
+                    full = params[f"{name}.{attr}"]
+                    getattr(part, attr).copy_(_slice(
+                        full, specs[f"{name}.{attr}"], position, parts))
+            self.add_module(name, part.to(memory_format=torch.channels_last))
+
+    def layers(self):
+        """The convolutions in order, the head last."""
+        return [getattr(self, f"conv{i}") for i in range(self.num_layers)
+                ] + [self.head]
+
+
+def _slice(t: torch.Tensor, spec: PartitionSpec, k: int, parts: int
+           ) -> torch.Tensor:
+    """Block ``k`` of ``parts`` of ``t`` along the dimension ``spec``
+    puts on "model" (``t`` whole where it names none)."""
+    if "model" not in spec:
+        return t
+    dim = spec.index("model")
+    n = t.shape[dim]
+    if n % parts:
+        raise ValueError(f"{n} channels do not divide over {parts} model "
+                         f"positions")
+    return t.narrow(dim, k * (n // parts), n // parts)
+
+
+def shard_params(model: FCN, mesh: Mesh,
+                 specs: Optional[Dict[str, PartitionSpec]] = None, *,
+                 data: int = 0, spatial: int = 0) -> List[FCNShard]:
+    """One :class:`FCNShard` per position of the mesh's "model" axis (one
+    where it has none), on the device of the position with that "model"
+    index, ``data`` on "data" and ``spatial`` on "spatial" (an axis the
+    mesh lacks is left out): one replica of the tensor-parallel model.
+    ``specs`` defaults to :func:`param_specs`; channel counts that do not
+    divide raise."""
+    specs = param_specs(model) if specs is None else specs
+    parts = mesh.axis_size("model")
+    at = {"data": data, "spatial": spatial}
+    shards = []
+    for k in range(parts):
+        pos = tuple(k if name == "model" else at.get(name, 0)
+                    for name in mesh.axis_names)
+        shards.append(FCNShard(model, specs, k, parts, mesh.device(pos)))
+    return shards
+
+
+def apply_sharded(shards: List[FCNShard], x: torch.Tensor) -> torch.Tensor:
+    """Tensor-parallel :func:`apply`: [N, H, W, 3] -> [N, H', W',
+    num_classes] logits on the first shard's device.
+
+    Each shard computes its channels of a layer from that layer's whole
+    input, copied to its device; the slices are then gathered along
+    channels in position order, once per distinct device. The copies are
+    differentiable, so a loss on the result back-propagates into every
+    shard's parameters. The cast points are :class:`FCN`'s."""
+    h = _model_input(x)
+    inputs = {s.device: h.to(s.device) for s in shards}
+    n = shards[0].num_layers
+    with exact_f32_matmul():
+        for i in range(n + 1):
+            outs = []
+            for s in shards:
+                o = _conv(inputs[s.device], s.layers()[i])
+                outs.append(torch.relu(o) if i < n else o)
+            inputs = {dev: torch.cat([o.to(dev) for o in outs], dim=1)
+                      for dev in inputs}
+    return inputs[shards[0].device].permute(0, 2, 3, 1)
 
 
 def init_params(generator: Optional[torch.Generator] = None,

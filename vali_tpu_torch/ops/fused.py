@@ -154,7 +154,51 @@ def fused_preprocess(
         y, u, v = (p[:, :src_h] for p in planes)
     else:
         raise ValueError(f"fused_preprocess does not support {src_fmt.name}")
+    return fused_resample(
+        (y, u, v), preprocess_weights(src_fmt, src_w, src_h, dst_w, dst_h,
+                                      method),
+        src_fmt, space, crange, out_dtype, planar, normalize)
 
+
+def preprocess_weights(src_fmt: PixelFormat, src_w: int, src_h: int,
+                       dst_w: int, dst_h: int, method: str = LANCZOS_AA
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                  np.ndarray]:
+    """The dense fp32 matrices of :func:`fused_preprocess`: ``(luma rows
+    [dst_h, H], chroma rows, luma columns [dst_w, W], chroma columns)``;
+    chroma takes the luma matrix along a full-resolution axis (4:4:4
+    both, 4:2:2 rows)."""
+    src_fmt = PixelFormat(src_fmt)
+    wy_h = resize_weights(src_h, dst_h, method)
+    wy_w = resize_weights(src_w, dst_w, method)
+    if src_fmt in (PixelFormat.YUV444, PixelFormat.YUV444_10bit):
+        return wy_h, wy_h, wy_w, wy_w  # full-resolution chroma
+    wc_w = _chroma_weights(src_w // 2, dst_w, src_w, method)
+    if src_fmt == PixelFormat.YUV422:
+        return wy_h, wy_h, wy_w, wc_w  # full-height chroma rows
+    return (wy_h, _chroma_weights(src_h // 2, dst_h, src_h, method), wy_w,
+            wc_w)
+
+
+def fused_resample(
+    yuv: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    weights: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
+    src_fmt: PixelFormat,
+    space: ColorSpace = ColorSpace.BT_709,
+    crange: ColorRange = ColorRange.MPEG,
+    out_dtype: torch.dtype = torch.uint8,
+    planar: bool = False,
+    normalize: Optional[Tuple[Tuple[float, float, float],
+                              Tuple[float, float, float]]] = None,
+) -> torch.Tensor:
+    """The body of :func:`fused_preprocess` on split planes: ``y``, ``u``,
+    ``v`` [N, rows, cols] resampled by ``weights`` (as
+    :func:`preprocess_weights` orders them, each [n_out, n_in] over the
+    rows or columns it is given), then the colour matrix and the output
+    cast. A caller that holds a band of source rows passes the matching
+    columns of the row matrices (``parallel/mesh.py``)."""
+    src_fmt = PixelFormat(src_fmt)
+    y, u, v = yuv
     mo = colors.yuv2rgb_matrix(space, crange)
     if mo is None:
         raise ValueError(f"Unsupported cc combo {space}/{crange}")
@@ -165,20 +209,8 @@ def fused_preprocess(
     y_offset = y_off * scale
 
     dev = y.device
-
-    def dense(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(dev)
-
-    wy_h = dense(resize_weights(src_h, dst_h, method))
-    wy_w = dense(resize_weights(src_w, dst_w, method))
-    if src_fmt in (PixelFormat.YUV444, PixelFormat.YUV444_10bit):
-        wc_h, wc_w = wy_h, wy_w  # full-resolution chroma
-    elif src_fmt == PixelFormat.YUV422:
-        wc_h = wy_h  # full-height chroma rows
-        wc_w = dense(_chroma_weights(src_w // 2, dst_w, src_w, method))
-    else:
-        wc_h = dense(_chroma_weights(src_h // 2, dst_h, src_h, method))
-        wc_w = dense(_chroma_weights(src_w // 2, dst_w, src_w, method))
+    wy_h, wc_h, wy_w, wc_w = (torch.from_numpy(np.ascontiguousarray(w)).to(
+        dev) for w in weights)
 
     def resample(p, wh, ww):
         return torch.matmul(torch.matmul(wh, to_f32(p)), ww.T)

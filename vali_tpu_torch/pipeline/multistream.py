@@ -30,6 +30,8 @@ from ..ops import colors
 from ..ops.banded import kernel_preprocess, kernel_preprocess_formats
 from ..ops.fused import fused_preprocess, letterbox_pad, letterbox_params
 from ..ops.resize import LANCZOS_AA
+from ..parallel.mesh import (Mesh, P, Shard, ShardedTensor,
+                             on_position_streams)
 from ..utils.device import get_device, kernel_platform_available
 
 
@@ -118,6 +120,7 @@ class BatchStager:
     reused only once the event reports completion, because overwriting it
     while the async copy is still reading would corrupt the batch in
     flight. On the CPU the planes are views of a freshly stacked array.
+    :meth:`run_on_mesh` splits a staged batch over a mesh's "data" axis.
     """
 
     def __init__(self, src_fmt: PixelFormat, src_w: int, src_h: int,
@@ -126,7 +129,8 @@ class BatchStager:
         self.src_w, self.src_h = src_w, src_h
         self.device = torch.device(device)
         self.keep = keep
-        self._inflight: List[Tuple[torch.Tensor, torch.cuda.Event]] = []
+        #: (pinned buffer, the events of the copies that read it)
+        self._inflight: List[Tuple[torch.Tensor, list]] = []
         self._free: List[torch.Tensor] = []
 
     def split(self, batch: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -145,11 +149,11 @@ class BatchStager:
     def _acquire(self, n: int, total: int) -> torch.Tensor:
         """A pinned [n, total] buffer no pending copy reads any more."""
         still = []
-        for buf, event in self._inflight:
-            if event.query():
+        for buf, events in self._inflight:
+            if all(e.query() for e in events):
                 self._free.append(buf)
             else:
-                still.append((buf, event))
+                still.append((buf, events))
         self._inflight = still
         for i, buf in enumerate(self._free):
             if tuple(buf.shape) == (n, total):
@@ -176,8 +180,49 @@ class BatchStager:
         out = dispatch(self.split(dev))
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        self._inflight.append((host, event))
+        self._inflight.append((host, [event]))
         return out
+
+    def run_on_mesh(self, frames: Sequence[np.ndarray], mesh: Mesh,
+                    dispatch: Callable[[Tuple[torch.Tensor, ...]],
+                                       torch.Tensor]) -> ShardedTensor:
+        """Stage ``frames`` and run ``dispatch`` on every position of
+        ``mesh``, each on its own block of the batch: the batch is split
+        over the "data" axis (positions along other axes hold replicas).
+
+        The frames are stacked into one batch, padded by repeating the
+        last frame until the "data" axis divides it (the EOS tail); the
+        padding is sliced off the result. On a card the batch is stacked
+        into one pinned buffer, each position's rows go to its device with
+        one non_blocking copy on its own stream, where its ``dispatch``
+        runs too (``parallel/mesh.on_position_streams``); the buffer is
+        reused only after every position's copy event."""
+        n = len(frames)
+        data = mesh.axis_size("data")
+        frames = list(frames) + [frames[-1]] * (-n % data)
+        rows = len(frames) // data
+        cuda = any(d.type == "cuda" for d in mesh.devices.flat)
+        if cuda:
+            host = self._acquire(len(frames), frames[0].nbytes)
+            np.stack([f.view(np.uint8) for f in frames], out=host.numpy())
+        else:
+            host = torch.from_numpy(np.stack(frames))
+        jobs, index = [], []
+        for pos in mesh.positions():
+            dev = mesh.device(pos)
+            d = mesh.coord(pos, "data")
+            part = host[d * rows:(d + 1) * rows]
+            jobs.append((dev, [], (lambda part=part, dev=dev: dispatch(
+                self.split(part.to(dev, non_blocking=True))))))
+            index.append((pos, dev, slice(d * rows, (d + 1) * rows)))
+        outs, events = on_position_streams(jobs)
+        if cuda:
+            self._inflight.append((host, events))
+        shards = [Shard(pos, dev, (b,) + tuple(slice(0, k)
+                                               for k in out.shape[1:]), out)
+                  for (pos, dev, b), out in zip(index, outs)]
+        return ShardedTensor((len(frames),) + tuple(outs[0].shape[1:]),
+                             mesh, P("data"), shards).head(n)
 
 
 class MultiStreamPipeline:
@@ -186,7 +231,9 @@ class MultiStreamPipeline:
     Yields (batch, stream_ids): ``batch`` is a [B, dst_h, dst_w, 3] tensor
     on the target device (uint8, or float when ``normalize`` / a float
     ``out_dtype``); ``stream_ids`` names the source of each row. The
-    batch may still be in flight on the device's current stream.
+    batch may still be in flight on the device's current stream. With a
+    ``mesh`` the batch is a ``parallel/mesh.ShardedTensor`` split over the
+    mesh's "data" axis.
     """
 
     def __init__(self, sources: Sequence, dst_w: int, dst_h: int,
@@ -218,22 +265,34 @@ class MultiStreamPipeline:
         over this many threads instead of one thread per stream (default:
         min(n_streams, 4*cpu_count); sync_streams always uses one thread
         per stream). ``gpu_id=-1`` runs the preprocess on the CPU.
-        ``mesh`` keeps the reference's place in the signature; sharding a
-        batch over several cards is not ported yet, so anything but None
-        raises NotImplementedError. ``letterbox=True`` keeps the source aspect ratio: content is
+        ``mesh``: a ``parallel/mesh.Mesh`` with a "data" axis — staged
+        batches are split over it and the preprocess runs on every
+        position of the mesh, each on its own device and stream
+        (batch_size must be divisible by the data-axis size; gpu_id is
+        then ignored). ``letterbox=True`` keeps the source aspect ratio: content is
         resized to fit inside dst_w x dst_h and centered on a
         ``pad_value`` canvas (see ops/fused.letterbox_params for mapping
         model outputs back to source coordinates)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultiStreamPipeline(mesh=...): sharding a batch over a "
-                "device mesh is not yet ported; pass mesh=None")
         if not sources:
             raise ValueError("Need at least one source")
         self.sources = list(sources)
         self.dst_w, self.dst_h = dst_w, dst_h
-        self.device = get_device(gpu_id)
         self.batch_size = batch_size or len(self.sources)
+        self.mesh = mesh
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
+                                 f"{type(mesh).__name__}")
+            if "data" not in mesh.axis_names:
+                raise ValueError("mesh needs a 'data' axis")
+            data_size = mesh.shape["data"]
+            if self.batch_size % data_size:
+                raise ValueError(
+                    f"batch_size {self.batch_size} not divisible by the "
+                    f"mesh data axis ({data_size})")
+            self.device = mesh.devices.flat[0]
+        else:
+            self.device = get_device(gpu_id)
         self.space, self.crange = space, crange
         self.out_dtype = out_dtype
         self.planar = planar
@@ -424,7 +483,11 @@ class MultiStreamPipeline:
             return None
         frames, ids = item
         try:
-            out = self._stager.run(frames, self._dispatch_planes)
+            if self.mesh is not None:
+                out = self._stager.run_on_mesh(frames, self.mesh,
+                                               self._dispatch_planes)
+            else:
+                out = self._stager.run(frames, self._dispatch_planes)
         finally:
             for buf in frames:  # recycle decode buffers
                 self._buf_pool.put(buf)
@@ -432,7 +495,8 @@ class MultiStreamPipeline:
 
     def _dispatch_planes(self, planes):
         """Device-side half of :meth:`_stage_one`: the fused preprocess
-        over already device-resident planes."""
+        over already device-resident planes (with a mesh, one position's
+        block, on that position's device and stream)."""
         return preprocess_batch(
             planes, self.src_fmt, self.src_w, self.src_h,
             self.dst_w, self.dst_h, space=self.space,
