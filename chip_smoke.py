@@ -44,7 +44,13 @@ this card with the NV12 preprocess and resize kernels run per data block,
 each equal to one unsharded launch bit for bit; the dense preprocess
 split over rows (data 1 x spatial 2 x model 2) with the halo bytes each
 position receives, the tensor-parallel FCN and one training step, each
-held to its unsharded run. It builds the CUDA
+held to its unsharded run; then the port's samples
+(``vali_tpu_torch.samples``): ``sample_profile`` under torch.profiler at
+8 x 848x464 NV12 -> 224, and the four pipeline samples (multistream,
+detection letterbox, segmentation into the FCN, multichip on a
+four-position mesh of this card) on four in-memory 1080p streams, each
+held to its plain path, with get_device_info and the decode-based
+samples where the native engine builds. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -509,6 +515,9 @@ def main() -> int:
         x["launches"] for x in pr["shapes"])
     mesh = mesh_phase(torch, np, dev, host, planes, smi)
     lap("mesh")
+    samples = samples_phase(torch, np, dev, host[PixelFormat.YUV420],
+                            planes[PixelFormat.YUV420], no_engine, smi)
+    lap("samples")
     # no single PyTorch call computes fused CSC + banded Lanczos:
     # library_ms is null
     preprocess = {  # wrapper: chroma layout, TPU kernel line, checked case
@@ -538,18 +547,20 @@ def main() -> int:
             / max(1, sum(x["launches"] for x in sh)),
             "shapes": sh})
     kernels += surface + lab
-    # the mesh path's launches and shapes join each kernel's entry
+    # the mesh path's and the samples' launches and shapes join each
+    # kernel's entry
     for entry in kernels:
-        if entry["name"] not in mesh:
-            continue
-        shapes, n = mesh[entry["name"]]
-        entry["launches"] += n
-        entry["shapes"] += shapes
-        entry["max_abs_err"] = max([entry["max_abs_err"]] + [
-            x["max_abs_err"] for x in shapes])
-        entry["launch_weighted_ms"] = sum(
-            x["ms"] * x["launches"] for x in entry["shapes"]) / max(
-            1, sum(x["launches"] for x in entry["shapes"]))
+        for more in (mesh, samples):
+            if entry["name"] not in more:
+                continue
+            shapes, n = more[entry["name"]]
+            entry["launches"] += n
+            entry["shapes"] += shapes
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+                x["max_abs_err"] for x in shapes])
+            entry["launch_weighted_ms"] = sum(
+                x["ms"] * x["launches"] for x in entry["shapes"]) / max(
+                1, sum(x["launches"] for x in entry["shapes"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2262,6 +2273,250 @@ def mesh_phase(torch, np, dev, host, planes, smi):
                              "envelope of the unsharded step")
     log("mesh: ok, the machine's mesh, 4 positions (kernels, pipeline, "
         "resize) and data x spatial x model (halo, FCN, training step)")
+    return out
+
+
+SAMPLE_STREAMS = 4     # in-memory 1080p YUV420 streams of the samples
+SAMPLE_FRAMES = 6      # frames of each stream (stream s repeats frame s)
+SAMPLE_POSITIONS = 4   # sample_multichip's mesh positions on this card
+SAMPLE_BATCHES = 2     # batches sample_multichip takes
+#: the samples that need the native engine, with their arguments ({clip}
+#: is a synthesised 848x464 clip in the directory {tmp})
+DECODE_SAMPLES = (
+    ("get_device_info", ()), ("sample_decode", ("{clip}",)),
+    ("sample_seek", ("{clip}",)),
+    ("sample_decode_from_network", ("{clip}",)),
+    ("sample_transcode", ("{clip}", "{tmp}/out.mp4", "320", "180")),
+    ("sample_jpeg", ("{clip}", "2")),
+    ("sample_torch_interop", ("{clip}", "2")),
+    ("sample_scene_detection", ("{clip}",)),
+    ("sample_hdr_tonemap", ("{tmp}/hdr.h264", "{tmp}/sdr.h264")))
+
+
+def samples_phase(torch, np, dev, frames, planes, no_engine, smi):
+    """The port's samples (``vali_tpu_torch/samples``) on the card.
+
+    ``sample_profile``: 8 x 848x464 NV12 -> 224 through preprocess_batch
+    under torch.profiler; its batch held to nv12_preprocess_plain, its
+    trace checked for the sample's scope, its frames/s logged. The four
+    pipeline samples on SAMPLE_STREAMS in-memory 1080p YUV420 streams
+    (``frames``, with their device ``planes``), stream s repeating frame
+    s, so that every row of a batch is known from its stream id:
+    sample_multistream (224 u8), sample_detection_preprocess (640
+    letterbox), sample_segmentation (224 f32 -> the FCN) and
+    sample_multichip (a mesh of SAMPLE_POSITIONS positions on this card),
+    each sample's batches held to the plain version on the same frames
+    and the FCN's classes to those of the plain batches. Every count is
+    set to 0 just before each sample and read just after; each shape a
+    sample launches a kernel at is held to the plain version and timed.
+    get_device_info, the decode-based samples and sample_multistream's
+    jpeg mode run where the native engine loads; else one line says why
+    not. They are counted too, plane_resize and nv12_to_rgb among the
+    wrappers (sample_transcode's ToNV12, sample_torch_interop's
+    converter), and their launches join each kernel's total; the shapes
+    they launch at (a decoded clip's) are not timed or held to the plain
+    version here, each sample checking its own output. Returns {kernel:
+    (shape entries, launches in the samples)}."""
+    import importlib
+
+    from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
+    from vali_tpu_torch.models import fcn
+    from vali_tpu_torch.ops.fused import letterbox_params
+    from vali_tpu_torch.ops.nv12_preprocess import (nv12_preprocess,
+                                                    nv12_preprocess_plain)
+    from vali_tpu_torch.ops.nv12_to_rgb import nv12_to_rgb
+    from vali_tpu_torch.ops.plane_resize import plane_resize
+    from vali_tpu_torch.ops.yuv420_preprocess import (
+        yuv420_preprocess, yuv420_preprocess_plain)
+    from vali_tpu_torch.samples import (sample_detection_preprocess,
+                                        sample_multichip, sample_multistream,
+                                        sample_profile, sample_segmentation)
+    from vali_tpu_torch.utils.synth import HostFrameSource, synthesize_clip
+
+    bt709 = dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG)
+    wrappers = (nv12_preprocess, yuv420_preprocess, plane_resize,
+                nv12_to_rgb)
+    out = {w.__name__: ([], 0) for w in wrappers}
+
+    def counted(name, run):
+        """run() with every count set to 0 just before and read just
+        after; the launches join each kernel's samples total."""
+        for w in wrappers:
+            w.launches = 0
+        result = run()
+        torch.cuda.synchronize()
+        got = {w.__name__: w.launches for w in wrappers}
+        for k, n in got.items():
+            out[k] = (out[k][0], out[k][1] + n)
+        log(f"sample {name}: launches={json.dumps(got)}")
+        return result, got
+
+    def shape(kernel, case, kern, plain, work, launches):
+        """kern() against plain() once, both timed: the shape's entry.
+        These launches lie outside the counted runs."""
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = compare(torch, f"kernel_{kernel} {case}", got, ref)
+        del got, ref
+        t_kern, t_plain = time_pair(kern, plain)
+        bound, bound_by = bound_ms(*work)
+        log(f"time {kernel} {case}: kernel_ms={t_kern} plain_ms={t_plain} "
+            f"bound_ms={bound} bound_by={bound_by} "
+            f"sample_launches={launches} ({smi})")
+        out[kernel][0].append({
+            "case": case, "ms": t_kern, "plain_ms": t_plain,
+            "bound_ms": bound, "bound_by": bound_by, "launches": launches,
+            "max_abs_err": err, "timed": "kernel"})
+
+    # ---- sample_profile: the NV12 kernel at 8 x 848x464 -> 224 ----------
+    sp = sample_profile
+    with tempfile.TemporaryDirectory() as tmp:
+        (nv12, batch, path, fps), got = counted(
+            "sample_profile", lambda: sp.profile(tmp, dev))
+        with open(path) as f:
+            trace = f.read()
+    pgeo = dict(src_w=sp.W, src_h=sp.H, dst_w=sp.D, dst_h=sp.D, **bt709)
+    n = got["nv12_preprocess"]
+    if n != sp.STEPS + 1:
+        raise AssertionError(f"sample_profile launched nv12_preprocess {n} "
+                             f"times, expected {sp.STEPS + 1}")
+    compare(torch, "sample_profile batch vs nv12_preprocess_plain", batch,
+            nv12_preprocess_plain(nv12, **pgeo).movedim(1, -1))
+    scope = f"vali::{sp.SCOPE}"
+    if scope not in trace:
+        raise AssertionError(f"sample_profile's trace lacks {scope}")
+    log(f"sample_profile: frames_per_s={fps} under torch.profiler (host "
+        f"clock, {sp.STEPS} x {sp.B} frames {sp.W}x{sp.H} NV12 -> "
+        f"{sp.D}x{sp.D}, each step synchronised); trace {len(trace)} bytes "
+        f"names {scope}; names the kernel (preprocess_kernel): "
+        f"{'preprocess_kernel' in trace} ({smi})")
+    shape("nv12_preprocess", f"sample_profile {sp.B} x {sp.W}x{sp.H}->"
+          f"{sp.D}x{sp.D} u8/bf16", lambda: nv12_preprocess(nv12, **pgeo),
+          lambda: nv12_preprocess_plain(nv12, **pgeo),
+          preprocess_work(sp.B, sp.W, sp.H, sp.D, sp.D, "420"), n)
+
+    # ---- the pipeline samples on in-memory 1080p streams ----------------
+    S = SAMPLE_STREAMS
+    p = tuple(x[:S] for x in planes)
+
+    def streams():
+        return [HostFrameSource([frames[s]] * SAMPLE_FRAMES,
+                                PixelFormat.YUV420, W, H) for s in range(S)]
+
+    def stacked(seen, ref):
+        """(the batches' rows, the rows of ``ref`` of their streams)."""
+        ids = torch.tensor([i for _, ids in seen for i in ids],
+                           device=ref.device)
+        return torch.cat([b for b, _ in seen]), ref[ids]
+
+    def plain(**kw):
+        return yuv420_preprocess_plain(*p, **dict(
+            dict(src_w=W, src_h=H, dst_w=DW, dst_h=DH), **bt709, **kw))
+
+    def kern(**kw):
+        return lambda: yuv420_preprocess(*p, **dict(
+            dict(src_w=W, src_h=H, dst_w=DW, dst_h=DH), **bt709, **kw))
+
+    seen = []
+    (n, _), got = counted("sample_multistream", lambda: sample_multistream.run(
+        streams(), dev, on_batch=lambda b, ids: seen.append((b, ids))))
+    batch, want = stacked(seen, plain().movedim(1, -1))
+    if n != S * SAMPLE_FRAMES or batch.shape != (n, DH, DW, 3):
+        raise AssertionError(f"sample_multistream: {n} frames")
+    compare(torch, "sample_multistream batches vs the plain version", batch,
+            want)
+    shape("yuv420_preprocess", f"sample_multistream {S} x {H}p->{DW}x{DH} "
+          f"u8/bf16", kern(), plain,
+          preprocess_work(S, W, H, DW, DH, "420"),
+          got["yuv420_preprocess"])
+
+    iw, ih, left, top, _ = letterbox_params(W, H, LETTERBOX, LETTERBOX)
+    seen = []
+    (n, _, _), got = counted(
+        "sample_detection_preprocess",
+        lambda: sample_detection_preprocess.run(
+            streams(), dev, LETTERBOX,
+            on_batch=lambda b, ids: seen.append((b, ids))))
+    batch, want = stacked(seen, plain(dst_w=iw, dst_h=ih).movedim(1, -1))
+    canvas = torch.full_like(batch, 114)
+    canvas[:, top:top + ih, left:left + iw] = batch[:, top:top + ih,
+                                                    left:left + iw]
+    if n != S * SAMPLE_FRAMES or not torch.equal(canvas, batch):
+        raise AssertionError("sample_detection_preprocess: frames or bars")
+    compare(torch, "sample_detection_preprocess content vs the plain "
+            "version", batch[:, top:top + ih, left:left + iw], want)
+    shape("yuv420_preprocess", f"sample_detection_preprocess {S} x {H}p->"
+          f"{iw}x{ih} u8/bf16 (letterbox {LETTERBOX})",
+          kern(dst_w=iw, dst_h=ih), lambda: plain(dst_w=iw, dst_h=ih),
+          preprocess_work(S, W, H, iw, ih, "420"),
+          got["yuv420_preprocess"])
+
+    seen = []
+    (n, model), got = counted(
+        "sample_segmentation", lambda: sample_segmentation.run(
+            streams(), dev,
+            on_batch=lambda b, ids, c: seen.append(((b, c), ids))))
+    f32 = dict(out_dtype=torch.float32)
+    batch, want = stacked([(b, ids) for (b, _), ids in seen],
+                          plain(**f32).movedim(1, -1))
+    classes = torch.cat([c for (_, c), _ in seen])
+    compare(torch, "sample_segmentation batches vs the plain version",
+            batch, want)
+    agree = (fcn.predict_classes(model, want) == classes).double().mean()
+    log(f"sample_segmentation: {n} frames; FCN classes of the kernel's "
+        f"batches vs the plain batches: agreement={agree.item()}")
+    if n != S * SAMPLE_FRAMES or agree.item() <= 0.98:
+        raise AssertionError("sample_segmentation: frames or classes")
+    shape("yuv420_preprocess", f"sample_segmentation {S} x {H}p->{DW}x{DH} "
+          f"f32", kern(**f32), lambda: plain(**f32),
+          preprocess_work(S, W, H, DW, DH, "420", out_bytes=4),
+          got["yuv420_preprocess"])
+
+    seen = []
+    done, got = counted("sample_multichip", lambda: sample_multichip.run(
+        streams(), dev, SAMPLE_POSITIONS, SAMPLE_BATCHES,
+        on_batch=lambda b, ids: seen.append((b.gather(dev), ids))))
+    batch, want = stacked(seen, plain().movedim(1, -1))
+    if done != SAMPLE_BATCHES or batch.shape[0] != 2 * SAMPLE_POSITIONS * done:
+        raise AssertionError(f"sample_multichip: {done} batches")
+    compare(torch, "sample_multichip batches vs the plain version", batch,
+            want)
+    per = 2  # frames a position preprocesses per batch
+    shape("yuv420_preprocess", f"sample_multichip {SAMPLE_POSITIONS} "
+          f"positions x {per} x {H}p->{DW}x{DH} u8/bf16",
+          lambda: yuv420_preprocess(*(x[:per] for x in p), src_w=W, src_h=H,
+                                    dst_w=DW, dst_h=DH, **bt709),
+          lambda: yuv420_preprocess_plain(*(x[:per] for x in p), src_w=W,
+                                          src_h=H, dst_w=DW, dst_h=DH,
+                                          **bt709),
+          preprocess_work(per, W, H, DW, DH, "420"),
+          got["yuv420_preprocess"])
+
+    # ---- get_device_info and the samples that need the native engine ----
+    names = ", ".join([n for n, _ in DECODE_SAMPLES]
+                      + ["sample_multistream jpeg"])
+    if no_engine:
+        log(f"samples {names}: skipped: {no_engine}")
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = synthesize_clip(f"{tmp}/clip.mp4")
+        from vali_tpu_torch.samples.sample_hdr_tonemap import (
+            synthesize_hdr_clip)
+
+        synthesize_hdr_clip(f"{tmp}/hdr.h264")
+        for name, args in DECODE_SAMPLES:
+            main = importlib.import_module(
+                f"vali_tpu_torch.samples.{name}").main
+            counted(name, lambda: main(
+                [a.format(clip=clip, tmp=tmp) for a in args]
+                + ["--device", str(dev)]))
+    (blobs, n, _), _ = counted("sample_multistream jpeg",
+                               lambda: sample_multistream.run_jpeg(
+                                   streams(), dev))
+    if n != S * SAMPLE_FRAMES or not all(b[:2].tolist() == [0xFF, 0xD8]
+                                         for b in blobs):
+        raise AssertionError("sample_multistream jpeg: bad JPEGs")
+    log(f"samples {names}: ok")
     return out
 
 

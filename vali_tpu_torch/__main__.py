@@ -19,6 +19,8 @@ import sys
 
 import numpy as np
 
+from .utils.device import device_gpu_id
+
 
 def cmd_probe(args):
     import vali_tpu_torch as vali
@@ -63,7 +65,7 @@ class ToNV12:
     def __init__(self, fmt, width, height, device):
         import vali_tpu_torch as vali
 
-        gpu_id = (device.index or 0) if device.type == "cuda" else -1
+        gpu_id = device_gpu_id(device)
         self._rsz = vali.PySurfaceResizer(fmt, gpu_id=gpu_id, turbo=True)
         self.small = vali.Surface.Make(fmt, width, height, device=device)
         if fmt == vali.PixelFormat.NV12:
@@ -102,7 +104,7 @@ def cmd_transcode(args, device):
         w, h = (int(v) for v in args[2].split("x"))
     else:
         w = h = None
-    gpu_id = (device.index or 0) if device.type == "cuda" else -1
+    gpu_id = device_gpu_id(device)
     dec = vali.PyDecoder(src_url, {}, gpu_id=max(gpu_id, 0), device=device)
     w = w or dec.Width
     h = h or dec.Height
@@ -125,9 +127,24 @@ def cmd_transcode(args, device):
     print(f"transcoded {n} frames -> {out_path}")
 
 
-def _device(name):
+def pop_device(argv):
+    """(the device ``--device NAME`` names, ``argv`` without the option):
+    "cuda" when the option is absent, None when it has no name."""
+    argv = list(argv)
+    if "--device" not in argv:
+        return "cuda", argv
+    i = argv.index("--device")
+    if i + 1 >= len(argv):
+        return None, argv
+    name = argv.pop(i + 1)
+    argv.pop(i)
+    return name, argv
+
+
+def _device(name, what):
     """The torch device ``--device`` names; None (after a message) when it
-    names no device this machine has."""
+    names no device this machine has. ``what`` names the command in the
+    message."""
     import torch
 
     if name not in ("cpu", "cuda") and not name.startswith("cuda:"):
@@ -136,24 +153,16 @@ def _device(name):
         return None
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        print("vali_tpu_torch: transcode runs on a CUDA device and this "
-              "machine has none (pass --device cpu to run it on the CPU)",
+        print(f"vali_tpu_torch: {what} runs on a CUDA device and this "
+              f"machine has none (pass --device cpu to run it on the CPU)",
               file=sys.stderr)
         return None
     return device
 
 
 def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    device_name = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        if i + 1 >= len(argv):
-            print(__doc__)
-            return 1
-        device_name = argv.pop(i + 1)
-        argv.pop(i)
-    if not argv:
+    device_name, argv = pop_device(sys.argv[1:] if argv is None else argv)
+    if device_name is None or not argv:
         print(__doc__)
         return 1
     cmd, args = argv[0], argv[1:]
@@ -162,7 +171,7 @@ def main(argv=None):
     elif cmd == "decode":
         cmd_decode(args)
     elif cmd == "transcode":
-        device = _device(device_name)
+        device = _device(device_name, "transcode")
         if device is None:
             return 2
         cmd_transcode(args, device)

@@ -1,56 +1,48 @@
 """Loader for the native engine extension.
 
-The port shares the native demux/decode/encode engine with ``vali_tpu``:
-the extension built from ``src/native`` into ``vali_tpu/_native*.so``. It
-is loaded here by file path, so that ``vali_tpu`` (and with it JAX) is
-never imported. If ``vali_tpu`` already loaded the extension in this
-process, that module is reused. When the library is missing it is built
-with ``setup.py build_ext --inplace`` (FFmpeg headers via pkg-config and
-libjpeg are needed); a failure raises ImportError with the build's output
-and is remembered.
+The port's native demux/decode/encode engine is its own extension
+module, ``vali_tpu_torch._native``, built from the repository's C++
+engine (``src/native``) into ``build/vali_tpu_torch/native/`` at first
+use (``engine/_native_build.py``) and loaded from there by file path.
+It never reads the JAX package's extension. Both packages' extensions
+may live in one process: each is dlopen'ed with ``RTLD_LOCAL`` and built
+with hidden visibility, under its own module name, so their symbols and
+state stay apart; they share the dlopen'ed libav libraries, so
+``SetFFMpegLogLevel`` in one package sets FFmpeg's log level for both.
+A failed build raises ImportError with the tail of the compiler's output,
+and the failure is remembered.
 """
 
 from __future__ import annotations
 
 import importlib.machinery
 import importlib.util
-import os
-import subprocess
 import sys
 import threading
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+from . import _native_build
+
+MODULE = "vali_tpu_torch._native"
 _native = None
 _error: Exception | None = None
 _lock = threading.Lock()
 
 
 def load_native():
-    # Fast path without the lock; the build path below must be
-    # serialized — two threads racing `setup.py build_ext --inplace`
-    # into the same build dir clobber each other's .o/.so files.
+    """The engine's extension module, built and loaded on first use."""
     if _native is not None:
         return _native
     with _lock:
         return _load_native_locked()
 
 
-def _library_path():
-    for suffix in importlib.machinery.EXTENSION_SUFFIXES:
-        path = os.path.join(_REPO_ROOT, "vali_tpu", "_native" + suffix)
-        if os.path.exists(path):
-            return path
-    return None
-
-
 def _load(path: str):
-    name = "vali_tpu_torch._native"
-    loader = importlib.machinery.ExtensionFileLoader(name, path)
-    spec = importlib.util.spec_from_file_location(name, path, loader=loader)
+    loader = importlib.machinery.ExtensionFileLoader(MODULE, path)
+    spec = importlib.util.spec_from_file_location(MODULE, path,
+                                                  loader=loader)
     mod = importlib.util.module_from_spec(spec)
     loader.exec_module(mod)
-    sys.modules[name] = mod
+    sys.modules[MODULE] = mod
     return mod
 
 
@@ -61,26 +53,13 @@ def _load_native_locked():
     if _error is not None:
         raise ImportError(
             f"native engine unavailable: {_error}") from _error
-    shared = sys.modules.get("vali_tpu._native")
-    if shared is not None:
-        _native = shared
-        return _native
-    path = _library_path()
-    if path is None and os.path.exists(os.path.join(_REPO_ROOT, "setup.py")):
-        try:
-            subprocess.run(
-                [sys.executable, "setup.py", "build_ext", "--inplace"],
-                cwd=_REPO_ROOT, check=True, capture_output=True, text=True)
-        except subprocess.CalledProcessError as e:
-            _error = e
-            detail = "\n".join(
-                (e.stdout + e.stderr).splitlines()[-15:])
-            raise ImportError(
-                f"Failed to build the native engine: {e}\n{detail}") from e
-        path = _library_path()
-    if path is None:
-        _error = ImportError("native engine library not found")
-        raise _error
+    try:
+        path = _native_build.build()
+    except (RuntimeError, OSError) as e:
+        _error = e
+        lines = str(e).splitlines() or [repr(e)]
+        raise ImportError(f"Failed to build the native engine: {lines[0]}\n"
+                          + "\n".join(lines[-15:])) from e
     try:
         _native = _load(path)
     except ImportError as e:

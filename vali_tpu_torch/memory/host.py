@@ -16,7 +16,7 @@ import torch
 
 from ..core.enums import PixelFormat
 from ..core.formats import format_info
-from ..utils.device import Stream, get_stream
+from ..utils.device import Stream, device_gpu_id, get_stream
 
 if TYPE_CHECKING:
     from .surface import Surface
@@ -132,8 +132,7 @@ def download_host_frame(surface: "Surface",
         raise ValueError("cannot download an empty Surface")
     device = surface.device
     if stream is None:
-        stream = get_stream(
-            None, (device.index or 0) if device.type == "cuda" else -1)
+        stream = get_stream(None, device_gpu_id(device))
     if stream.device != device:
         raise ValueError(f"Surface on {device}, stream on {stream.device}")
     on_card = stream.torch_stream is not None

@@ -5,20 +5,19 @@ interface. At first use each source is compiled by its own nvcc process,
 all started together, and the objects are linked into one shared library
 under ``build/vali_tpu_torch_kernels/`` beside the package, keyed by a hash
 of the sources and flags, under a file lock so concurrent processes build
-once; later calls load the cached library with ``ctypes``. Importing the
-package never runs nvcc. A failed build raises with the tail of nvcc's
+once (``utils/_build.locked_build``); later calls load the cached library
+with ``ctypes``. Importing the package never runs nvcc. A failed build raises with the tail of nvcc's
 output.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
+
+from ..utils._build import locked_build, source_key
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
@@ -104,45 +103,7 @@ def _nvcc() -> str:
 
 
 def _source_key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for rel in _SOURCES + _HEADERS:
-        with open(os.path.join(_PKG_DIR, rel), "rb") as f:
-            h.update(rel.encode() + b"\0" + f.read())
-    return h.hexdigest()[:16]
-
-
-def _run_all(cmds) -> None:
-    """Run the commands in parallel; raise with the first failure's
-    output."""
-    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True))
-             for cmd in cmds]
-    failed = None
-    for cmd, proc in procs:
-        output = proc.communicate()[0]
-        if proc.returncode != 0 and failed is None:
-            failed = (cmd, proc.returncode, output)
-    if failed is not None:
-        cmd, code, output = failed
-        tail = "\n".join(output.splitlines()[-40:])
-        raise RuntimeError(
-            f"nvcc failed (exit {code}): {' '.join(cmd)}\n{tail}")
-
-
-def _build(out_path: str) -> None:
-    tmp = f"{out_path}.{os.getpid()}"
-    nvcc = _nvcc()
-    objs = [f"{tmp}.{i}.o" for i in range(len(_SOURCES))]
-    try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                   os.path.join(_PKG_DIR, rel)]
-                  for rel, obj in zip(_SOURCES, objs)])
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objs]])
-        os.replace(f"{tmp}.so", out_path)
-    finally:
-        for obj in objs:
-            if os.path.exists(obj):
-                os.remove(obj)
+    return source_key(NVCC_FLAGS, _PKG_DIR, _SOURCES + _HEADERS)
 
 
 def library_path() -> str:
@@ -158,14 +119,11 @@ def load_kernels() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         path = library_path()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(os.path.join(BUILD_DIR, "lock"), "w") as lock_file:
-            fcntl.flock(lock_file, fcntl.LOCK_EX)
-            try:
-                if not os.path.exists(path):
-                    _build(path)
-            finally:
-                fcntl.flock(lock_file, fcntl.LOCK_UN)
+        if not os.path.exists(path):  # nvcc is needed only to build
+            nvcc = [_nvcc(), *NVCC_FLAGS]
+            locked_build(path, nvcc,
+                         [os.path.join(_PKG_DIR, rel) for rel in _SOURCES],
+                         [*nvcc, "-shared"])
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

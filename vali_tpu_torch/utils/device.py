@@ -43,6 +43,13 @@ def get_device(gpu_id: int) -> torch.device:
     return torch.device("cuda", gpu_id)
 
 
+def device_gpu_id(device) -> int:
+    """The VALI-style gpu_id of a torch device: its card's index, or -1
+    for the CPU (the inverse of :func:`get_device`)."""
+    device = torch.device(device)
+    return (device.index or 0) if device.type == "cuda" else -1
+
+
 def kernel_platform_available(device) -> bool:
     """True when ``device`` runs the package's CUDA kernels: strictly a
     CUDA device. Counterpart of ``pallas_platform_available``."""
