@@ -50,7 +50,13 @@ held to its unsharded run; then the port's samples
 detection letterbox, segmentation into the FCN, multichip on a
 four-position mesh of this card) on four in-memory 1080p streams, each
 held to its plain path, with get_device_info and the decode-based
-samples where the native engine builds. It builds the CUDA
+samples where the native engine builds; then the bench
+(``vali_tpu_torch.bench.run``, what ``python -m vali_tpu_torch bench``
+prints, in-process with a 120 s budget): its line logged whole, each
+section's kernel launches counted on their own, its headline and config 2
+held to this run's own kernel times, the records that need the native
+engine null exactly where it does not load, and each shape it launches a
+kernel at held to the plain version and timed. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -518,6 +524,11 @@ def main() -> int:
     samples = samples_phase(torch, np, dev, host[PixelFormat.YUV420],
                             planes[PixelFormat.YUV420], no_engine, smi)
     lap("samples")
+    bench = bench_phase(torch, np, dev, no_engine, smi,
+                        times["nv12_preprocess"][0],
+                        sum(e["ms"] for e in surface
+                            if e["name"] in ("nv12_to_rgb", "packed_resize")))
+    lap("bench")
     # no single PyTorch call computes fused CSC + banded Lanczos:
     # library_ms is null
     preprocess = {  # wrapper: chroma layout, TPU kernel line, checked case
@@ -547,10 +558,10 @@ def main() -> int:
             / max(1, sum(x["launches"] for x in sh)),
             "shapes": sh})
     kernels += surface + lab
-    # the mesh path's and the samples' launches and shapes join each
-    # kernel's entry
+    # the mesh path's, the samples' and the bench's launches and shapes
+    # join each kernel's entry
     for entry in kernels:
-        for more in (mesh, samples):
+        for more in (mesh, samples, bench):
             if entry["name"] not in more:
                 continue
             shapes, n = more[entry["name"]]
@@ -1725,15 +1736,9 @@ CLIP_N = 16                       # frames of transcode_phase's clip
 def native_engine_missing():
     """Why the native engine (FFmpeg decode and encode) cannot load on
     this machine, or "" when it loads."""
-    from vali_tpu_torch.engine._loader import load_native
+    from vali_tpu_torch.bench_configs import engine_missing
 
-    try:
-        load_native()
-    except ImportError as e:
-        lines = str(e).splitlines()
-        return ("the native engine cannot be built on this machine: "
-                + " | ".join(lines[:1] + lines[-3:]))
-    return ""
+    return engine_missing()
 
 
 def copy_into(frame):
@@ -2517,6 +2522,169 @@ def samples_phase(torch, np, dev, frames, planes, no_engine, smi):
                                          for b in blobs):
         raise AssertionError("sample_multistream jpeg: bad JPEGs")
     log(f"samples {names}: ok")
+    return out
+
+
+BENCH_BUDGET_S = 120   # the bench's budget inside this run
+#: the bench's records that need the native engine
+BENCH_ENGINE_CONFIGS = ("1_sw_decode_cpu_convert", "3_transcode_4k_hevc",
+                        "4_decode_preprocess_inference_e2e",
+                        "5_pipeline_64x1080p_jpeg")
+
+
+def bench_phase(torch, np, dev, no_engine, smi, kernel_ms, two_stage_ms):
+    """``python -m vali_tpu_torch bench``'s measurement
+    (``vali_tpu_torch.bench.run``) in-process on the card, its line
+    logged whole. Every count is set to 0 as each of the bench's sections
+    starts and read as the next starts (or the run ends), so each kernel
+    of a section has its own count. Checks: no abort and no config error;
+    a positive headline; each engine-bound record null, with the engine's
+    reason, exactly when ``no_engine``; 5_pipeline_chipside's frames
+    decoded or synthetic to match; the five kernels of the bench's path
+    launched, in the sections that call them, and the dense sections
+    launch none; the headline's ms within 0.67-1.5x of ``kernel_ms`` (the
+    main path's nv12_preprocess at 64 x 1080p -> 224) and config 2's within
+    0.67-1.5x of ``two_stage_ms`` (nv12_to_rgb + packed_resize there), which
+    an unsynchronised or plain-version timing would miss by far. Each
+    shape a section launches a kernel at is held to the plain version on
+    seeded frames and timed. Returns {kernel: (shape entries, launches in
+    the bench)}."""
+    from vali_tpu_torch import bench
+    from vali_tpu_torch import bench_configs as bc
+    from vali_tpu_torch.core.enums import ColorRange, ColorSpace, PixelFormat
+    from vali_tpu_torch.ops.nv12_preprocess import (nv12_preprocess,
+                                                    nv12_preprocess_plain)
+    from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
+    from vali_tpu_torch.ops.nv12_to_rgb import nv12_to_rgb, nv12_to_rgb_plain
+    from vali_tpu_torch.ops.packed_resize import (packed_resize,
+                                                  packed_resize_plain)
+    from vali_tpu_torch.ops.yuv420_preprocess import (
+        yuv420_preprocess, yuv420_preprocess_plain)
+    from vali_tpu_torch.pipeline.multistream import BatchStager
+
+    wrappers = (nv12_preprocess, yuv420_preprocess, nv12_to_rgb,
+                packed_resize, nv12_resize)
+    sections, current = {}, [None]
+
+    def read_counts():
+        if current[0] is not None:
+            sections[current[0]] = {w.__name__: w.launches
+                                    for w in wrappers}
+
+    def progress(section):
+        read_counts()
+        for w in wrappers:
+            w.launches = 0
+        current[0] = section
+
+    t0 = time.perf_counter()
+    result = bench.run(dev, budget_s=BENCH_BUDGET_S, progress=progress)
+    torch.cuda.synchronize()
+    read_counts()
+    log(f"bench: {json.dumps(result)} run_s={time.perf_counter() - t0} "
+        f"({smi})")
+    log(f"bench launches by section: {json.dumps(sections)}")
+    total = {w.__name__: sum(c[w.__name__] for c in sections.values())
+             for w in wrappers}
+
+    configs = result["configs"]
+    errors = {k: r["error"] for k, r in configs.items() if "error" in r}
+    if result.get("aborted") or errors:
+        raise AssertionError(f"bench: aborted={result.get('aborted')} "
+                             f"errors={errors}")
+    if not result["value"] or result["value"] <= 0:
+        raise AssertionError("bench: no headline")
+    if bench.exit_status(result):
+        raise AssertionError("bench: exit status 1")
+    for name in BENCH_ENGINE_CONFIGS:
+        rec = configs[name]
+        if (rec != {"value": None, "reason": no_engine} if no_engine
+                else not rec.get("value")):
+            raise AssertionError(f"bench {name}: {rec} with engine reason "
+                                 f"{no_engine!r}")
+    if (result["sw_decode_fps_single_stream_848x464"] is None) != bool(
+            no_engine):
+        raise AssertionError("bench: the decode rate against the engine")
+    frames_from = configs["5_pipeline_chipside"]["frames_from"]
+    if frames_from != (f"synthetic: {no_engine}" if no_engine
+                       else "decoded"):
+        raise AssertionError(f"bench chipside frames_from={frames_from}")
+    for section in ("dense contrast", "H2D"):
+        if any(sections[section].values()):
+            raise AssertionError(f"bench {section} launched a kernel")
+    headline = result["ms_per_64frame_batch_kernel"]
+    two_stage = configs["2_tpu_two_stage_convert_resize"]["ms_per_batch"]
+    for what, got, want in (("headline", headline, kernel_ms),
+                            ("config 2", two_stage, two_stage_ms)):
+        log(f"bench {what} ms={got} against {want} earlier in this run: "
+            f"ratio={got / want}")
+        if not 0.67 <= got / want <= 1.5:
+            raise AssertionError(f"bench {what}: {got} ms against {want}")
+
+    # the shapes of the sections that launch kernels, on seeded frames
+    B, H, W, D = bc.B, bc.H, bc.W, bc.DST
+    B4R, B4, H4K, W4K = bench.B4R, bench.B4, bench.H4K, bench.W4K
+    bt709 = dict(space=ColorSpace.BT_709, crange=ColorRange.MPEG)
+    rng = np.random.default_rng(14)
+
+    def nv12_frames(b, w, h):
+        return torch.from_numpy(make_frames(np, rng, PixelFormat.NV12, b, w,
+                                            h)).to(dev).view(b, h * 3 // 2, w)
+
+    nv12, nv4k = nv12_frames(B, W, H), nv12_frames(B4R, W4K, H4K)
+    i420 = BatchStager(PixelFormat.YUV420, W, H, dev).split(torch.from_numpy(
+        make_frames(np, rng, PixelFormat.YUV420, B, W, H)).to(dev))
+    rgb = nv12_to_rgb(nv12, src_w=W, src_h=H, **bt709)
+    to_d = dict(src_w=W, src_h=H, dst_w=D, dst_h=D)
+    to_1080 = dict(src_w=W4K, src_h=H4K, dst_w=W, dst_h=H)
+    aa = "lanczos_aa"
+    y = resize_work(B4R, H4K, W4K, H, W, 1, aa)
+    c = resize_work(B4R, H4K // 2, W4K // 2, H // 2, W // 2, 2, aa)
+    # (section, kernel, case, plain version, arguments, keywords,
+    #  (bytes, operations))
+    cases = (
+        ("headline kernel", nv12_preprocess,
+         f"bench headline {B} x {H}p->{D} u8/bf16", nv12_preprocess_plain,
+         (nv12,), dict(to_d, **bt709), preprocess_work(B, W, H, D, D)),
+        ("config 5_pipeline_chipside", yuv420_preprocess,
+         f"bench 5_pipeline_chipside {B} x {H}p->{D} u8/bf16",
+         yuv420_preprocess_plain, i420, dict(to_d, **bt709),
+         preprocess_work(B, W, H, D, D)),
+        ("config 2_tpu_two_stage_convert_resize", nv12_to_rgb,
+         f"bench config 2 {B} x {H}p rgb", nv12_to_rgb_plain, (nv12,),
+         dict(src_w=W, src_h=H, **bt709),
+         (nv12.nbytes + rgb.nbytes, CSC_OPS * B * H * W)),
+        ("config 2_tpu_two_stage_convert_resize", packed_resize,
+         f"bench config 2 {B} x rgb {H}p->{D}", packed_resize_plain, (rgb,),
+         to_d, resize_work(B, H, W, D, D, 3, aa)),
+        ("4K resize", nv12_resize, f"bench {B4R} x 4k->{H}p bf16",
+         nv12_resize_plain, (nv4k,), to_1080, (y[0] + c[0], y[1] + c[1])),
+        ("4K preprocess", nv12_preprocess,
+         f"bench {B4} x 4k->{D} u8/bf16", nv12_preprocess_plain,
+         (nv4k[:B4],), dict(to_d, src_w=W4K, src_h=H4K, **bt709),
+         preprocess_work(B4, W4K, H4K, D, D)))
+    out = {w.__name__: ([], total[w.__name__]) for w in wrappers}
+    for section, kern, case, plain, args, kw, work in cases:
+        name = kern.__name__
+        n = sections[section][name]
+        if n < 1:
+            raise AssertionError(f"bench {section}: {name} not launched")
+        got, ref = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = compare(torch, f"kernel_{name} {case}", got, ref)
+        del got, ref
+        t_kern, t_plain = time_pair(lambda: kern(*args, **kw),
+                                    lambda: plain(*args, **kw))
+        bound, bound_by = bound_ms(*work)
+        log(f"time {name} {case}: kernel_ms={t_kern} plain_ms={t_plain} "
+            f"bound_ms={bound} bound_by={bound_by} bench_launches={n} "
+            f"({smi})")
+        out[name][0].append({
+            "case": case, "ms": t_kern, "plain_ms": t_plain,
+            "bound_ms": bound, "bound_by": bound_by, "launches": n,
+            "max_abs_err": err, "timed": "kernel"})
+    if min(total.values()) < 1:
+        raise AssertionError(f"bench: a kernel was not launched: {total}")
     return out
 
 

@@ -5,12 +5,14 @@ the encoder NV12 frames within 1 LSB on < 1e-3 of the samples of the JAX
 CLI's loop (the turbo resize's bf16 sums, taken in another order, may land
 on the other side of a rounding tie), and the two output files decode to
 the same frame count and size, each frame within 40 dB PSNR of the other;
-``bench`` is not ported and says so; without a card and without
-``--device cpu`` transcode fails rather than run on the CPU.
+``bench --device cpu`` prints the bench's one JSON line (at reduced
+sizes); without a card and without ``--device cpu`` transcode fails
+rather than run on the CPU.
 
 The ``cmd_*`` functions run in-process; the JAX CLI runs the Pallas
 resize in interpret mode on the CPU, as its own tests do."""
 
+import json
 import os
 import re
 import subprocess
@@ -111,12 +113,35 @@ def test_transcode_on_the_cpu_matches_the_reference(clip, tmp_path,
     assert min(_psnr(a, b) for a, b in zip(frames_a, frames_b)) >= 40.0
 
 
-def test_bench_is_not_ported(capsys, monkeypatch):
-    """bench says so and returns 2, without importing the root bench.py
-    (which imports JAX): an import of it would raise here."""
+def test_bench_runs_on_the_cpu(capsys, monkeypatch, clip):
+    """bench --device cpu prints one JSON line with the six configs and
+    exits 0, at reduced sizes, without importing the root bench.py or
+    bench_configs.py (which import JAX): an import of them would raise
+    here."""
+    from vali_tpu_torch import bench, bench_configs
+
     monkeypatch.setitem(sys.modules, "bench", None)
-    assert port_cli.main(["bench"]) == 2
-    assert "no bench" in capsys.readouterr().err
+    monkeypatch.setitem(sys.modules, "bench_configs", None)
+    for name in ("clip_848", "clip_1080"):
+        monkeypatch.setattr(bench_configs, name, lambda: clip)
+    for name, value in dict(B=2, H=H, W=W, DST=32, STREAMS=2, INFER_BATCH=2,
+                            TRANSCODE_SRC=(256, 144),
+                            TRANSCODE_DST=(W, H)).items():
+        monkeypatch.setattr(bench_configs, name, value)
+    for name, value in dict(H4K=288, W4K=512, B4R=2, B4_DENSE=1, B4=1,
+                            H2D_FRAMES=2).items():
+        monkeypatch.setattr(bench, name, value)
+    assert port_cli.main(["bench", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["device"] == "cpu" and line["value"] > 0
+    assert list(line["configs"]) == [
+        "1_sw_decode_cpu_convert", "5_pipeline_chipside",
+        "2_tpu_two_stage_convert_resize",
+        "4_decode_preprocess_inference_e2e", "3_transcode_4k_hevc",
+        "5_pipeline_64x1080p_jpeg"]
+    assert all(rec["value"] > 0 for rec in line["configs"].values())
 
 
 def test_usage_and_bad_options(capsys):

@@ -4,15 +4,18 @@ Commands:
   probe <url>                       stream parameters
   decode <url> [n]                  decode n frames, print stats
   transcode <in> <out.h264> [WxH]   decode -> resize -> encode, on the card
-  bench                             not ported yet
+  bench                             one JSON line of the bench
+                                    (``vali_tpu_torch/bench.py``)
 
 Option:
-  --device cuda|cpu                 where transcode's Surfaces live
-                                    (default cuda: the first card)
+  --device cuda|cpu                 where transcode's Surfaces live and
+                                    bench runs (default cuda: the first
+                                    card)
 
 probe and decode run on the host. transcode decodes into Surfaces on the
-card, resizes and converts them there, and encodes on the host; without a
-CUDA device it fails unless ``--device cpu`` asks for the CPU.
+card, resizes and converts them there, and encodes on the host; bench
+times the kernels on the card. Without a CUDA device both fail unless
+``--device cpu`` asks for the CPU.
 """
 
 import sys
@@ -176,10 +179,12 @@ def main(argv=None):
             return 2
         cmd_transcode(args, device)
     elif cmd == "bench":
-        print("vali_tpu_torch: the port has no bench yet (ROADMAP.md, "
-              "Queue 1, item 3); chip_smoke.py times its kernels",
-              file=sys.stderr)
-        return 2
+        device = _device(device_name, "bench")
+        if device is None:
+            return 2
+        from .bench import report
+
+        return report(device)
     else:
         print(__doc__)
         return 1

@@ -60,13 +60,19 @@ def time_ms(fn: Callable[[], object], samples: int = TIMED_RUNS,
     return statistics.median(_samples(fn, samples, calls))
 
 
-def time_cuda(fn: Callable[[torch.Tensor], object],
-              x: torch.Tensor) -> Tuple[float, float]:
-    """(median ms of one call of ``fn(x)``, relative spread
+def time_spread(fn: Callable[[], object], samples: int = TIMED_RUNS,
+                calls: int = CALLS_PER_SAMPLE) -> Tuple[float, float]:
+    """(median ms of one call of ``fn()``, relative spread
     (max - min) / median of the samples), timed as :func:`time_ms`."""
-    times = _samples(lambda: fn(x), TIMED_RUNS, CALLS_PER_SAMPLE)
+    times = _samples(fn, samples, calls)
     med = statistics.median(times)
     return med, (max(times) - min(times)) / med
+
+
+def time_cuda(fn: Callable[[torch.Tensor], object],
+              x: torch.Tensor) -> Tuple[float, float]:
+    """:func:`time_spread` of ``fn(x)``."""
+    return time_spread(lambda: fn(x))
 
 
 def bound_ms(nbytes: float, ops: float) -> Tuple[float, str]:
