@@ -1336,6 +1336,7 @@ def lab_phase(torch, np, dev, smi):
     just before and read just after, and the plain versions' times.
     Returns the lab kernels' entries of the JSON line."""
     from vali_tpu_torch.lab import kernel_variants as kv
+    from vali_tpu_torch.lab.timing import BF16_OPS_PER_S, HBM_BYTES_PER_S
     from vali_tpu_torch.ops.nv12_preprocess import nv12_preprocess
 
     rows = H * 3 // 2
@@ -1346,7 +1347,7 @@ def lab_phase(torch, np, dev, smi):
     cases = {n: kv.case(n, B, rows, **geo) for n in names}
 
     # ---- phase 1: kernel against plain version on the card ---------------
-    err = {}
+    err, differ = {}, {}
     for name, c in cases.items():
         out, ref = c.call(frames), c.plain(frames)
         torch.cuda.synchronize()
@@ -1356,9 +1357,11 @@ def lab_phase(torch, np, dev, smi):
                                  "version")
         if c.full_function and not c.exact:
             compare(torch, f"lab {name} vs nv12_preprocess", out, product)
-            log(f"lab {name}: {int((out != product).sum().item())} of "
-                f"{out.numel()} samples differ from nv12_preprocess "
-                f"(tensor-core sums)")
+            differ[name] = (int((out != product).sum().item()),
+                            int((out != ref).sum().item()))
+            log(f"lab {name}: {differ[name][0]} of {out.numel()} samples "
+                f"differ from nv12_preprocess, {differ[name][1]} from its "
+                f"plain version (tensor-core sums)")
         elif c.full_function and not torch.equal(out, product):
             raise AssertionError(f"lab {name} differs from nv12_preprocess")
     sink = torch.zeros(kv.SINK_WORDS, dtype=torch.int32, device=dev)
@@ -1406,6 +1409,14 @@ def lab_phase(torch, np, dev, smi):
         f"{n} {ms[n]} ms ({ms[n] / ms['A']})"
         for n in ("S", "Slong", "T", "G", "S2t16a8", "combo2x32"))
         + f" ({smi})")
+    g_bytes, g_ops = cases["G"].work
+    log(f"lab G (wgmma H pass, {kv.GROUPED_WPASS} W pass): {ms['G']} ms = "
+        f"{ms['G'] / ms['A']} of A's {ms['A']} ms in this run; "
+        f"{differ['G'][0]} of {B * 3 * DH * DW} samples differ from "
+        f"nv12_preprocess, {differ['G'][1]} from its plain version; bound "
+        f"{g_bytes / HBM_BYTES_PER_S * 1e3} ms by bytes ({g_bytes} B), "
+        f"{g_ops / BF16_OPS_PER_S * 1e3} ms by operations ({g_ops} FLOP "
+        f"issued, zeros included) ({smi})")
 
     # ---- phase 3: the plain versions' times -------------------------------
     # the knock-outs' own plain versions, the product's for the variants

@@ -712,6 +712,76 @@ def test_lab_kernels_padded_strided_views(dev, name):
     assert torch.equal(c.call(big[:, :, :w]), c.call(x))
 
 
+@pytest.mark.parametrize("b", [1, 5])
+def test_grouped_single_frame_and_odd_batch(dev, b):
+    """G on one 1080p frame and on an odd batch: within the envelope of
+    nv12_preprocess and of its plain version."""
+    geo = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
+    x = kv.make_frames(b, 1620, 1920, dev, seed=b)
+    out = kv.grouped_kernel(x, **geo)
+    torch.cuda.synchronize()
+    assert out.shape == (b, 3, 224, 224)
+    _assert_close(out, nv12_preprocess(x, **geo), b)
+    _assert_close(out, kv.grouped_kernel_plain(x, **geo), b)
+
+
+def test_grouped_on_a_side_stream_read_after_an_event(dev):
+    """G launched on a non-default stream and read on another after an
+    event gives the default stream's output."""
+    geo = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
+    x = kv.make_frames(8, 1620, 1920, dev, seed=3)
+    want = kv.grouped_kernel(x, **geo)
+    side, reader = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    done = torch.cuda.Event()
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        out = kv.grouped_kernel(x, **geo)
+        done.record(side)
+    with torch.cuda.stream(reader):
+        reader.wait_event(done)
+        got = out.clone()
+    reader.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_grouped_refuses_what_does_not_fit_before_a_launch(dev):
+    """Windows over 256 rows (4K -> 32 rows) and H rows too wide for a
+    block's shared memory (an 8K frame) raise before any launch."""
+    before = kv.grouped_kernel.launches
+    with pytest.raises(ValueError, match="exceed"):
+        kv.grouped_kernel(torch.zeros((1, 3240, 3840), dtype=torch.uint8,
+                                      device=dev),
+                          src_w=3840, src_h=2160, dst_w=32, dst_h=32)
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.grouped_kernel(torch.zeros((1, 144, 7680), dtype=torch.uint8,
+                                      device=dev),
+                          src_w=7680, src_h=96, dst_w=224, dst_h=32)
+    assert kv.grouped_kernel.launches == before
+
+
+@pytest.mark.parametrize("geom", [
+    (8, 1080, 1920, 224, 224),  # the lab's size
+    (3, 150, 322, 70, 202),     # ragged strips and tiles, scalar loads
+    (4, 90, 162, 20, 50),       # a last strip of 4 rows
+])
+def test_grouped_other_wpass_build_within_the_envelope(dev, geom):
+    """csrc/nv12_grouped.cu built with the other W pass
+    (-DNV12_GROUPED_WPASS) stays within the envelope of the default build,
+    of nv12_preprocess and of the plain version."""
+    from vali_tpu_torch.lab import grouped_ab
+
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=h + dw)
+    lib = grouped_ab.build_current(
+        [f"-DNV12_GROUPED_WPASS={grouped_ab.OTHER_WPASS}"])
+    out = grouped_ab.launcher(lib, x, geo, False)()
+    torch.cuda.synchronize()
+    _assert_close(out, kv.grouped_kernel(x, **geo), geom)
+    _assert_close(out, nv12_preprocess(x, **geo), geom)
+    _assert_close(out, kv.grouped_kernel_plain(x, **geo), geom)
+
+
 def test_stream_floor_sink_reads_every_byte(dev):
     """On a zeroed sink the XOR of its words is the XOR of every 32-bit
     word of the frames, and one byte changed outside the two output

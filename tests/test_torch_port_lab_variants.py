@@ -6,6 +6,7 @@ CPU tensor (its plain version). uint8 outputs agree within 1 LSB on fewer
 than 1e-3 of the samples (the kernels' envelope); the floor exactly.
 Also the wrappers' argument checks and the lab's CPU entry point."""
 
+import math
 import os
 import sys
 
@@ -159,7 +160,7 @@ def test_column_ranges_cover_the_w_bands():
             assert 2 * (cs + cc)[p].max() <= ext[z, 3]
     assert banded.const_bank_bytes(*geo) == 43008
     gt = banded.grouped_tables(*geo)
-    assert gt.a.shape == (14, 32, 192)
+    assert gt.weights.shape == (28, 16, 96)   # a block a strip, K 95 -> 96
     assert (gt.luma_rows, gt.chroma_rows) == (63, 32)
 
 
@@ -305,5 +306,215 @@ def test_bounds_count_the_bytes_the_function_moves():
 
     no_h = preprocess_work(B, W, H, DW, DH, h_fmas=0)[1]
     gt = grouped_tables(W, H, DW, DH, LANCZOS_AA)
-    assert kv.case("G", B, rows, **GEO).work[1] == \
-        no_h + 2 * B * gt.a.shape[0] * 32 * gt.k_pad * W
+    g_h = 2 * B * gt.weights.shape[0] * 16 * gt.k_pad * W
+    if kv.GROUPED_WPASS == "banded":
+        assert kv.case("G", B, rows, **GEO).work[1] == no_h + g_h
+    no_hw = preprocess_work(B, W, H, DW, DH, h_fmas=0, w_fmas=0)[1]
+    assert kv.grouped_work(B, **GEO, wpass="banded")[1] == no_h + g_h
+    assert kv.grouped_work(B, **GEO, wpass="mma")[1] > no_h + g_h
+    assert kv.grouped_work(B, **GEO, wpass="mma")[1] > no_hw + g_h
+
+
+# --- G's tables (csrc/nv12_grouped.cu) --------------------------------------
+
+G_GEOS = [(1920, 1080, 224, 224), (322, 150, 202, 70)]
+
+
+def _bands(geo):
+    from vali_tpu_torch.ops import banded
+    from vali_tpu_torch.ops.resize import LANCZOS_AA
+
+    return banded._nv12_bands(*geo, LANCZOS_AA)[:2]
+
+
+def _g_tables(geo):
+    from vali_tpu_torch.ops import banded
+    from vali_tpu_torch.ops.resize import LANCZOS_AA
+
+    return (banded.grouped_tables(*geo, LANCZOS_AA),
+            banded.grouped_w_tables(*geo, LANCZOS_AA))
+
+
+@pytest.mark.parametrize("geo", G_GEOS)
+def test_grouped_windows_lie_inside_their_planes(geo):
+    """Each strip's luma window of luma_rows rows lies inside the Y plane,
+    its chroma window inside the src_h / 2 chroma rows, and each covers the
+    bands of the strip's rows; K holds both windows, padded to 16."""
+    src_w, src_h, dst_w, dst_h = geo
+    gt, _ = _g_tables(geo)
+    ly, lc = gt.luma_rows, gt.chroma_rows
+    assert gt.k_pad % 16 == 0 and ly + lc <= gt.k_pad < ly + lc + 16
+    assert gt.weights.shape[:2] == (-(-dst_h // 8), 16)
+    for p, (length, n_in) in enumerate(((ly, src_h), (lc, src_h // 2))):
+        ws = gt.starts[:, p]
+        assert (ws >= 0).all() and (ws + length <= n_in).all()
+        start, count, _ = _bands(geo)[p]
+        o = np.arange(dst_h)
+        assert (ws[o // 8] <= start).all()
+        assert (start + count <= ws[o // 8] + length).all()
+
+
+@pytest.mark.parametrize("geo", G_GEOS)
+def test_grouped_weights_are_the_bf16_bands(geo):
+    """Every nonzero weight of G's B is the bf16 band's weight at its tap,
+    every tap of every band is there once, and each output row's weights
+    sum as its band's do; the rows past dst_h and the padding weigh 0."""
+    src_w, src_h, dst_w, dst_h = geo
+    gt, _ = _g_tables(geo)
+    ly = gt.luma_rows
+    for p in range(2):
+        start, count, w = _bands(geo)[p]
+        for o in range(gt.weights.shape[0] * 8):
+            row = gt.weights[o // 8, 8 * p + o % 8]
+            if o >= dst_h:
+                assert not row.any()
+                continue
+            off = ly * p + start[o] - gt.starts[o // 8, p]
+            want = np.zeros_like(row)
+            want[off:off + count[o]] = w[o, :count[o]]
+            np.testing.assert_array_equal(row, want)
+            # correctly rounded sums: independent of the order
+            assert math.fsum(row) == math.fsum(w[o])
+    assert not gt.weights[:, :8, ly:].any()
+    assert not gt.weights[:, 8:, :ly].any()
+    assert not gt.weights[:, :, ly + gt.chroma_rows:].any()
+
+
+@pytest.mark.parametrize("geo", G_GEOS)
+def test_grouped_b_order_is_the_descriptor_layout(geo):
+    """B uploaded in core-matrix order reads back, through the addresses
+    the kernel's descriptor gives (k-steps 512 B apart, the K halves at
+    LBO 128 B, the 8-row groups at SBO 256 B, rows 16 B), as the [16, K]
+    weights."""
+    from vali_tpu_torch.ops.banded import core_matrix_order
+
+    gt, _ = _g_tables(geo)
+    flat = core_matrix_order(gt.weights)
+    k = np.arange(gt.k_pad)[None, :]
+    n = np.arange(16)[:, None]
+    byte = (k // 16 * 512 + n // 8 * 256 + k % 16 // 8 * 128 + n % 8 * 16
+            + k % 8 * 2)
+    for j in range(gt.weights.shape[0]):
+        np.testing.assert_array_equal(flat[j][byte // 2], gt.weights[j])
+
+
+#: wgmma's register fragment of A: 32-bit register i // 2 of thread
+#: (warp w, lane 4 g + t) holds rows 16 w + g + dm, k 2 t + dk of a k-step
+_A_FRAG = [(0, 0), (0, 1), (8, 0), (8, 1), (0, 8), (0, 9), (8, 8), (8, 9)]
+
+
+def _d_frag(d, w, g, t, i):
+    """Accumulator i of thread (warp w, lane 4 g + t) in wgmma's fp32 D
+    layout: row 16 w + g (+8 for i mod 4 >= 2), column 8 (i / 4) + 2 t +
+    i mod 2."""
+    return d[16 * w + g + 8 * (i % 4 // 2), 8 * (i // 4) + 2 * t + i % 2]
+
+
+@pytest.mark.parametrize("geo", G_GEOS)
+def test_grouped_w_tables_walk_to_the_dense_w_pass(geo):
+    """The mma W pass as the kernel reads its tables: each thread's word of
+    each k-step placed into A by wgmma's fragment layout, D = A x the H
+    rows from the product's first column (8 luma rows; 8 U then 8 V rows),
+    then each thread's four pixels from its accumulators as the kernel
+    takes them (column 16 w + g (+8), row 2 t (+1): Y dy[e], U dc[e], V
+    dc[4 + e]). On random H rows (zeros past the width) this gives the
+    dense bf16 W pass of luma and both chroma channels."""
+    from vali_tpu_torch.ops import banded
+    from vali_tpu_torch.ops.resize import LANCZOS_AA, round_to
+
+    src_w, src_h, dst_w, dst_h = geo
+    _, wt = _g_tables(geo)
+    rng = np.random.default_rng(1)
+    widths = (src_w, src_w // 2, src_w // 2)
+    yh, uh, vh = (np.pad(rng.normal(size=(8, n)),
+                         ((0, 0), (0, -(-n // 16) * 16 - n)))
+                  for n in widths)
+    tid = np.arange(128)
+    w, g, t = tid // 32, tid % 32 // 4, tid % 4
+    got = np.full((3, 8, dst_w), np.nan)
+    for tile in range(wt.heads.shape[0]):
+        d = []
+        for prod, h in enumerate((yh, np.concatenate([uh, vh]))):
+            step, c0, nk = wt.heads[tile, prod]
+            assert c0 % 8 == 0 and 0 <= c0 and c0 + 16 * nk <= h.shape[1]
+            a = np.zeros((64, 16 * nk))
+            for ks in range(nk):
+                for i, (dm, dk) in enumerate(_A_FRAG):
+                    a[16 * w + g + dm, 16 * ks + 2 * t + dk] = \
+                        wt.frags[step + ks][:, i]
+            d.append(a @ h[:, c0:c0 + 16 * nk].T)
+        for e in range(4):
+            p = 64 * tile + 16 * w + g + 8 * (e >> 1)
+            r = 2 * t + (e & 1)
+            ok = p < dst_w
+            for ch, (dd, i) in enumerate(((d[0], e), (d[1], e),
+                                          (d[1], 4 + e))):
+                got[ch, r[ok], p[ok]] = _d_frag(dd, w, g, t, i)[ok]
+    dw = banded.dense_weights(*geo, LANCZOS_AA, "420")
+    wy, wc = (round_to(m, torch.bfloat16).double().numpy()
+              for m in (dw.luma_w, dw.chroma_w))
+    want = np.stack([yh[:, :src_w] @ wy.T, uh[:, :src_w // 2] @ wc.T,
+                     vh[:, :src_w // 2] @ wc.T])
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_grouped_work_is_the_flops_of_its_tables():
+    """The work the lab's G case reports is the product's bytes and the
+    FLOPs G's tables make its default build issue: [16, K] times every
+    column of each strip, and with the mma W pass [64, 16] times 8 rows a
+    k-step of each strip, zero weights included; the tail as the
+    product's."""
+    from vali_tpu_torch.lab.timing import CSC_OPS, preprocess_work
+
+    b, (src_w, src_h, dst_w, dst_h) = 64, G_GEOS[0]
+    gt, wt = _g_tables(G_GEOS[0])
+    full = preprocess_work(b, src_w, src_h, dst_w, dst_h)
+    strips = gt.weights.shape[0]
+    h = 2 * strips * 16 * gt.k_pad * src_w
+    nk = wt.heads[:, :, 2].sum(axis=0)   # luma (N = 8), U|V (N = 16)
+    w = 2 * strips * 64 * 16 * (8 * int(nk[0]) + 16 * int(nk[1]))
+    c = kv.case("G", b, src_h * 3 // 2, src_w=src_w, src_h=src_h,
+                dst_w=dst_w, dst_h=dst_h)
+    tail = CSC_OPS * dst_h * dst_w
+    banded_w = full[1] // b - tail - preprocess_work(
+        b, src_w, src_h, dst_w, dst_h, w_pass=False)[1] // b + 2 * dst_h * dst_w
+    assert c.work[0] == full[0]
+    want = h + (w if kv.GROUPED_WPASS == "mma" else banded_w) + tail
+    assert c.work[1] == b * want
+    assert wt.k_steps == int(wt.heads[:, :, 2].sum())
+
+
+def test_grouped_wpass_default_matches_the_build():
+    """GROUPED_WPASS names the W pass csrc/nv12_grouped.cu builds without
+    a -D knob, so the lab's operation count is the default build's."""
+    import re
+
+    from vali_tpu_torch.ops import _cuda_build
+
+    src = open(os.path.join(_cuda_build._PKG_DIR, "csrc",
+                            "nv12_grouped.cu")).read()
+    m = re.search(r"#ifndef NV12_GROUPED_WPASS\n#define NV12_GROUPED_WPASS "
+                  r"(\w+)", src)
+    assert m and m.group(1) == kv.GROUPED_WPASS
+
+
+def test_grouped_refuses_what_does_not_fit():
+    """Windows over 256 rows (4K -> 32 rows) and H rows too wide for a
+    block's shared memory (an 8K frame) are refused before any launch, on
+    either device; 1080p and 4K to 224 fit."""
+    from vali_tpu_torch.ops import banded
+    from vali_tpu_torch.ops.resize import LANCZOS_AA
+
+    def refusal(*geo):
+        return banded.grouped_refusal(*geo, LANCZOS_AA)
+
+    assert refusal(1920, 1080, 224, 224) == ""
+    assert refusal(3840, 2160, 224, 224) == ""
+    assert "exceed" in refusal(3840, 2160, 32, 32)
+    assert "shared memory" in refusal(7680, 96, 224, 32)
+    assert banded.grouped_smem_bytes(1920, 96) == 109056
+    before = kv.grouped_kernel.launches
+    x = torch.zeros((1, 144, 7680), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.grouped_kernel(x, src_w=7680, src_h=96, dst_w=224, dst_h=32)
+    assert kv.grouped_kernel.launches == before

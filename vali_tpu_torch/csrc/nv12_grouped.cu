@@ -1,43 +1,71 @@
 // Lab variant G of the banded NV12 preprocess kernel for Hopper (sm_90a):
-// the H pass as a dense block-diagonal product on the tensor cores.
+// the resize passes as dense block-diagonal products on the tensor cores,
+// wgmma fed by an asynchronous staging ring.
 //
 // Replaces grouped_kernel of bench_kernel_variants.py: on the TPU one
 // M = 128 product runs 2 luma + 2 chroma 32-row tiles over their stacked
-// windows, the block-diagonal zeros spent as real FLOPs to fill the
-// matrix unit. Its counterpart here is the warp-level tensor-core product,
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+// windows (the block-diagonal zeros spent as real FLOPs to fill the matrix
+// unit), and the W pass is a dense product over all source columns.
 //
 // What bounds it on this card: the function is the product kernel's, so
 // its bytes bound it (199 MB in, 9.6 MB out per 64 x 1080p -> 224 batch:
-// 0.062 ms at 3.35 TB/s). The dense product is ~21 GFLOP a batch, 8.6x the
-// banded FMAs, yet only ~0.021 ms at the data sheet's 989 TFLOP/s bf16: the
-// question this variant answers is whether the matrix unit's zero tax is
-// cheaper than the banded FMA loop on the CUDA cores (80-92 % of the
-// product kernel's time).
+// 0.062 ms at 3.35 TB/s). The dense H products are ~10.6 GFLOP a batch
+// (4.4x the banded FMAs), ~0.011 ms at the data sheet's 989 TFLOP/s bf16:
+// the question this variant answers is whether the tensor cores, zero tax
+// included, carry the resize passes faster than the product kernel's
+// banded FMA loops on the CUDA cores.
 //
-// Design. One block per group: two consecutive 8-output-row strips of one
-// frame (14 groups per 1080p frame at 224 rows). The host builds, once per
-// geometry (ops/banded.py grouped_tables), A = [32, K] bf16 per group:
-// rows 0-15 the two luma strips' weights over their windows of ly source
-// rows, rows 16-31 the two chroma strips' over windows of lc interleaved
-// chroma rows; K = 2 ly + 2 lc padded to a multiple of 16 with zero
-// columns (190 -> 192 at 1080p -> 224). Windows lie inside their planes.
-// The block copies its A to shared memory, then walks the frame in column
-// tiles of 128: each tile of the stacked window is converted u8 -> bf16
-// into shared memory ([K][128 + 8]: rows padded by 16 B, so ldmatrix's
-// eight row reads fall in eight distinct 16-byte bank groups), and each of
-// the 8 warps multiplies A by 16 of its columns (2 m16 x 2 n8 tiles,
-// K / 16 steps, A through ldmatrix, B through ldmatrix.trans). The fp32
-// result is rounded to bf16 into the H rows (luma rows 0-15, chroma 16-31),
-// then the product's W pass and tail (banded::wpass_store). No TMA, no
-// wgmma and no overlap of staging with the product: a right mma.sync
-// kernel first.
+// Design. One block per (frame, strip of 8 output rows): 28 blocks per
+// 1080p frame at 224 rows, two warpgroups of 128 threads, two blocks an SM.
+// The host builds, once per geometry (ops/banded.py grouped_tables), the
+// strip's luma window of ly rows and chroma window of lc interleaved chroma
+// rows (both inside their planes) and B = [K, 16] bf16, K = ly + lc padded
+// to a multiple of 16 (95 -> 96 at 1080p -> 224): columns 0-7 the luma
+// rows' weights over the luma window, 8-15 the chroma rows' over the chroma
+// window, zeros elsewhere, laid out as wgmma's K-major core matrices.
+//   - H pass, the transposed product: D [64 frame columns, 16 rows] =
+//     A [64 columns, K] x B, wgmma.mma_async m64n16k16 bf16 -> fp32 with A
+//     from registers. (With output rows as wgmma's 64-row M, a block would
+//     hold 64 H rows of 1920 bf16, 246 KB, over the 227 KB a block may
+//     have; with frame columns as M a strip's H rows take 69 KB and two
+//     blocks share an SM.) The kernel is compiled per K / 16 (NK), so that
+//     no wgmma sits under a branch: ptxas serializes wgmmas whose A
+//     registers are written under one. The stacked window streams through a
+//     ring of kStages stages of [K, 128 columns] raw bytes in shared memory by
+//     16-byte cp.async copies issued kStages - 1 stages ahead (element
+//     loads for views whose rows are not 16-byte aligned), one commit
+//     group and one barrier a stage: the copies of stage s + 2 fly while
+//     stage s is converted and multiplied. Each warpgroup takes 64 columns
+//     of a stage. A thread builds its A fragments from the raw bytes: row
+//     m of the fragment is frame column 2 (m mod 8) + (m / 8 mod 2) of its
+//     warp's 16, so one 16-bit load brings both of its columns of a window
+//     row, and a byte permute into 2^23 + x less 2^23 makes each sample an
+//     exact float, packed to bf16 (exact: 0..255). The raw rows' 16-byte
+//     chunks are XOR-swizzled by row pair so that those loads do not
+//     conflict. No bf16 copy of the window is written to shared memory.
+//     The fp32 sums round to bf16 (the TPU kernels' cast point) into the
+//     H rows: the strip's 8 luma rows over the full width and its 8 U and
+//     8 V rows (the chroma sums deinterleaved as they are stored), each
+//     kept as 8 x 8 core matrices, column groups 144 bytes apart (16 bytes
+//     of padding spread the banks).
+//   - W pass, by the build knob NV12_GROUPED_WPASS: `mma` (the notebook's
+//     MXU W pass) runs, for each tile of 64 output columns, D [64 columns,
+//     8 luma rows] = A [64, K] x the luma H rows (wgmma m64n8k16) and D
+//     [64 columns, 8 U | 8 V rows] = A [64, K] x the U and V rows (m64n16k16:
+//     one A of chroma weights serves both channels), B read from the H
+//     rows in place. A holds the bf16 W weights of the tile over its band
+//     of source columns only (ops/banded.py grouped_w_tables), stored in
+//     register-fragment order so that a thread's share of a k-step is one
+//     16-byte word; fragment row m is output column m of the tile in both
+//     products, so every thread ends with Y, U and V of the same four
+//     pixels in its registers. `banded` runs the product kernel's banded W
+//     loop on the CUDA cores over the same H rows. The CSC, round and clip
+//     are the product's.
 //
 // Bits: every bf16 x uint8 product is exact in fp32; the tensor cores add
 // a k-step's products in their own order and precision, so a sum may
-// round apart from the banded FMA chain. The lab holds G to the
-// kernels' envelope against nv12_preprocess and counts its differing
-// samples.
+// round apart from the banded FMA chain. The lab holds G to the kernels'
+// envelope against nv12_preprocess and counts its differing samples.
 //
 // The launcher returns cudaGetLastError() after the launch, runs on the
 // caller's stream, and neither synchronises nor allocates.
@@ -46,7 +74,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "banded_preprocess.cuh"
+
+// Build knobs of the A/B lab (vali_tpu_torch/lab/grouped_ab.py), at their
+// defaults here. WPASS: the W pass, `mma` (the faster, measured in PERF.md)
+// or `banded`. KNOCKOUT: bit 1 skips the W pass, bit 2 the H pass's
+// conversion and products (3: the staging ring alone).
+#define NV12_GROUPED_WPASS_banded 0
+#define NV12_GROUPED_WPASS_mma 1
+#ifndef NV12_GROUPED_WPASS
+#define NV12_GROUPED_WPASS mma
+#endif
+#define NV12_GROUPED_CAT_(a, b) a##b
+#define NV12_GROUPED_CAT(a, b) NV12_GROUPED_CAT_(a, b)
+#ifndef NV12_GROUPED_KNOCKOUT
+#define NV12_GROUPED_KNOCKOUT 0
+#endif
 
 namespace {
 
@@ -56,44 +101,82 @@ using banded::Geometry;
 using banded::kSmemLimit;
 using banded::Tables;
 using banded::Tail;
+using banded::tab;
 
-using T = __nv_bfloat16;
+constexpr bool kWpassMma =
+    NV12_GROUPED_CAT(NV12_GROUPED_WPASS_, NV12_GROUPED_WPASS) == 1;
+constexpr int kKnockout = NV12_GROUPED_KNOCKOUT;
 
-constexpr int kThreads = 256;   // 8 warps, 16 columns of a tile each
-constexpr int kGroupRows = 16;  // output rows of a group: two 8-row strips
-constexpr int kM = 32;          // rows of A: 16 luma, 16 chroma
-constexpr int kTileN = 128;     // columns of a staged window tile
-constexpr int kPad = 8;         // bf16 padding of a shared-memory row
+constexpr int kThreads = 256;    // two warpgroups
+constexpr int kStrip = 8;        // output rows of a strip, in each plane
+constexpr int kN = 16;           // N of the H product: 8 luma | 8 chroma
+constexpr int kStageCols = 128;  // frame columns of a stage: 64 a warpgroup
+constexpr int kStages = 3;       // ring depth: two stages in flight
+constexpr int kMaxKSteps = 16;   // K <= 256 window rows
+constexpr int kGroupBytes = 144; // one 8-column group of 8 H rows, padded
+constexpr int kWBatch = 8;       // W-pass k-steps a batch of weight loads
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 b16 matrices; thread t gives the address of row t % 8 of
-// matrix t / 8.
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const T* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+// wgmma matrix descriptor of a K-major operand without swizzle: 8 x 16-byte
+// core matrices, `lbo` bytes apart along K, `sbo` bytes apart along M / N.
+__device__ __forceinline__ uint64_t desc(const void* p, unsigned lbo,
+                                         unsigned sbo) {
+  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFFu) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const T* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
+// d (64 x 16 fp32) += a (64 x 16 bf16, registers) * b (16 x 16, shared).
+__device__ __forceinline__ void wgmma_n16(float* d, uint4 a, uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+// d (64 x 8 fp32) += a (64 x 16 bf16, registers) * b (16 x 8, shared).
+__device__ __forceinline__ void wgmma_n8(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -101,124 +184,309 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// Frame row of row k of the group's stacked window: the two luma windows
-// (starts st.x, st.y), then the two chroma windows (st.z, st.w, rows of the
-// interleaved chroma plane under the src_h luma rows).
-__device__ __forceinline__ int window_row(int k, int ly, int lc, int4 st,
-                                          int src_h) {
-  if (k < ly) return st.x + k;
-  if (k < 2 * ly) return st.y + k - ly;
-  if (k < 2 * ly + lc) return src_h + st.z + k - 2 * ly;
-  return src_h + st.w + k - 2 * ly - lc;
+// Byte j of `h` as an exact float: 2^23 + x less 2^23.
+__device__ __forceinline__ float byte_f(unsigned h, int j) {
+  return __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7440 + j)) -
+         8388608.0f;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Byte offset of chunk `ch` (16 bytes) of ring row k: XOR-swizzled by row
+// pair, so the rows k, k + 2, k + 4, k + 6 a warp reads at once fall in
+// distinct banks.
+__device__ __forceinline__ int ring_off(int k, int ch) {
+  return k * kStageCols + ((ch ^ ((k >> 1) & 7)) << 4);
+}
+
+// Byte offset of H element (row r, column c) in the tiled H rows.
+__device__ __forceinline__ int h_off(int r, int c) {
+  return (c >> 3) * kGroupBytes + r * 16 + (c & 7) * 2;
+}
+
+__device__ __forceinline__ float h_at(const unsigned char* h, int r,
+                                      int c) {
+  return __bfloat162float(
+      *reinterpret_cast<const __nv_bfloat16*>(h + h_off(r, c)));
+}
+
+// Frame row of row k of the strip's stacked window.
+__device__ __forceinline__ int window_row(int k, int ly, int2 st,
+                                          int src_h) {
+  return k < ly ? st.x + k : src_h + st.y + k - ly;
+}
+
+// Stage s of the stacked window (kw rows, frame columns [128 s, 128 s +
+// 128)) into its ring slot: cp.async when every row is 16-byte aligned,
+// else element loads. Every thread commits one group.
+__device__ __forceinline__ void issue_stage(unsigned char* slot,
+                                            const uint8_t* frame,
+                                            long long rs, int s, int kw,
+                                            int ly, int2 st, int src_h,
+                                            int W, bool vec) {
+  const int c0 = s * kStageCols;
+  if (vec) {
+    for (int i = threadIdx.x; i < kw * (kStageCols / 16); i += kThreads) {
+      const int k = i >> 3, ch = i & 7;
+      if (c0 + 16 * ch < W)
+        cp_async16(slot + ring_off(k, ch),
+                   frame + window_row(k, ly, st, src_h) * rs + c0 + 16 * ch);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kw * kStageCols; i += kThreads) {
+      const int k = i / kStageCols, c = i - k * kStageCols;
+      if (c0 + c < W)
+        slot[ring_off(k, c >> 4) + (c & 15)] =
+            __ldg(frame + window_row(k, ly, st, src_h) * rs + c0 + c);
+    }
+  }
+  cp_async_commit();
+}
+
+// The product's tail: CSC of the W sums, round and clip to uint8.
+__device__ __forceinline__ void store_pixel(uint8_t* ob, long long plane_sz,
+                                            long long pix, float ya,
+                                            float ua, float va,
+                                            const Tail& tl) {
+  const float yv = __fsub_rn(ya, tl.y_off);
+  const float u = __fsub_rn(ua, tl.c_off);
+  const float v = __fsub_rn(va, tl.c_off);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    // no FMA contraction: same rounding as three separate products
+    const float x = __fadd_rn(
+        __fadd_rn(__fmul_rn(tl.m[3 * c], yv), __fmul_rn(tl.m[3 * c + 1], u)),
+        __fmul_rn(tl.m[3 * c + 2], v));
+    banded::Out<uint8_t>::store(ob + c * plane_sz + pix, x, c, tl);
+  }
+}
+
+// The product kernel's banded W pass over the tiled H rows: one thread an
+// (output row, output column) item, the taps in ascending order.
+__device__ __forceinline__ void wpass_banded(const unsigned char* hy,
+                                             const unsigned char* hu,
+                                             const unsigned char* hv,
+                                             int rows, int o0,
+                                             const Geometry& g,
+                                             const Tables& t,
+                                             const Tail& tl, uint8_t* ob) {
+  const int DW = g.dst_w;
+  const long long plane_sz = static_cast<long long>(g.dst_h) * DW;
+  for (int item = threadIdx.x; item < rows * DW; item += kThreads) {
+    const int r = item / DW;
+    const int p = item - r * DW;
+    float ya = 0.0f;
+    const int ys = tab<false>(t.wy_start + p), yn = tab<false>(t.wy_count + p);
+    for (int k = 0; k < yn; ++k)
+      ya = fmaf(tab<false>(t.wy_w + k * DW + p), h_at(hy, r, ys + k), ya);
+    float ua = 0.0f, va = 0.0f;
+    const int cs = tab<false>(t.wc_start + p), cn = tab<false>(t.wc_count + p);
+    for (int k = 0; k < cn; ++k) {
+      const float wk = tab<false>(t.wc_w + k * DW + p);
+      ua = fmaf(wk, h_at(hu, r, cs + k), ua);
+      va = fmaf(wk, h_at(hv, r, cs + k), va);
+    }
+    store_pixel(ob, plane_sz, static_cast<long long>(o0 + r) * DW + p, ya,
+                ua, va, tl);
+  }
+}
+
+// One W-pass product of a warpgroup: d = A x H[:, c0 : c0 + 16 nk]^T over
+// N = 8 H rows at `h` (and, for N = 16, 8 more `sbo` bytes on), A's
+// fragments at `frags` ([nk][128] 16-byte words), in batches of kWBatch
+// k-steps: the batch's weights loaded, then its products issued. A batch
+// always issues kWBatch products, those past nk with zero A over the last
+// k-step's H columns: no wgmma sits under a branch, which would make ptxas
+// serialize them all.
+template <int N>
+__device__ __forceinline__ void wpass_product(float* d,
+                                              const uint4* __restrict__ frags,
+                                              int nk,
+                                              const unsigned char* h, int c0,
+                                              unsigned sbo, int wt) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
+  for (int k0 = 0; k0 < nk; k0 += kWBatch) {
+    uint4 a[kWBatch];
+#pragma unroll
+    for (int i = 0; i < kWBatch; ++i) {
+      const int k = min(k0 + i, nk - 1);
+      a[i] = __ldg(frags + static_cast<long long>(k) * 128 + wt);
+      if (k0 + i >= nk) a[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < kWBatch; ++i) {
+      const int k = min(k0 + i, nk - 1);
+      const uint64_t b =
+          desc(h + ((c0 >> 3) + 2 * k) * kGroupBytes, kGroupBytes, sbo);
+      if constexpr (N == 8) wgmma_n8(d, a[i], b);
+      else wgmma_n16(d, a[i], b);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+}
+
+// NK = k_pad / 16, the H pass's k-steps: compiled per count, so that no
+// wgmma of the H pass sits under a branch (ptxas would serialize them).
+template <int NK>
+__global__ void __launch_bounds__(kThreads, 2)
 nv12_grouped_kernel(const uint8_t* __restrict__ src, long long bs,
                     long long rs, int vec, Tables t, Tail tl, Geometry g,
-                    const T* __restrict__ a_blocks,
-                    const int4* __restrict__ starts, int ly, int lc, int kp,
+                    const uint4* __restrict__ b_tiles,
+                    const int2* __restrict__ starts, int ly, int lc, int kp,
+                    const int* __restrict__ w_heads,
+                    const uint4* __restrict__ w_frags,
                     uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int W = g.src_w;
-  const int ap = kp + kPad;      // pitch of A
-  const int bp = kTileN + kPad;  // pitch of a window tile
-  T* yh = reinterpret_cast<T*>(smem);  // [16][W] luma H rows
-  T* ch = yh + kGroupRows * W;         // [16][W] interleaved chroma H rows
-  T* as = ch + kGroupRows * W;         // [32][ap] A
-  T* win = as + kM * ap;               // [kp][bp] window tile
-  const int grp = blockIdx.x;
-  const int b = blockIdx.y;
-  const int o0 = grp * kGroupRows;
-  const int rows = min(kGroupRows, g.dst_h - o0);
-  const uint8_t* frame = src + b * bs;
-  const int4 st = __ldg(starts + grp);
-  const int kw = 2 * ly + 2 * lc;  // window rows; rows kw .. kp - 1 are 0
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int W = g.src_w, CW = W / 2;  // luma, chroma samples a row
+  const int wp = (W + 15) & ~15;      // H columns; [W, wp) are zeros
+  const int cwp = (CW + 15) & ~15;    // U, V columns; [CW, cwp) zeros
+  unsigned char* hy = smem;                           // luma H rows
+  unsigned char* hu = hy + wp / 8 * kGroupBytes;      // U H rows
+  unsigned char* hv = hu + cwp / 8 * kGroupBytes;     // V H rows
+  unsigned char* bw = hv + cwp / 8 * kGroupBytes;     // B: [K, 16]
+  unsigned char* ring = bw + kp * kN * 2;  // kStages x [kp, 128] bytes
+  const int tid = threadIdx.x;
+  const int strip = blockIdx.x;
+  const int o0 = strip * kStrip;
+  const int rows = min(kStrip, g.dst_h - o0);
+  const uint8_t* frame = src + blockIdx.y * bs;
+  const int2 st = __ldg(starts + strip);
+  const int kw = ly + lc;  // window rows; rows kw .. kp - 1 weigh 0
+  const int nstages = (W + kStageCols - 1) / kStageCols;
 
-  const T* ag = a_blocks + static_cast<long long>(grp) * kM * kp;
-  for (int i = threadIdx.x; i < kM * kp / 8; i += blockDim.x) {
-    const int r = i / (kp / 8);
-    const int c = (i - r * (kp / 8)) * 8;
-    *reinterpret_cast<uint4*>(as + r * ap + c) =
-        __ldg(reinterpret_cast<const uint4*>(ag + r * kp + c));
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nstages)
+      issue_stage(ring + s * kp * kStageCols, frame, rs, s, kw, ly, st,
+                  g.src_h, W, vec);
+    else
+      cp_async_commit();
   }
-  const T zero = __float2bfloat16_rn(0.0f);
-  for (int i = threadIdx.x; i < (kp - kw) * bp; i += blockDim.x)
-    win[kw * bp + i] = zero;
+  const uint4* bsrc = b_tiles + static_cast<long long>(strip) * kp * kN / 8;
+  for (int i = tid; i < kp * kN / 8; i += kThreads)
+    reinterpret_cast<uint4*>(bw)[i] = __ldg(bsrc + i);
+  const int zy = kStrip * (wp - W), zc = kStrip * (cwp - CW);
+  for (int i = tid; i < zy + 2 * zc; i += kThreads) {
+    unsigned char* h = i < zy ? hy : i < zy + zc ? hu : hv;
+    const int j = i < zy ? i : (i - zy) % zc;
+    const int n = i < zy ? wp - W : cwp - CW;
+    *reinterpret_cast<__nv_bfloat16*>(
+        h + h_off(j / n, (i < zy ? W : CW) + j % n)) =
+        __float2bfloat16_rn(0.0f);
+  }
+  fence_proxy_async();  // B and the zero columns, read by wgmma
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = warp * 16;  // the warp's first column of a tile
-  for (int n0 = 0; n0 < W; n0 += kTileN) {
-    const int tw = min(kTileN, W - n0);
-    // ---- the stacked window's columns [n0, n0 + 128) in bf16 -----------
-    if (vec && tw == kTileN) {
-      // 8 samples a thread: one 8-byte load, one 16-byte store
-      for (int i = threadIdx.x; i < kw * (kTileN / 8); i += blockDim.x) {
-        const int k = i / (kTileN / 8);
-        const int c = (i - k * (kTileN / 8)) * 8;
-        const uint2 q = __ldg(reinterpret_cast<const uint2*>(
-            frame + static_cast<long long>(window_row(k, ly, lc, st,
-                                                      g.src_h)) * rs +
-            n0 + c));
-        *reinterpret_cast<uint4*>(win + k * bp + c) = make_uint4(
-            pack_bf16(q.x & 0xFFu, (q.x >> 8) & 0xFFu),
-            pack_bf16((q.x >> 16) & 0xFFu, q.x >> 24),
-            pack_bf16(q.y & 0xFFu, (q.y >> 8) & 0xFFu),
-            pack_bf16((q.y >> 16) & 0xFFu, q.y >> 24));
+  const int wg = tid >> 7;                  // warpgroup: 64 stage columns
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row, k pair
+  const int ccol = 64 * wg + 16 * warp + 2 * gq;  // the thread's 2 columns
+  const int chunk = ccol >> 4, cbyte = ccol & 15;
+  const uint64_t bdesc = desc(bw, 128, 256);
+
+  for (int s = 0; s < nstages; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s landed; slot (s - 1) % kStages is free
+    if (s + kStages - 1 < nstages)
+      issue_stage(ring + (s + kStages - 1) % kStages * kp * kStageCols,
+                  frame, rs, s + kStages - 1, kw, ly, st, g.src_h, W, vec);
+    else
+      cp_async_commit();
+    if (kKnockout & 2) continue;
+    const unsigned char* slot = ring + s % kStages * kp * kStageCols;
+    // A fragments: a[ks] = rows k0 + 2 tq (+1, +8, +9) of columns
+    // (ccol, ccol + 1), each pair of rows packed low-k first
+    unsigned a[NK][4];
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks) {
+      const int k = 16 * ks + 2 * tq;
+      unsigned h[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = k + (j & 1) + 8 * (j >> 1);
+        h[j] = *reinterpret_cast<const unsigned short*>(
+            slot + ring_off(r, chunk) + cbyte);
       }
-    } else {
-      for (int i = threadIdx.x; i < kw * kTileN; i += blockDim.x) {
-        const int k = i / kTileN;
-        const int c = i - k * kTileN;
-        win[k * bp + c] =
-            c < tw ? __int2bfloat16_rn(static_cast<int>(__ldg(
-                         frame +
-                         static_cast<long long>(
-                             window_row(k, ly, lc, st, g.src_h)) * rs +
-                         n0 + c)))
-                   : zero;
+      a[ks][0] = pack_bf16(byte_f(h[0], 0), byte_f(h[1], 0));
+      a[ks][1] = pack_bf16(byte_f(h[0], 1), byte_f(h[1], 1));
+      a[ks][2] = pack_bf16(byte_f(h[2], 0), byte_f(h[3], 0));
+      a[ks][3] = pack_bf16(byte_f(h[2], 1), byte_f(h[3], 1));
+    }
+    float d[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks)
+      wgmma_n16(d, make_uint4(a[ks][0], a[ks][1], a[ks][2], a[ks][3]),
+                bdesc + ((ks * 512) >> 4));
+    wgmma_commit();
+    wgmma_wait_all();
+    // d[0..3]: luma rows 2 tq, 2 tq + 1 of columns c, c + 1; d[4..7]
+    // the same chroma rows, U and V of chroma column c / 2
+    const int c = s * kStageCols + ccol;
+    if (c < W) {  // W is even: c + 1 < W too
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        *reinterpret_cast<unsigned*>(hy + h_off(2 * tq + e, c)) =
+            pack_bf16(d[e], d[2 + e]);
+        *reinterpret_cast<__nv_bfloat16*>(hu + h_off(2 * tq + e, c / 2)) =
+            __float2bfloat16_rn(d[4 + e]);
+        *reinterpret_cast<__nv_bfloat16*>(hv + h_off(2 * tq + e, c / 2)) =
+            __float2bfloat16_rn(d[6 + e]);
       }
     }
-    __syncthreads();
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();  // the H rows, read by wgmma in the W pass
+  __syncthreads();
+  if (kKnockout & 1) return;
 
-    // ---- [32, kp] x [kp, 16] per warp on the tensor cores --------------
-    if (nw < tw) {
-      float acc[2][2][4] = {};
-      const int j = lane & 7, half = (lane >> 3) & 1, quad = lane >> 4;
-      for (int k0 = 0; k0 < kp; k0 += 16) {
-        unsigned a[2][4], bf[4];
+  uint8_t* ob = out + static_cast<long long>(blockIdx.y) * 3 * g.dst_h *
+                          g.dst_w;
+  if constexpr (!kWpassMma) {
+    wpass_banded(hy, hu, hv, rows, o0, g, t, tl, ob);
+  } else {
+    const int DW = g.dst_w;
+    const long long plane_sz = static_cast<long long>(g.dst_h) * DW;
+    const int wt = tid & 127;
+    const unsigned uv_sbo = static_cast<unsigned>(hv - hu);
+    for (int tile = wg; tile < (DW + 63) / 64; tile += 2) {
+      const int* hd = w_heads + 6 * tile;  // (first k-step, c0, nk) x 2
+      float dy[4], dc[8];
+      wpass_product<8>(dy, w_frags + static_cast<long long>(hd[0]) * 128,
+                       hd[2], hy, hd[1], 0, wt);
+      wpass_product<16>(dc, w_frags + static_cast<long long>(hd[3]) * 128,
+                        hd[5], hu, hd[4], uv_sbo, wt);
+      // pixel e: column p of the tile's fragment rows 16 warp + gq (+8),
+      // row 2 tq (+1); Y from dy, U from dc[0..3], V from dc[4..7]
+      const int pa = 64 * tile + 16 * warp + gq;
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldsm_x4(a[mt], as + (mt * 16 + j + 8 * half) * ap + k0 + 8 * quad);
-        ldsm_x4_trans(bf, win + (k0 + j + 8 * half) * bp + nw + 8 * quad);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][0], a[mt], bf[0], bf[1]);
-          mma_bf16(acc[mt][1], a[mt], bf[2], bf[3]);
-        }
-      }
-      // fragment rows lane / 4 and lane / 4 + 8, columns 2 (lane % 4) + 0/1
-      const int r = lane >> 2, c2 = 2 * (lane & 3);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        T* dst = mt == 0 ? yh : ch;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int col = n0 + nw + nt * 8 + c2;
-          if (col < W) {  // W is even: col + 1 < W too
-            *reinterpret_cast<__nv_bfloat162*>(dst + r * W + col) =
-                __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
-            *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * W + col) =
-                __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
-          }
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int p = pa + 8 * (e >> 1), r = 2 * tq + (e & 1);
+        if (p < DW && r < rows)
+          store_pixel(ob, plane_sz, static_cast<long long>(o0 + r) * DW + p,
+                      dy[e], dc[e], dc[4 + e], tl);
       }
     }
-    __syncthreads();  // the next tile overwrites the window
   }
+}
 
-  banded::wpass_store<false, banded::kInterleaved>(
-      yh, ch, W, W, rows, o0, g.dst_h, g.dst_w, 0, g.dst_w, 0, 0, t, tl,
-      out + static_cast<long long>(b) * 3 * g.dst_h * g.dst_w);
+// Shared memory of one block (bytes): the tiled luma, U and V H rows, B,
+// and the ring (ops/banded.py grouped_smem_bytes).
+long long smem_bytes(int src_w, int k_pad) {
+  return ((src_w + 15) / 16 * 2 + 2LL * ((src_w / 2 + 15) / 16 * 2)) *
+             kGroupBytes +
+         2LL * k_pad * kN +
+         static_cast<long long>(kStages) * k_pad * kStageCols;
+}
+
+template <int NK, typename... Args>
+cudaError_t launch_nk(dim3 grid, size_t smem, cudaStream_t stream,
+                      Args... args) {
+  const cudaError_t e = allow_smem(nv12_grouped_kernel<NK>, smem);
+  if (e != cudaSuccess) return e;
+  nv12_grouped_kernel<NK><<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -227,32 +495,35 @@ extern "C" {
 
 // G over `src`, frame 0 of a [batch, buf_rows, src_w] uint8 NV12 buffer
 // with the given batch and row strides (bytes). Tables and tail as
-// nv12_variant_launch takes them (only the W tables are read). a_blocks:
-// [groups, 32, k_pad] bf16 on the device, groups = ceil(dst_h / 16);
-// starts: [groups, 4] int32 on the device, the first rows of the group's
-// two luma windows (of luma_rows rows) and two chroma windows (of
-// chroma_rows interleaved chroma rows); k_pad a multiple of 16 at least
-// 2 (luma_rows + chroma_rows). out is a contiguous [batch, 3, dst_h,
+// nv12_variant_launch takes them (only the W tables are read, by the
+// banded W pass). b_tiles: [strips, k_pad, 16] bf16 on the device in
+// wgmma core-matrix order, strips = ceil(dst_h / 8); starts: [strips, 2]
+// int32 on the device, the first rows of the strip's luma window (of
+// luma_rows rows) and chroma window (of chroma_rows interleaved chroma
+// rows); k_pad a multiple of 16, at least luma_rows + chroma_rows and at
+// most 256. w_heads: [ceil(dst_w / 64), 2, 3] int32 and w_frags:
+// [k-steps, 128] 16-byte words on the device, the mma W pass's weights
+// (ops/banded.py grouped_w_tables). out is a contiguous [batch, 3, dst_h,
 // dst_w] uint8 tensor.
 int nv12_grouped_launch(const void* src, long long batch_stride,
                         long long row_stride, int buf_rows, int batch,
                         int src_h, int src_w, int dst_h, int dst_w,
                         const int* index, const float* weights, int hy_k,
                         int hc_k, int wy_k, int wc_k, const float* tail,
-                        const void* a_blocks, const int* starts,
-                        int luma_rows, int chroma_rows, int k_pad, void* out,
+                        const void* b_tiles, const int* starts,
+                        int luma_rows, int chroma_rows, int k_pad,
+                        const int* w_heads, const void* w_frags, void* out,
                         void* stream) {
   (void)wc_k;
   if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
   if (src_w <= 0 || (src_w & 1) || buf_rows < src_h * 3 / 2 ||
       luma_rows < 1 || luma_rows > src_h || chroma_rows < 1 ||
       chroma_rows > src_h / 2 || k_pad % 16 != 0 ||
-      k_pad < 2 * (luma_rows + chroma_rows) || !aligned16(a_blocks) ||
-      !aligned16(starts))
+      k_pad < luma_rows + chroma_rows || k_pad > 16 * kMaxKSteps ||
+      !aligned16(b_tiles) || !aligned16(w_frags) ||
+      (reinterpret_cast<uintptr_t>(starts) & 7))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem =
-      2LL * (2 * kGroupRows * src_w + kM * (k_pad + kPad) +
-             static_cast<long long>(k_pad) * (kTileN + kPad));
+  const long long smem = smem_bytes(src_w, k_pad);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   Geometry g;
   g.batch = batch;
@@ -260,22 +531,35 @@ int nv12_grouped_launch(const void* src, long long batch_stride,
   g.src_w = src_w;
   g.dst_h = dst_h;
   g.dst_w = dst_w;
-  g.rows = kGroupRows;
+  g.rows = kStrip;
   const Tables t = banded::unpack_tables(index, weights, dst_h, dst_w, hy_k,
                                          hc_k, wy_k);
   const Tail tl = banded::unpack_tail(tail);
   const int vec = aligned16(src) && src_w % 16 == 0 &&
                   batch_stride % 16 == 0 && row_stride % 16 == 0;
-  const cudaError_t e =
-      allow_smem(nv12_grouped_kernel, static_cast<size_t>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((dst_h + kGroupRows - 1) / kGroupRows, batch);
-  nv12_grouped_kernel<<<grid, kThreads, static_cast<size_t>(smem),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), batch_stride, row_stride, vec, t, tl,
-      g, static_cast<const T*>(a_blocks), reinterpret_cast<const int4*>(starts),
-      luma_rows, chroma_rows, k_pad, static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((dst_h + kStrip - 1) / kStrip, batch);
+  auto go = [&](auto nk) {
+    return static_cast<int>(launch_nk<decltype(nk)::value>(
+        grid, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream),
+        static_cast<const uint8_t*>(src), batch_stride, row_stride, vec, t,
+        tl, g, static_cast<const uint4*>(b_tiles),
+        reinterpret_cast<const int2*>(starts), luma_rows, chroma_rows, k_pad,
+        w_heads, static_cast<const uint4*>(w_frags),
+        static_cast<uint8_t*>(out)));
+  };
+  switch (k_pad / 16) {
+#define NV12_GROUPED_NK(n) \
+  case n:                  \
+    return go(std::integral_constant<int, n>());
+    NV12_GROUPED_NK(1) NV12_GROUPED_NK(2) NV12_GROUPED_NK(3)
+    NV12_GROUPED_NK(4) NV12_GROUPED_NK(5) NV12_GROUPED_NK(6)
+    NV12_GROUPED_NK(7) NV12_GROUPED_NK(8) NV12_GROUPED_NK(9)
+    NV12_GROUPED_NK(10) NV12_GROUPED_NK(11) NV12_GROUPED_NK(12)
+    NV12_GROUPED_NK(13) NV12_GROUPED_NK(14) NV12_GROUPED_NK(15)
+    NV12_GROUPED_NK(16)
+#undef NV12_GROUPED_NK
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -29,7 +29,8 @@ a CPU tensor runs the plain version, any other device raises.
 - :func:`transposed_chroma` (``transposed_chroma_kernel``): the chroma
   H-pass rows kept transposed in shared memory.
 - :func:`grouped_kernel` (``grouped_kernel``): the H pass as a dense
-  block-diagonal product on the tensor cores (mma.sync).
+  block-diagonal product on the tensor cores (wgmma fed by a cp.async
+  ring), the W pass there too (or, by a build knob, the product's).
 Strips too tall for full-width H rows in one block run in output-column
 ranges; the lab line says so.
 
@@ -69,10 +70,12 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
-from ..ops.banded import (CONST_BANK_BYTES, DeviceTables, column_ranges,
-                          const_bank_bytes, dense_weights, device_tables,
-                          grouped_tables, strip_spans, strip_window_bands,
-                          tail_params, w_pass_tail_plain, window_tables)
+from ..ops.banded import (CONST_BANK_BYTES, GROUP_STRIP, DeviceTables,
+                          column_ranges, const_bank_bytes, core_matrix_order,
+                          dense_weights, device_tables, grouped_refusal,
+                          grouped_tables, grouped_w_tables, strip_spans,
+                          strip_window_bands, tail_params, w_pass_tail_plain,
+                          window_tables)
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
 from ..ops.resize import LANCZOS_AA, round_to
@@ -476,17 +479,40 @@ def transposed_chroma(nv12: torch.Tensor, *, src_w: int, src_h: int,
     return out
 
 
-def _group_rows(src_h: int, gt) -> np.ndarray:
-    """[groups, k_pad] frame rows of each group's stacked window in G's
-    tables ``gt``: two luma windows, two chroma windows (under the src_h
-    luma rows), then row 0 for the zero columns of the padding."""
+def _strip_rows(src_h: int, gt) -> np.ndarray:
+    """[strips, k_pad] frame rows of each strip's stacked window in G's
+    tables ``gt``: the luma window, the chroma window (under the src_h luma
+    rows), then row 0 for the zero rows of the padding."""
     ly, lc = gt.luma_rows, gt.chroma_rows
-    rows = np.zeros((gt.a.shape[0], gt.k_pad), np.int64)
-    for g, (y0, y1, c0, c1) in enumerate(gt.starts):
-        rows[g, :2 * (ly + lc)] = np.concatenate([
-            y0 + np.arange(ly), y1 + np.arange(ly),
-            src_h + c0 + np.arange(lc), src_h + c1 + np.arange(lc)])
+    rows = np.zeros((gt.weights.shape[0], gt.k_pad), np.int64)
+    rows[:, :ly] = gt.starts[:, :1] + np.arange(ly)
+    rows[:, ly:ly + lc] = src_h + gt.starts[:, 1:] + np.arange(lc)
     return rows
+
+
+#: G's W pass in the default build of csrc/nv12_grouped.cu (its
+#: NV12_GROUPED_WPASS): "mma" on the tensor cores or "banded" on the CUDA
+#: cores
+GROUPED_WPASS = "mma"
+
+
+def grouped_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                 dst_h: int, wpass: str = GROUPED_WPASS):
+    """(bytes, operations) of one G batch: the product's bytes; the FLOPs
+    its dense products issue, zeros included — [16, k_pad] weights times
+    every column of each strip's window, and with the mma W pass [64, 16]
+    A fragments times the 8 luma (16 chroma: U and V) H rows each k-step of
+    each strip — and the tail."""
+    gt = grouped_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+    strips = gt.weights.shape[0]
+    w_fmas = None
+    if wpass == "mma":
+        nk = grouped_w_tables(src_w, src_h, dst_w, dst_h,
+                              LANCZOS_AA).heads[:, :, 2].sum(axis=0)
+        w_fmas = strips * 64 * 16 * GROUP_STRIP * int(nk[0] + 2 * nk[1])
+    return preprocess_work(batch, src_w, src_h, dst_w, dst_h,
+                           h_fmas=strips * 16 * gt.k_pad * src_w,
+                           w_fmas=w_fmas)
 
 
 def grouped_kernel_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
@@ -496,18 +522,19 @@ def grouped_kernel_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
                          ) -> torch.Tensor:
     """Plain PyTorch version of :func:`grouped_kernel` (any device): G's
     block-diagonal matrices times the stacked windows, fp32 with TF32 off,
-    rounded to bf16, then the product's W pass and tail."""
+    rounded to bf16, then the dense bf16 W pass and the product's tail."""
     tail = _checked(nv12, src_w, src_h, space, crange)
     dev = nv12.device
     bf = torch.bfloat16
     gt = grouped_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
-    rows = torch.from_numpy(_group_rows(src_h, gt)).to(dev)
-    x = to_f32(nv12[:, rows])                     # [B, groups, K, W]
+    rows = torch.from_numpy(_strip_rows(src_h, gt)).to(dev)
+    x = to_f32(nv12[:, rows])                     # [B, strips, K, W]
     with exact_f32_matmul():
-        h = round_to(torch.matmul(torch.from_numpy(gt.a).to(dev), x), bf)
+        h = round_to(torch.matmul(torch.from_numpy(gt.weights).to(dev), x),
+                     bf)
     B = nv12.shape[0]
-    yh = h[:, :, :16].reshape(B, -1, src_w)[:, :dst_h]
-    ch = h[:, :, 16:].reshape(B, -1, src_w)[:, :dst_h]
+    yh = h[:, :, :GROUP_STRIP].reshape(B, -1, src_w)[:, :dst_h]
+    ch = h[:, :, GROUP_STRIP:].reshape(B, -1, src_w)[:, :dst_h]
     dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420")
     wyw, wcw = (round_to(m, bf).to(dev) for m in (dw.luma_w, dw.chroma_w))
     return w_pass_tail_plain(yh, ch[..., 0::2], ch[..., 1::2], wyw, wcw,
@@ -516,32 +543,45 @@ def grouped_kernel_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
 
 @functools.lru_cache(maxsize=8)
 def _grouped_device(src_w, src_h, dst_w, dst_h, device):
-    """G's tables on ``device``: A in bf16, the window starts."""
+    """G's launch arguments after the tail on ``device``, uploaded once
+    per geometry: B in bf16 core-matrix order, the window starts, the
+    window lengths and K, the W pass's heads and bf16 A fragments."""
     gt = grouped_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
-    return (gt, torch.from_numpy(gt.a).to(device, torch.bfloat16),
-            torch.from_numpy(gt.starts).to(device))
+    wt = grouped_w_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+    keep = (torch.from_numpy(core_matrix_order(gt.weights)).to(
+                device, torch.bfloat16),
+            torch.from_numpy(gt.starts).to(device),
+            torch.from_numpy(wt.heads.reshape(-1)).to(device),
+            torch.from_numpy(wt.frags).to(device, torch.bfloat16))
+    args = (keep[0].data_ptr(), keep[1].data_ptr(), gt.luma_rows,
+            gt.chroma_rows, gt.k_pad, *(k.data_ptr() for k in keep[2:]))
+    return args, keep
 
 
 def grouped_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
                    dst_w: int, dst_h: int,
                    space: ColorSpace = ColorSpace.BT_709,
                    crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
-    """G: the product function with the H pass on the tensor cores, one
-    block per two 8-row strips: a [32, K] bf16 block-diagonal matrix (two
-    luma and two chroma strips over their stacked windows) times the
-    window, mma.sync m16n8k16 with fp32 sums, rounded to bf16; then the
-    product's W pass and tail. [B, 3, dst_h, dst_w] uint8, within the
-    kernels' envelope of :func:`nv12_preprocess` (the tensor cores sum in
-    their own order)."""
+    """G: the product function with its resize passes on the tensor cores,
+    one block per 8-row strip: the transposed H product, 64 frame columns
+    times a [K, 16] bf16 block-diagonal B (the strip's luma and chroma rows
+    over their stacked windows), wgmma with fp32 sums fed by a cp.async
+    ring, rounded to bf16; then the W pass (GROUPED_WPASS: wgmma over each
+    64-column tile's band, or the product's banded loop) and the product's
+    tail. [B, 3, dst_h, dst_w] uint8, within the kernels' envelope of
+    :func:`nv12_preprocess` (the tensor cores sum in their own order).
+    Raises ValueError for a geometry whose windows or shared memory do not
+    fit the kernel, on either device."""
     tail = _checked(nv12, src_w, src_h, space, crange)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = grouped_refusal(**geo, method=LANCZOS_AA)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("grouped_kernel", nv12):
         return grouped_kernel_plain(nv12, **geo, space=space, crange=crange)
-    gt, a, starts = _grouped_device(src_w, src_h, dst_w, dst_h, nv12.device)
+    args, _ = _grouped_device(src_w, src_h, dst_w, dst_h, nv12.device)
     out = _call("grouped_kernel", "nv12_grouped_launch", nv12, tail,
-                _product_tables(nv12, **geo), a.data_ptr(),
-                starts.data_ptr(), gt.luma_rows, gt.chroma_rows, gt.k_pad,
-                **geo)
+                _product_tables(nv12, **geo), *args, **geo)
     grouped_kernel.launches += 1
     return out
 
@@ -617,12 +657,9 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
                     lambda x: transposed_chroma(x, **geo), product, True, 1,
                     full)
     if name == "G":
-        gt = grouped_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
         return Case(grouped_kernel, lambda x: grouped_kernel(x, **geo),
                     lambda x: grouped_kernel_plain(x, **geo), True, 1,
-                    preprocess_work(batch, src_w, src_h, dst_w, dst_h,
-                                    h_fmas=gt.a.shape[0] * 32 * gt.k_pad
-                                    * src_w), exact=False)
+                    grouped_work(batch, **geo), exact=False)
     m = re.fullmatch(r"S2t(\d+)a(\d+)", name)
     if m:
         tile, align = int(m.group(1)), int(m.group(2))

@@ -90,7 +90,8 @@ def _taps(dense) -> int:
 def preprocess_work(batch: int, src_w: int, src_h: int, dst_w: int,
                     dst_h: int, layout: str = "420", h_pass: bool = True,
                     w_pass: bool = True,
-                    h_fmas: Optional[int] = None, sample_bytes: int = 1,
+                    h_fmas: Optional[int] = None,
+                    w_fmas: Optional[int] = None, sample_bytes: int = 1,
                     out_bytes: int = 1) -> Tuple[int, int]:
     """(bytes, operations) of a lanczos_aa banded preprocess batch of
     chroma ``layout``, ``sample_bytes`` a source sample and ``out_bytes``
@@ -100,7 +101,8 @@ def preprocess_work(batch: int, src_w: int, src_h: int, dst_w: int,
     knock-out (two dst_h-row slabs in, no H pass), ``w_pass=False`` that
     of its hpass knock-out. ``h_fmas`` replaces the H pass's FMAs per
     frame by the count a lab variant runs, zero weights included (S2's
-    strip windows, G's dense block-diagonal product)."""
+    strip windows, G's dense block-diagonal product), and ``w_fmas`` the W
+    pass's (G's products over each output tile's band)."""
     dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, layout)
     cw = src_w if layout == "444" else src_w // 2   # one chroma plane row
     c_rows = src_h // 2 if layout == "420" else src_h
@@ -113,7 +115,8 @@ def preprocess_work(batch: int, src_w: int, src_h: int, dst_w: int,
     else:
         nbytes = batch * 2 * dst_h * src_w
     if w_pass:
-        ops += 2 * dst_h * (_taps(dw.luma_w) + 2 * _taps(dw.chroma_w))
+        ops += 2 * (w_fmas if w_fmas is not None else
+                    dst_h * (_taps(dw.luma_w) + 2 * _taps(dw.chroma_w)))
         ops += CSC_OPS * dst_h * dst_w
     else:
         ops += 2 * dst_h * dst_w

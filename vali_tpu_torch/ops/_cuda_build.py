@@ -67,7 +67,7 @@ _SIGNATURES = {
         _I, _P, _P],
     "nv12_grouped_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
-        _P, _P, _I, _I, _I, _P, _P],
+        _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "nv12_convert_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _FP, _I, _P, _P],
     "nv12_convert_probe_launch": [

@@ -388,24 +388,34 @@ def column_ranges(src_w: int, src_h: int, dst_w: int, dst_h: int,
 
 
 class GroupedTables(NamedTuple):
-    """G's tables (csrc/nv12_grouped.cu): ``a`` [groups, 32, k_pad] — per
-    group of two 8-row strips the block-diagonal weights, rows 0-15 the
-    two luma strips over their windows of ``luma_rows`` rows, rows 16-31
-    the two chroma strips over windows of ``chroma_rows`` interleaved
-    chroma rows, K padded with zeros to a multiple of 16 — and ``starts``
-    [groups, 4] int32, the first plane row of each window."""
-    a: np.ndarray
+    """G's H-pass tables (csrc/nv12_grouped.cu): ``weights`` [strips, 16,
+    k_pad] — per strip of GROUP_STRIP output rows, rows 0-7 the luma rows'
+    weights over the strip's window of ``luma_rows`` luma rows (columns 0
+    on), rows 8-15 the chroma rows' over its window of ``chroma_rows``
+    interleaved chroma rows (columns ``luma_rows`` on), zeros elsewhere, K
+    padded with zeros to a multiple of 16 — and ``starts`` [strips, 2]
+    int32, the first plane row of each window."""
+    weights: np.ndarray
     starts: np.ndarray
     luma_rows: int
     chroma_rows: int
 
     @property
     def k_pad(self) -> int:
-        return self.a.shape[2]
+        return self.weights.shape[2]
 
 
-#: output rows of one of G's strips, and strips per group
+#: output rows of one of G's strips (in each plane): one block a strip
 GROUP_STRIP = 8
+#: G's window rows at most (its kernel keeps K / 16 A fragments a thread)
+GROUPED_MAX_K = 256
+#: G's ring: stages of GROUPED_STAGE_COLS frame columns
+GROUPED_STAGES = 3
+GROUPED_STAGE_COLS = 128
+#: bytes of one 8-column group of G's 8 tiled H rows (128 and 16 of pad)
+GROUPED_GROUP_BYTES = 144
+#: output columns of one of G's W-pass products (wgmma's M)
+GROUPED_W_TILE = 64
 
 
 @functools.lru_cache(maxsize=16)
@@ -416,33 +426,116 @@ def grouped_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
     one length (the widest), pulled back to stay inside the plane."""
     hy, hc = _nv12_bands(src_w, src_h, dst_w, dst_h, method)[:2]
     s = GROUP_STRIP
+    idx = np.arange(0, dst_h, s)
     wins = []
     for (start, count, w), n_in in ((hy, src_h), (hc, src_h // 2)):
-        idx = np.arange(0, dst_h, s)
         lo = np.minimum.reduceat(start, idx)
         hi = np.maximum.reduceat(start + count, idx)
         length = int((hi - lo).max())
         wins.append((np.minimum(lo, n_in - length), length, start, count, w))
     ly, lc = wins[0][1], wins[1][1]
-    groups = -(-dst_h // (2 * s))
-    a = np.zeros((groups, 32, _ceil16(2 * (ly + lc))), np.float32)
-    starts = np.zeros((groups, 4), np.int32)
-    for g in range(groups):
-        for j in range(2):
-            strip = min(2 * g + j, len(wins[0][0]) - 1)
-            for p, (ws, length, start, count, w) in enumerate(wins):
-                starts[g, 2 * p + j] = ws[strip]
-                if 2 * g + j != strip:   # no second strip: zero rows
-                    continue
-                col0 = 2 * ly * p + length * j
-                for r in range(s):
-                    o = strip * s + r
-                    if o >= dst_h:
-                        break
-                    off = col0 + int(start[o] - ws[strip])
-                    a[g, 16 * p + s * j + r, off:off + count[o]] = \
-                        w[o, :count[o]]
-    return GroupedTables(a, starts, ly, lc)
+    weights = np.zeros((len(idx), 2 * s, _ceil16(ly + lc)), np.float32)
+    starts = np.zeros((len(idx), 2), np.int32)
+    for p, (ws, _, start, count, w) in enumerate(wins):
+        starts[:, p] = ws
+        for o in range(dst_h):
+            off = ly * p + int(start[o] - ws[o // s])
+            weights[o // s, s * p + o % s, off:off + count[o]] = \
+                w[o, :count[o]]
+    return GroupedTables(weights, starts, ly, lc)
+
+
+def core_matrix_order(m: np.ndarray) -> np.ndarray:
+    """[..., N, K] (N a multiple of 8, K of 16) in wgmma's K-major core
+    matrices without swizzle, as G's kernel reads its B: per k-step of 16,
+    the N / 8 row groups, each two 8 x 8 matrices (K halves) of 8 rows of
+    8 contiguous elements. Returns [..., N * K]."""
+    *lead, n, k = m.shape
+    x = m.reshape(*lead, n // 8, 8, k // 16, 2, 8)
+    nl = len(lead)
+    x = np.transpose(x, (*range(nl), nl + 2, nl, nl + 3, nl + 1, nl + 4))
+    return np.ascontiguousarray(x).reshape(*lead, n * k)
+
+
+def grouped_smem_bytes(src_w: int, k_pad: int) -> int:
+    """Shared memory of one of G's blocks: its tiled 8 luma, 8 U and 8 V
+    H rows (columns padded to 16), its [k_pad, 16] bf16 B and the ring of
+    GROUPED_STAGES [k_pad, GROUPED_STAGE_COLS] byte stages."""
+    groups = (_ceil16(src_w) + 2 * _ceil16(src_w // 2)) // 8
+    return (groups * GROUPED_GROUP_BYTES + 2 * 16 * k_pad
+            + GROUPED_STAGES * GROUPED_STAGE_COLS * k_pad)
+
+
+def grouped_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                    method: str) -> str:
+    """Why G's kernel cannot take this geometry, or "" when it can."""
+    k_pad = grouped_tables(src_w, src_h, dst_w, dst_h, method).k_pad
+    if k_pad > GROUPED_MAX_K:
+        return (f"G's stacked windows of {k_pad} rows exceed its "
+                f"{GROUPED_MAX_K}")
+    smem = grouped_smem_bytes(src_w, k_pad)
+    if smem > SMEM_LIMIT:
+        return (f"G's H rows, weights and ring need {smem} B of shared "
+                f"memory, over a block's {SMEM_LIMIT} B")
+    return ""
+
+
+def fragment_order(a: np.ndarray) -> np.ndarray:
+    """[64, K] (K a multiple of 16) in the register fragments of wgmma's A
+    from registers: [K / 16, 128, 8], thread t of the warpgroup holding
+    rows 16 (t / 32) + (t mod 32) / 4 (+ 8) at k pairs 2 (t mod 4) (+ 8) of
+    each k-step, as four packed pairs, low k first."""
+    t = np.arange(128)
+    m0 = 16 * (t // 32) + (t % 32) // 4
+    k = 2 * (t % 4)
+    rows = np.stack([m0, m0, m0 + 8, m0 + 8] * 2, axis=1)
+    cols = np.stack([k, k + 1, k, k + 1, k + 8, k + 9, k + 8, k + 9], axis=1)
+    steps = 16 * np.arange(a.shape[1] // 16)[:, None, None]
+    return a[rows[None], steps + cols[None]]
+
+
+class GroupedWTables(NamedTuple):
+    """G's mma W pass (csrc/nv12_grouped.cu): ``heads`` [tiles, 2, 3] int32,
+    per tile of GROUPED_W_TILE output columns and per product (luma over
+    the luma H rows; chroma over the U and V rows at once) its first k-step
+    in ``frags``, its first source column (luma or chroma samples, a
+    multiple of 8) and its k-steps; ``frags`` [k-steps, 128, 8] float32 of
+    bf16 values, the A fragments (:func:`fragment_order`) of each product's
+    band of columns."""
+    heads: np.ndarray
+    frags: np.ndarray
+
+    @property
+    def k_steps(self) -> int:
+        return self.frags.shape[0]
+
+
+@functools.lru_cache(maxsize=16)
+def grouped_w_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                     method: str) -> GroupedWTables:
+    """Build G's W-pass tables from the dense bf16 column matrices: row m
+    of a tile's products is its output column m; each product's k-steps
+    cover the columns its rows weigh, kept inside the 16-column padded
+    width of its H rows."""
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, method, "420")
+    tiles = -(-dst_w // GROUPED_W_TILE)
+    heads = np.zeros((tiles, 2, 3), np.int32)
+    frags, step = [], 0
+    for prod, m in enumerate((dw.luma_w, dw.chroma_w)):
+        w = round_to(m, torch.bfloat16).numpy()
+        wp = _ceil16(w.shape[1])
+        for t in range(tiles):
+            a = np.zeros((GROUPED_W_TILE, wp), np.float32)
+            oc = GROUPED_W_TILE * t + np.arange(GROUPED_W_TILE)
+            a[oc < dst_w, :w.shape[1]] = w[oc[oc < dst_w]]
+            nz = np.flatnonzero(a.any(axis=0))
+            c0 = int(nz[0]) // 8 * 8
+            nk = -(-(int(nz[-1]) + 1 - c0) // 16)
+            c0 = min(c0, wp - 16 * nk)
+            frags.append(fragment_order(a[:, c0:c0 + 16 * nk]))
+            heads[t, prod] = (step, c0, nk)
+            step += nk
+    return GroupedWTables(heads, np.concatenate(frags, axis=0))
 
 
 def planar_u8_checked(fmt: str, y, u, v, *, src_w: int, src_h: int,
