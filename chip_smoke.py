@@ -21,8 +21,9 @@ one within the kernels' envelope); and the 4K NV12 resize lab's
 entry point (``vali_tpu_torch.lab.resize_diag``: phase knock-outs, aligned
 windows, the skewed H/W pipeline, streamed row bands, row-slab split-K
 sums, column stripes) at 16 x 4K -> 1080p, each kernel against its plain
-version and the full-function ones but slabs against nv12_resize bit for
-bit; and the NV12 -> RGB convert lab's entry point
+version and the full-function ones but slabs and aligned (its passes on
+the tensor cores, within the kernels' envelope) against nv12_resize bit
+for bit; and the NV12 -> RGB convert lab's entry point
 (``vali_tpu_torch.lab.convert_lab``: bf16-staged variants, read / store /
 quantisation / replication probes) at 64 x 1080p, each kernel against its
 plain version bit for bit and V1 / V2 against nv12_to_rgb; then the
@@ -1461,13 +1462,16 @@ RESIZE_LAB_REPLACES = {  # resize-lab wrapper -> its TPU notebook kernel
 def resize_lab_phase(torch, np, dev, smi):
     """The 4K NV12 resize lab at 16 x 4K -> 1080p: every lab kernel against
     its plain version on the card (the full-function variants but slabs
-    also against nv12_resize bit for bit, ``both`` against its luma rows;
-    slabs' samples that differ from nv12_resize are counted), the sinks of
+    and aligned also against nv12_resize bit for bit, ``both`` against its
+    luma rows; aligned, the tensor-core passes, within the uint8 envelope
+    of nv12_resize; the samples in which slabs and aligned differ from
+    nv12_resize are counted), the sinks of
     dma_only and w_only against the frames, then the lab's entry point
     (``resize_diag.run``) name by name with the launch counts set to 0 just
     before and read just after, the H/W split, and the plain versions'
     times. Returns the lab kernels' entries of the JSON line."""
     from vali_tpu_torch.lab import resize_diag as rd
+    from vali_tpu_torch.lab.timing import BF16_OPS_PER_S, HBM_BYTES_PER_S
     from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
 
     geo = dict(src_w=W4K, src_h=H4K, dst_w=W, dst_h=H)
@@ -1483,8 +1487,9 @@ def resize_lab_phase(torch, np, dev, smi):
     err = {}
     for name, c in cases.items():
         out = c.call(frames)
+        full_plain = c.exact or c.wrapper is rd.aligned_resize
         ref = (plain_full[:, :H] if name == "both" else plain_full
-               if c.exact else c.plain(frames))
+               if full_plain else c.plain(frames))
         torch.cuda.synchronize()
         err[name] = compare(torch, f"resize lab {name} vs plain", out, ref)
         if name == "dma_only" and not torch.equal(out, ref):
@@ -1497,6 +1502,15 @@ def resize_lab_phase(torch, np, dev, smi):
             log(f"resize lab {name}: {int((out != product).sum().item())} "
                 f"of {out.numel()} samples differ from nv12_resize (split-K "
                 f"sums at the slab edges)")
+        if c.wrapper is rd.aligned_resize:
+            compare(torch, f"resize lab {name} vs nv12_resize", out, product)
+            nb, ops = c.work
+            log(f"resize lab {name}: {int((out != product).sum().item())} "
+                f"of {out.numel()} samples differ from nv12_resize, "
+                f"{int((out != ref).sum().item())} from its plain version "
+                f"(tensor-core sums); bound {nb / HBM_BYTES_PER_S * 1e3} ms "
+                f"by bytes ({nb} B), {ops / BF16_OPS_PER_S * 1e3} ms by "
+                f"operations ({ops} FLOP issued, zeros included)")
     del plain_full
     want = np.bitwise_xor.reduce(frames.cpu().numpy().view(np.uint32),
                                  axis=None)
@@ -1507,9 +1521,9 @@ def resize_lab_phase(torch, np, dev, smi):
         if got != want:
             raise AssertionError(f"{mode}'s sink misses bytes of the frames")
     exact = ", ".join(n for n in names if cases[n].exact)
-    log(f"resize lab: {exact} equal to nv12_resize (both: its luma rows); "
-        f"the dma_only and w_only sinks equal to the XOR of every word of "
-        f"the frames")
+    log(f"resize lab: {exact} equal to nv12_resize (both: its luma rows), "
+        f"aligned within its envelope; the dma_only and w_only sinks equal "
+        f"to the XOR of every word of the frames")
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in rd.WRAPPERS:
@@ -1555,7 +1569,9 @@ def resize_lab_phase(torch, np, dev, smi):
         r = results[name]
         entries.append({
             "name": f"{wrapper} {name}", "route": "cuda",
-            "source": "vali_tpu_torch/csrc/nv12_resize_variants.cu",
+            "source": "vali_tpu_torch/csrc/" + (
+                "nv12_aligned.cu" if c.wrapper is rd.aligned_resize
+                else "nv12_resize_variants.cu"),
             "replaces": RESIZE_LAB_REPLACES[wrapper],
             "launches": r["launches"], "max_abs_err": err[name],
             "ms": r["ms"],

@@ -847,7 +847,9 @@ RESIZE_LAB_NAMES = [n for n in rd.DEFAULT_NAMES if n != "prod"]
 @pytest.mark.parametrize("name", RESIZE_LAB_NAMES)
 def test_resize_lab_kernels_match_plain(dev, geom, name):
     """Each resize-lab kernel against its plain version; the full-function
-    variants equal nv12_resize bit for bit, and ``both`` its luma rows."""
+    variants equal nv12_resize bit for bit, and ``both`` its luma rows, but
+    slabs and aligned (tensor-core sums), which keep within the uint8
+    envelope of their references."""
     b, h, w, dh, dw = geom
     x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h + w)
     geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
@@ -861,6 +863,37 @@ def test_resize_lab_kernels_match_plain(dev, geom, name):
         _assert_close(out, ref, (name, geom))
     if c.exact:
         assert torch.equal(out, c.reference(x)), (name, geom)
+    else:
+        _assert_close(out, c.reference(x), (name, geom))
+
+
+@pytest.mark.parametrize("h_align,w_align", [(8, 32), (32, 128), (4, 16),
+                                             (4, 8)])
+def test_aligned_within_the_envelope_of_nv12_resize_at_4k(dev, h_align,
+                                                          w_align):
+    """The tensor-core aligned kernel at 4K -> 1080p (four frames): within
+    1 LSB on fewer than 1e-3 of the samples of nv12_resize and of its plain
+    version, and the wrapper's output is the launcher's every call."""
+    geo = dict(src_w=3840, src_h=2160, dst_w=1920, dst_h=1080)
+    x = rd.make_frames(4, 3240, 3840, dev, seed=h_align + w_align)
+    out = rd.aligned_resize(x, **geo, h_align=h_align, w_align=w_align)
+    _assert_close(out, nv12_resize(x, **geo), (h_align, w_align))
+    _assert_close(out, nv12_resize_plain(x, **geo), (h_align, w_align))
+    assert torch.equal(out, rd.aligned_resize(x, **geo, h_align=h_align,
+                                              w_align=w_align))
+
+
+def test_aligned_refuses_before_any_launch(dev):
+    """A window past the kernel's K or a block past its shared memory
+    raises ValueError on the card too, and launches nothing."""
+    before = rd.aligned_resize.launches
+    x = rd.make_frames(1, 96, 8192, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        rd.aligned_resize(x, src_w=8192, src_h=64, dst_w=64, dst_h=32)
+    y = rd.make_frames(1, 3240, 3840, dev)
+    with pytest.raises(ValueError, match="exceed"):
+        rd.aligned_resize(y, src_w=3840, src_h=2160, dst_w=64, dst_h=16)
+    assert rd.aligned_resize.launches == before
 
 
 @pytest.mark.parametrize("name", ["dma_only", "h_only", "w_only", "both",

@@ -77,6 +77,7 @@
 #include <type_traits>
 
 #include "banded_preprocess.cuh"
+#include "wgmma_common.cuh"
 
 // Build knobs of the A/B lab (vali_tpu_torch/lab/grouped_ab.py), at their
 // defaults here. WPASS: the W pass, `mma` (the faster, measured in PERF.md)
@@ -102,6 +103,12 @@ using banded::kSmemLimit;
 using banded::Tables;
 using banded::Tail;
 using banded::tab;
+using wgmma::cp_async_commit;
+using wgmma::cp_async_wait;
+using wgmma::desc;
+using wgmma::fence_proxy_async;
+using wgmma::kStageCols;
+using wgmma::pack_bf16;
 
 constexpr bool kWpassMma =
     NV12_GROUPED_CAT(NV12_GROUPED_WPASS_, NV12_GROUPED_WPASS) == 1;
@@ -110,96 +117,13 @@ constexpr int kKnockout = NV12_GROUPED_KNOCKOUT;
 constexpr int kThreads = 256;    // two warpgroups
 constexpr int kStrip = 8;        // output rows of a strip, in each plane
 constexpr int kN = 16;           // N of the H product: 8 luma | 8 chroma
-constexpr int kStageCols = 128;  // frame columns of a stage: 64 a warpgroup
 constexpr int kStages = 3;       // ring depth: two stages in flight
 constexpr int kMaxKSteps = 16;   // K <= 256 window rows
 constexpr int kGroupBytes = 144; // one 8-column group of 8 H rows, padded
-constexpr int kWBatch = 8;       // W-pass k-steps a batch of weight loads
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// wgmma matrix descriptor of a K-major operand without swizzle: 8 x 16-byte
-// core matrices, `lbo` bytes apart along K, `sbo` bytes apart along M / N.
-__device__ __forceinline__ uint64_t desc(const void* p, unsigned lbo,
-                                         unsigned sbo) {
-  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFFu) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (64 x 16 fp32) += a (64 x 16 bf16, registers) * b (16 x 16, shared).
-__device__ __forceinline__ void wgmma_n16(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
-
-// d (64 x 8 fp32) += a (64 x 16 bf16, registers) * b (16 x 8, shared).
-__device__ __forceinline__ void wgmma_n8(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Byte j of `h` as an exact float: 2^23 + x less 2^23.
-__device__ __forceinline__ float byte_f(unsigned h, int j) {
-  return __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7440 + j)) -
-         8388608.0f;
-}
-
-// Byte offset of chunk `ch` (16 bytes) of ring row k: XOR-swizzled by row
-// pair, so the rows k, k + 2, k + 4, k + 6 a warp reads at once fall in
-// distinct banks.
-__device__ __forceinline__ int ring_off(int k, int ch) {
-  return k * kStageCols + ((ch ^ ((k >> 1) & 7)) << 4);
-}
 
 // Byte offset of H element (row r, column c) in the tiled H rows.
 __device__ __forceinline__ int h_off(int r, int c) {
-  return (c >> 3) * kGroupBytes + r * 16 + (c & 7) * 2;
+  return wgmma::h_off(r, c, kGroupBytes);
 }
 
 __device__ __forceinline__ float h_at(const unsigned char* h, int r,
@@ -212,33 +136,6 @@ __device__ __forceinline__ float h_at(const unsigned char* h, int r,
 __device__ __forceinline__ int window_row(int k, int ly, int2 st,
                                           int src_h) {
   return k < ly ? st.x + k : src_h + st.y + k - ly;
-}
-
-// Stage s of the stacked window (kw rows, frame columns [128 s, 128 s +
-// 128)) into its ring slot: cp.async when every row is 16-byte aligned,
-// else element loads. Every thread commits one group.
-__device__ __forceinline__ void issue_stage(unsigned char* slot,
-                                            const uint8_t* frame,
-                                            long long rs, int s, int kw,
-                                            int ly, int2 st, int src_h,
-                                            int W, bool vec) {
-  const int c0 = s * kStageCols;
-  if (vec) {
-    for (int i = threadIdx.x; i < kw * (kStageCols / 16); i += kThreads) {
-      const int k = i >> 3, ch = i & 7;
-      if (c0 + 16 * ch < W)
-        cp_async16(slot + ring_off(k, ch),
-                   frame + window_row(k, ly, st, src_h) * rs + c0 + 16 * ch);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kw * kStageCols; i += kThreads) {
-      const int k = i / kStageCols, c = i - k * kStageCols;
-      if (c0 + c < W)
-        slot[ring_off(k, c >> 4) + (c & 15)] =
-            __ldg(frame + window_row(k, ly, st, src_h) * rs + c0 + c);
-    }
-  }
-  cp_async_commit();
 }
 
 // The product's tail: CSC of the W sums, round and clip to uint8.
@@ -289,43 +186,6 @@ __device__ __forceinline__ void wpass_banded(const unsigned char* hy,
   }
 }
 
-// One W-pass product of a warpgroup: d = A x H[:, c0 : c0 + 16 nk]^T over
-// N = 8 H rows at `h` (and, for N = 16, 8 more `sbo` bytes on), A's
-// fragments at `frags` ([nk][128] 16-byte words), in batches of kWBatch
-// k-steps: the batch's weights loaded, then its products issued. A batch
-// always issues kWBatch products, those past nk with zero A over the last
-// k-step's H columns: no wgmma sits under a branch, which would make ptxas
-// serialize them all.
-template <int N>
-__device__ __forceinline__ void wpass_product(float* d,
-                                              const uint4* __restrict__ frags,
-                                              int nk,
-                                              const unsigned char* h, int c0,
-                                              unsigned sbo, int wt) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
-  for (int k0 = 0; k0 < nk; k0 += kWBatch) {
-    uint4 a[kWBatch];
-#pragma unroll
-    for (int i = 0; i < kWBatch; ++i) {
-      const int k = min(k0 + i, nk - 1);
-      a[i] = __ldg(frags + static_cast<long long>(k) * 128 + wt);
-      if (k0 + i >= nk) a[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int i = 0; i < kWBatch; ++i) {
-      const int k = min(k0 + i, nk - 1);
-      const uint64_t b =
-          desc(h + ((c0 >> 3) + 2 * k) * kGroupBytes, kGroupBytes, sbo);
-      if constexpr (N == 8) wgmma_n8(d, a[i], b);
-      else wgmma_n16(d, a[i], b);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-  }
-}
-
 // NK = k_pad / 16, the H pass's k-steps: compiled per count, so that no
 // wgmma of the H pass sits under a branch (ptxas would serialize them).
 template <int NK>
@@ -354,11 +214,12 @@ nv12_grouped_kernel(const uint8_t* __restrict__ src, long long bs,
   const int2 st = __ldg(starts + strip);
   const int kw = ly + lc;  // window rows; rows kw .. kp - 1 weigh 0
   const int nstages = (W + kStageCols - 1) / kStageCols;
+  const auto row_of = [=](int k) { return window_row(k, ly, st, g.src_h); };
 
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nstages)
-      issue_stage(ring + s * kp * kStageCols, frame, rs, s, kw, ly, st,
-                  g.src_h, W, vec);
+      wgmma::issue_stage<kThreads>(ring + s * kp * kStageCols, frame, rs,
+                                   s * kStageCols, kw, W, vec, row_of);
     else
       cp_async_commit();
   }
@@ -380,47 +241,31 @@ nv12_grouped_kernel(const uint8_t* __restrict__ src, long long bs,
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;  // fragment row, k pair
   const int ccol = 64 * wg + 16 * warp + 2 * gq;  // the thread's 2 columns
-  const int chunk = ccol >> 4, cbyte = ccol & 15;
   const uint64_t bdesc = desc(bw, 128, 256);
 
   for (int s = 0; s < nstages; ++s) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // stage s landed; slot (s - 1) % kStages is free
     if (s + kStages - 1 < nstages)
-      issue_stage(ring + (s + kStages - 1) % kStages * kp * kStageCols,
-                  frame, rs, s + kStages - 1, kw, ly, st, g.src_h, W, vec);
+      wgmma::issue_stage<kThreads>(
+          ring + (s + kStages - 1) % kStages * kp * kStageCols, frame, rs,
+          (s + kStages - 1) * kStageCols, kw, W, vec, row_of);
     else
       cp_async_commit();
     if (kKnockout & 2) continue;
     const unsigned char* slot = ring + s % kStages * kp * kStageCols;
-    // A fragments: a[ks] = rows k0 + 2 tq (+1, +8, +9) of columns
-    // (ccol, ccol + 1), each pair of rows packed low-k first
     unsigned a[NK][4];
-#pragma unroll
-    for (int ks = 0; ks < NK; ++ks) {
-      const int k = 16 * ks + 2 * tq;
-      unsigned h[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = k + (j & 1) + 8 * (j >> 1);
-        h[j] = *reinterpret_cast<const unsigned short*>(
-            slot + ring_off(r, chunk) + cbyte);
-      }
-      a[ks][0] = pack_bf16(byte_f(h[0], 0), byte_f(h[1], 0));
-      a[ks][1] = pack_bf16(byte_f(h[0], 1), byte_f(h[1], 1));
-      a[ks][2] = pack_bf16(byte_f(h[2], 0), byte_f(h[3], 0));
-      a[ks][3] = pack_bf16(byte_f(h[2], 1), byte_f(h[3], 1));
-    }
+    wgmma::ring_fragments<NK>(a, slot, ccol, tq);
     float d[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) d[i] = 0.0f;
-    wgmma_fence();
+    wgmma::fence();
 #pragma unroll
     for (int ks = 0; ks < NK; ++ks)
-      wgmma_n16(d, make_uint4(a[ks][0], a[ks][1], a[ks][2], a[ks][3]),
-                bdesc + ((ks * 512) >> 4));
-    wgmma_commit();
-    wgmma_wait_all();
+      wgmma::mma<16>(d, make_uint4(a[ks][0], a[ks][1], a[ks][2], a[ks][3]),
+                     bdesc + ((ks * 512) >> 4));
+    wgmma::commit();
+    wgmma::wait_all();
     // d[0..3]: luma rows 2 tq, 2 tq + 1 of columns c, c + 1; d[4..7]
     // the same chroma rows, U and V of chroma column c / 2
     const int c = s * kStageCols + ccol;
@@ -453,10 +298,12 @@ nv12_grouped_kernel(const uint8_t* __restrict__ src, long long bs,
     for (int tile = wg; tile < (DW + 63) / 64; tile += 2) {
       const int* hd = w_heads + 6 * tile;  // (first k-step, c0, nk) x 2
       float dy[4], dc[8];
-      wpass_product<8>(dy, w_frags + static_cast<long long>(hd[0]) * 128,
-                       hd[2], hy, hd[1], 0, wt);
-      wpass_product<16>(dc, w_frags + static_cast<long long>(hd[3]) * 128,
-                        hd[5], hu, hd[4], uv_sbo, wt);
+      wgmma::wpass_product<8>(
+          dy, w_frags + static_cast<long long>(hd[0]) * 128, hd[2], hy,
+          hd[1], kGroupBytes, 0, wt);
+      wgmma::wpass_product<16>(
+          dc, w_frags + static_cast<long long>(hd[3]) * 128, hd[5], hu,
+          hd[4], kGroupBytes, uv_sbo, wt);
       // pixel e: column p of the tile's fragment rows 16 warp + gq (+8),
       // row 2 tq (+1); Y from dy, U from dc[0..3], V from dc[4..7]
       const int pa = 64 * tile + 16 * warp + gq;

@@ -4,7 +4,6 @@
 //
 // Replaces the TPU lab-notebook kernels of resize_diag.py:
 //   - variant  (dma_only, h_only, w_only, both) -> nv12_resize_phases_launch
-//   - aligned  (h_align, w_align)               -> nv12_resize_aligned_launch
 //   - skewed                                    -> nv12_resize_skewed_launch
 //   - streamed (band)                           -> nv12_resize_streamed_launch
 //   - slabs    (nslabs, h_align, w_align)       -> nv12_resize_slabs_launch
@@ -19,12 +18,6 @@
 //   phases    what each pass costs over the stream of the same bytes. The
 //             knock-outs keep the product's blocks and drop a phase; their
 //             results are folded into a sink so no phase is compiled away.
-//   aligned   whether aligned windows and 16-byte loads pay for the zero
-//             taps they add: strip row windows and column tap ranges are
-//             widened to multiples of h_align rows and w_align lanes on the
-//             host (added taps weigh 0, which adds exactly nothing in fp32);
-//             with w_align a multiple of 16 each H-pass thread loads 16
-//             lanes with one 16-byte load.
 //   skewed    whether the W pass hides behind the H pass: one block per
 //             (column tile, strip, plane) walks the frames; a producer half
 //             of the block runs frame b's H pass into one of two H-pass
@@ -36,9 +29,10 @@
 //             bands of `band` source rows of its window into a shared-memory
 //             ring two bands deep with cp.async (16 bytes per copy); the H
 //             pass reads the ring.
-//   slabs     whether several copies in flight per block beat one: the
-//             aligned block stages its strip's source window in shared
-//             memory with cp.async, one commit group per slab of the NV12
+//   slabs     whether several copies in flight per block beat one: a
+//             block stages its strip's source window, aligned on the host
+//             (lab/resize_diag.py aligned_tables), in shared memory with
+//             cp.async, one commit group per slab of the NV12
 //             buffer's rows that the window touches, and sums each piece
 //             into its own fp32 partial as soon as it has landed; the
 //             partials are added in slab order (the TPU kernel's split-K).
@@ -126,16 +120,6 @@ template <> __device__ __forceinline__ void load_vec<4>(const uint8_t* p,
   const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
 #pragma unroll
   for (int i = 0; i < 4; ++i) x[i] = static_cast<float>((w >> (8 * i)) & 0xFFu);
-}
-template <> __device__ __forceinline__ void load_vec<16>(const uint8_t* p,
-                                                        float* x) {
-  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[4 * j + i] = static_cast<float>((w[j] >> (8 * i)) & 0xFFu);
 }
 
 // First source row the strip of output rows o0 .. o0 + kRows - 1 reads.
@@ -266,10 +250,10 @@ __device__ __forceinline__ void wpass(const MT* mid, int ldm, int lane0,
   }
 }
 
-// ---- phases and aligned: one block per (column tile, strip, frame) ------
+// ---- phases: one block per (column tile, strip, frame) -----------------
 
 template <int MODE, int VEC, int C>
-__global__ void __launch_bounds__(VEC == 16 ? kThreads / 2 : kThreads)
+__global__ void __launch_bounds__(kThreads)
 strip_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
              Bands bd, Image im, Knock kn) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -390,7 +374,7 @@ cudaError_t launch_strip(const void* src, void* out, const Bands& bd,
   if (e != cudaSuccess) return e;
   const dim3 grid((im.dst_w + bd.tile_w - 1) / bd.tile_w,
                   (im.dst_h + kRows - 1) / kRows, batch);
-  kern<<<grid, VEC == 16 ? kThreads / 2 : kThreads, smem, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(out), bd, im,
       kn);
   return cudaGetLastError();
@@ -999,44 +983,6 @@ int nv12_resize_phases_launch(const void* src, long long batch_stride,
       c_src, out, n.c, n.cim, kn, batch, c_window, s));
 }
 
-// The full resize from tables aligned on the host (lab/resize_diag.py
-// aligned_tables); wide 1: 16-byte H-pass loads, for tables whose column
-// windows start on 16 lanes. Two launches (luma, chroma).
-int nv12_resize_aligned_launch(const void* src, long long batch_stride,
-                               long long row_stride, int batch, int src_h,
-                               int src_w, int dst_h, int dst_w,
-                               const int* y_index, const float* y_weights,
-                               int y_h_k, int y_w_k, int y_tile_w,
-                               int y_window, int y_span, const int* c_index,
-                               const float* c_weights, int c_h_k, int c_w_k,
-                               int c_tile_w, int c_window, int c_span,
-                               int wide, void* out, void* stream) {
-  (void)y_w_k;
-  (void)c_w_k;
-  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
-  const Nv12 n = nv12(batch_stride, row_stride, src_h, src_w, dst_h, dst_w,
-                      y_index, y_weights, y_h_k, y_tile_w, y_window, y_span,
-                      c_index, c_weights, c_h_k, c_tile_w, c_window, c_span,
-                      static_cast<long long>(dst_h) * 3 / 2 * dst_w, 0);
-  if (!n.ok) return static_cast<int>(cudaErrorInvalidValue);
-  const Knock kn{};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* c_src =
-      static_cast<const char*>(src) + static_cast<long long>(src_h) * row_stride;
-  void* c_out = static_cast<char*>(out) + static_cast<long long>(dst_h) * dst_w;
-  cudaError_t e =
-      wide ? launch_strip<kFull, 16, 1>(src, out, n.y, n.yim, kn, batch,
-                                        y_window, s)
-           : launch_strip<kFull, 4, 1>(src, out, n.y, n.yim, kn, batch,
-                                       y_window, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = wide ? launch_strip<kFull, 16, 2>(c_src, c_out, n.c, n.cim, kn, batch,
-                                        c_window, s)
-           : launch_strip<kFull, 4, 2>(c_src, c_out, n.c, n.cim, kn, batch,
-                                       c_window, s);
-  return static_cast<int>(e);
-}
-
 // The full resize with one block per (column tile, strip, plane) looping
 // over the frames, H pass of frame b beside W pass of frame b - 1. One
 // launch of 512-thread blocks.
@@ -1120,7 +1066,8 @@ int nv12_resize_streamed_launch(const void* src, long long batch_stride,
 // The full resize with the NV12 buffer's rows cut into slabs of `slab`
 // rows (edges at buffer rows k * slab): each strip's H-pass sums are one
 // fp32 partial per slab its window touches, added in slab order. Tables
-// as nv12_resize_aligned_launch's. Two launches (luma, chroma).
+// aligned on the host (lab/resize_diag.py aligned_tables). Two launches
+// (luma, chroma).
 int nv12_resize_slabs_launch(const void* src, long long batch_stride,
                              long long row_stride, int batch, int src_h,
                              int src_w, int dst_h, int dst_w,

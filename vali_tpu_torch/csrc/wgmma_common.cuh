@@ -1,0 +1,233 @@
+// Pieces shared by the tensor-core lab kernels of this directory
+// (nv12_grouped.cu, nv12_aligned.cu): wgmma descriptors, fences and
+// products with A from registers, the cp.async staging ring of raw uint8
+// window rows with the A fragments built from it, the tiled bf16 H rows
+// and the W-pass product over them. sm_90a only.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wgmma {
+
+constexpr int kStageCols = 128;  // frame bytes of a ring stage: 64 a warpgroup
+constexpr int kWBatch = 8;       // W-pass k-steps a batch of weight loads
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// wgmma matrix descriptor of a K-major operand without swizzle: 8 x 16-byte
+// core matrices, `lbo` bytes apart along K, `sbo` bytes apart along M / N.
+__device__ __forceinline__ uint64_t desc(const void* p, unsigned lbo,
+                                         unsigned sbo) {
+  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFFu) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x N fp32, N / 2 a thread) += a (64 x 16 bf16, registers) * b
+// (16 x N, shared memory, descriptor).
+template <int N>
+__device__ __forceinline__ void mma(float* d, uint4 a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void mma<8>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma<16>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma<32>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma<64>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Byte j of `h` as an exact float: 2^23 + x less 2^23.
+__device__ __forceinline__ float byte_f(unsigned h, int j) {
+  return __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7440 + j)) -
+         8388608.0f;
+}
+
+// Byte offset of chunk `ch` (16 bytes) of ring row k: XOR-swizzled by row
+// pair, so the rows k, k + 2, k + 4, k + 6 a warp reads at once fall in
+// distinct banks.
+__device__ __forceinline__ int ring_off(int k, int ch) {
+  return k * kStageCols + ((ch ^ ((k >> 1) & 7)) << 4);
+}
+
+// Stage `c0` .. c0 + kStageCols - 1 of the bytes of `kw` window rows into a
+// ring slot (row k of the window at frame + row_of(k) * rs): cp.async when
+// every row is 16-byte aligned (vec), else element loads; only bytes below
+// `end` are copied. Every one of the THREADS threads commits one group.
+template <int THREADS, typename RowOf>
+__device__ __forceinline__ void issue_stage(unsigned char* slot,
+                                            const uint8_t* frame,
+                                            long long rs, int c0, int kw,
+                                            int end, bool vec,
+                                            RowOf row_of) {
+  if (vec) {
+    for (int i = threadIdx.x; i < kw * (kStageCols / 16); i += THREADS) {
+      const int k = i >> 3, ch = i & 7;
+      if (c0 + 16 * ch < end)
+        cp_async16(slot + ring_off(k, ch),
+                   frame + row_of(k) * rs + c0 + 16 * ch);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kw * kStageCols; i += THREADS) {
+      const int k = i / kStageCols, c = i - k * kStageCols;
+      if (c0 + c < end)
+        slot[ring_off(k, c >> 4) + (c & 15)] =
+            __ldg(frame + row_of(k) * rs + c0 + c);
+    }
+  }
+  cp_async_commit();
+}
+
+// The H product's A fragments from a ring slot: a[ks] = window rows
+// 16 ks + 2 tq (+1, +8, +9) of the byte columns (col, col + 1), each pair
+// of rows packed low-k first, every byte an exact bf16. Fragment row m of
+// a warp is byte column 2 (m mod 8) + (m / 8 mod 2) of its 16, so one
+// 16-bit load brings both of a thread's columns of a row.
+template <int NK>
+__device__ __forceinline__ void ring_fragments(unsigned (&a)[NK][4],
+                                               const unsigned char* slot,
+                                               int col, int tq) {
+  const int chunk = col >> 4, cbyte = col & 15;
+#pragma unroll
+  for (int ks = 0; ks < NK; ++ks) {
+    const int k = 16 * ks + 2 * tq;
+    unsigned h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = k + (j & 1) + 8 * (j >> 1);
+      h[j] = *reinterpret_cast<const unsigned short*>(
+          slot + ring_off(r, chunk) + cbyte);
+    }
+    a[ks][0] = pack_bf16(byte_f(h[0], 0), byte_f(h[1], 0));
+    a[ks][1] = pack_bf16(byte_f(h[0], 1), byte_f(h[1], 1));
+    a[ks][2] = pack_bf16(byte_f(h[2], 0), byte_f(h[3], 0));
+    a[ks][3] = pack_bf16(byte_f(h[2], 1), byte_f(h[3], 1));
+  }
+}
+
+// Byte offset of H element (row r, column c) in H rows tiled as groups of
+// 8 columns, each `group` bytes: its rows 16 bytes apart (8 bf16).
+__device__ __forceinline__ int h_off(int r, int c, int group) {
+  return (c >> 3) * group + r * 16 + (c & 7) * 2;
+}
+
+// One W-pass product of a warpgroup: d = A x H[:, c0 : c0 + 16 nk]^T over
+// the N tiled H rows at `h` (groups of 8 columns `group` bytes apart, runs
+// of 8 rows `sbo` bytes apart), A's fragments at `frags` ([nk][128] 16-byte
+// words), in batches of kWBatch k-steps: the batch's weights loaded, then
+// its products issued. A batch always issues kWBatch products, those past
+// nk with zero A over the last k-step's H columns: no wgmma sits under a
+// branch, which would make ptxas serialize them all.
+template <int N>
+__device__ __forceinline__ void wpass_product(float* d,
+                                              const uint4* __restrict__ frags,
+                                              int nk,
+                                              const unsigned char* h, int c0,
+                                              unsigned group, unsigned sbo,
+                                              int wt) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
+  for (int k0 = 0; k0 < nk; k0 += kWBatch) {
+    uint4 a[kWBatch];
+#pragma unroll
+    for (int i = 0; i < kWBatch; ++i) {
+      const int k = min(k0 + i, nk - 1);
+      a[i] = __ldg(frags + static_cast<long long>(k) * 128 + wt);
+      if (k0 + i >= nk) a[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence();
+#pragma unroll
+    for (int i = 0; i < kWBatch; ++i) {
+      const int k = min(k0 + i, nk - 1);
+      mma<N>(d, a[i], desc(h + ((c0 >> 3) + 2 * k) * group, group, sbo));
+    }
+    commit();
+    wait_all();
+  }
+}
+
+}  // namespace wgmma

@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import statistics
@@ -92,28 +91,10 @@ SWEEP_TILES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 def _build(source: str, tag: str, signatures: dict, flags=(),
            include=None):
     """``source`` built into build/preprocess_ab/ with ``include`` (else
-    the package's csrc/) first on the include path."""
-    inc = include or os.path.dirname(os.path.abspath(source))
-    h = hashlib.sha256(" ".join(flags).encode())
-    for name in sorted(os.listdir(inc)):
-        if name.endswith((".cu", ".cuh")):
-            with open(os.path.join(inc, name), "rb") as f:
-                h.update(name.encode() + f.read())
-    with open(source, "rb") as f:
-        h.update(f.read())
-    out_dir = os.path.join(os.path.dirname(_cuda_build.BUILD_DIR),
-                           "preprocess_ab")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{tag}_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(path):
-        subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS,
-                        *flags, f"-I{inc}", "-shared", "-o", path, source],
-                       check=True)
-    lib = ctypes.CDLL(path)
-    for name, argtypes in signatures.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+    the source's own directory) on the include path."""
+    return _cuda_build.build_source(
+        source, "preprocess_ab", tag, signatures, flags,
+        [include or os.path.dirname(os.path.abspath(source))])
 
 
 def _current_source() -> str:

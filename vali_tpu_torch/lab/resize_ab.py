@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -71,25 +70,11 @@ _EARLIER = {
 
 
 def _build(source: str, tag: str, signatures: dict, flags=()):
-    """``source`` built beside the package's headers into
-    build/resize_ab/, with the launchers' ``signatures``."""
-    with open(source, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(flags).encode()
-                             ).hexdigest()[:16]
-    out_dir = os.path.join(os.path.dirname(_cuda_build.BUILD_DIR),
-                           "resize_ab")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{tag}_{key}.so")
-    if not os.path.exists(path):
-        csrc = os.path.join(_cuda_build._PKG_DIR, "csrc")
-        subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS,
-                        *flags, f"-I{csrc}", "-shared", "-o", path, source],
-                       check=True)
-    lib = ctypes.CDLL(path)
-    for name, argtypes in signatures.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+    """``source`` built with the package's headers into build/resize_ab/,
+    with the launchers' ``signatures``."""
+    return _cuda_build.build_source(
+        source, "resize_ab", tag, signatures, flags,
+        [os.path.join(_cuda_build._PKG_DIR, "csrc")])
 
 
 def build_earlier(source: str) -> ctypes.CDLL:

@@ -4,7 +4,8 @@ run on the card.
 Counterpart of the TPU notebook ``resize_diag.py`` (its ``main``,
 ``main_aligned``, ``main_skewed``, ``main_streamed``, ``main_slabs`` and
 ``main_striped``). Six wrappers
-over the kernels of ``csrc/nv12_resize_variants.cu``, each beside its plain
+over the kernels of ``csrc/nv12_resize_variants.cu`` and
+``csrc/nv12_aligned.cu``, each beside its plain
 PyTorch version, with the same dispatch as the product wrappers: a CUDA
 tensor launches the kernel, a CPU tensor runs the plain version, any other
 device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
@@ -19,10 +20,12 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   what a mode must not drop goes into a sink, so ``h_only - dma_only`` and
   ``w_only - dma_only`` are the H and W costs over a stream of the same
   bytes.
-- :func:`aligned_resize` (``aligned``): the full resize with each strip's
-  source-row window aligned to ``h_align`` rows and each output column's
-  tap range to ``w_align`` lanes (zero taps added); 16-byte loads when
-  ``w_align`` is a multiple of 16.
+- :func:`aligned_resize` (``aligned``): the full resize with both passes
+  as products on the tensor cores (wgmma fed by a cp.async ring) over
+  aligned windows: each strip's source-row window aligned to ``h_align``
+  rows and each output column's tap range to ``w_align`` lanes (zero taps
+  added). Within 1 LSB on fewer than 1e-3 of the samples of
+  :func:`nv12_resize`.
 - :func:`skewed_resize` (``skewed``): the full resize with frame b's H pass
   beside frame b - 1's W pass inside one block.
 - :func:`streamed_resize` (``streamed``): the full resize with source rows
@@ -36,9 +39,9 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   H pass cut into ``nw`` column stripes into a bf16 scratch in device
   memory, then the W pass; ``store`` dyn, relay or unroll.
 
-Every full-function variant but ``slabs``, and ``both``, equals
-:func:`nv12_resize` bit for bit on the card; on the CPU its plain version
-is the product's, split as the variant splits it.
+Every full-function variant but ``slabs`` and ``aligned``, and ``both``,
+equals :func:`nv12_resize` bit for bit on the card; on the CPU its plain
+version is the product's, split as the variant splits it.
 
 Run the lab (16 x 4K -> 1080p on ``cuda:0``; ``--device cpu`` runs the
 plain versions at 3 x 512x288 -> 256x144 and times nothing)::
@@ -60,12 +63,15 @@ import functools
 import re
 import subprocess
 import sys
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
-from ..ops.banded import (ResizeTables, STRIP_ROWS, band_table,
+from ..ops.banded import (BLOCK_RESERVED_SMEM, SM_SMEM, SMEM_LIMIT,
+                          ResizeTables, STRIP_ROWS, band_table,
+                          core_matrix_order, fragment_order,
                           pack_resize_tables, resize_tables)
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_resize import nv12_resize, nv12_resize_plain
@@ -266,23 +272,232 @@ def aligned_tables(src_h: int, dst_h: int, src_w: int, dst_w: int, *,
     return pack_resize_tables(rows, cols, _BF16, channels, device)
 
 
+class AlignedPlane(NamedTuple):
+    """One plane's tables of :func:`aligned_resize` (csrc/nv12_aligned.cu).
+
+    H pass: per strip of ALIGNED_ROWS output rows, ``starts`` [strips]
+    int32, the first plane row of its window of ``k_pad`` rows, and
+    ``weights`` [strips, ALIGNED_ROWS, k_pad] float32 of bf16 values, each
+    output row's band at its rows of the window (rows past the plane read
+    its last row and weigh 0). W pass: per tile of ALIGNED_W_TILE output
+    pixels, ``heads`` [tiles, 3] int32 (its first k-step in ``frags``, its
+    first source pixel, a multiple of 8, and its k-steps of 16 pixels) and
+    ``frags`` [k-steps, 128, 8] float32 of bf16 values, the tile's [64,
+    16 k] weights in wgmma's register fragments (``fragment_order``).
+    Blocks: ``ranges`` [n, 4] int32, per run of tiles its first tile, its
+    tiles, its first H pixel (a multiple of 16 bytes of a row) and its H
+    pixels (a multiple of 16) covering its tiles' bands; ``hcols`` the
+    widest."""
+    starts: np.ndarray
+    weights: np.ndarray
+    heads: np.ndarray
+    frags: np.ndarray
+    ranges: np.ndarray
+
+    @property
+    def k_pad(self) -> int:
+        return self.weights.shape[2]
+
+    @property
+    def hcols(self) -> int:
+        return int(self.ranges[:, 3].max())
+
+
+#: output rows of a strip of the aligned kernel (its kRows: N of the H
+#: product), output pixels of a W tile (wgmma's M), bytes of a ring stage,
+#: ring stages, the most window rows (K) it is compiled for
+ALIGNED_ROWS = 32
+ALIGNED_W_TILE = 64
+ALIGNED_STAGE_COLS = 128
+ALIGNED_STAGES = 3
+ALIGNED_MAX_K = 256
+#: shared memory of a block when two share an SM
+ALIGNED_TWO_BLOCKS = SM_SMEM // 2 - BLOCK_RESERVED_SMEM
+
+
+def aligned_smem_bytes(channels: int, hcols: int, k_pad: int) -> int:
+    """Shared memory of one block of the aligned kernel: its tiled H rows
+    (ALIGNED_ROWS rows, chroma's U and V rows each, of ``hcols`` pixels;
+    column groups of 8 padded by 16 bytes), B and the ring."""
+    group = 16 * ALIGNED_ROWS * channels + 16
+    return (hcols // 8 * group + 2 * k_pad * ALIGNED_ROWS
+            + ALIGNED_STAGES * k_pad * ALIGNED_STAGE_COLS)
+
+
+def _split(n: int, parts: int) -> List[Tuple[int, int]]:
+    """``n`` items in ``parts`` runs as even as can be: (first, count)."""
+    edges = [n * i // parts for i in range(parts + 1)]
+    return [(a, b - a) for a, b in zip(edges, edges[1:])]
+
+
+@functools.lru_cache(maxsize=32)
+def aligned_plane_tables(n_in: int, n_out: int, px: int, ow: int,
+                         channels: int, h_align: int,
+                         w_align: int) -> AlignedPlane:
+    """The tables of one plane of ``n_in`` rows of ``px`` pixels
+    (``channels`` interleaved) resized to ``n_out`` rows of ``ow``.
+
+    Row windows: each strip's rows' bf16 bands (:func:`align_rows`)
+    widened to ``h_align`` rows, then with zeros to k_pad, the widest
+    rounded up to 16, pulled back to stay inside the plane. Tile bands: the
+    union of its columns' tap ranges widened to ``w_align // channels``
+    pixels (:func:`align_cols`), started on a multiple of 8 and run in
+    whole k-steps of 16, kept inside the plane's width rounded up to 16.
+    Ranges: the fewest runs of tiles (split evenly) whose H columns leave a
+    block two to an SM; one tile a run where none do."""
+    bf = _BF16
+    start, count, w = band_table(resize_weights(n_in, n_out, LANCZOS_AA), bf)
+    lo, span, _ = align_rows((start, count, w), ALIGNED_ROWS, h_align, n_in)
+    k_pad = max(16, -(-int(span.max()) // 16) * 16)
+    strips = -(-n_out // ALIGNED_ROWS)
+    first = lo[::ALIGNED_ROWS]
+    starts = np.maximum(0, np.minimum(first, n_in - k_pad)).astype(np.int32)
+    weights = np.zeros((strips, ALIGNED_ROWS, k_pad), np.float32)
+    for o in range(n_out):
+        s = o // ALIGNED_ROWS
+        off = int(start[o] - starts[s])
+        weights[s, o % ALIGNED_ROWS, off:off + count[o]] = w[o, :count[o]]
+
+    cs, cc, cw = band_table(resize_weights(px, ow, LANCZOS_AA), bf)
+    clo, cn, _ = align_cols((cs, cc, cw), max(1, w_align // channels), px)
+    wp = -(-px // 16) * 16
+    tiles = -(-ow // ALIGNED_W_TILE)
+    heads = np.zeros((tiles, 3), np.int32)
+    frags, step = [], 0
+    for t in range(tiles):
+        oc = np.arange(ALIGNED_W_TILE * t, min(ALIGNED_W_TILE * (t + 1), ow))
+        c0 = int(clo[oc].min()) // 8 * 8
+        nk = -(-(int((clo + cn)[oc].max()) - c0) // 16)
+        c0 = min(c0, wp - 16 * nk)
+        a = np.zeros((ALIGNED_W_TILE, 16 * nk), np.float32)
+        for m, o in enumerate(oc):
+            a[m, cs[o] - c0:cs[o] - c0 + cc[o]] = cw[o, :cc[o]]
+        frags.append(fragment_order(a))
+        heads[t] = (step, c0, nk)
+        step += nk
+
+    def runs(parts):
+        out = np.zeros((parts, 4), np.int32)
+        for i, (t0, n) in enumerate(_split(tiles, parts)):
+            c0s = heads[t0:t0 + n, 1]
+            x0 = int(c0s.min()) // (16 // channels) * (16 // channels)
+            hi = int((c0s + 16 * heads[t0:t0 + n, 2]).max())
+            out[i] = (t0, n, x0, -(-(hi - x0) // 16) * 16)
+        return out
+
+    for parts in range(1, tiles + 1):
+        ranges = runs(parts)
+        if aligned_smem_bytes(channels, int(ranges[:, 3].max()),
+                              k_pad) <= ALIGNED_TWO_BLOCKS:
+            break
+    return AlignedPlane(starts, weights, heads, np.concatenate(frags),
+                        ranges)
+
+
+def _aligned_planes(src_w, src_h, dst_w, dst_h, h_align, w_align):
+    """(luma, chroma) :class:`AlignedPlane` tables."""
+    return (aligned_plane_tables(src_h, dst_h, src_w, dst_w, 1, h_align,
+                                 w_align),
+            aligned_plane_tables(src_h // 2, dst_h // 2, src_w // 2,
+                                 dst_w // 2, 2, h_align, w_align))
+
+
+def aligned_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                    h_align: int, w_align: int) -> str:
+    """Why the aligned kernel cannot take this geometry, or "" when it
+    can: a window of more than ALIGNED_MAX_K rows, or a block's shared
+    memory over a block's."""
+    for name, ch, t in zip(("luma", "chroma"), (1, 2),
+                           _aligned_planes(src_w, src_h, dst_w, dst_h,
+                                           h_align, w_align)):
+        if t.k_pad > ALIGNED_MAX_K:
+            return (f"its {name} windows of {t.k_pad} rows exceed the "
+                    f"kernel's {ALIGNED_MAX_K}")
+        smem = aligned_smem_bytes(ch, t.hcols, t.k_pad)
+        if smem > SMEM_LIMIT:
+            return (f"its {name} H rows, weights and ring need {smem} B of "
+                    f"shared memory, over a block's {SMEM_LIMIT} B")
+    return ""
+
+
+def aligned_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                 dst_h: int, h_align: int, w_align: int) -> Tuple[int, int]:
+    """(bytes, operations) of one aligned batch: the product's bytes, and
+    the FLOPs its tables issue, zeros included: per strip [ALIGNED_ROWS,
+    k_pad] weights times the H columns of each of its ranges (bytes of a
+    row), and per strip each tile's [64, 16] A times its ALIGNED_ROWS H
+    rows (chroma: U and V) each k-step."""
+    h_fmas = w_fmas = 0
+    for ch, t in zip((1, 2), _aligned_planes(src_w, src_h, dst_w, dst_h,
+                                             h_align, w_align)):
+        strips = t.weights.shape[0]
+        h_fmas += (strips * ALIGNED_ROWS * t.k_pad * ch
+                   * int(t.ranges[:, 3].sum()))
+        w_fmas += (strips * ALIGNED_W_TILE * 16 * ALIGNED_ROWS * ch
+                   * int(t.heads[:, 2].sum()))
+    return nv12_resize_work(batch, src_h, src_w, dst_h, dst_w,
+                            h_fmas=h_fmas, w_fmas=w_fmas)
+
+
+@functools.lru_cache(maxsize=8)
+def _aligned_device(src_w, src_h, dst_w, dst_h, h_align, w_align, device):
+    """The launcher's table arguments on ``device``, uploaded once per
+    geometry: per plane B in bf16 core-matrix order, the window starts,
+    k_pad, the ranges, their count, the H columns, the heads and the bf16
+    A fragments; with the tensors they point into."""
+    args, keep = [], []
+    for t in _aligned_planes(src_w, src_h, dst_w, dst_h, h_align, w_align):
+        b, starts, ranges, heads, frags = (
+            torch.from_numpy(core_matrix_order(t.weights)).to(device, _BF16),
+            torch.from_numpy(t.starts).to(device),
+            torch.from_numpy(t.ranges.reshape(-1)).to(device),
+            torch.from_numpy(t.heads.reshape(-1)).to(device),
+            torch.from_numpy(t.frags).to(device, _BF16))
+        keep += [b, starts, ranges, heads, frags]
+        args += [b.data_ptr(), starts.data_ptr(), t.k_pad, ranges.data_ptr(),
+                 len(t.ranges), t.hcols, heads.data_ptr(), frags.data_ptr()]
+    return tuple(args), keep
+
+
 def aligned_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
                    dst_w: int, dst_h: int, h_align: int = 8,
                    w_align: int = 32) -> torch.Tensor:
-    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 through aligned
-    windows; equal to :func:`nv12_resize`."""
+    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with both passes as
+    products over aligned windows on the tensor cores
+    (:func:`aligned_plane_tables`): each strip's source-row window starts
+    and ends on a multiple of ``h_align`` rows, each output column's tap
+    range on ``w_align // channels`` pixels, the added taps weighing 0;
+    where wgmma's k-step needs more (K a multiple of 16, a tile's band
+    starting on 8 pixels), the windows widen further with zeros. bf16
+    weights and samples, fp32 sums, the H rows rounded to bf16: within the
+    uint8 envelope of :func:`nv12_resize` (the tensor cores sum in their
+    own order); on the CPU :func:`nv12_resize_plain` itself. Raises
+    ValueError for a geometry whose windows or shared memory do not fit
+    the kernel (:func:`aligned_refusal`), on either device."""
     if h_align < 1 or w_align < 1:
         raise ValueError(f"h_align and w_align must be >= 1, got "
                          f"{h_align}, {w_align}")
     _checked(nv12, src_w, src_h, dst_w, dst_h)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = aligned_refusal(**geo, h_align=h_align, w_align=w_align)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("aligned_resize", nv12):
         return nv12_resize_plain(nv12, **geo)
-    tabs = _tables(src_w, src_h, dst_w, dst_h, nv12.device, aligned_tables,
-                   h_align=h_align, w_align=w_align)
-    out = _launch("aligned_resize", "nv12_resize_aligned_launch", nv12,
-                  tabs, (int(w_align % 16 == 0),),
-                  _full_out(nv12, dst_w, dst_h), **geo)
+    from ..ops._cuda_build import check, load_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    args, _ = _aligned_device(src_w, src_h, dst_w, dst_h, h_align, w_align,
+                              nv12.device)
+    out = _full_out(nv12, dst_w, dst_h)
+    lib = load_kernels()
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_resize_aligned_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],
+            src_h, src_w, dst_h, dst_w, *args, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "aligned_resize")
     aligned_resize.launches += 1
     return out
 
@@ -551,7 +766,8 @@ def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
         return Case(aligned_resize,
                     lambda x: aligned_resize(x, **geo, h_align=ha,
                                              w_align=wa),
-                    plain, product, True, full)
+                    plain, product, False,
+                    aligned_work(batch, **geo, h_align=ha, w_align=wa))
     if name == "skewed":
         return Case(skewed_resize, lambda x: skewed_resize(x, **geo), plain,
                     product, True, full)

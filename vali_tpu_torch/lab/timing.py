@@ -125,7 +125,8 @@ def preprocess_work(batch: int, src_w: int, src_h: int, dst_w: int,
 
 def nv12_resize_work(batch: int, src_h: int, src_w: int, dst_h: int,
                      dst_w: int, h_pass: bool = True, w_pass: bool = True,
-                     chroma: bool = True) -> Tuple[int, int]:
+                     chroma: bool = True, h_fmas: Optional[int] = None,
+                     w_fmas: Optional[int] = None) -> Tuple[int, int]:
     """(bytes, operations) of a uint8 lanczos_aa banded NV12 resize batch:
     the NV12 frames read once, the output written once, and the FMAs of
     the bands (one FMA is two operations). Luma and the interleaved UV
@@ -133,8 +134,10 @@ def nv12_resize_work(batch: int, src_h: int, src_w: int, dst_h: int,
     channels of a pair). ``chroma=False`` counts the lab's knock-outs,
     which write the luma rows only: no chroma W pass or output, while
     their chroma H pass still counts with ``h_pass``. Alignment slack is
-    not work the function needs, so every full-function variant has the
-    product's count."""
+    not work the function needs, so the full-function variants on the
+    CUDA cores have the product's count; ``h_fmas`` and ``w_fmas`` replace
+    the H and W passes' FMAs per frame by the count a lab variant issues,
+    zero weights included (the aligned kernel's tensor-core products)."""
     luma_h = _taps(resize_weights(src_h, dst_h, LANCZOS_AA))
     chroma_h = _taps(resize_weights(src_h // 2, dst_h // 2, LANCZOS_AA))
     luma_w = _taps(resize_weights(src_w, dst_w, LANCZOS_AA))
@@ -142,9 +145,11 @@ def nv12_resize_work(batch: int, src_h: int, src_w: int, dst_h: int,
     out_rows = dst_h + (dst_h // 2 if chroma else 0)
     fmas = 0
     if h_pass:   # a chroma row has src_w lanes: src_w / 2 pairs
-        fmas += (luma_h + chroma_h) * src_w
+        fmas += (h_fmas if h_fmas is not None else
+                 (luma_h + chroma_h) * src_w)
     if w_pass:
-        fmas += dst_h * luma_w + (dst_h // 2 * 2 * chroma_w if chroma else 0)
+        fmas += (w_fmas if w_fmas is not None else dst_h * luma_w
+                 + (dst_h // 2 * 2 * chroma_w if chroma else 0))
     nbytes = batch * (src_h * 3 // 2 * src_w + out_rows * dst_w)
     return nbytes, 2 * batch * fmas
 

@@ -14,17 +14,20 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import threading
+from typing import List, Sequence
 
 from ..utils._build import locked_build, source_key
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
             "csrc/nv12_to_rgb.cu", "csrc/nv12_variants.cu",
-            "csrc/nv12_grouped.cu", "csrc/nv12_resize_variants.cu",
-            "csrc/nv12_to_rgb_variants.cu")
-_HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh")
+            "csrc/nv12_grouped.cu", "csrc/nv12_aligned.cu",
+            "csrc/nv12_resize_variants.cu", "csrc/nv12_to_rgb_variants.cu")
+_HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
+            "csrc/wgmma_common.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -77,9 +80,13 @@ _SIGNATURES = {
 # launcher's knobs, the output and the stream
 _RESIZE_LAB = [_P, _LL, _LL, _I, _I, _I, _I, _I,
                _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I]
+# lab kernel aligned: per plane B, starts, k_pad, ranges, their count, H
+# columns, heads, fragments
+_ALIGNED_PLANE = [_P, _P, _I, _P, _I, _I, _P, _P]
 _SIGNATURES.update({
+    "nv12_resize_aligned_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
+    + _ALIGNED_PLANE * 2 + [_P, _P],
     "nv12_resize_phases_launch": _RESIZE_LAB + [_I, _P, _I, _P, _P],
-    "nv12_resize_aligned_launch": _RESIZE_LAB + [_I, _P, _P],
     "nv12_resize_skewed_launch": _RESIZE_LAB + [_P, _P],
     "nv12_resize_streamed_launch": _RESIZE_LAB + [_I, _P, _P],
     "nv12_resize_slabs_launch": _RESIZE_LAB + [_I, _P, _P],
@@ -140,3 +147,53 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.banded_error_string(code).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({code})")
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def included_files(source: str, include_dirs: Sequence[str] = ()
+                   ) -> List[str]:
+    """``source`` and every file it includes with ``#include "..."``, at any
+    depth, as absolute paths: each looked up beside the file that includes
+    it, then in ``include_dirs``, as nvcc does."""
+    found, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        with open(path) as f:
+            names = _INCLUDE.findall(f.read())
+        for name in names:
+            for d in (os.path.dirname(path), *include_dirs):
+                cand = os.path.abspath(os.path.join(d, name))
+                if os.path.exists(cand):
+                    todo.append(cand)
+                    break
+    return found
+
+
+def build_source(source: str, subdir: str, tag: str, signatures: dict,
+                 flags: Sequence[str] = (),
+                 include_dirs: Sequence[str] = ()) -> ctypes.CDLL:
+    """``source`` alone, built with ``flags`` into
+    ``build/<subdir>/<tag>_<key>.so`` beside the package's kernels, and
+    loaded with its launchers' ctypes ``signatures``. The key hashes the
+    tools, the flags and every file the source includes
+    (:func:`included_files`), so an edited header builds anew; the build
+    runs under :func:`locked_build`'s lock. The labs' A/B builds (an earlier
+    source, a build knob) go through it."""
+    incs = [f"-I{os.path.abspath(d)}" for d in include_dirs]
+    nvcc = [_nvcc(), *NVCC_FLAGS]
+    files = included_files(source, include_dirs)
+    key = source_key([*NVCC_FLAGS, *flags, *incs], "/", files)
+    path = os.path.join(os.path.dirname(BUILD_DIR), subdir,
+                        f"{tag}_{key}.so")
+    locked_build(path, [*nvcc, *flags, *incs], [os.path.abspath(source)],
+                 [*nvcc, "-shared"])
+    lib = ctypes.CDLL(path)
+    for name, argtypes in signatures.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
