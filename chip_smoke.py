@@ -1330,8 +1330,9 @@ LAB_REPLACES = {  # lab kernel -> its TPU notebook kernel
 def lab_phase(torch, np, dev, smi):
     """The NV12 kernel-variant lab at 64 x 1080p -> 224: every lab kernel
     against its plain version on the card (the full-function variants also
-    against nv12_preprocess, bit for bit, but G, the tensor-core H pass,
-    within the kernels' envelope with its differing samples counted), the
+    against nv12_preprocess, bit for bit, but G and S2, whose resize passes
+    run on the tensor cores, within the kernels' envelope with their
+    differing samples counted), the
     floor's sink against the frames, then the lab's entry point
     (``kernel_variants.run``) name by name with the launch counts set to 0
     just before and read just after, and the plain versions' times.
@@ -1376,8 +1377,8 @@ def lab_phase(torch, np, dev, smi):
     full_fn = ", ".join(n for n in names
                         if cases[n].full_function and cases[n].exact)
     log(f"lab: every bit-exact full-function variant ({full_fn}) equal to "
-        f"nv12_preprocess, G within its envelope; the floor's sink equal to "
-        f"the XOR of every word of the frames")
+        f"nv12_preprocess, G and S2* within their envelope; the floor's sink "
+        f"equal to the XOR of every word of the frames")
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in kv.WRAPPERS:
@@ -1418,6 +1419,15 @@ def lab_phase(torch, np, dev, smi):
         f"{g_bytes / HBM_BYTES_PER_S * 1e3} ms by bytes ({g_bytes} B), "
         f"{g_ops / BF16_OPS_PER_S * 1e3} ms by operations ({g_ops} FLOP "
         f"issued, zeros included) ({smi})")
+    for n in (n for n in names if n.startswith("S2")):
+        s_bytes, s_ops = cases[n].work
+        log(f"lab {n} (wgmma H and W passes, N = the strip height): {ms[n]} "
+            f"ms = {ms[n] / ms['A']} of A's and {ms[n] / ms['G']} of G's in "
+            f"this run; {differ[n][0]} of {B * 3 * DH * DW} samples differ "
+            f"from nv12_preprocess (G: {differ['G'][0]}), {differ[n][1]} from "
+            f"its plain version; bound {s_bytes / HBM_BYTES_PER_S * 1e3} ms "
+            f"by bytes, {s_ops / BF16_OPS_PER_S * 1e3} ms by operations "
+            f"({s_ops} FLOP issued, zeros included) ({smi})")
 
     # ---- phase 3: the plain versions' times -------------------------------
     # the knock-outs' own plain versions, the product's for the variants
@@ -1436,9 +1446,10 @@ def lab_phase(torch, np, dev, smi):
         r = results[name]
         entries.append({
             "name": f"{wrapper} {name}", "route": "cuda",
-            "source": "vali_tpu_torch/csrc/" + (
-                "nv12_grouped.cu" if c.wrapper is kv.grouped_kernel
-                else "nv12_variants.cu"),
+            "source": "vali_tpu_torch/csrc/" + {
+                kv.grouped_kernel: "nv12_grouped.cu",
+                kv.static_kernel2: "nv12_static2.cu"}.get(
+                    c.wrapper, "nv12_variants.cu"),
             "replaces": LAB_REPLACES[wrapper], "launches": r["launches"],
             "max_abs_err": err[name], "ms": r["ms"],
             "plain_ms": plain_ms[name if name in plain_ms else "full"],

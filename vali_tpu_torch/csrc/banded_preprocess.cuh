@@ -1,8 +1,9 @@
 // Device code shared by the banded preprocess kernels
 // (banded_preprocess.cu) and their lab variants (nv12_variants.cu,
-// nv12_grouped.cu): the frame and table descriptions, the sample loaders
-// and output stores, the H pass of one plane segment, the shared-memory
-// sizing of a strip, and the lab variants' W pass.
+// nv12_grouped.cu, nv12_static2.cu): the frame and table descriptions, the
+// sample loaders and output stores, the tensor-core variants' CSC tail,
+// the H pass of one plane segment, the shared-memory sizing of a strip,
+// and the lab variants' W pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -160,6 +161,25 @@ template <> struct Out<__nv_bfloat16> {
     *p = __float2bfloat16_rn(scaled(x, c, t));
   }
 };
+
+// The product's tail for one pixel of the tensor-core lab kernels
+// (nv12_grouped.cu, nv12_static2.cu): CSC of its W sums, round and clip to
+// uint8, stored at `pix` of each of the three planes (`plane_sz` apart).
+__device__ __forceinline__ void csc_store(uint8_t* ob, long long plane_sz,
+                                          long long pix, float ya, float ua,
+                                          float va, const Tail& tl) {
+  const float yv = __fsub_rn(ya, tl.y_off);
+  const float u = __fsub_rn(ua, tl.c_off);
+  const float v = __fsub_rn(va, tl.c_off);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    // no FMA contraction: same rounding as three separate products
+    const float x = __fadd_rn(
+        __fadd_rn(__fmul_rn(tl.m[3 * c], yv), __fmul_rn(tl.m[3 * c + 1], u)),
+        __fmul_rn(tl.m[3 * c + 2], v));
+    Out<uint8_t>::store(ob + c * plane_sz + pix, x, c, tl);
+  }
+}
 
 // H pass of one plane segment: `ncols` columns of `rows` output rows,
 // written to dst[r * dst_w + col * step + off]. Row o0 + r of the tables

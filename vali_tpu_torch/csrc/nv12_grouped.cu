@@ -98,6 +98,7 @@ namespace {
 
 using banded::aligned16;
 using banded::allow_smem;
+using banded::csc_store;
 using banded::Geometry;
 using banded::kSmemLimit;
 using banded::Tables;
@@ -138,24 +139,6 @@ __device__ __forceinline__ int window_row(int k, int ly, int2 st,
   return k < ly ? st.x + k : src_h + st.y + k - ly;
 }
 
-// The product's tail: CSC of the W sums, round and clip to uint8.
-__device__ __forceinline__ void store_pixel(uint8_t* ob, long long plane_sz,
-                                            long long pix, float ya,
-                                            float ua, float va,
-                                            const Tail& tl) {
-  const float yv = __fsub_rn(ya, tl.y_off);
-  const float u = __fsub_rn(ua, tl.c_off);
-  const float v = __fsub_rn(va, tl.c_off);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    // no FMA contraction: same rounding as three separate products
-    const float x = __fadd_rn(
-        __fadd_rn(__fmul_rn(tl.m[3 * c], yv), __fmul_rn(tl.m[3 * c + 1], u)),
-        __fmul_rn(tl.m[3 * c + 2], v));
-    banded::Out<uint8_t>::store(ob + c * plane_sz + pix, x, c, tl);
-  }
-}
-
 // The product kernel's banded W pass over the tiled H rows: one thread an
 // (output row, output column) item, the taps in ascending order.
 __device__ __forceinline__ void wpass_banded(const unsigned char* hy,
@@ -181,8 +164,8 @@ __device__ __forceinline__ void wpass_banded(const unsigned char* hy,
       ua = fmaf(wk, h_at(hu, r, cs + k), ua);
       va = fmaf(wk, h_at(hv, r, cs + k), va);
     }
-    store_pixel(ob, plane_sz, static_cast<long long>(o0 + r) * DW + p, ya,
-                ua, va, tl);
+    csc_store(ob, plane_sz, static_cast<long long>(o0 + r) * DW + p, ya, ua,
+              va, tl);
   }
 }
 
@@ -311,8 +294,8 @@ nv12_grouped_kernel(const uint8_t* __restrict__ src, long long bs,
       for (int e = 0; e < 4; ++e) {
         const int p = pa + 8 * (e >> 1), r = 2 * tq + (e & 1);
         if (p < DW && r < rows)
-          store_pixel(ob, plane_sz, static_cast<long long>(o0 + r) * DW + p,
-                      dy[e], dc[e], dc[4 + e], tl);
+          csc_store(ob, plane_sz, static_cast<long long>(o0 + r) * DW + p,
+                    dy[e], dc[e], dc[4 + e], tl);
       }
     }
   }

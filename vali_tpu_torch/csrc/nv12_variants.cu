@@ -11,11 +11,11 @@
 //   - multiframe_kernel   -> nv12_variant_launch, frames per block G
 //   - static_kernel       -> nv12_static_launch, S: H row tables in the
 //                            constant bank, short or long cast chain
-//   - static_kernel2      -> nv12_static_launch, S2: strip windows
 //   - combo_kernel        -> nv12_static_launch, COMBO: G frames x tall
 //                            strips x constant-bank H tables
 //   - transposed_chroma_kernel -> nv12_transposed_launch, T
-// (grouped_kernel, the H pass on the tensor cores, is nv12_grouped.cu.)
+// (grouped_kernel and static_kernel2, the resize passes on the tensor
+// cores, are nv12_grouped.cu and nv12_static2.cu.)
 //
 // What bounds them on this card: what bounds the product kernel. One 64 x
 // 1080p -> 224 batch reads ~199 MB and does a few GFLOP of FMAs, far under
@@ -61,17 +61,12 @@
 //          64 KB constant bank (43,008 B at 1080p -> 224), read through the
 //          constant cache instead of __ldg; a warp whose threads straddle
 //          two output rows reads two addresses and serialises.
-//   S2     strips of `tile` rows whose windows start at multiples of
-//          `align` rows and share the widest length: every output row runs
-//          over its strip's whole window, zero weights included (a zero
-//          tap adds +0, so the bits stay). The tables are in device memory
-//          (165 KB at tile 32, beyond the constant bank).
 //   COMBO  G frames per block on strips of `tile` rows, H tables in the
 //          constant bank, W tables staged in shared memory once per block.
-// Tall strips (S2 at 32 and 48 rows, COMBO at 32 and 64) do not fit
-// full-width H rows in a block, so they run in output-column ranges: a
-// block (frames, strip, range) runs the H pass only over the source
-// columns its W bands read, the same FMAs per H sample.
+// Tall strips (COMBO at 32 and 64 rows) do not fit full-width H rows in a
+// block, so they run in output-column ranges: a block (frames, strip,
+// range) runs the H pass only over the source columns its W bands read,
+// the same FMAs per H sample.
 //   T      the chroma H-pass rows are kept transposed in shared memory
 //          ([W][rows + pad], the pad making the pitch odd in 32-bit words so
 //          that a warp's 32 column stores hit 32 banks); the W pass reads
@@ -444,7 +439,7 @@ nv12_stream_floor_kernel(Frames f, int W, int DH, int DW, unsigned* sink,
   }
 }
 
-// ---- static windows: S, S2, COMBO ------------------------------------------
+// ---- static windows: S, COMBO ------------------------------------------
 
 // The constant bank of S and COMBO: one geometry's H row tables, as
 // nv12_static_launch uploads them. Layout in 4-byte words: the luma row
@@ -457,7 +452,6 @@ nv12_stream_floor_kernel(Frames f, int W, int DH, int DW, unsigned* sink,
 constexpr int kBankBytes = 65536;
 __constant__ float c_bank[kBankBytes / 4];
 
-enum RowTables : int { kRowsDevice = 0, kRowsConst = 1 };
 enum Cast : int { kCastLong = 0, kCastShort = 1 };
 
 // One uint8 sample as the H pass multiplies it: u8 -> i32 -> f32 (long)
@@ -471,21 +465,9 @@ __device__ __forceinline__ float sample(unsigned x) {
     return static_cast<float>(static_cast<int>(x));
 }
 
-// The row bands of one plane: per output row o its first source row, its
-// count and its weights, from device memory or from the constant bank.
-template <int RT> struct RowBands;
-template <> struct RowBands<kRowsDevice> {
-  const int* start;
-  const int* count;
-  const float* w;
-  int k_max;
-  __device__ __forceinline__ int first(int o) const { return __ldg(start + o); }
-  __device__ __forceinline__ int n(int o) const { return __ldg(count + o); }
-  __device__ __forceinline__ float weight(int o, int k) const {
-    return __ldg(w + static_cast<long long>(o) * k_max + k);
-  }
-};
-template <> struct RowBands<kRowsConst> {
+// The row bands of one plane in the constant bank: per output row o its
+// first source row, its count and its weights.
+struct RowBands {
   int start, count, w, k_max;  // word offsets into c_bank
   __device__ __forceinline__ int first(int o) const {
     return __float_as_int(c_bank[start + o]);
@@ -563,14 +545,13 @@ struct Ranges {
   int n, y_pitch, c_pitch;
 };
 
-// S, S2 and COMBO: one block per (strip of g.rows output rows, G frames,
+// S and COMBO: one block per (strip of g.rows output rows, G frames,
 // output-column range). The H pass reads its row tables from the constant
-// bank (S, COMBO) or from device memory (S2: strip-window tables), the W
-// pass its tables from device memory or, staged once per block, from
-// shared memory (COMBO); then the product's W pass and tail.
-template <int RT, int CAST, bool kStageW>
+// bank, the W pass its tables from device memory or, staged once per
+// block, from shared memory (COMBO); then the product's W pass and tail.
+template <int CAST, bool kStageW>
 __global__ void __launch_bounds__(kThreads)
-nv12_static_kernel(Frames f, Tables t, RowBands<RT> yb, RowBands<RT> cb,
+nv12_static_kernel(Frames f, Tables t, RowBands yb, RowBands cb,
                    Tail tl, Geometry g, Ranges rg, int G, int wy_k, int wc_k,
                    uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -641,13 +622,13 @@ long long static_smem(int rows, const Ranges& rg, bool stage_w, int dst_w,
   return bytes;
 }
 
-template <int RT, int CAST, bool kStageW>
+template <int CAST, bool kStageW>
 cudaError_t launch_static(const Frames& f, const Tables& t,
-                          const RowBands<RT>& yb, const RowBands<RT>& cb,
+                          const RowBands& yb, const RowBands& cb,
                           const Tail& tl, const Geometry& g, const Ranges& rg,
                           int G, int wy_k, int wc_k, size_t smem, void* out,
                           cudaStream_t stream) {
-  auto kern = nv12_static_kernel<RT, CAST, kStageW>;
+  auto kern = nv12_static_kernel<CAST, kStageW>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((g.dst_h + g.rows - 1) / g.rows, g.batch / G, rg.n);
@@ -878,19 +859,18 @@ int nv12_stream_floor_launch(const void* src, long long batch_stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// S, S2 and COMBO over `src` as nv12_variant_launch takes it, on strips of
+// S and COMBO over `src` as nv12_variant_launch takes it, on strips of
 // rows_per_block output rows, frames_per_block G frames per block (batch
 // % G == 0) and n_ranges output-column ranges: `ranges` [n_ranges, 4]
 // int32 on the device (ops/banded.py column_ranges), y_pitch and c_pitch
-// the widest luma and interleaved chroma range. const_bank 1: the H row
-// tables (the first 4 dst_h ints of `index` and the first dst_h (hy_k +
-// hc_k) floats of `weights`) go to the constant bank, at most 64 KB,
-// uploaded on `stream` when the geometry differs from the last upload on
-// this device; 0: read from device memory (S2 passes its strip-window
-// tables there). short_chain 1 converts samples u8 -> i32 -> bf16, 0
-// u8 -> i32 -> f32. stage_w 1 stages the W tables in shared memory once
-// per block (COMBO). Instantiated: S (const_bank, either chain), S2 (device
-// tables, long chain), COMBO (const_bank, short chain, stage_w).
+// the widest luma and interleaved chroma range. const_bank must be 1: the
+// H row tables (the first 4 dst_h ints of `index` and the first dst_h
+// (hy_k + hc_k) floats of `weights`) go to the constant bank, at most
+// 64 KB, uploaded on `stream` when the geometry differs from the last
+// upload on this device. short_chain 1 converts samples u8 -> i32 ->
+// bf16, 0 u8 -> i32 -> f32. stage_w 1 stages the W tables in shared
+// memory once per block (COMBO). Instantiated: S (either chain), COMBO
+// (short chain, stage_w).
 int nv12_static_launch(const void* src, long long batch_stride,
                        long long row_stride, int buf_rows, int batch,
                        int src_h, int src_w, int dst_h, int dst_w,
@@ -902,8 +882,7 @@ int nv12_static_launch(const void* src, long long batch_stride,
                        int c_pitch, void* out, void* stream) {
   if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
   const int G = frames_per_block;
-  const bool s = const_bank && !stage_w, s2 = !const_bank && !short_chain &&
-                                               !stage_w,
+  const bool s = const_bank && !stage_w,
              combo = const_bank && short_chain && stage_w;
   const long long bank = 16LL * dst_h + 4LL * dst_h * (hy_k + hc_k);
   Frames f;
@@ -913,9 +892,9 @@ int nv12_static_launch(const void* src, long long batch_stride,
   if (!lab_setup(src, batch_stride, row_stride, buf_rows, batch, src_h,
                  src_w, dst_h, dst_w, index, weights, hy_k, hc_k, wy_k, tail,
                  rows_per_block, f, t, tl, g) ||
-      G < 1 || batch % G != 0 || !(s || s2 || combo) || n_ranges < 1 ||
+      G < 1 || batch % G != 0 || !(s || combo) || n_ranges < 1 ||
       n_ranges > dst_w || y_pitch < 1 || y_pitch > src_w || c_pitch < 1 ||
-      c_pitch > src_w || (const_bank && bank > kBankBytes))
+      c_pitch > src_w || bank > kBankBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   Ranges rg;
   rg.ext = ranges;
@@ -927,33 +906,20 @@ int nv12_static_launch(const void* src, long long batch_stride,
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const size_t sb = static_cast<size_t>(smem);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (s2) {
-    RowBands<kRowsDevice> yb{t.hy_start, t.hy_count, t.hy_w, hy_k};
-    RowBands<kRowsDevice> cb{t.hc_start, t.hc_count, t.hc_w, hc_k};
-    e = launch_static<kRowsDevice, kCastLong, false>(
-        f, t, yb, cb, tl, g, rg, G, wy_k, wc_k, sb, out, st);
-    return static_cast<int>(e);
-  }
-  e = bank_upload(BankKey{index, weights, src_h, src_w, dst_h, dst_w, hy_k,
-                          hc_k},
-                  st);
+  cudaError_t e = bank_upload(
+      BankKey{index, weights, src_h, src_w, dst_h, dst_w, hy_k, hc_k}, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const RowBands<kRowsConst> yb{0, dst_h, 4 * dst_h, hy_k};
-  const RowBands<kRowsConst> cb{2 * dst_h, 3 * dst_h,
-                                4 * dst_h + dst_h * hy_k, hc_k};
+  const RowBands yb{0, dst_h, 4 * dst_h, hy_k};
+  const RowBands cb{2 * dst_h, 3 * dst_h, 4 * dst_h + dst_h * hy_k, hc_k};
   if (combo)
-    e = launch_static<kRowsConst, kCastShort, true>(f, t, yb, cb, tl, g, rg,
-                                                    G, wy_k, wc_k, sb, out,
-                                                    st);
+    e = launch_static<kCastShort, true>(f, t, yb, cb, tl, g, rg, G, wy_k,
+                                        wc_k, sb, out, st);
   else if (short_chain)
-    e = launch_static<kRowsConst, kCastShort, false>(f, t, yb, cb, tl, g, rg,
-                                                     G, wy_k, wc_k, sb, out,
-                                                     st);
+    e = launch_static<kCastShort, false>(f, t, yb, cb, tl, g, rg, G, wy_k,
+                                         wc_k, sb, out, st);
   else
-    e = launch_static<kRowsConst, kCastLong, false>(f, t, yb, cb, tl, g, rg,
-                                                    G, wy_k, wc_k, sb, out,
-                                                    st);
+    e = launch_static<kCastLong, false>(f, t, yb, cb, tl, g, rg, G, wy_k,
+                                        wc_k, sb, out, st);
   return static_cast<int>(e);
 }
 

@@ -1,8 +1,8 @@
 // Pieces shared by the tensor-core lab kernels of this directory
-// (nv12_grouped.cu, nv12_aligned.cu): wgmma descriptors, fences and
-// products with A from registers, the cp.async staging ring of raw uint8
-// window rows with the A fragments built from it, the tiled bf16 H rows
-// and the W-pass product over them. sm_90a only.
+// (nv12_grouped.cu, nv12_aligned.cu, nv12_static2.cu): wgmma descriptors,
+// fences and products with A from registers, the cp.async staging ring of
+// raw uint8 window rows with the A fragments built from it, the tiled bf16
+// H rows and the W-pass product over them. sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,7 +38,8 @@ __device__ __forceinline__ void wait_all() {
 }
 
 // d (64 x N fp32, N / 2 a thread) += a (64 x 16 bf16, registers) * b
-// (16 x N, shared memory, descriptor).
+// (16 x N, shared memory, descriptor), for N = 8 to 48 in steps of 8 and
+// 64, 80, 96.
 template <int N>
 __device__ __forceinline__ void mma(float* d, uint4 a, uint64_t b);
 
@@ -58,10 +59,24 @@ __device__ __forceinline__ void mma<16>(float* d, uint4 a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, "
+      "1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma<24>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, "
+      "%14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
       : "memory");
 }
@@ -71,8 +86,8 @@ __device__ __forceinline__ void mma<32>(float* d, uint4 a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -82,13 +97,47 @@ __device__ __forceinline__ void mma<32>(float* d, uint4 a, uint64_t b) {
 }
 
 template <>
+__device__ __forceinline__ void mma<40>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, "
+      "1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma<48>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, "
+      "%26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+template <>
 __device__ __forceinline__ void mma<64>(float* d, uint4 a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -96,6 +145,51 @@ __device__ __forceinline__ void mma<64>(float* d, uint4 a, uint64_t b) {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma<80>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma<96>(float* d, uint4 a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, "
+      "%50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
       : "memory");
 }
@@ -162,30 +256,48 @@ __device__ __forceinline__ void issue_stage(unsigned char* slot,
   cp_async_commit();
 }
 
+// Byte offsets, from the first of 16 window rows of a ring slot, of rows
+// 2 tq (+1, +8, +9) of the byte columns (col, col + 1): the same for every
+// k-step, since the swizzle repeats every 16 rows. Fragment row m of a
+// warp is byte column 2 (m mod 8) + (m / 8 mod 2) of its 16, so one 16-bit
+// load brings both of a thread's columns of a row.
+__device__ __forceinline__ void step_offsets(int (&off)[4], int col,
+                                             int tq) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    off[j] = ring_off(2 * tq + (j & 1) + 8 * (j >> 1), col >> 4) + (col & 15);
+}
+
+// The H product's A fragment of the k-step whose 16 window rows start at
+// `p`: rows 2 tq (+1, +8, +9) of the thread's two byte columns, each pair
+// of rows packed low-k first, every byte an exact bf16.
+__device__ __forceinline__ uint4 ring_step(const unsigned char* p,
+                                          const int (&off)[4]) {
+  unsigned h[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    h[j] = *reinterpret_cast<const unsigned short*>(p + off[j]);
+  return make_uint4(pack_bf16(byte_f(h[0], 0), byte_f(h[1], 0)),
+                    pack_bf16(byte_f(h[0], 1), byte_f(h[1], 1)),
+                    pack_bf16(byte_f(h[2], 0), byte_f(h[3], 0)),
+                    pack_bf16(byte_f(h[2], 1), byte_f(h[3], 1)));
+}
+
 // The H product's A fragments from a ring slot: a[ks] = window rows
-// 16 ks + 2 tq (+1, +8, +9) of the byte columns (col, col + 1), each pair
-// of rows packed low-k first, every byte an exact bf16. Fragment row m of
-// a warp is byte column 2 (m mod 8) + (m / 8 mod 2) of its 16, so one
-// 16-bit load brings both of a thread's columns of a row.
+// 16 ks + 2 tq (+1, +8, +9) of the byte columns (col, col + 1).
 template <int NK>
 __device__ __forceinline__ void ring_fragments(unsigned (&a)[NK][4],
                                                const unsigned char* slot,
                                                int col, int tq) {
-  const int chunk = col >> 4, cbyte = col & 15;
+  int off[4];
+  step_offsets(off, col, tq);
 #pragma unroll
   for (int ks = 0; ks < NK; ++ks) {
-    const int k = 16 * ks + 2 * tq;
-    unsigned h[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = k + (j & 1) + 8 * (j >> 1);
-      h[j] = *reinterpret_cast<const unsigned short*>(
-          slot + ring_off(r, chunk) + cbyte);
-    }
-    a[ks][0] = pack_bf16(byte_f(h[0], 0), byte_f(h[1], 0));
-    a[ks][1] = pack_bf16(byte_f(h[0], 1), byte_f(h[1], 1));
-    a[ks][2] = pack_bf16(byte_f(h[2], 0), byte_f(h[3], 0));
-    a[ks][3] = pack_bf16(byte_f(h[2], 1), byte_f(h[3], 1));
+    const uint4 f = ring_step(slot + 16 * ks * kStageCols, off);
+    a[ks][0] = f.x;
+    a[ks][1] = f.y;
+    a[ks][2] = f.z;
+    a[ks][3] = f.w;
   }
 }
 

@@ -4,10 +4,11 @@ experiments, run on the card.
 Counterpart of the TPU notebook ``bench_kernel_variants.py`` (its ``main``,
 ``main_floor``, ``main_modes``, ``main_multiframe``, ``main_static``,
 ``main_sweep2``, ``main_combo``, ``main_transposed`` and ``main_grouped``).
-Nine wrappers over the kernels of ``csrc/nv12_variants.cu`` and
-``csrc/nv12_grouped.cu``, each beside its plain PyTorch version, with the
-same dispatch as the product wrappers: a CUDA tensor launches the kernel,
-a CPU tensor runs the plain version, any other device raises.
+Nine wrappers over the kernels of ``csrc/nv12_variants.cu``,
+``csrc/nv12_static2.cu`` and ``csrc/nv12_grouped.cu``, each beside its
+plain PyTorch version, with the same dispatch as the product wrappers: a
+CUDA tensor launches the kernel, a CPU tensor runs the plain version, any
+other device raises.
 
 - :func:`stream_floor` (``dma_floor``): streams every byte of each
   [rows, W] frame and writes ``(f[:DH, :DW] + f[rows-DH:, :DW]) & 255`` on
@@ -23,7 +24,9 @@ a CPU tensor runs the plain version, any other device raises.
 - :func:`static_kernel` (``static_kernel``): the H row tables in the
   64 KB constant bank, two cast chains.
 - :func:`static_kernel2` (``static_kernel2``): strips of ``tile`` rows over
-  windows aligned to ``align`` rows, zero taps included.
+  windows aligned to ``align`` rows, zero taps included, both resize
+  passes on the tensor cores with the strip height as N (wgmma fed by a
+  cp.async ring, one block per 64-column output tile).
 - :func:`combo_kernel` (``combo_kernel``): G frames per block on strips of
   ``tile`` rows, constant-bank H tables, W tables staged once per block.
 - :func:`transposed_chroma` (``transposed_chroma_kernel``): the chroma
@@ -36,12 +39,12 @@ ranges; the lab line says so.
 
 Every full-function variant (B, C, D, full, M*, S*, combo*, T, G) computes
 the product kernel's function, so on the card it is held to
-``nv12_preprocess``: bit for bit, except G (the tensor cores sum in their
-own order), held to the kernels' envelope with its differing samples
-counted. Their plain version is ``nv12_preprocess_plain``, except S2's and
-G's, which compute from their own host tables. ``wpass`` and the
-floor read the last DH rows of the buffer as given, as the TPU functions
-do, so their results depend on the buffer's row count.
+``nv12_preprocess``: bit for bit, except G and S2 (the tensor cores sum in
+their own order), held to the kernels' envelope with their differing
+samples counted. Their plain version is ``nv12_preprocess_plain``,
+except S2's and G's, which compute from their own host tables. ``wpass``
+and the floor read the last DH rows of the buffer as given, as the TPU
+functions do, so their results depend on the buffer's row count.
 
 Run the lab (64 x 1080p -> 224 on ``cuda:0``; ``--device cpu`` runs the
 plain versions at 8 x 256x144 -> 96x64 and times nothing)::
@@ -70,12 +73,13 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
-from ..ops.banded import (CONST_BANK_BYTES, GROUP_STRIP, DeviceTables,
+from ..ops.banded import (CONST_BANK_BYTES, GROUP_STRIP, STATIC2_W_STEPS,
+                          DeviceTables,
                           column_ranges, const_bank_bytes, core_matrix_order,
                           dense_weights, device_tables, grouped_refusal,
-                          grouped_tables, grouped_w_tables, strip_spans,
-                          strip_window_bands, tail_params, w_pass_tail_plain,
-                          window_tables)
+                          grouped_tables, grouped_w_tables, static2_refusal,
+                          static2_tables, static2_w_tables, strip_spans,
+                          strip_window_bands, tail_params, w_pass_tail_plain)
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
 from ..ops.resize import LANCZOS_AA, round_to
@@ -340,7 +344,7 @@ def _bank_checked(src_w, src_h, dst_w, dst_h) -> None:
 
 def _static_call(what, nv12, tail, tabs, *, const_bank, short_chain,
                  stage_w, frames, rows, **geo) -> torch.Tensor:
-    """One ``nv12_static_launch`` (S, S2, COMBO) in the fewest output-column
+    """One ``nv12_static_launch`` (S, COMBO) in the fewest output-column
     ranges whose strips fit a block."""
     ranges = column_ranges(geo["src_w"], geo["src_h"], geo["dst_w"],
                            geo["dst_h"], LANCZOS_AA, rows, stage_w,
@@ -410,6 +414,46 @@ def static_kernel2_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
     return _plain_from_row_bands(nv12, luma, chroma, tail, **geo)
 
 
+def static2_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                 dst_h: int, tile: int, align: int):
+    """(bytes, operations) of one S2 batch: the product's bytes; the FLOPs
+    its tables make the kernel issue, zeros included — per strip and
+    chunk of 64 frame bytes (each tile's chunks,
+    :func:`~vali_tpu_torch.ops.banded.static2_w_tables`), the H chains'
+    [64, 16] A times [16, tile] B each of its k_luma / 16 + k_chroma / 16
+    k-steps and the W pass's 4 luma k-steps at N = tile and 2 chroma k-steps at
+    N = 2 tile — and the tail."""
+    geo = (src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+    t = static2_tables(*geo, tile, align)
+    luma_w, chroma_w = STATIC2_W_STEPS
+    per_chunk = 64 * 16 * tile * ((t.k_luma + t.k_chroma) // 16 + luma_w
+                                  + 2 * chroma_w)
+    chunks = int(static2_w_tables(*geo).heads[:, 2].sum())
+    return preprocess_work(batch, src_w, src_h, dst_w, dst_h,
+                           h_fmas=t.luma.shape[0] * chunks * per_chunk,
+                           w_fmas=0)
+
+
+@functools.lru_cache(maxsize=16)
+def _static2_device(src_w, src_h, dst_w, dst_h, tile, align, device):
+    """S2's launch arguments after the tile on ``device``, uploaded once
+    per geometry: per strip B_y then B_c in bf16 core-matrix order, the
+    window starts, K of each window, the W heads and bf16 A fragments;
+    with the tensors they point into."""
+    geo = (src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+    t = static2_tables(*geo, tile, align)
+    wt = static2_w_tables(*geo)
+    b = np.concatenate([core_matrix_order(t.luma),
+                        core_matrix_order(t.chroma)], axis=1)
+    keep = (torch.from_numpy(b).to(device, torch.bfloat16),
+            torch.from_numpy(t.starts).to(device),
+            torch.from_numpy(wt.heads).to(device),
+            torch.from_numpy(wt.frags).to(device, torch.bfloat16))
+    args = (keep[0].data_ptr(), keep[1].data_ptr(), t.k_luma, t.k_chroma,
+            keep[2].data_ptr(), keep[3].data_ptr())
+    return args, keep
+
+
 def static_kernel2(nv12: torch.Tensor, *, src_w: int, src_h: int,
                    dst_w: int, dst_h: int, tile: int = 32, align: int = 8,
                    space: ColorSpace = ColorSpace.BT_709,
@@ -417,19 +461,46 @@ def static_kernel2(nv12: torch.Tensor, *, src_w: int, src_h: int,
     """S2: the product function on strips of ``tile`` output rows whose
     source windows start at multiples of ``align`` rows and share one
     length; every output row runs over its strip's whole window, zero
-    weights included. Tall strips run in output-column ranges.
-    [B, 3, dst_h, dst_w] uint8, equal to :func:`nv12_preprocess`."""
+    weights included, and where wgmma's k-step needs more (K a multiple
+    of 16) the windows widen further with zero rows. Both resize passes
+    run on the tensor cores with the strip height as N: one block per
+    output tile of 64 columns, strip and frame, the stacked windows
+    streamed through a cp.async ring, each chunk's bf16 H rows multiplied
+    at once by its W weights (N = tile luma, 2 tile U and V), fp32 sums;
+    then the product's tail. [B, 3, dst_h, dst_w] uint8, within the
+    kernels' envelope of :func:`nv12_preprocess` (the tensor cores sum in
+    their own order); on the CPU :func:`static_kernel2_plain` itself.
+    Raises ValueError for tile or align < 1, and for a strip height that
+    is not a multiple of 8 up to 48 or a geometry whose shared memory does
+    not fit the kernel (:func:`~vali_tpu_torch.ops.banded.static2_refusal`),
+    on either device."""
     tail = _checked(nv12, src_w, src_h, space, crange)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
-    tabs_key = (src_w, src_h, dst_w, dst_h, LANCZOS_AA, tile, align)
-    strip_window_bands(*tabs_key)   # refuses tile or align < 1
+    strip_window_bands(src_w, src_h, dst_w, dst_h, LANCZOS_AA, tile,
+                       align)   # refuses tile or align < 1
+    why = static2_refusal(**geo, method=LANCZOS_AA, tile=tile, align=align)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("static_kernel2", nv12):
         return static_kernel2_plain(nv12, **geo, tile=tile, align=align,
                                     space=space, crange=crange)
-    out = _static_call("static_kernel2", nv12, tail,
-                       window_tables(*tabs_key, nv12.device),
-                       const_bank=False, short_chain=False, stage_w=False,
-                       frames=1, rows=tile, **geo)
+    from ..ops._cuda_build import check, load_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    args, _ = _static2_device(src_w, src_h, dst_w, dst_h, tile, align,
+                              nv12.device)
+    lib = load_kernels()
+    B = nv12.shape[0]
+    out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
+                      device=nv12.device)
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_static2_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
+            B, src_h, src_w, dst_h, dst_w,
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), tile, *args,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "static_kernel2")
     static_kernel2.launches += 1
     return out
 
@@ -612,7 +683,7 @@ class Case(NamedTuple):
     full_function: bool
     frames: int      # frames the call needs at least (multiframe G)
     work: tuple      # (bytes, operations) of one batch of B frames
-    exact: bool = True   # bit-equal to its reference (G: the envelope)
+    exact: bool = True   # bit-equal to its reference (G, S2: the envelope)
     note: str = ""       # how the kernel ran, for the lab line
 
 
@@ -663,16 +734,15 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
     m = re.fullmatch(r"S2t(\d+)a(\d+)", name)
     if m:
         tile, align = int(m.group(1)), int(m.group(2))
-        luma, chroma = strip_window_bands(src_w, src_h, dst_w, dst_h,
-                                          LANCZOS_AA, tile, align)
-        fmas = (int(luma[1].sum()) + int(chroma[1].sum())) * src_w
+        tiles = -(-dst_w // 64)
         return Case(
             static_kernel2,
             lambda x: static_kernel2(x, **geo, tile=tile, align=align),
             lambda x: static_kernel2_plain(x, **geo, tile=tile, align=align),
-            True, 1, preprocess_work(batch, src_w, src_h, dst_w, dst_h,
-                                     h_fmas=fmas),
-            note=_ranges_note(src_w, src_h, dst_w, dst_h, tile, False))
+            True, 1, static2_work(batch, **geo, tile=tile, align=align),
+            exact=False,
+            note=(f"in {tiles} column ranges, one 64-column output tile each"
+                  if tiles > 1 else ""))
     m = re.fullmatch(r"combo(\d+)x(\d+)", name)
     if m:
         g, tile = int(m.group(1)), int(m.group(2))

@@ -24,7 +24,8 @@ from ..utils._build import locked_build, source_key
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
             "csrc/nv12_to_rgb.cu", "csrc/nv12_variants.cu",
-            "csrc/nv12_grouped.cu", "csrc/nv12_aligned.cu",
+            "csrc/nv12_grouped.cu", "csrc/nv12_static2.cu",
+            "csrc/nv12_aligned.cu",
             "csrc/nv12_resize_variants.cu", "csrc/nv12_to_rgb_variants.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
             "csrc/wgmma_common.cuh")
@@ -71,6 +72,9 @@ _SIGNATURES = {
     "nv12_grouped_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
         _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "nv12_static2_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _P, _P, _I, _I, _P, _P,
+        _P, _P],
     "nv12_convert_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _FP, _I, _P, _P],
     "nv12_convert_probe_launch": [

@@ -317,18 +317,6 @@ def strip_window_bands(src_w: int, src_h: int, dst_w: int, dst_h: int,
             _strip_windows(*hc, src_h // 2, tile, align))
 
 
-@functools.lru_cache(maxsize=16)
-def window_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
-                  method: str, tile: int, align: int, device: torch.device
-                  ) -> DeviceTables:
-    """S2's tables: the row bands of :func:`strip_window_bands`, the
-    column bands of :func:`device_tables`."""
-    wy, wc = _nv12_bands(src_w, src_h, dst_w, dst_h, method)[2:]
-    return pack_tables([*strip_window_bands(src_w, src_h, dst_w, dst_h,
-                                            method, tile, align), wy, wc],
-                       device)
-
-
 def _ceil16(x: int) -> int:
     return -(-x // 16) * 16
 
@@ -536,6 +524,131 @@ def grouped_w_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
             heads[t, prod] = (step, c0, nk)
             step += nk
     return GroupedWTables(heads, np.concatenate(frags, axis=0))
+
+
+class Static2Tables(NamedTuple):
+    """S2's H-pass tables (csrc/nv12_static2.cu): per strip of ``tile``
+    output rows, ``luma`` [strips, tile, k_luma] and ``chroma`` [strips,
+    tile, k_chroma] float32 of bf16 values — each output row's band at its
+    rows of the strip's window (:func:`strip_window_bands`), widened with
+    zero rows to a multiple of 16; rows past dst_h weigh 0 — and
+    ``starts`` [strips, 2] int32, the first plane row of the luma and the
+    chroma window (rows past a plane read its last row)."""
+    luma: np.ndarray
+    chroma: np.ndarray
+    starts: np.ndarray
+
+    @property
+    def k_luma(self) -> int:
+        return self.luma.shape[2]
+
+    @property
+    def k_chroma(self) -> int:
+        return self.chroma.shape[2]
+
+
+#: S2's strip heights: multiples of 8 (wgmma's N) up to 48, one kernel
+#: instance each
+STATIC2_TILES = (8, 16, 24, 32, 40, 48)
+#: S2's ring: stages of STATIC2_STAGE_COLS frame bytes, a chunk of
+#: STATIC2_CHUNK bytes a warpgroup
+STATIC2_STAGES = 3
+STATIC2_STAGE_COLS = 128
+STATIC2_CHUNK = 64
+#: W k-steps of a chunk: its 64 luma columns, its 32 chroma pixels
+STATIC2_W_STEPS = (4, 2)
+
+
+@functools.lru_cache(maxsize=32)
+def static2_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                   method: str, tile: int, align: int) -> Static2Tables:
+    """Build S2's H-pass tables from its strip-window bands."""
+    strips = -(-dst_h // tile)
+    mats, starts = [], np.zeros((strips, 2), np.int32)
+    for p, (ws, length, w) in enumerate(strip_window_bands(
+            src_w, src_h, dst_w, dst_h, method, tile, align)):
+        m = np.zeros((strips * tile, _ceil16(int(length[0]))), np.float32)
+        m[:dst_h, :w.shape[1]] = w
+        mats.append(m.reshape(strips, tile, -1))
+        starts[:, p] = ws[::tile]
+    return Static2Tables(mats[0], mats[1], starts)
+
+
+class Static2WTables(NamedTuple):
+    """S2's W pass (csrc/nv12_static2.cu): ``heads`` [tiles, 4] int32, per
+    tile of GROUPED_W_TILE output columns its first chunk in ``frags``,
+    its first byte column x0 (a multiple of 32) and its chunks (even), 0;
+    ``frags`` [chunks, 6, 128, 8] float32 of bf16 values, per chunk of
+    STATIC2_CHUNK frame bytes from x0 the A fragments
+    (:func:`fragment_order`) of its 4 luma k-steps (luma columns) and 2
+    chroma k-steps (chroma pixels from x0 / 2), zeros outside the tile's
+    bands and past the row."""
+    heads: np.ndarray
+    frags: np.ndarray
+
+
+@functools.lru_cache(maxsize=16)
+def static2_w_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                     method: str) -> Static2WTables:
+    """Build S2's W-pass tables from the dense bf16 column matrices: each
+    tile's chunks run from the first byte its luma or chroma columns weigh
+    to the last, in an even count (one chunk a warpgroup a stage)."""
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, method, "420")
+    wy, wc = (round_to(m, torch.bfloat16).numpy()
+              for m in (dw.luma_w, dw.chroma_w))
+    tiles = -(-dst_w // GROUPED_W_TILE)
+    heads = np.zeros((tiles, 4), np.int32)
+    frags, first = [], 0
+    for t in range(tiles):
+        oc = np.arange(GROUPED_W_TILE * t, min(GROUPED_W_TILE * (t + 1),
+                                                dst_w))
+        ny = np.flatnonzero(wy[oc].any(axis=0))
+        nc = np.flatnonzero(wc[oc].any(axis=0))
+        x0 = min(int(ny[0]), 2 * int(nc[0])) // 32 * 32
+        x1 = max(int(ny[-1]) + 1, 2 * int(nc[-1]) + 2)
+        chunks = -(-(x1 - x0) // (2 * STATIC2_CHUNK)) * 2
+        cols = chunks * STATIC2_CHUNK
+        ay = np.zeros((GROUPED_W_TILE, cols), np.float32)
+        ac = np.zeros((GROUPED_W_TILE, cols // 2), np.float32)
+        n = min(cols, src_w - x0)
+        ay[:len(oc), :n] = wy[oc, x0:x0 + n]
+        ac[:len(oc), :(n + 1) // 2] = wc[oc, x0 // 2:x0 // 2 + (n + 1) // 2]
+        fy = fragment_order(ay).reshape(chunks, 4, 128, 8)
+        fc = fragment_order(ac).reshape(chunks, 2, 128, 8)
+        frags.append(np.concatenate([fy, fc], axis=1))
+        heads[t] = (first, x0, chunks, 0)
+        first += chunks
+    return Static2WTables(heads, np.concatenate(frags, axis=0))
+
+
+def static2_smem_bytes(tile: int, k_luma: int, k_chroma: int) -> int:
+    """Shared memory of one of S2's blocks: the ring of STATIC2_STAGES
+    [k_luma + k_chroma, STATIC2_STAGE_COLS] byte stages, or the partial W
+    sums its two warpgroups trade at the end, the larger; B_y and B_c in
+    bf16; and each warpgroup's H rows of a chunk (tile luma rows of 64
+    columns, tile U and tile V rows of 32 pixels; 8-column groups padded
+    by 16 bytes)."""
+    kst = k_luma + k_chroma
+    ring = max(STATIC2_STAGES * kst * STATIC2_STAGE_COLS,
+               4 * (tile // 2 + tile) * 128)
+    chunk = 8 * (16 * tile + 16) + 4 * (32 * tile + 16)
+    return ring + 2 * kst * tile + 2 * chunk
+
+
+def static2_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                    method: str, tile: int, align: int) -> str:
+    """Why S2's kernel cannot take this geometry and strip, or "" when it
+    can: a strip height that is not one of STATIC2_TILES (a multiple of 8
+    up to 48), or a block's shared memory over a block's."""
+    if tile not in STATIC2_TILES:
+        return (f"S2's tensor-core kernel takes strips of a multiple of 8 "
+                f"rows up to {STATIC2_TILES[-1]}, got tile={tile}")
+    t = static2_tables(src_w, src_h, dst_w, dst_h, method, tile, align)
+    smem = static2_smem_bytes(tile, t.k_luma, t.k_chroma)
+    if smem > SMEM_LIMIT:
+        return (f"S2's ring, weights and H rows need {smem} B of shared "
+                f"memory, over a block's {SMEM_LIMIT} B")
+    return ""
 
 
 def planar_u8_checked(fmt: str, y, u, v, *, src_w: int, src_h: int,
