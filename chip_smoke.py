@@ -19,11 +19,13 @@ tall strips —, transposed chroma and the tensor-core H pass) at 64 x
 full-function ones against nv12_preprocess bit for bit (the tensor-core
 one within the kernels' envelope); and the 4K NV12 resize lab's
 entry point (``vali_tpu_torch.lab.resize_diag``: phase knock-outs, aligned
-windows, the skewed H/W pipeline, streamed row bands, row-slab split-K
-sums, column stripes) at 16 x 4K -> 1080p, each kernel against its plain
-version and the full-function ones but slabs and aligned (its passes on
-the tensor cores, within the kernels' envelope) against nv12_resize bit
-for bit; and the NV12 -> RGB convert lab's entry point
+windows, the skewed H/W pipeline, streamed row bands (TMA into an mbarrier
+ring under aligned's tensor-core passes), row-slab split-K sums, column
+stripes) at 16 x 4K -> 1080p, each kernel against its plain version and
+the full-function ones but slabs, aligned and streamed (their passes on
+the tensor cores, within the kernels' envelope; streamed equal to
+aligned8x32 bit for bit) against nv12_resize bit for bit; and the NV12 ->
+RGB convert lab's entry point
 (``vali_tpu_torch.lab.convert_lab``: bf16-staged variants, read / store /
 quantisation / replication probes) at 64 x 1080p, each kernel against its
 plain version bit for bit and V1 / V2 against nv12_to_rgb; then the
@@ -1472,11 +1474,13 @@ RESIZE_LAB_REPLACES = {  # resize-lab wrapper -> its TPU notebook kernel
 
 def resize_lab_phase(torch, np, dev, smi):
     """The 4K NV12 resize lab at 16 x 4K -> 1080p: every lab kernel against
-    its plain version on the card (the full-function variants but slabs
-    and aligned also against nv12_resize bit for bit, ``both`` against its
-    luma rows; aligned, the tensor-core passes, within the uint8 envelope
-    of nv12_resize; the samples in which slabs and aligned differ from
-    nv12_resize are counted), the sinks of
+    its plain version on the card (the full-function variants but slabs,
+    aligned and streamed also against nv12_resize bit for bit, ``both``
+    against its luma rows; aligned and streamed, the tensor-core passes,
+    within the uint8 envelope of nv12_resize, streamed equal to
+    aligned8x32 bit for bit and staged by TMA; the samples in which slabs,
+    aligned and streamed differ from nv12_resize are counted, with both
+    bounds), the sinks of
     dma_only and w_only against the frames, then the lab's entry point
     (``resize_diag.run``) name by name with the launch counts set to 0 just
     before and read just after, the H/W split, and the plain versions'
@@ -1495,10 +1499,12 @@ def resize_lab_phase(torch, np, dev, smi):
     # one plain run of the full function serves every full-function variant
     # and both (its luma rows); the 4K plain versions take ~0.1 s a call
     plain_full = nv12_resize_plain(frames, **geo)
-    err = {}
+    err, aligned8x32 = {}, None
     for name, c in cases.items():
+        tma = rd.streamed_resize.tma_launches
         out = c.call(frames)
-        full_plain = c.exact or c.wrapper is rd.aligned_resize
+        full_plain = c.exact or c.wrapper in (rd.aligned_resize,
+                                              rd.streamed_resize)
         ref = (plain_full[:, :H] if name == "both" else plain_full
                if full_plain else c.plain(frames))
         torch.cuda.synchronize()
@@ -1513,15 +1519,30 @@ def resize_lab_phase(torch, np, dev, smi):
             log(f"resize lab {name}: {int((out != product).sum().item())} "
                 f"of {out.numel()} samples differ from nv12_resize (split-K "
                 f"sums at the slab edges)")
-        if c.wrapper is rd.aligned_resize:
+        if c.wrapper in (rd.aligned_resize, rd.streamed_resize):
             compare(torch, f"resize lab {name} vs nv12_resize", out, product)
             nb, ops = c.work
+            staged = ""
+            if c.wrapper is rd.streamed_resize:
+                if not torch.equal(out, aligned8x32):
+                    raise AssertionError(f"resize lab {name} differs from "
+                                         f"aligned8x32")
+                path = ("TMA" if rd.streamed_resize.tma_launches > tma
+                        else "element loads")
+                if dev.type == "cuda" and path != "TMA":
+                    raise AssertionError(f"resize lab {name}: contiguous "
+                                         f"frames were not staged by TMA")
+                staged = (f", {int((out != aligned8x32).sum().item())} "
+                          f"from aligned8x32; staged by {path}")
             log(f"resize lab {name}: {int((out != product).sum().item())} "
                 f"of {out.numel()} samples differ from nv12_resize, "
                 f"{int((out != ref).sum().item())} from its plain version "
-                f"(tensor-core sums); bound {nb / HBM_BYTES_PER_S * 1e3} ms "
-                f"by bytes ({nb} B), {ops / BF16_OPS_PER_S * 1e3} ms by "
-                f"operations ({ops} FLOP issued, zeros included)")
+                f"(tensor-core sums){staged}; bound "
+                f"{nb / HBM_BYTES_PER_S * 1e3} ms by bytes ({nb} B), "
+                f"{ops / BF16_OPS_PER_S * 1e3} ms by operations ({ops} FLOP "
+                f"issued, zeros included)")
+        if name == "aligned8x32":
+            aligned8x32 = out
     del plain_full
     want = np.bitwise_xor.reduce(frames.cpu().numpy().view(np.uint32),
                                  axis=None)
@@ -1533,8 +1554,9 @@ def resize_lab_phase(torch, np, dev, smi):
             raise AssertionError(f"{mode}'s sink misses bytes of the frames")
     exact = ", ".join(n for n in names if cases[n].exact)
     log(f"resize lab: {exact} equal to nv12_resize (both: its luma rows), "
-        f"aligned within its envelope; the dma_only and w_only sinks equal "
-        f"to the XOR of every word of the frames")
+        f"aligned and streamed within their envelope, streamed equal to "
+        f"aligned8x32; the dma_only and w_only sinks equal to the XOR of "
+        f"every word of the frames")
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in rd.WRAPPERS:
@@ -1580,9 +1602,10 @@ def resize_lab_phase(torch, np, dev, smi):
         r = results[name]
         entries.append({
             "name": f"{wrapper} {name}", "route": "cuda",
-            "source": "vali_tpu_torch/csrc/" + (
-                "nv12_aligned.cu" if c.wrapper is rd.aligned_resize
-                else "nv12_resize_variants.cu"),
+            "source": "vali_tpu_torch/csrc/" + {
+                rd.aligned_resize: "nv12_aligned.cu",
+                rd.streamed_resize: "nv12_streamed.cu"}.get(
+                    c.wrapper, "nv12_resize_variants.cu"),
             "replaces": RESIZE_LAB_REPLACES[wrapper],
             "launches": r["launches"], "max_abs_err": err[name],
             "ms": r["ms"],

@@ -246,7 +246,8 @@ def test_ab_builds_key_on_every_file_the_source_includes(tmp_path,
     csrc = os.path.join(cb._PKG_DIR, "csrc")
     assert [os.path.basename(f) for f in cb.included_files(
         os.path.join(csrc, "nv12_aligned.cu"))] == [
-        "nv12_aligned.cu", "banded_common.cuh", "wgmma_common.cuh"]
+        "nv12_aligned.cu", "aligned_passes.cuh", "banded_common.cuh",
+        "wgmma_common.cuh"]
     for name in ("nv12_grouped.cu", "banded_preprocess.cuh",
                  "banded_common.cuh", "wgmma_common.cuh"):
         shutil.copy(os.path.join(csrc, name), tmp_path / name)

@@ -885,8 +885,8 @@ RESIZE_LAB_NAMES = [n for n in rd.DEFAULT_NAMES if n != "prod"]
 def test_resize_lab_kernels_match_plain(dev, geom, name):
     """Each resize-lab kernel against its plain version; the full-function
     variants equal nv12_resize bit for bit, and ``both`` its luma rows, but
-    slabs and aligned (tensor-core sums), which keep within the uint8
-    envelope of their references."""
+    slabs, aligned and streamed (tensor-core sums), which keep within the
+    uint8 envelope of their references."""
     b, h, w, dh, dw = geom
     x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h + w)
     geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
@@ -931,6 +931,51 @@ def test_aligned_refuses_before_any_launch(dev):
     with pytest.raises(ValueError, match="exceed"):
         rd.aligned_resize(y, src_w=3840, src_h=2160, dst_w=64, dst_h=16)
     assert rd.aligned_resize.launches == before
+
+
+@pytest.mark.parametrize("band", [64, 256])
+@pytest.mark.parametrize("geom", [
+    (4, 2160, 3840, 1080, 1920),
+    (3, 288, 512, 144, 256),
+    (2, 150, 322, 70, 202),
+    (3, 96, 256, 40, 120),
+])
+def test_streamed_equals_aligned_8x32(dev, geom, band):
+    """The TMA-fed streamed kernel runs aligned's products at 8x32 (the
+    same A fragments, B, k-step order and W tables), so its output equals
+    aligned_resize(h_align=8, w_align=32) bit for bit, at 4K and at the
+    lab tests' shapes, whichever staging the view takes."""
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h + w + band)
+    out = rd.streamed_resize(x, **geo, band=band)
+    assert torch.equal(out, rd.aligned_resize(x, **geo, h_align=8,
+                                              w_align=32)), (geom, band)
+    _assert_close(out, nv12_resize(x, **geo), (geom, band))
+
+
+def test_streamed_stages_by_tma_where_the_view_allows(dev):
+    """A contiguous 4K batch takes the TMA staging; a view whose start and
+    pitch are not multiples of 16 bytes (the (0, 3, 1) padding) takes the
+    same kernel's element loads, with the same output."""
+    geo = dict(src_w=3840, src_h=2160, dst_w=1920, dst_h=1080)
+    x = rd.make_frames(2, 3240, 3840, dev, seed=11)
+    launches = rd.streamed_resize.launches
+    tma = rd.streamed_resize.tma_launches
+    ref = rd.streamed_resize(x, **geo)
+    assert rd.streamed_resize.tma_launches == tma + 1
+    b, h, w, dh, dw = 3, 96, 256, 40, 120
+    small = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    y = rd.make_frames(b, h * 3 // 2, w, dev, seed=5)
+    big = torch.zeros((b, h * 3 // 2, w + 4), dtype=torch.uint8, device=dev)
+    big[:, :, 1:1 + w] = y
+    view = big[:, :, 1:1 + w]
+    assert not rd.tma_stageable(view) and rd.tma_stageable(x)
+    assert torch.equal(rd.streamed_resize(view, **small),
+                       rd.streamed_resize(y, **small))
+    assert rd.streamed_resize.launches == launches + 3
+    assert rd.streamed_resize.tma_launches == tma + 2
+    assert torch.equal(ref, rd.aligned_resize(x, **geo))
 
 
 @pytest.mark.parametrize("name", ["dma_only", "h_only", "w_only", "both",
@@ -1011,7 +1056,7 @@ def test_resize_lab_wrappers_count_launches_and_reject_bad_input(dev):
                          sink=torch.zeros(4, dtype=torch.int64, device=dev))
     with pytest.raises(ValueError, match="source rows of a strip"):
         rd.streamed_resize(x, **geo, band=4)
-    with pytest.raises(RuntimeError, match="streamed_resize"):  # ring > smem
+    with pytest.raises(ValueError, match="shared memory"):  # ring > smem
         rd.streamed_resize(x, **geo, band=4096)
     with pytest.raises(ValueError, match="unroll"):
         rd.striped_resize(x, **geo, nw=9, store="unroll")

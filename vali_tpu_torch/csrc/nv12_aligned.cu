@@ -29,21 +29,15 @@
 // bf16 of its weights in register-fragment order; and the column ranges:
 // runs of tiles whose bands' union, the range's H columns, fits a block
 // beside B and the ring.
-//   - H pass, the transposed product: D [64 byte columns, kRows rows] = A
-//     [64 columns, k_pad] x B, wgmma m64n32k16 bf16 -> fp32 with A from
-//     registers. The window's bytes of the range stream through a ring of
-//     kStages stages of [k_pad, 128 bytes] by 16-byte cp.async copies
-//     issued two stages ahead (element loads where rows are not 16-byte
-//     aligned); each warpgroup takes 64 columns of a stage and builds its A
-//     fragments from the raw bytes (wgmma_common.cuh ring_fragments). The
-//     fp32 sums round to bf16 (the notebook's cast point) into the H rows:
-//     luma kRows rows, chroma kRows U rows then kRows V rows (deinterleaved
-//     as they are stored), as 8 x 8 core matrices, column groups padded by
-//     16 bytes; columns past the plane are written as zeros.
-//   - W pass: for each tile of the range, D [64 output pixels, N] = A x the
-//     H rows in place (N = kRows luma: m64n32k16; N = 2 kRows chroma,
-//     m64n64k16: one A of chroma weights serves U and V), then round, clip
-//     and store uint8.
+//   - H pass: the transposed product of aligned_passes.cuh over each
+//     128-byte chunk of the range, its window's bytes streamed through a
+//     ring of kStages stages of [k_pad, 128 bytes] by 16-byte cp.async
+//     copies issued two stages ahead (element loads where rows are not
+//     16-byte aligned); each warpgroup takes 64 columns of a stage and
+//     builds its A fragments from the raw bytes (wgmma_common.cuh
+//     ring_fragments), then writes its bf16 H rows.
+//   - W pass: aligned_passes.cuh's product and store per tile of the
+//     range.
 // The two warpgroups take alternate tiles.
 //
 // Bits: every bf16 x uint8 product is exact in fp32; the tensor cores add
@@ -58,6 +52,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "aligned_passes.cuh"
 #include "banded_common.cuh"
 #include "wgmma_common.cuh"
 
@@ -73,23 +68,17 @@ namespace {
 using banded::aligned16;
 using banded::allow_smem;
 using banded::kSmemLimit;
+using passes::kGroupBytes;
+using passes::kRows;
 using wgmma::cp_async_commit;
 using wgmma::cp_async_wait;
 using wgmma::fence_proxy_async;
-using wgmma::h_off;
 using wgmma::kStageCols;
-using wgmma::pack_bf16;
 
 constexpr int kKnockout = NV12_ALIGNED_KNOCKOUT;
 constexpr int kThreads = 256;   // two warpgroups
-constexpr int kRows = 32;       // output rows of a strip: N of the H product
 constexpr int kStages = 3;      // ring depth: two stages in flight
 constexpr int kMaxKSteps = 16;  // k_pad <= 256 window rows
-
-// Bytes of one 8-column group of a plane's tiled H rows: kRows rows (CH
-// kRows U then kRows V rows for chroma) of 16 bytes, and 16 of padding.
-template <int CH>
-constexpr int kGroupBytes = 16 * kRows * CH + 16;
 
 // One plane's launch: its frames, output and tables (lab/resize_diag.py
 // AlignedPlane).
@@ -109,10 +98,6 @@ struct Plane {
   const int* heads;     // [tiles][3]: first k-step, first source pixel, k-steps
   const uint4* frags;   // [k-steps][128] bf16 A fragments
 };
-
-__device__ __forceinline__ uint8_t quantise(float x) {
-  return static_cast<uint8_t>(fminf(fmaxf(rintf(x), 0.0f), 255.0f));
-}
 
 template <int NK, int CH>
 __global__ void __launch_bounds__(kThreads, 2) aligned_kernel(Plane p) {
@@ -167,40 +152,8 @@ __global__ void __launch_bounds__(kThreads, 2) aligned_kernel(Plane p) {
     wgmma::ring_fragments<NK>(a, ring + s % kStages * kp * kStageCols, ccol,
                               tq);
     float d[kRows / 2];
-#pragma unroll
-    for (int i = 0; i < kRows / 2; ++i) d[i] = 0.0f;
-    wgmma::fence();
-#pragma unroll
-    for (int ks = 0; ks < NK; ++ks)
-      wgmma::mma<kRows>(d, make_uint4(a[ks][0], a[ks][1], a[ks][2], a[ks][3]),
-                        bdesc + ((ks * kRows * 32) >> 4));
-    wgmma::commit();
-    wgmma::wait_all();
-    // d[4 j + e], d[4 j + 2 + e]: row 8 j + 2 tq + e of byte columns c and
-    // c + 1 (luma: two pixels; chroma: U and V of pixel c / 2)
-    const int c = s * kStageCols + ccol;
-    if (c < hbytes) {
-      const bool in = c < end;  // a row's bytes are even: c + 1 < end too
-#pragma unroll
-      for (int j = 0; j < kRows / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = 8 * j + 2 * tq + e;
-          const float lo = in ? d[4 * j + e] : 0.0f;
-          const float hi = in ? d[4 * j + 2 + e] : 0.0f;
-          if constexpr (CH == 1) {
-            *reinterpret_cast<unsigned*>(hrows + h_off(r, c, kGroup)) =
-                pack_bf16(lo, hi);
-          } else {
-            *reinterpret_cast<__nv_bfloat16*>(
-                hrows + h_off(r, c / 2, kGroup)) = __float2bfloat16_rn(lo);
-            *reinterpret_cast<__nv_bfloat16*>(
-                hrows + h_off(kRows + r, c / 2, kGroup)) =
-                __float2bfloat16_rn(hi);
-          }
-        }
-      }
-    }
+    passes::h_product<NK>(d, a, bdesc);
+    passes::store_h<CH>(hrows, d, s * kStageCols + ccol, hbytes, end, tq);
   }
   cp_async_wait<0>();
   fence_proxy_async();  // the H rows, read by wgmma in the W pass
@@ -208,36 +161,9 @@ __global__ void __launch_bounds__(kThreads, 2) aligned_kernel(Plane p) {
   if (kKnockout & 1) return;
 
   uint8_t* ob = p.out + blockIdx.z * p.out_bs;
-  const int ow = p.dst_w / CH;  // output pixels a row
-  const int wt = tid & 127;
-  for (int t = rg.x + wg; t < rg.x + rg.y; t += 2) {
-    const int* hd = p.heads + 3 * t;
-    float d[kRows * CH / 2];
-    wgmma::wpass_product<kRows * CH>(
-        d, p.frags + static_cast<long long>(__ldg(hd)) * 128, __ldg(hd + 2),
-        hrows, __ldg(hd + 1) - rg.z, kGroup, 128, wt);
-    // pixel 64 t + 16 warp + gq (+8 for e >= 2), row 8 j + 2 tq (+1 for
-    // odd e); chroma's V rows are N rows kRows on
-    const int pa = 64 * t + 16 * warp + gq;
-#pragma unroll
-    for (int j = 0; j < kRows / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int px = pa + 8 * (e >> 1), r = 8 * j + 2 * tq + (e & 1);
-        if (px < ow && r < rows) {
-          uint8_t* o = ob + static_cast<long long>(o0 + r) * p.dst_w;
-          if constexpr (CH == 1) {
-            o[px] = quantise(d[4 * j + e]);
-          } else {
-            *reinterpret_cast<unsigned short*>(o + 2 * px) =
-                static_cast<unsigned short>(
-                    quantise(d[4 * j + e]) |
-                    quantise(d[kRows / 2 + 4 * j + e]) << 8);
-          }
-        }
-      }
-    }
-  }
+  for (int t = rg.x + wg; t < rg.x + rg.y; t += 2)
+    passes::w_tile<CH>(ob, o0, rows, p.dst_w, hrows, p.heads, p.frags, t,
+                       rg.z, tid & 127, warp, gq, tq);
 }
 
 // Shared memory of one block of a plane (lab/resize_diag.py

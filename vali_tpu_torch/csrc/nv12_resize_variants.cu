@@ -5,7 +5,6 @@
 // Replaces the TPU lab-notebook kernels of resize_diag.py:
 //   - variant  (dma_only, h_only, w_only, both) -> nv12_resize_phases_launch
 //   - skewed                                    -> nv12_resize_skewed_launch
-//   - streamed (band)                           -> nv12_resize_streamed_launch
 //   - slabs    (nslabs, h_align, w_align)       -> nv12_resize_slabs_launch
 //   - striped  (nw, store)                      -> nv12_resize_striped_launch
 //
@@ -23,12 +22,6 @@
 //             of the block runs frame b's H pass into one of two H-pass
 //             buffers while the consumer half runs frame b - 1's W pass from
 //             the other, handing off at one barrier per step.
-//   streamed  whether reading each source row once per column tile beats
-//             the L2 re-reads of overlapping strips: one block per (frame,
-//             column tile, plane) walks the strips down the frame and copies
-//             bands of `band` source rows of its window into a shared-memory
-//             ring two bands deep with cp.async (16 bytes per copy); the H
-//             pass reads the ring.
 //   slabs     whether several copies in flight per block beat one: a
 //             block stages its strip's source window, aligned on the host
 //             (lab/resize_diag.py aligned_tables), in shared memory with
@@ -120,14 +113,6 @@ template <> __device__ __forceinline__ void load_vec<4>(const uint8_t* p,
   const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
 #pragma unroll
   for (int i = 0; i < 4; ++i) x[i] = static_cast<float>((w >> (8 * i)) & 0xFFu);
-}
-
-// First source row the strip of output rows o0 .. o0 + kRows - 1 reads.
-__device__ __forceinline__ int strip_lo(const Bands& bd, int dst_h, int o0) {
-  int lo = INT_MAX;
-  for (int r = 0; r < kRows && o0 + r < dst_h; ++r)
-    if (__ldg(bd.h_count + o0 + r) > 0) lo = min(lo, __ldg(bd.h_start + o0 + r));
-  return lo == INT_MAX ? 0 : lo;
 }
 
 // The strip's source rows [r_lo, r_lo + span) and its row bands as dense
@@ -441,7 +426,7 @@ skewed_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
                     cim, batch, c_ldm, smem, s_win);
 }
 
-// ---- streamed: one block per (column tile, frame, plane) over the strips
+// ---- slabs: one block per (column tile, strip, frame), split-K by slab --
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -456,135 +441,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-
-// H pass from the ring: window row i (a source row) at ring slot
-// i % ring_rows, `ldw` bytes per slot; same FMAs as hpass<4>.
-__device__ __forceinline__ void hpass_ring(const uint8_t* ring, int ldw,
-                                           int ring_rows, int r_lo, int span,
-                                           const float* wd, int ld, int rows,
-                                           int nl, MT* mid, int ldm) {
-  for (int l = 4 * threadIdx.x; l < nl; l += 4 * blockDim.x) {
-    float acc[kRows][4];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][i] = 0.0f;
-    int slot = r_lo % ring_rows;
-    for (int j = 0; j < span; ++j) {
-      const unsigned w4 =
-          *reinterpret_cast<const unsigned*>(ring + slot * ldw + l);
-      if (++slot == ring_rows) slot = 0;
-      float x[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        x[i] = static_cast<float>((w4 >> (8 * i)) & 0xFFu);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float w = wd[r * ld + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(w, x[i], acc[r][i]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (r < rows) mid[r * ldm + l + i] = M::put(acc[r][i]);
-  }
-}
-
-template <int C>
-__device__ void streamed_plane(const uint8_t* src, uint8_t* out,
-                               const Bands& bd, const Image& im, int band,
-                               int ldw, unsigned char* smem, int* s_win) {
-  const int p0 = blockIdx.x * bd.tile_w;
-  if (p0 >= im.dst_w) return;  // the whole block
-  const int cols = min(bd.tile_w, im.dst_w - p0);
-  const uint8_t* frame = src + blockIdx.y * im.in_bs;
-  uint8_t* ob = out + blockIdx.y * im.out_bs + p0 * C;
-  const int ring_rows = 2 * band;
-  uint8_t* ring = smem;  // [ring_rows][ldw]
-  float* wd = reinterpret_cast<float*>(ring + ring_rows * ldw);
-  MT* mid = reinterpret_cast<MT*>(wd + kRows * bd.span);  // [kRows][ldw]
-
-  int lo, hi;
-  tile_window(bd, p0, cols, s_win, lo, hi);
-  const int lane0 = lo * C / 16 * 16;
-  const int nl = max((hi + 1) * C - lane0, 0);
-  const int ldm = (nl + 3) / 4 * 4;
-  const int nch = (nl + 15) / 16;  // 16-byte chunks per ring row
-  const int len = im.src_w * C - lane0;
-  const uint8_t* base = frame + lane0;
-  const bool vec =
-      (reinterpret_cast<uintptr_t>(base) & 15u) == 0 && im.in_rs % 16 == 0;
-  const int n_bands = (im.src_h + band - 1) / band;
-
-  // band k (source rows [k * band, (k + 1) * band)) into the ring, one
-  // commit group per band
-  auto issue = [&](int k) {
-    const int i0 = k * band;
-    const int n = min(band, im.src_h - i0);
-    for (int e = threadIdx.x; e < n * nch; e += blockDim.x) {
-      const int i = e / nch;
-      const int lane = (e - i * nch) * 16;
-      uint8_t* dst = ring + ((i0 + i) % ring_rows) * ldw + lane;
-      const uint8_t* s = base + static_cast<long long>(i0 + i) * im.in_rs + lane;
-      if (vec) {
-        const int bytes = max(0, min(16, len - lane));  // the rest is zeroed
-        cp_async16(dst, bytes > 0 ? s : base, bytes);
-      } else {
-        for (int u = 0; u < 16; ++u) dst[u] = lane + u < len ? __ldg(s + u) : 0;
-      }
-    }
-    cp_async_commit();
-  };
-
-  int issued = 0;
-  while (issued < 2 && issued < n_bands) issue(issued++);
-  const int n_strips = (im.dst_h + kRows - 1) / kRows;
-  for (int st = 0; st < n_strips; ++st) {
-    const int o0 = st * kRows;
-    const int rows = min(kRows, im.dst_h - o0);
-    int r_lo, span;
-    strip_rows(bd, im.dst_h, o0, wd, r_lo, span);
-    // the strip's last band; the host made band >= span, so the slot it
-    // takes (band need - 2's) is free
-    const int need = span > 0 ? (r_lo + span - 1) / band : 0;
-    while (issued <= need && issued < n_bands) issue(issued++);
-    if (issued - 1 > need)
-      cp_async_wait<1>();  // band need + 1 may stay in flight
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-    hpass_ring(ring, ldw, ring_rows, r_lo, span, wd, bd.span, rows, nl, mid,
-               ldm);
-    __syncthreads();
-    // band k takes band k - 2's slot once no later strip reads band k - 2
-    const int r_next =
-        st + 1 < n_strips ? strip_lo(bd, im.dst_h, o0 + kRows) : im.src_h;
-    while (issued < n_bands && r_next >= (issued - 1) * band) issue(issued++);
-    wpass<C>(mid, ldm, lane0, bd, im.dst_w, rows, p0, cols,
-             ob + static_cast<long long>(o0) * im.out_rs, im.out_rs,
-             threadIdx.x, blockDim.x);
-  }
-  cp_async_wait<0>();
-}
-
-__global__ void __launch_bounds__(kThreads)
-streamed_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
-                Bands y, Image yim, Bands c, Image cim, int band, int y_ldw,
-                int c_ldw) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_win[2];
-  if (blockIdx.z == 0)
-    streamed_plane<1>(src, out, y, yim, band, y_ldw, smem, s_win);
-  else
-    streamed_plane<2>(src + yim.src_h * yim.in_rs,
-                      out + static_cast<long long>(yim.dst_h) * yim.out_rs,
-                      c, cim, band, c_ldw, smem, s_win);
-}
-
-// ---- slabs: one block per (column tile, strip, frame), split-K by slab --
 
 // Window rows [a, e) of the piece that starts at plane row a: up to the
 // next slab edge (buffer rows row0 + r that are multiples of `slab`) or the
@@ -1018,48 +874,6 @@ int nv12_resize_skewed_launch(const void* src, long long batch_stride,
   skewed_kernel<<<grid, 2 * kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(out), n.y, n.yim,
       n.c, n.cim, batch, y_ldm, c_ldm);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The full resize with one block per (column tile, frame, plane) walking
-// its strips, source rows staged in bands of `band` rows through a ring of
-// two bands (band >= every strip's span of source rows). One launch.
-int nv12_resize_streamed_launch(const void* src, long long batch_stride,
-                                long long row_stride, int batch, int src_h,
-                                int src_w, int dst_h, int dst_w,
-                                const int* y_index, const float* y_weights,
-                                int y_h_k, int y_w_k, int y_tile_w,
-                                int y_window, int y_span, const int* c_index,
-                                const float* c_weights, int c_h_k,
-                                int c_w_k, int c_tile_w, int c_window,
-                                int c_span, int band, void* out,
-                                void* stream) {
-  (void)y_w_k;
-  (void)c_w_k;
-  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
-  const Nv12 n = nv12(batch_stride, row_stride, src_h, src_w, dst_h, dst_w,
-                      y_index, y_weights, y_h_k, y_tile_w, y_window, y_span,
-                      c_index, c_weights, c_h_k, c_tile_w, c_window, c_span,
-                      static_cast<long long>(dst_h) * 3 / 2 * dst_w, 0);
-  if (!n.ok || band < y_span || band < c_span || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int y_ldw = mid_lanes(y_window, 1, 16);
-  const int c_ldw = mid_lanes(c_window, 2, 16);
-  // the ring, the strip's row weights, the H-pass rows
-  const long long y_smem = 2LL * band * y_ldw + 4LL * kRows * y_span +
-                           2LL * kRows * y_ldw;
-  const long long c_smem = 2LL * band * c_ldw + 4LL * kRows * c_span +
-                           2LL * kRows * c_ldw;
-  const long long smem = y_smem > c_smem ? y_smem : c_smem;
-  const cudaError_t e = allow_smem(streamed_kernel, static_cast<size_t>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = max((dst_w + y_tile_w - 1) / y_tile_w,
-                        (dst_w / 2 + c_tile_w - 1) / c_tile_w);
-  const dim3 grid(tiles, batch, 2);
-  streamed_kernel<<<grid, kThreads, static_cast<size_t>(smem),
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(out), n.y, n.yim,
-      n.c, n.cim, band, y_ldw, c_ldw);
   return static_cast<int>(cudaGetLastError());
 }
 

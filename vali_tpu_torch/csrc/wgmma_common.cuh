@@ -1,8 +1,9 @@
 // Pieces shared by the tensor-core lab kernels of this directory
-// (nv12_grouped.cu, nv12_aligned.cu, nv12_static2.cu): wgmma descriptors,
-// fences and products with A from registers, the cp.async staging ring of
-// raw uint8 window rows with the A fragments built from it, the tiled bf16
-// H rows and the W-pass product over them. sm_90a only.
+// (nv12_grouped.cu, nv12_aligned.cu, nv12_static2.cu, nv12_streamed.cu):
+// wgmma descriptors, fences and products with A from registers, the
+// cp.async staging ring of raw uint8 window rows with the A fragments
+// built from it, the tiled bf16 H rows and the W-pass product over them.
+// sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -4,9 +4,9 @@ run on the card.
 Counterpart of the TPU notebook ``resize_diag.py`` (its ``main``,
 ``main_aligned``, ``main_skewed``, ``main_streamed``, ``main_slabs`` and
 ``main_striped``). Six wrappers
-over the kernels of ``csrc/nv12_resize_variants.cu`` and
-``csrc/nv12_aligned.cu``, each beside its plain
-PyTorch version, with the same dispatch as the product wrappers: a CUDA
+over the kernels of ``csrc/nv12_resize_variants.cu``,
+``csrc/nv12_aligned.cu`` and ``csrc/nv12_streamed.cu``, each beside its
+plain PyTorch version, with the same dispatch as the product wrappers: a CUDA
 tensor launches the kernel, a CPU tensor runs the plain version, any other
 device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
 
@@ -28,8 +28,10 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   :func:`nv12_resize`.
 - :func:`skewed_resize` (``skewed``): the full resize with frame b's H pass
   beside frame b - 1's W pass inside one block.
-- :func:`streamed_resize` (``streamed``): the full resize with source rows
-  copied in bands of ``band`` rows into a ring two bands deep.
+- :func:`streamed_resize` (``streamed``): the full resize with each block
+  walking down the frame, source rows copied in bands of ``band`` rows by
+  TMA into an ``mbarrier`` ring under ``aligned``'s tensor-core passes at
+  8x32; equal to ``aligned8x32``.
 - :func:`slabs_resize` (``slabs``): the full resize with the NV12 buffer's
   rows cut into ``nslabs`` slabs; each H-pass sum is one fp32 partial per
   slab (one cp.async group each on the card), added in slab order. Equal
@@ -39,9 +41,9 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   H pass cut into ``nw`` column stripes into a bf16 scratch in device
   memory, then the W pass; ``store`` dyn, relay or unroll.
 
-Every full-function variant but ``slabs`` and ``aligned``, and ``both``,
-equals :func:`nv12_resize` bit for bit on the card; on the CPU its plain
-version is the product's, split as the variant splits it.
+Every full-function variant but ``slabs``, ``aligned`` and ``streamed``,
+and ``both``, equals :func:`nv12_resize` bit for bit on the card; on the
+CPU its plain version is the product's, split as the variant splits it.
 
 Run the lab (16 x 4K -> 1080p on ``cuda:0``; ``--device cpu`` runs the
 plain versions at 3 x 512x288 -> 256x144 and times nothing)::
@@ -72,7 +74,8 @@ import torch
 from ..ops.banded import (BLOCK_RESERVED_SMEM, SM_SMEM, SMEM_LIMIT,
                           ResizeTables, STRIP_ROWS, band_table,
                           core_matrix_order, fragment_order,
-                          pack_resize_tables, resize_tables)
+                          pack_resize_tables, resize_tables, sm_count,
+                          tile_window)
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_resize import nv12_resize, nv12_resize_plain
 from ..ops.resize import (LANCZOS_AA, from_f32, resize_plane, resize_weights,
@@ -85,9 +88,6 @@ from .timing import bound_ms, nv12_resize_work, time_cuda
 TILE = 32
 LANE_TILE = 128
 MODES = {"both": 0, "h_only": 1, "w_only": 2, "dma_only": 3}
-#: source lanes a streamed block's window aims at: narrow tiles, so that
-#: 16 frames x 2 planes give several blocks per SM at 4K -> 1080p
-STREAM_LANES = 320
 
 DEFAULT_NAMES = ("prod", "dma_only", "h_only", "w_only", "both",
                  "aligned8x32", "aligned32x128", "aligned4x16", "skewed",
@@ -376,22 +376,40 @@ def aligned_plane_tables(n_in: int, n_out: int, px: int, ow: int,
         heads[t] = (step, c0, nk)
         step += nk
 
-    def runs(parts):
-        out = np.zeros((parts, 4), np.int32)
-        for i, (t0, n) in enumerate(_split(tiles, parts)):
-            c0s = heads[t0:t0 + n, 1]
-            x0 = int(c0s.min()) // (16 // channels) * (16 // channels)
-            hi = int((c0s + 16 * heads[t0:t0 + n, 2]).max())
-            out[i] = (t0, n, x0, -(-(hi - x0) // 16) * 16)
-        return out
-
-    for parts in range(1, tiles + 1):
-        ranges = runs(parts)
-        if aligned_smem_bytes(channels, int(ranges[:, 3].max()),
-                              k_pad) <= ALIGNED_TWO_BLOCKS:
-            break
+    ranges = _fewest_ranges(
+        heads, channels, lambda r: aligned_smem_bytes(
+            channels, int(r[:, 3].max()), k_pad) <= ALIGNED_TWO_BLOCKS)
+    if ranges is None:
+        ranges = _column_ranges(heads, channels, tiles)
     return AlignedPlane(starts, weights, heads, np.concatenate(frags),
                         ranges)
+
+
+def _column_ranges(heads: np.ndarray, channels: int,
+                   parts: int) -> np.ndarray:
+    """The W tiles of ``heads`` in ``parts`` runs (split evenly), each with
+    the H columns that cover its tiles' bands: [parts, 4] int32 of its
+    first tile, its tiles, its first H pixel (a multiple of 16 bytes of a
+    row) and its H pixels (a multiple of 16)."""
+    out = np.zeros((parts, 4), np.int32)
+    for i, (t0, n) in enumerate(_split(len(heads), parts)):
+        c0s = heads[t0:t0 + n, 1]
+        x0 = int(c0s.min()) // (16 // channels) * (16 // channels)
+        hi = int((c0s + 16 * heads[t0:t0 + n, 2]).max())
+        out[i] = (t0, n, x0, -(-(hi - x0) // 16) * 16)
+    return out
+
+
+def _fewest_ranges(heads: np.ndarray, channels: int,
+                   fits: Callable[[np.ndarray], bool]
+                   ) -> Optional[np.ndarray]:
+    """The :func:`_column_ranges` of the fewest runs that ``fits``, or None
+    where not even one tile a run does."""
+    for parts in range(1, len(heads) + 1):
+        ranges = _column_ranges(heads, channels, parts)
+        if fits(ranges):
+            return ranges
+    return None
 
 
 def _aligned_planes(src_w, src_h, dst_w, dst_h, h_align, w_align):
@@ -523,36 +541,283 @@ def skewed_resize(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
 
 # --- streamed row bands (notebook ``streamed``) ----------------------------
 
+#: rows of the tallest band: one TMA box (cuTensorMapEncodeTiled's limit)
+STREAMED_MAX_BAND = 256
+#: bands start on multiples of this many rows: each [band, 128 bytes] box
+#: is then a whole number of the 128-byte swizzle's 1024-byte atoms
+STREAMED_BAND_ALIGN = 8
+#: bytes of one [band, 128] box row: a ring chunk's width
+STREAMED_CHUNK = 128
+
+
+class StreamedPlane(NamedTuple):
+    """One plane's plan of :func:`streamed_resize`
+    (csrc/nv12_streamed.cu): ``aligned``'s tables at 8x32 (``tables``: the
+    window starts, B, the W heads and fragments) under its own column
+    ``ranges`` ([n, 4] int32 as :class:`AlignedPlane`'s), a ring of
+    ``slots`` bands of ``band`` rows, and per block its runs of strips:
+    ``runs`` [nruns, 4] int32 (range, frame, first strip, strips) and
+    ``blocks`` [nblocks + 1] int32, block b walking runs blocks[b] to
+    blocks[b + 1] - 1 in order."""
+    tables: AlignedPlane
+    channels: int
+    n_in: int
+    band: int
+    ranges: np.ndarray
+    slots: int
+    runs: np.ndarray
+    blocks: np.ndarray
+
+    @property
+    def hcols(self) -> int:
+        return int(self.ranges[:, 3].max())
+
+    @property
+    def chunks(self) -> int:
+        """128-byte chunks of the widest range: a ring slot's boxes."""
+        return int(_chunks(self.ranges, self.channels).max())
+
+    def strip_bands(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(first, last) band of each strip's window rows (rows past the
+        plane read its last row)."""
+        return strip_bands(self.tables.starts, self.tables.k_pad, self.n_in,
+                           self.band)
+
+
+def _chunks(ranges: np.ndarray, channels: int) -> np.ndarray:
+    """128-byte chunks of each range's H columns."""
+    return -(-ranges[:, 3] * channels // STREAMED_CHUNK)
+
+
+def strip_bands(starts: np.ndarray, k_pad: int, n_in: int,
+                band: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(first, last) band of each window of ``k_pad`` rows from
+    ``starts``, rows past the ``n_in`` rows of the plane clamped to its
+    last (they weigh 0)."""
+    last = np.minimum(starts.astype(np.int64) + k_pad, n_in) - 1
+    return starts // band, last // band
+
+
+def streamed_smem_bytes(channels: int, hcols: int, k_pad: int, slots: int,
+                        band: int, chunks: int) -> int:
+    """Shared memory of one streamed block: the ring of ``slots`` bands of
+    ``chunks`` [band, 128] boxes, the tiled H rows (as ``aligned``'s), one
+    strip's B, two tables of window rows' ring offsets (int32: this
+    strip's and the next's) and the ring's and B's full barriers."""
+    group = 16 * ALIGNED_ROWS * channels + 16
+    return (slots * band * STREAMED_CHUNK * chunks + hcols // 8 * group
+            + 2 * k_pad * ALIGNED_ROWS + 8 * k_pad + 8 * (slots + 1))
+
+
+def _notebook_span(src_w: int, src_h: int, dst_w: int, dst_h: int) -> int:
+    """Source rows the widest strip of STRIP_ROWS output rows reads, luma
+    or chroma: the least band of the notebook's ``streamed``."""
+    return max(tile_window(*band_table(resize_weights(n, oh, LANCZOS_AA),
+                                       _BF16)[:2], STRIP_ROWS)
+               for n, oh in ((src_h, dst_h), (src_h // 2, dst_h // 2)))
+
+
 @functools.lru_cache(maxsize=32)
-def _stream_tables(src_h, dst_h, src_w, dst_w, *, channels, device):
-    """The product's bands in narrow tiles (STREAM_LANES)."""
-    return pack_resize_tables(
-        band_table(resize_weights(src_h, dst_h, LANCZOS_AA), _BF16),
-        band_table(resize_weights(src_w, dst_w, LANCZOS_AA), _BF16),
-        _BF16, channels, device, target_lanes=STREAM_LANES)
+def _streamed_ring(n_in: int, n_out: int, px: int, ow: int, channels: int,
+                   band: int):
+    """(tables, ranges, slots) of one plane, or (tables, None, needed
+    bytes) where no ring fits: the slots one window spans plus one band in
+    flight (else none in flight), and the fewest column ranges whose ring,
+    H rows and B fit a block."""
+    t = aligned_plane_tables(n_in, n_out, px, ow, channels, 8, 32)
+    lo, hi = strip_bands(t.starts, t.k_pad, n_in, band)
+    span = int((hi - lo).max()) + 1
+    for slots in (span + 1, span):
+        def need(r, slots=slots):
+            return streamed_smem_bytes(channels, int(r[:, 3].max()),
+                                       t.k_pad, slots, band,
+                                       int(_chunks(r, channels).max()))
+        ranges = _fewest_ranges(t.heads, channels,
+                                lambda r: need(r) <= SMEM_LIMIT)
+        if ranges is not None:
+            return t, ranges, slots
+    return t, None, need(_column_ranges(t.heads, channels, len(t.heads)))
+
+
+def _streamed_rings(src_w, src_h, dst_w, dst_h, band):
+    return (_streamed_ring(src_h, dst_h, src_w, dst_w, 1, band),
+            _streamed_ring(src_h // 2, dst_h // 2, src_w // 2, dst_w // 2, 2,
+                           band))
+
+
+@functools.lru_cache(maxsize=64)
+def streamed_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                     band: int) -> str:
+    """Why the streamed kernel cannot take this band at this geometry, or
+    "" when it can: a band shorter than the notebook's least (the source
+    rows of a strip of STRIP_ROWS output rows), not a multiple of
+    STREAMED_BAND_ALIGN rows, a window past ``aligned``'s K, a ring that
+    does not fit a block's shared memory beside one W tile's H columns, or
+    a band taller than one TMA box."""
+    span = _notebook_span(src_w, src_h, dst_w, dst_h)
+    if band < span:
+        return (f"band={band} rows is less than the {span} source rows of "
+                f"a strip")
+    if band % STREAMED_BAND_ALIGN:
+        return (f"band={band} rows is not a multiple of "
+                f"{STREAMED_BAND_ALIGN} (the ring's 128-byte swizzle atom)")
+    why = aligned_refusal(src_w, src_h, dst_w, dst_h, 8, 32)
+    if why:
+        return why
+    for name, (_, ranges, slots) in zip(
+            ("luma", "chroma"),
+            _streamed_rings(src_w, src_h, dst_w, dst_h, band)):
+        if ranges is None:
+            return (f"its {name} ring of {band}-row bands beside one W "
+                    f"tile's H rows and B needs {slots} B of shared "
+                    f"memory, over a block's {SMEM_LIMIT} B")
+    if band > STREAMED_MAX_BAND:
+        return (f"band={band} rows is over the {STREAMED_MAX_BAND} rows of "
+                f"one TMA box")
+    return ""
+
+
+def _walk_runs(cost: np.ndarray, strips: int,
+               blocks: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Runs of consecutive strips of the walks (``cost`` [walks] the work
+    of one strip of each walk), the sequence of all strips cut where its
+    running work first reaches each of ``blocks`` equal shares (empty
+    pieces dropped): (runs [nruns, 3] of walk, first strip, strips; each
+    piece's first run [pieces + 1])."""
+    edges = np.cumsum(np.repeat(cost.astype(np.int64), strips))
+    total = int(edges[-1])
+    cuts = [0] + [int(np.searchsorted(edges, -(-total * b // blocks))) + 1
+                  for b in range(1, blocks)] + [len(edges)]
+    runs, firsts = [], []
+    for a, e in zip(cuts, cuts[1:]):
+        if e <= a:
+            continue
+        firsts.append(len(runs))
+        while a < e:
+            w, s = divmod(a, strips)
+            n = min(e - a, strips - s)
+            runs.append((w, s, n))
+            a += n
+    firsts.append(len(runs))
+    return (np.asarray(runs, np.int32).reshape(-1, 3),
+            np.asarray(firsts, np.int32))
+
+
+@functools.lru_cache(maxsize=16)
+def streamed_plan(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  band: int, batch: int, sms: int
+                  ) -> Tuple[StreamedPlane, StreamedPlane]:
+    """The (luma, chroma) plans of a geometry the kernel takes
+    (:func:`streamed_refusal`) for ``batch`` frames on ``sms`` SMs: each
+    plane's walks (frame, range) cut into runs of strips over at most
+    ``sms`` persistent blocks, the work of a strip counted as the
+    tensor-core steps it issues (m64n32k16 units: two per chunk and window
+    k-step for the H product, the W k-steps of its tiles times the
+    plane's channels), so each SM gets the same within one strip's."""
+    out = []
+    for (t, ranges, slots), ch, n_in in zip(
+            _streamed_rings(src_w, src_h, dst_w, dst_h, band), (1, 2),
+            (src_h, src_h // 2)):
+        strips = t.weights.shape[0]
+        ksteps = np.array([int(t.heads[r[0]:r[0] + r[1], 2].sum())
+                           for r in ranges])
+        cost = np.tile(2 * _chunks(ranges, ch) * (t.k_pad // 16)
+                       + ch * ksteps, batch)
+        nblocks = max(1, min(sms, batch * len(ranges) * strips))
+        walk, firsts = _walk_runs(cost, strips, nblocks)
+        frame, rng = np.divmod(walk[:, 0], len(ranges))
+        runs = np.stack([rng, frame, walk[:, 1], walk[:, 2]],
+                        axis=1).astype(np.int32)
+        out.append(StreamedPlane(t, ch, n_in, band, ranges, slots, runs,
+                                 firsts))
+    return out[0], out[1]
+
+
+def streamed_staged_bytes(plan: StreamedPlane) -> int:
+    """Bytes one launch of a plane copies into shared memory: per run, its
+    bands (the first strip's first to the last strip's last) of its
+    range's chunks."""
+    lo, hi = plan.strip_bands()
+    r, s0, n = plan.runs[:, 0], plan.runs[:, 2], plan.runs[:, 3]
+    bands = hi[s0 + n - 1] - lo[s0] + 1
+    return int((bands * plan.band * STREAMED_CHUNK
+                * _chunks(plan.ranges, plan.channels)[r]).sum())
+
+
+@functools.lru_cache(maxsize=8)
+def _streamed_device(src_w, src_h, dst_w, dst_h, band, batch, sms, device):
+    """The launcher's table arguments on ``device``, uploaded once per
+    geometry, batch and SM count: per plane B, the window starts, k_pad,
+    the ranges and their count, the H columns, the heads, the fragments,
+    the ring's slots, the runs and the blocks' first runs and their count;
+    with the tensors they point into."""
+    args, keep = [], []
+    for p in streamed_plan(src_w, src_h, dst_w, dst_h, band, batch, sms):
+        t = p.tables
+        b, starts, ranges, heads, frags, runs, blocks = (
+            torch.from_numpy(core_matrix_order(t.weights)).to(device, _BF16),
+            torch.from_numpy(t.starts).to(device),
+            torch.from_numpy(p.ranges.reshape(-1)).to(device),
+            torch.from_numpy(t.heads.reshape(-1)).to(device),
+            torch.from_numpy(t.frags).to(device, _BF16),
+            torch.from_numpy(p.runs.reshape(-1)).to(device),
+            torch.from_numpy(p.blocks).to(device))
+        keep += [b, starts, ranges, heads, frags, runs, blocks]
+        args += [b.data_ptr(), starts.data_ptr(), t.k_pad, ranges.data_ptr(),
+                 len(p.ranges), p.hcols, heads.data_ptr(), frags.data_ptr(),
+                 p.slots, runs.data_ptr(), blocks.data_ptr(),
+                 len(p.blocks) - 1]
+    return tuple(args), keep
+
+
+def tma_stageable(nv12: torch.Tensor) -> bool:
+    """Whether the streamed kernel stages ``nv12`` by TMA: a 16-byte
+    aligned start and row and batch strides that are multiples of 16
+    bytes (else its element loads fill the same ring)."""
+    return (nv12.data_ptr() % 16 == 0 and nv12.stride(1) % 16 == 0
+            and nv12.stride(0) % 16 == 0)
 
 
 def streamed_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
                     dst_w: int, dst_h: int, band: int = 64
                     ) -> torch.Tensor:
-    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with each block's
-    source rows staged in bands of ``band`` rows (at least the source rows
-    of a strip); equal to :func:`nv12_resize`."""
+    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with each block
+    walking down the frame, its source rows staged in bands of ``band``
+    rows (one TMA box a 128-byte chunk) into a ring, under ``aligned``'s
+    products at 8x32 (:func:`streamed_plan`): equal to
+    ``aligned_resize(h_align=8, w_align=32)``, so within the uint8
+    envelope of :func:`nv12_resize`; on the CPU :func:`nv12_resize_plain`
+    itself. A view that TMA cannot take (:func:`tma_stageable`) fills the
+    same ring with element loads; ``streamed_resize.tma_launches`` counts
+    the launches staged by TMA. Raises ValueError for a band the kernel
+    cannot take (:func:`streamed_refusal`), on either device."""
     if band < 1:
         raise ValueError(f"band must be >= 1, got {band}")
     _checked(nv12, src_w, src_h, dst_w, dst_h)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
-    on_cpu = _on_cpu("streamed_resize", nv12)
-    tabs = _tables(src_w, src_h, dst_w, dst_h, nv12.device, _stream_tables)
-    span = max(t.span for t in tabs)
-    if band < span:
-        raise ValueError(f"band={band} rows is less than the {span} source "
-                         f"rows of a strip")
-    if on_cpu:
+    why = streamed_refusal(**geo, band=band)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
+    if _on_cpu("streamed_resize", nv12):
         return nv12_resize_plain(nv12, **geo)
-    out = _launch("streamed_resize", "nv12_resize_streamed_launch", nv12,
-                  tabs, (band,), _full_out(nv12, dst_w, dst_h), **geo)
+    from ..ops._cuda_build import check, load_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    tma = tma_stageable(nv12)
+    args, _ = _streamed_device(src_w, src_h, dst_w, dst_h, band,
+                               nv12.shape[0], sm_count(nv12.device),
+                               nv12.device)
+    out = _full_out(nv12, dst_w, dst_h)
+    lib = load_kernels()
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_resize_streamed_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],
+            src_h, src_w, dst_h, dst_w, *args, band, int(tma),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "streamed_resize")
     streamed_resize.launches += 1
+    streamed_resize.tma_launches += int(tma)
     return out
 
 
@@ -719,6 +984,7 @@ resize_phases.launches = 0
 aligned_resize.launches = 0
 skewed_resize.launches = 0
 streamed_resize.launches = 0
+streamed_resize.tma_launches = 0
 slabs_resize.launches = 0
 striped_resize.launches = 0
 WRAPPERS = (resize_phases, aligned_resize, skewed_resize, streamed_resize,
@@ -776,7 +1042,8 @@ def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
         band = int(m.group(1))
         return Case(streamed_resize,
                     lambda x: streamed_resize(x, **geo, band=band), plain,
-                    product, True, full)
+                    product, False,
+                    aligned_work(batch, **geo, h_align=8, w_align=32))
     m = re.fullmatch(r"slabs(\d+)", name)
     if m:
         n = int(m.group(1))

@@ -25,10 +25,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
             "csrc/nv12_to_rgb.cu", "csrc/nv12_variants.cu",
             "csrc/nv12_grouped.cu", "csrc/nv12_static2.cu",
-            "csrc/nv12_aligned.cu",
+            "csrc/nv12_aligned.cu", "csrc/nv12_streamed.cu",
             "csrc/nv12_resize_variants.cu", "csrc/nv12_to_rgb_variants.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
-            "csrc/wgmma_common.cuh")
+            "csrc/wgmma_common.cuh", "csrc/aligned_passes.cuh",
+            "csrc/tma_common.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -87,12 +88,16 @@ _RESIZE_LAB = [_P, _LL, _LL, _I, _I, _I, _I, _I,
 # lab kernel aligned: per plane B, starts, k_pad, ranges, their count, H
 # columns, heads, fragments
 _ALIGNED_PLANE = [_P, _P, _I, _P, _I, _I, _P, _P]
+# lab kernel streamed: aligned's plane, then the ring's slots, the runs,
+# the blocks' first runs and their count
+_STREAMED_PLANE = _ALIGNED_PLANE + [_I, _P, _P, _I]
 _SIGNATURES.update({
     "nv12_resize_aligned_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
     + _ALIGNED_PLANE * 2 + [_P, _P],
+    "nv12_resize_streamed_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
+    + _STREAMED_PLANE * 2 + [_I, _I, _P, _P],
     "nv12_resize_phases_launch": _RESIZE_LAB + [_I, _P, _I, _P, _P],
     "nv12_resize_skewed_launch": _RESIZE_LAB + [_P, _P],
-    "nv12_resize_streamed_launch": _RESIZE_LAB + [_I, _P, _P],
     "nv12_resize_slabs_launch": _RESIZE_LAB + [_I, _P, _P],
     "nv12_resize_striped_launch": _RESIZE_LAB + [_I, _I, _I, _P, _I, _P, _I,
                                                  _P, _P],
