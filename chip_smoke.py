@@ -20,11 +20,13 @@ full-function ones against nv12_preprocess bit for bit (the tensor-core
 one within the kernels' envelope); and the 4K NV12 resize lab's
 entry point (``vali_tpu_torch.lab.resize_diag``: phase knock-outs, aligned
 windows, the skewed H/W pipeline, streamed row bands (TMA into an mbarrier
-ring under aligned's tensor-core passes), row-slab split-K sums, column
+ring under aligned's tensor-core passes), row-slab split-K sums (aligned's
+passes, each slab piece staged by TMA against its own mbarrier), column
 stripes) at 16 x 4K -> 1080p, each kernel against its plain version and
 the full-function ones but slabs, aligned and streamed (their passes on
 the tensor cores, within the kernels' envelope; streamed equal to
-aligned8x32 bit for bit) against nv12_resize bit for bit; and the NV12 ->
+aligned8x32 bit for bit, slabs off the rows that straddle a slab edge)
+against nv12_resize bit for bit; and the NV12 ->
 RGB convert lab's entry point
 (``vali_tpu_torch.lab.convert_lab``: bf16-staged variants, read / store /
 quantisation / replication probes) at 64 x 1080p, each kernel against its
@@ -1476,9 +1478,10 @@ def resize_lab_phase(torch, np, dev, smi):
     """The 4K NV12 resize lab at 16 x 4K -> 1080p: every lab kernel against
     its plain version on the card (the full-function variants but slabs,
     aligned and streamed also against nv12_resize bit for bit, ``both``
-    against its luma rows; aligned and streamed, the tensor-core passes,
-    within the uint8 envelope of nv12_resize, streamed equal to
-    aligned8x32 bit for bit and staged by TMA; the samples in which slabs,
+    against its luma rows; aligned, streamed and slabs, the tensor-core
+    passes, within the uint8 envelope of nv12_resize, streamed equal to
+    aligned8x32 bit for bit and slabs equal to it off the rows that
+    straddle a slab edge, both staged by TMA; the samples in which slabs,
     aligned and streamed differ from nv12_resize are counted, with both
     bounds), the sinks of
     dma_only and w_only against the frames, then the lab's entry point
@@ -1501,7 +1504,7 @@ def resize_lab_phase(torch, np, dev, smi):
     plain_full = nv12_resize_plain(frames, **geo)
     err, aligned8x32 = {}, None
     for name, c in cases.items():
-        tma = rd.streamed_resize.tma_launches
+        tma = rd.streamed_resize.tma_launches + rd.slabs_resize.tma_launches
         out = c.call(frames)
         full_plain = c.exact or c.wrapper in (rd.aligned_resize,
                                               rd.streamed_resize)
@@ -1515,25 +1518,30 @@ def resize_lab_phase(torch, np, dev, smi):
         if c.exact and not torch.equal(out, want):
             raise AssertionError(f"resize lab {name} differs from "
                                  f"nv12_resize")
-        if c.wrapper is rd.slabs_resize:
-            log(f"resize lab {name}: {int((out != product).sum().item())} "
-                f"of {out.numel()} samples differ from nv12_resize (split-K "
-                f"sums at the slab edges)")
-        if c.wrapper in (rd.aligned_resize, rd.streamed_resize):
+        if c.wrapper in (rd.aligned_resize, rd.streamed_resize,
+                         rd.slabs_resize):
             compare(torch, f"resize lab {name} vs nv12_resize", out, product)
             nb, ops = c.work
             staged = ""
-            if c.wrapper is rd.streamed_resize:
-                if not torch.equal(out, aligned8x32):
+            if c.wrapper in (rd.streamed_resize, rd.slabs_resize):
+                # slabs: the rows whose band lies in one slab
+                keep = (torch.from_numpy(~rd.straddling_rows(
+                    H4K, H, rd.slab_rows(H4K, int(name[5:])))).to(dev)
+                        if c.wrapper is rd.slabs_resize else slice(None))
+                if not torch.equal(out[:, keep], aligned8x32[:, keep]):
                     raise AssertionError(f"resize lab {name} differs from "
                                          f"aligned8x32")
-                path = ("TMA" if rd.streamed_resize.tma_launches > tma
+                path = ("TMA" if rd.streamed_resize.tma_launches
+                        + rd.slabs_resize.tma_launches > tma
                         else "element loads")
                 if dev.type == "cuda" and path != "TMA":
                     raise AssertionError(f"resize lab {name}: contiguous "
                                          f"frames were not staged by TMA")
                 staged = (f", {int((out != aligned8x32).sum().item())} "
-                          f"from aligned8x32; staged by {path}")
+                          f"from aligned8x32"
+                          + (" (equal off the rows that straddle a slab "
+                             "edge)" if c.wrapper is rd.slabs_resize else "")
+                          + f"; staged by {path}")
             log(f"resize lab {name}: {int((out != product).sum().item())} "
                 f"of {out.numel()} samples differ from nv12_resize, "
                 f"{int((out != ref).sum().item())} from its plain version "
@@ -1554,9 +1562,9 @@ def resize_lab_phase(torch, np, dev, smi):
             raise AssertionError(f"{mode}'s sink misses bytes of the frames")
     exact = ", ".join(n for n in names if cases[n].exact)
     log(f"resize lab: {exact} equal to nv12_resize (both: its luma rows), "
-        f"aligned and streamed within their envelope, streamed equal to "
-        f"aligned8x32; the dma_only and w_only sinks equal to the XOR of "
-        f"every word of the frames")
+        f"aligned, streamed and slabs within their envelope, streamed equal "
+        f"to aligned8x32, slabs off the slab edges; the dma_only and w_only "
+        f"sinks equal to the XOR of every word of the frames")
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in rd.WRAPPERS:
@@ -1604,7 +1612,8 @@ def resize_lab_phase(torch, np, dev, smi):
             "name": f"{wrapper} {name}", "route": "cuda",
             "source": "vali_tpu_torch/csrc/" + {
                 rd.aligned_resize: "nv12_aligned.cu",
-                rd.streamed_resize: "nv12_streamed.cu"}.get(
+                rd.streamed_resize: "nv12_streamed.cu",
+                rd.slabs_resize: "nv12_slabs.cu"}.get(
                     c.wrapper, "nv12_resize_variants.cu"),
             "replaces": RESIZE_LAB_REPLACES[wrapper],
             "launches": r["launches"], "max_abs_err": err[name],

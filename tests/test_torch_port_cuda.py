@@ -1081,20 +1081,53 @@ def _straddling_rows(src_h, dst_h, slab):
     return torch.from_numpy(np.concatenate(out))
 
 
+@pytest.mark.parametrize("view", ["contiguous", "padded pitch",
+                                  "misaligned view"])
 @pytest.mark.parametrize("nslabs", [2, 4, 6, 16])
-def test_slabs_equal_nv12_resize_off_the_slab_edges(dev, nslabs):
-    """Rows whose band lies inside one slab sum one piece: nv12_resize's
-    bits. The rows whose band straddles an edge add two fp32 partials:
-    within 1 LSB of it."""
+def test_slabs_equal_aligned_8x32_off_the_slab_edges(dev, nslabs, view):
+    """Rows whose band lies inside one slab sum one piece, the other
+    pieces adding exact zeros: aligned_resize(h_align=8, w_align=32)'s bits,
+    whichever staging the view takes (TMA boxes for contiguous frames and a
+    padded pitch, element loads for a view off 16 bytes). The rows whose
+    band straddles an edge add two fp32 partials: every sample within the
+    uint8 envelope of slabs_resize_plain and of nv12_resize."""
     h, w, dh, dw = 288, 512, 144, 256
     geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
     x = rd.make_frames(3, h * 3 // 2, w, dev, seed=nslabs)
+    if view != "contiguous":
+        off = int(view == "misaligned view")
+        big = torch.zeros((3, h * 3 // 2, w + 16 + off), dtype=torch.uint8,
+                          device=dev)
+        big[:, :, off:off + w] = x
+        x = big[:, :, off:off + w]
+    tma = rd.slabs_resize.tma_launches
     out = rd.slabs_resize(x, **geo, nslabs=nslabs)
-    ref = nv12_resize(x, **geo)
+    assert rd.slabs_resize.tma_launches == tma + (view != "misaligned view")
+    ref = rd.aligned_resize(x, **geo, h_align=8, w_align=32)
     edge = _straddling_rows(h, dh, rd.slab_rows(h, nslabs)).to(dev)
     assert edge.any()
     assert torch.equal(out[:, ~edge], ref[:, ~edge])
-    _assert_close(out, ref, nslabs)
+    _assert_close(out, rd.slabs_resize_plain(x, **geo, nslabs=nslabs),
+                  (nslabs, view))
+    _assert_close(out, nv12_resize(x, **geo), (nslabs, view))
+
+
+@pytest.mark.parametrize("nslabs", [2, 4, 6])
+def test_slabs_at_4k_equal_aligned_8x32_off_the_slab_edges(dev, nslabs):
+    """The lab's sweep points at 4K -> 1080p (four frames, staged by TMA):
+    equal to aligned8x32 on every row whose band lies in one slab, within
+    the uint8 envelope of slabs_resize_plain and nv12_resize, and the
+    wrapper's output is the same every call."""
+    geo = dict(src_w=3840, src_h=2160, dst_w=1920, dst_h=1080)
+    x = rd.make_frames(4, 3240, 3840, dev, seed=nslabs)
+    out = rd.slabs_resize(x, **geo, nslabs=nslabs)
+    edge = _straddling_rows(2160, 1080, rd.slab_rows(2160, nslabs)).to(dev)
+    ref = rd.aligned_resize(x, **geo, h_align=8, w_align=32)
+    assert torch.equal(out[:, ~edge], ref[:, ~edge])
+    _assert_close(out, rd.slabs_resize_plain(x, **geo, nslabs=nslabs),
+                  nslabs)
+    _assert_close(out, nv12_resize(x, **geo), nslabs)
+    assert torch.equal(out, rd.slabs_resize(x, **geo, nslabs=nslabs))
 
 
 @pytest.mark.parametrize("nw,store", [(1, "dyn"), (8, "unroll"),

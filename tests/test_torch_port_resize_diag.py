@@ -271,18 +271,22 @@ def test_work_counts_the_frame_and_the_output():
     full-function variant is the product's. The aligned kernel's
     operations are the FLOPs its tensor-core tables issue, zeros included:
     more than the product's FMAs, and more at the coarser alignment; the
-    streamed kernel issues aligned's at 8x32."""
+    streamed kernel issues aligned's at 8x32, the slabs kernel those and a
+    chain more for each piece past a window's first."""
     from vali_tpu_torch.lab.timing import HBM_BYTES_PER_S, bound_ms
 
     frame = B * H * 3 // 2 * W
     full = rd.case("prod", B, **GEO).work
     assert full[0] == frame + B * DH * 3 // 2 * DW
-    for name in ("skewed", "slabs4", "striped3relay"):
+    for name in ("skewed", "striped3relay"):
         assert rd.case(name, B, **GEO).work == full
     fine, coarse = (rd.case(n, B, **GEO).work
                     for n in ("aligned8x32", "aligned32x128"))
     assert fine == rd.aligned_work(B, **GEO, h_align=8, w_align=32)
     assert rd.case("streamed64", B, **GEO).work == fine
+    slabs = rd.case("slabs4", B, **GEO).work
+    assert slabs == rd.slabs_work(B, **GEO, nslabs=4)
+    assert slabs[0] == full[0] and fine[1] < slabs[1]
     assert fine[0] == coarse[0] == full[0]
     assert full[1] < fine[1] < coarse[1]
     for mode in rd.MODES:

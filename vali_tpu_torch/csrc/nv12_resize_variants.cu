@@ -5,7 +5,7 @@
 // Replaces the TPU lab-notebook kernels of resize_diag.py:
 //   - variant  (dma_only, h_only, w_only, both) -> nv12_resize_phases_launch
 //   - skewed                                    -> nv12_resize_skewed_launch
-//   - slabs    (nslabs, h_align, w_align)       -> nv12_resize_slabs_launch
+//   - slabs                                     -> nv12_slabs.cu
 //   - striped  (nw, store)                      -> nv12_resize_striped_launch
 //
 // What bounds them on this card: what bounds nv12_resize. 16 x 4K NV12 ->
@@ -22,15 +22,8 @@
 //             of the block runs frame b's H pass into one of two H-pass
 //             buffers while the consumer half runs frame b - 1's W pass from
 //             the other, handing off at one barrier per step.
-//   slabs     whether several copies in flight per block beat one: a
-//             block stages its strip's source window, aligned on the host
-//             (lab/resize_diag.py aligned_tables), in shared memory with
-//             cp.async, one commit group per slab of the NV12
-//             buffer's rows that the window touches, and sums each piece
-//             into its own fp32 partial as soon as it has landed; the
-//             partials are added in slab order (the TPU kernel's split-K).
-//             Equal to nv12_resize where no row band straddles a slab
-//             edge, else within the fp32 summation envelope.
+//   slabs     (split-K by row slab) lives in nv12_slabs.cu, on
+//             aligned's tensor-core passes.
 //   striped   whether cutting each frame into column stripes pays: the H
 //             pass runs per (stripe, strip, frame) into a bf16 scratch in
 //             device memory, and the W pass reads it back in a second
@@ -426,155 +419,6 @@ skewed_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
                     cim, batch, c_ldm, smem, s_win);
 }
 
-// ---- slabs: one block per (column tile, strip, frame), split-K by slab --
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Window rows [a, e) of the piece that starts at plane row a: up to the
-// next slab edge (buffer rows row0 + r that are multiples of `slab`) or the
-// window's end.
-__device__ __forceinline__ int piece_end(int a, int end, int row0, int slab) {
-  return min(end, ((row0 + a) / slab + 1) * slab - row0);
-}
-
-// Waits until at most `pending` of this thread's cp.async groups are still
-// in flight (at most 3 kept: waiting for more is only stricter).
-__device__ __forceinline__ void cp_async_wait_upto(int pending) {
-  if (pending >= 3)
-    cp_async_wait<3>();
-  else if (pending == 2)
-    cp_async_wait<2>();
-  else if (pending == 1)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<0>();
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-slabs_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
-             Bands bd, Image im, int row0, int slab, int ldw) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_win[2];
-  uint8_t* stage = smem;                                        // [span][ldw]
-  float* wd = reinterpret_cast<float*>(stage + bd.span * ldw);  // [kRows][span]
-  float* tot = wd + kRows * bd.span;                            // [kRows][ldw]
-  MT* mid = reinterpret_cast<MT*>(tot + kRows * ldw);           // [kRows][ldw]
-
-  const int b = blockIdx.z;
-  const int o0 = blockIdx.y * kRows;
-  const int rows = min(kRows, im.dst_h - o0);
-  const int p0 = blockIdx.x * bd.tile_w;
-  const int cols = min(bd.tile_w, im.dst_w - p0);
-  int lo, hi, r_lo, span;
-  tile_window(bd, p0, cols, s_win, lo, hi);
-  strip_rows(bd, im.dst_h, o0, wd, r_lo, span);
-  const int lane0 = lo * C / 16 * 16;
-  const int nl = max((hi + 1) * C - lane0, 0);
-  const int nch = (nl + 15) / 16;  // 16-byte chunks per staged row
-  const int len = im.src_w * C - lane0;
-  const int end = r_lo + span;
-  const uint8_t* base = src + b * im.in_bs + lane0;
-  const bool vec =
-      (reinterpret_cast<uintptr_t>(base) & 15u) == 0 && im.in_rs % 16 == 0;
-
-  // the window's rows into the stage, one cp.async group per slab piece:
-  // every piece's copies are in flight before the first is waited for
-  int n_pieces = 0;
-  for (int a = r_lo; a < end; a = piece_end(a, end, row0, slab), ++n_pieces) {
-    const int n = piece_end(a, end, row0, slab) - a;
-    for (int e = threadIdx.x; e < n * nch; e += blockDim.x) {
-      const int i = a - r_lo + e / nch;
-      const int lane = (e % nch) * 16;
-      uint8_t* dst = stage + i * ldw + lane;
-      const uint8_t* s = base + static_cast<long long>(r_lo + i) * im.in_rs + lane;
-      if (vec) {
-        const int bytes = max(0, min(16, len - lane));  // the rest is zeroed
-        cp_async16(dst, bytes > 0 ? s : base, bytes);
-      } else {
-        for (int u = 0; u < 16; ++u) dst[u] = lane + u < len ? __ldg(s + u) : 0;
-      }
-    }
-    cp_async_commit();
-  }
-
-  // H pass piece by piece: each piece's rows summed into its own fp32
-  // partial in row order (hpass's FMAs), the partials added in slab order
-  int k = 0;
-  for (int a = r_lo; a < end; a = piece_end(a, end, row0, slab), ++k) {
-    const int e_row = piece_end(a, end, row0, slab);
-    cp_async_wait_upto(n_pieces - 1 - k);
-    __syncthreads();
-    for (int l = 4 * threadIdx.x; l < nl; l += 4 * blockDim.x) {
-      float acc[kRows][4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[r][i] = 0.0f;
-      for (int j = a - r_lo; j < e_row - r_lo; ++j) {
-        const unsigned w4 = *reinterpret_cast<const unsigned*>(stage + j * ldw + l);
-        float x[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = static_cast<float>((w4 >> (8 * i)) & 0xFFu);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float w = wd[r * bd.span + j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(w, x[i], acc[r][i]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* t = tot + r * ldw + l + i;
-          *t = k == 0 ? acc[r][i] : *t + acc[r][i];
-        }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * nl; i += blockDim.x) {
-    const int r = i / nl;
-    const int l = i - r * nl;
-    mid[r * ldw + l] = M::put(tot[r * ldw + l]);
-  }
-  __syncthreads();
-  wpass<C>(mid, ldw, lane0, bd, im.dst_w, rows, p0, cols,
-           out + b * im.out_bs + static_cast<long long>(o0) * im.out_rs + p0 * C,
-           im.out_rs, threadIdx.x, blockDim.x);
-}
-
-template <int C>
-cudaError_t launch_slabs(const void* src, void* out, const Bands& bd,
-                         const Image& im, int batch, int window, int row0,
-                         int slab, cudaStream_t stream) {
-  auto kern = slabs_kernel<C>;
-  const int ldw = mid_lanes(window, C, 16);
-  const size_t smem = static_cast<size_t>(bd.span) * ldw +
-                      sizeof(float) * kRows * bd.span +
-                      sizeof(float) * kRows * ldw + sizeof(MT) * kRows * ldw;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((im.dst_w + bd.tile_w - 1) / bd.tile_w,
-                  (im.dst_h + kRows - 1) / kRows, batch);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const uint8_t*>(src),
-                                         static_cast<uint8_t*>(out), bd, im,
-                                         row0, slab, ldw);
-  return cudaGetLastError();
-}
-
 // ---- striped: H pass per (stripe, strip, frame), then the W pass -------
 //
 // The TPU kernel keeps a frame's H-pass rows in VMEM (12.4 MB at 4K) and
@@ -875,40 +719,6 @@ int nv12_resize_skewed_launch(const void* src, long long batch_stride,
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(out), n.y, n.yim,
       n.c, n.cim, batch, y_ldm, c_ldm);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The full resize with the NV12 buffer's rows cut into slabs of `slab`
-// rows (edges at buffer rows k * slab): each strip's H-pass sums are one
-// fp32 partial per slab its window touches, added in slab order. Tables
-// aligned on the host (lab/resize_diag.py aligned_tables). Two launches
-// (luma, chroma).
-int nv12_resize_slabs_launch(const void* src, long long batch_stride,
-                             long long row_stride, int batch, int src_h,
-                             int src_w, int dst_h, int dst_w,
-                             const int* y_index, const float* y_weights,
-                             int y_h_k, int y_w_k, int y_tile_w, int y_window,
-                             int y_span, const int* c_index,
-                             const float* c_weights, int c_h_k, int c_w_k,
-                             int c_tile_w, int c_window, int c_span, int slab,
-                             void* out, void* stream) {
-  (void)y_w_k;
-  (void)c_w_k;
-  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
-  const Nv12 n = nv12(batch_stride, row_stride, src_h, src_w, dst_h, dst_w,
-                      y_index, y_weights, y_h_k, y_tile_w, y_window, y_span,
-                      c_index, c_weights, c_h_k, c_tile_w, c_window, c_span,
-                      static_cast<long long>(dst_h) * 3 / 2 * dst_w, 0);
-  if (!n.ok || slab < 1 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_slabs<1>(src, out, n.y, n.yim, batch, y_window, 0,
-                                  slab, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const void* c_src =
-      static_cast<const char*>(src) + static_cast<long long>(src_h) * row_stride;
-  void* c_out = static_cast<char*>(out) + static_cast<long long>(dst_h) * dst_w;
-  return static_cast<int>(launch_slabs<2>(c_src, c_out, n.c, n.cim, batch,
-                                          c_window, src_h, slab, s));
 }
 
 // The full resize on (stripe, strip, frame) blocks: stripes of `sw` source

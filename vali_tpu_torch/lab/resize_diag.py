@@ -5,7 +5,8 @@ Counterpart of the TPU notebook ``resize_diag.py`` (its ``main``,
 ``main_aligned``, ``main_skewed``, ``main_streamed``, ``main_slabs`` and
 ``main_striped``). Six wrappers
 over the kernels of ``csrc/nv12_resize_variants.cu``,
-``csrc/nv12_aligned.cu`` and ``csrc/nv12_streamed.cu``, each beside its
+``csrc/nv12_aligned.cu``, ``csrc/nv12_streamed.cu`` and
+``csrc/nv12_slabs.cu``, each beside its
 plain PyTorch version, with the same dispatch as the product wrappers: a CUDA
 tensor launches the kernel, a CPU tensor runs the plain version, any other
 device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
@@ -34,9 +35,11 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   8x32; equal to ``aligned8x32``.
 - :func:`slabs_resize` (``slabs``): the full resize with the NV12 buffer's
   rows cut into ``nslabs`` slabs; each H-pass sum is one fp32 partial per
-  slab (one cp.async group each on the card), added in slab order. Equal
-  to :func:`nv12_resize` where no row band straddles a slab edge, within
-  1 LSB on fewer than 1e-3 of the samples elsewhere.
+  slab piece of its window (on the card ``aligned``'s tensor-core passes
+  at 8x32, each piece staged by TMA boxes against its own mbarrier), added
+  in slab order. Equal to ``aligned8x32`` where no row band straddles a
+  slab edge, within 1 LSB on fewer than 1e-3 of the samples of
+  :func:`nv12_resize` everywhere.
 - :func:`striped_resize` (``striped``): the full resize with each frame's
   H pass cut into ``nw`` column stripes into a bf16 scratch in device
   memory, then the W pass; ``store`` dyn, relay or unroll.
@@ -857,6 +860,20 @@ def slab_rows(src_h: int, nslabs: int) -> int:
     return -(-per // 32) * 32
 
 
+@functools.lru_cache(maxsize=64)
+def straddling_rows(src_h: int, dst_h: int, slab: int) -> np.ndarray:
+    """[dst_h * 3 / 2] bool: the output rows of the NV12 resize (luma, then
+    chroma) whose bf16 row band crosses a slab edge of the buffer's rows
+    (a multiple of ``slab``; chroma's rows start at buffer row src_h)."""
+    out = []
+    for row0, n, dn in ((0, src_h, dst_h), (src_h, src_h // 2, dst_h // 2)):
+        start, count, _ = band_table(resize_weights(n, dn, LANCZOS_AA),
+                                     _BF16)
+        out.append((row0 + start) // slab != (row0 + start + count - 1)
+                   // slab)
+    return np.concatenate(out)
+
+
 def slabs_resize_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
                        dst_w: int, dst_h: int, nslabs: int = 4
                        ) -> torch.Tensor:
@@ -878,28 +895,247 @@ def slabs_resize_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
     return _planes_plain(nv12, src_w, src_h, dst_w, dst_h, h_pass)
 
 
+#: the most issued pieces (slab pieces with a nonzero weight) one window
+#: may have: the kernel's mbarriers a ring stage
+SLABS_MAX_PIECES = 8
+#: bytes of one k-step of B ([16, ALIGNED_ROWS] bf16) and of one TMA box
+#: of a ring stage ([16 rows, ALIGNED_STAGE_COLS bytes])
+SLABS_BLOCK_BYTES = 16 * ALIGNED_ROWS * 2
+SLABS_BOX_BYTES = 16 * ALIGNED_STAGE_COLS
+
+
+def slab_cuts(start: int, k_pad: int, row0: int,
+              slab: int) -> List[Tuple[int, int]]:
+    """(first, end) window rows of the pieces of a window of ``k_pad`` rows
+    whose row 0 is buffer row ``row0 + start``: cut at every buffer row
+    that is a multiple of ``slab``."""
+    edges = [k for k in range(1, k_pad) if (row0 + start + k) % slab == 0]
+    bounds = [0] + edges + [k_pad]
+    return list(zip(bounds, bounds[1:]))
+
+
+class SlabsPlane(NamedTuple):
+    """One plane's tables of :func:`slabs_resize` (csrc/nv12_slabs.cu):
+    ``aligned``'s tables (``tables``: the window starts, B, the W heads and
+    fragments) under its own column ``ranges`` ([n, 4] int32 as
+    :class:`AlignedPlane`'s), each strip's window cut at the buffer's slab
+    edges. ``cuts`` [n, 3] int32: per piece (strip, first window row, end
+    row), in strip and row order, covering each window once. ``pfirst``
+    [strips + 1] int32: strip s issues ``pieces[pfirst[s]:pfirst[s + 1]]``,
+    the pieces with a nonzero weight, in slab order: [m, 4] int32 of its
+    first k-step, its k-steps (those of its nonzero rows), its first block
+    of ``bp``, and its boxes: its last ``boxes`` k-steps, whose [16, 128]
+    boxes count against its barrier (a k-step shared with the piece before
+    is that piece's). ``bp`` [blocks, ALIGNED_ROWS, 16] float32 of bf16
+    values: per issued k-step of a piece, aligned's B at those window rows
+    with the rows outside the piece set to zero."""
+    tables: AlignedPlane
+    ranges: np.ndarray
+    cuts: np.ndarray
+    pfirst: np.ndarray
+    pieces: np.ndarray
+    bp: np.ndarray
+
+    @property
+    def hcols(self) -> int:
+        return int(self.ranges[:, 3].max())
+
+    @property
+    def blocks(self) -> int:
+        """B's blocks in a block's shared memory, the most a strip has: its
+        first piece's B_p at its window k-steps (k_pad / 16 blocks, zero
+        ones around it), then its later pieces' k-steps."""
+        p, f = self.pieces, self.pfirst
+        return self.tables.k_pad // 16 + max(
+            int(p[f[s] + 1:f[s + 1], 1].sum()) for s in range(len(f) - 1))
+
+    @property
+    def most_pieces(self) -> int:
+        return int(np.diff(self.pfirst).max())
+
+
+def slabs_smem_bytes(channels: int, hcols: int, k_pad: int,
+                     blocks: int) -> int:
+    """Shared memory of one slabs block: the ring of ALIGNED_STAGES stages
+    of [k_pad, 128] bytes, the tiled H rows (as ``aligned``'s), ``blocks``
+    blocks of B (:attr:`SlabsPlane.blocks`) and a zero one, a barrier a
+    (stage, piece) and the strip's pieces (int32 x 4 each)."""
+    group = 16 * ALIGNED_ROWS * channels + 16
+    return (ALIGNED_STAGES * k_pad * ALIGNED_STAGE_COLS + hcols // 8 * group
+            + (blocks + 1) * SLABS_BLOCK_BYTES
+            + (8 * ALIGNED_STAGES + 16) * SLABS_MAX_PIECES)
+
+
+@functools.lru_cache(maxsize=32)
+def slabs_plane_tables(n_in: int, n_out: int, px: int, ow: int,
+                       channels: int, h_align: int, w_align: int, row0: int,
+                       slab: int) -> SlabsPlane:
+    """The tables of one plane (``row0``: its first buffer row) with the
+    buffer's rows cut into slabs of ``slab`` rows: ``aligned``'s at
+    ``h_align`` x ``w_align`` (:func:`aligned_plane_tables`), each strip's
+    window cut at the slab edges (:func:`slab_cuts`), and the fewest
+    column ranges whose block fits two to an SM (None where not even one
+    tile a range does)."""
+    t = aligned_plane_tables(n_in, n_out, px, ow, channels, h_align,
+                             w_align)
+    cuts, pfirst, pieces, bp = [], [0], [], []
+    for s in range(t.weights.shape[0]):
+        last = -1   # the last k-step the strip's previous piece issued
+        for a, e in slab_cuts(int(t.starts[s]), t.k_pad, row0, slab):
+            cuts.append((s, a, e))
+            b = np.zeros_like(t.weights[s])
+            b[:, a:e] = t.weights[s][:, a:e]
+            live = np.flatnonzero(b.reshape(ALIGNED_ROWS, -1, 16).any(
+                axis=(0, 2)))
+            if not len(live):
+                continue
+            ks0, nks = int(live[0]), int(live[-1]) + 1 - int(live[0])
+            pieces.append((ks0, nks, len(bp), nks - int(ks0 == last)))
+            bp += [b[:, 16 * k:16 * k + 16] for k in range(ks0, ks0 + nks)]
+            last = ks0 + nks - 1
+        pfirst.append(len(pieces))
+    blocks = t.k_pad // 16 + max(sum(q[1] for q in pieces[f0 + 1:f1])
+                                 for f0, f1 in zip(pfirst, pfirst[1:]))
+    ranges = _fewest_ranges(
+        t.heads, channels, lambda r: slabs_smem_bytes(
+            channels, int(r[:, 3].max()), t.k_pad, blocks)
+        <= ALIGNED_TWO_BLOCKS)
+    return SlabsPlane(t, ranges, np.asarray(cuts, np.int32),
+                      np.asarray(pfirst, np.int32),
+                      np.asarray(pieces, np.int32).reshape(-1, 4),
+                      np.stack(bp).astype(np.float32))
+
+
+def _slabs_planes(src_w, src_h, dst_w, dst_h, nslabs, h_align, w_align):
+    """(luma, chroma) :class:`SlabsPlane` tables."""
+    slab = slab_rows(src_h, nslabs)
+    return (slabs_plane_tables(src_h, dst_h, src_w, dst_w, 1, h_align,
+                               w_align, 0, slab),
+            slabs_plane_tables(src_h // 2, dst_h // 2, src_w // 2,
+                               dst_w // 2, 2, h_align, w_align, src_h, slab))
+
+
+@functools.lru_cache(maxsize=64)
+def slabs_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  nslabs: int, h_align: int, w_align: int) -> str:
+    """Why the slabs kernel cannot take this geometry, or "" when it can:
+    ``aligned``'s refusal (:func:`aligned_refusal`), a window cut into more
+    than SLABS_MAX_PIECES issued pieces, or a block (ring, H rows of one W
+    tile's band, the pieces' B and barriers) over half an SM's shared
+    memory: the kernel runs two blocks an SM. Its boxes start at each
+    window's first row, so any ``h_align`` is staged."""
+    why = aligned_refusal(src_w, src_h, dst_w, dst_h, h_align, w_align)
+    if why:
+        return why
+    for name, ch, p in zip(("luma", "chroma"), (1, 2),
+                           _slabs_planes(src_w, src_h, dst_w, dst_h, nslabs,
+                                         h_align, w_align)):
+        if p.most_pieces > SLABS_MAX_PIECES:
+            return (f"nslabs={nslabs} cuts a {name} window into "
+                    f"{p.most_pieces} pieces, over the kernel's "
+                    f"{SLABS_MAX_PIECES}")
+        if p.ranges is None:
+            smem = slabs_smem_bytes(ch, 16 * int(p.tables.heads[:, 2].max()),
+                                    p.tables.k_pad, p.blocks)
+            return (f"its {name} ring, H rows, pieces' B and barriers need "
+                    f"{smem} B of shared memory, over the "
+                    f"{ALIGNED_TWO_BLOCKS} B of a block two to an SM")
+    return ""
+
+
+def slabs_work(batch: int, src_w: int, src_h: int, dst_w: int, dst_h: int,
+               nslabs: int, h_align: int = 8,
+               w_align: int = 32) -> Tuple[int, int]:
+    """(bytes, operations) of one slabs batch: the product's bytes, and the
+    FLOPs the kernel issues, zeros included: per strip and issued piece a
+    chain of k_pad / 16 k-steps (those outside the piece's own against a
+    zero block) of [ALIGNED_ROWS, 16] weights times the H columns of each
+    range, and ``aligned``'s W products."""
+    h_fmas = w_fmas = 0
+    for ch, p in zip((1, 2), _slabs_planes(src_w, src_h, dst_w, dst_h,
+                                           nslabs, h_align, w_align)):
+        t = p.tables
+        h_fmas += (len(p.pieces) * ALIGNED_ROWS * t.k_pad * ch
+                   * int(p.ranges[:, 3].sum()))
+        w_fmas += (t.weights.shape[0] * ALIGNED_W_TILE * 16 * ALIGNED_ROWS
+                   * ch * int(t.heads[:, 2].sum()))
+    return nv12_resize_work(batch, src_h, src_w, dst_h, dst_w,
+                            h_fmas=h_fmas, w_fmas=w_fmas)
+
+
+@functools.lru_cache(maxsize=8)
+def _slabs_device(src_w, src_h, dst_w, dst_h, nslabs, h_align, w_align,
+                  device):
+    """The launcher's table arguments on ``device``, uploaded once per
+    geometry: per plane aligned's (B's place taken by the pieces' B_p in
+    bf16 core-matrix order, a k-step a block; the ranges the plane's own),
+    then the strips' first pieces, the pieces and B's blocks a strip; with
+    the tensors they point into."""
+    args, keep = [], []
+    for p in _slabs_planes(src_w, src_h, dst_w, dst_h, nslabs, h_align,
+                           w_align):
+        t = p.tables
+        b, starts, ranges, heads, frags, pfirst, pieces = (
+            torch.from_numpy(core_matrix_order(p.bp)).to(device, _BF16),
+            torch.from_numpy(t.starts).to(device),
+            torch.from_numpy(p.ranges.reshape(-1)).to(device),
+            torch.from_numpy(t.heads.reshape(-1)).to(device),
+            torch.from_numpy(t.frags).to(device, _BF16),
+            torch.from_numpy(p.pfirst).to(device),
+            torch.from_numpy(p.pieces.reshape(-1)).to(device))
+        keep += [b, starts, ranges, heads, frags, pfirst, pieces]
+        args += [b.data_ptr(), starts.data_ptr(), t.k_pad, ranges.data_ptr(),
+                 len(p.ranges), p.hcols, heads.data_ptr(), frags.data_ptr(),
+                 pfirst.data_ptr(), pieces.data_ptr(), p.blocks]
+    return tuple(args), keep
+
+
 def slabs_resize(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
                  dst_h: int, nslabs: int = 4, h_align: int = 8,
                  w_align: int = 32) -> torch.Tensor:
     """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with the buffer's
-    rows cut into ``nslabs`` slabs of :func:`slab_rows` rows: each H-pass
-    sum is one fp32 partial per slab its window touches, the partials added
-    in slab order, through :func:`aligned_tables` windows. Equal to
-    :func:`nv12_resize` where no row band straddles a slab edge, within
-    1 LSB elsewhere."""
+    rows cut into ``nslabs`` slabs of :func:`slab_rows` rows, on
+    ``aligned``'s tensor-core passes at ``h_align`` x ``w_align``
+    (:func:`slabs_plane_tables`): each H-pass sum is one fp32 partial per
+    slab piece of its strip's window (that piece's B_p: aligned's B with
+    the rows outside the piece zero), the partials added in slab order,
+    then rounded to bf16. Each piece's rows are staged by TMA boxes against
+    its own mbarrier, a view TMA cannot take (:func:`tma_stageable`) by
+    element loads into the same ring (``slabs_resize.tma_launches`` counts
+    the launches staged by TMA). Equal to ``aligned_resize`` at the same
+    alignment on every output row whose band lies inside one slab, within
+    the uint8 envelope of :func:`slabs_resize_plain` and of
+    :func:`nv12_resize`; on the CPU :func:`slabs_resize_plain` itself.
+    Raises ValueError for a geometry the kernel cannot take
+    (:func:`slabs_refusal`), on either device."""
     if h_align < 1 or w_align < 1:
         raise ValueError(f"h_align and w_align must be >= 1, got "
                          f"{h_align}, {w_align}")
-    slab = slab_rows(src_h, nslabs)
     _checked(nv12, src_w, src_h, dst_w, dst_h)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = slabs_refusal(**geo, nslabs=nslabs, h_align=h_align,
+                        w_align=w_align)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("slabs_resize", nv12):
         return slabs_resize_plain(nv12, **geo, nslabs=nslabs)
-    tabs = _tables(src_w, src_h, dst_w, dst_h, nv12.device, aligned_tables,
-                   h_align=h_align, w_align=w_align)
-    out = _launch("slabs_resize", "nv12_resize_slabs_launch", nv12, tabs,
-                  (slab,), _full_out(nv12, dst_w, dst_h), **geo)
+    from ..ops._cuda_build import check, load_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    tma = tma_stageable(nv12)
+    args, _ = _slabs_device(src_w, src_h, dst_w, dst_h, nslabs, h_align,
+                            w_align, nv12.device)
+    out = _full_out(nv12, dst_w, dst_h)
+    lib = load_kernels()
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_resize_slabs_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],
+            src_h, src_w, dst_h, dst_w, *args, int(tma), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "slabs_resize")
     slabs_resize.launches += 1
+    slabs_resize.tma_launches += int(tma)
     return out
 
 
@@ -986,6 +1222,7 @@ skewed_resize.launches = 0
 streamed_resize.launches = 0
 streamed_resize.tma_launches = 0
 slabs_resize.launches = 0
+slabs_resize.tma_launches = 0
 striped_resize.launches = 0
 WRAPPERS = (resize_phases, aligned_resize, skewed_resize, streamed_resize,
             slabs_resize, striped_resize)
@@ -1049,7 +1286,8 @@ def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
         n = int(m.group(1))
         split = (lambda x: slabs_resize_plain(x, **geo, nslabs=n))
         return Case(slabs_resize, lambda x: slabs_resize(x, **geo, nslabs=n),
-                    split, split, False, full)
+                    split, split, False,
+                    slabs_work(batch, **geo, nslabs=n))
     m = re.fullmatch(r"striped(\d+)(dyn|relay|unroll)", name)
     if m:
         nw, store = int(m.group(1)), m.group(2)

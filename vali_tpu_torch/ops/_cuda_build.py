@@ -26,7 +26,8 @@ _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
             "csrc/nv12_to_rgb.cu", "csrc/nv12_variants.cu",
             "csrc/nv12_grouped.cu", "csrc/nv12_static2.cu",
             "csrc/nv12_aligned.cu", "csrc/nv12_streamed.cu",
-            "csrc/nv12_resize_variants.cu", "csrc/nv12_to_rgb_variants.cu")
+            "csrc/nv12_slabs.cu", "csrc/nv12_resize_variants.cu",
+            "csrc/nv12_to_rgb_variants.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
             "csrc/wgmma_common.cuh", "csrc/aligned_passes.cuh",
             "csrc/tma_common.cuh")
@@ -91,6 +92,9 @@ _ALIGNED_PLANE = [_P, _P, _I, _P, _I, _I, _P, _P]
 # lab kernel streamed: aligned's plane, then the ring's slots, the runs,
 # the blocks' first runs and their count
 _STREAMED_PLANE = _ALIGNED_PLANE + [_I, _P, _P, _I]
+# lab kernel slabs: aligned's plane (B: the pieces' B_p), then the strips'
+# first pieces, the pieces and B's blocks a strip
+_SLABS_PLANE = _ALIGNED_PLANE + [_P, _P, _I]
 _SIGNATURES.update({
     "nv12_resize_aligned_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
     + _ALIGNED_PLANE * 2 + [_P, _P],
@@ -98,7 +102,8 @@ _SIGNATURES.update({
     + _STREAMED_PLANE * 2 + [_I, _I, _P, _P],
     "nv12_resize_phases_launch": _RESIZE_LAB + [_I, _P, _I, _P, _P],
     "nv12_resize_skewed_launch": _RESIZE_LAB + [_P, _P],
-    "nv12_resize_slabs_launch": _RESIZE_LAB + [_I, _P, _P],
+    "nv12_resize_slabs_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
+    + _SLABS_PLANE * 2 + [_I, _P, _P],
     "nv12_resize_striped_launch": _RESIZE_LAB + [_I, _I, _I, _P, _I, _P, _I,
                                                  _P, _P],
 })
