@@ -1334,9 +1334,9 @@ LAB_REPLACES = {  # lab kernel -> its TPU notebook kernel
 def lab_phase(torch, np, dev, smi):
     """The NV12 kernel-variant lab at 64 x 1080p -> 224: every lab kernel
     against its plain version on the card (the full-function variants also
-    against nv12_preprocess, bit for bit, but G and S2, whose resize passes
-    run on the tensor cores, within the kernels' envelope with their
-    differing samples counted), the
+    against nv12_preprocess, bit for bit, but the staged B, C, D, G and S2,
+    whose resize passes run on the tensor cores, within the kernels'
+    envelope with their differing samples counted; B equal to C), the
     floor's sink against the frames, then the lab's entry point
     (``kernel_variants.run``) name by name with the launch counts set to 0
     just before and read just after, and the plain versions' times.
@@ -1353,9 +1353,11 @@ def lab_phase(torch, np, dev, smi):
     cases = {n: kv.case(n, B, rows, **geo) for n in names}
 
     # ---- phase 1: kernel against plain version on the card ---------------
-    err, differ = {}, {}
+    err, differ, staged = {}, {}, {}
     for name, c in cases.items():
         out, ref = c.call(frames), c.plain(frames)
+        if name in ("B", "C"):
+            staged[name] = out
         torch.cuda.synchronize()
         err[name] = compare(torch, f"lab {name} vs plain", out, ref)
         if name == "floor" and not torch.equal(out, ref):
@@ -1370,6 +1372,10 @@ def lab_phase(torch, np, dev, smi):
                 f"plain version (tensor-core sums)")
         elif c.full_function and not torch.equal(out, product):
             raise AssertionError(f"lab {name} differs from nv12_preprocess")
+    if not torch.equal(staged["B"], staged["C"]):
+        raise AssertionError("lab B (f32 hop) differs from C (u8 -> i32 -> "
+                             "bf16): their operands are equal")
+    del staged
     sink = torch.zeros(kv.SINK_WORDS, dtype=torch.int32, device=dev)
     kv.stream_floor(frames, rows=rows, W=W, DH=DH, DW=DW, sink=sink)
     got = np.bitwise_xor.reduce(sink.cpu().numpy().view(np.uint32))
@@ -1381,8 +1387,9 @@ def lab_phase(torch, np, dev, smi):
     full_fn = ", ".join(n for n in names
                         if cases[n].full_function and cases[n].exact)
     log(f"lab: every bit-exact full-function variant ({full_fn}) equal to "
-        f"nv12_preprocess, G and S2* within their envelope; the floor's sink "
-        f"equal to the XOR of every word of the frames")
+        f"nv12_preprocess, B, C, D, G and S2* within their envelope, B equal "
+        f"to C; the floor's sink equal to the XOR of every word of the "
+        f"frames")
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in kv.WRAPPERS:
@@ -1423,6 +1430,20 @@ def lab_phase(torch, np, dev, smi):
         f"{g_bytes / HBM_BYTES_PER_S * 1e3} ms by bytes ({g_bytes} B), "
         f"{g_ops / BF16_OPS_PER_S * 1e3} ms by operations ({g_ops} FLOP "
         f"issued, zeros included) ({smi})")
+    parts = []
+    for n in kv.VARIANTS:
+        v_bytes, v_ops = cases[n].work
+        parts.append(
+            f"{n} {ms[n]} ms = {ms[n] / ms['A']} of A's, {ms[n] / ms['G']} "
+            f"of G's, {ms[n] / ms['S2t16a8']} of S2 t16a8's, "
+            f"{differ[n][0]} samples off nv12_preprocess, {differ[n][1]} off "
+            f"the plain version, bound {v_bytes / HBM_BYTES_PER_S * 1e3} ms "
+            f"by bytes, {v_ops / BF16_OPS_PER_S * 1e3} ms by operations "
+            f"({v_ops} FLOP issued)")
+    log("lab staged B / C / D (S2's wgmma block, the H pass's operand "
+        "converted once into shared memory): " + "; ".join(parts)
+        + f"; A {ms['A']} ms, G {ms['G']} ms, S2 t16a8 {ms['S2t16a8']} ms "
+        f"in this run ({smi})")
     for n in (n for n in names if n.startswith("S2")):
         s_bytes, s_ops = cases[n].work
         log(f"lab {n} (wgmma H and W passes, N = the strip height): {ms[n]} "
@@ -1452,7 +1473,8 @@ def lab_phase(torch, np, dev, smi):
             "name": f"{wrapper} {name}", "route": "cuda",
             "source": "vali_tpu_torch/csrc/" + {
                 kv.grouped_kernel: "nv12_grouped.cu",
-                kv.static_kernel2: "nv12_static2.cu"}.get(
+                kv.static_kernel2: "nv12_static2.cu",
+                kv.variant_kernel: "nv12_staged.cu"}.get(
                     c.wrapper, "nv12_variants.cu"),
             "replaces": LAB_REPLACES[wrapper], "launches": r["launches"],
             "max_abs_err": err[name], "ms": r["ms"],

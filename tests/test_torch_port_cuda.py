@@ -534,7 +534,7 @@ def test_ud_on_the_card_matches_the_cpu(dev, src_fmt, dst_fmt):
     _planes_close(*outs, exact=False)
 
 
-# --- the NV12 kernel-variant lab (csrc/nv12_variants.cu) -------------------
+# --- the NV12 kernel-variant lab (csrc/nv12_variants.cu and the others) ----
 
 LAB_NAMES = [n for n in kv.DEFAULT_NAMES if n != "A"]
 
@@ -547,9 +547,9 @@ LAB_NAMES = [n for n in kv.DEFAULT_NAMES if n != "A"]
 @pytest.mark.parametrize("name", LAB_NAMES)
 def test_lab_kernels_match_plain(dev, geom, name):
     """Each lab kernel against its plain version on a padded buffer; the
-    full-function variants (staged B/C, split D, every strip height, M*,
-    S, Slong, combo*, T) equal the product kernel bit for bit, G and S2*
-    (the tensor cores' sums) within 1 LSB."""
+    full-function variants (every strip height, M*, S, Slong, combo*, T)
+    equal the product kernel bit for bit, the staged B/C/D, G and S2* (the
+    tensor cores' sums) within 1 LSB."""
     b, h, w, dh, dw = geom
     rows = h * 3 // 2 + 8
     x = kv.make_frames(b, rows, w, dev, seed=h + w)
@@ -747,6 +747,106 @@ def test_static2_refuses_what_does_not_fit_before_a_launch(dev):
                                       device=dev),
                           src_w=3840, src_h=2160, dst_w=224, dst_h=32)
     assert kv.static_kernel2.launches == before
+
+
+@pytest.mark.parametrize("layout", ["mn_major", "k_major"])
+def test_staged_shared_memory_a_product_equals_matmul(dev, layout):
+    """One m64n16k16 wgmma with A read from shared memory through a
+    descriptor (csrc/nv12_staged.cu's form), MN-major as the staged kernel
+    lays out its operand and K-major, against torch.matmul of the same
+    bf16 values: small integers, so every sum is exact."""
+    from vali_tpu_torch.lab import staged as st
+    from vali_tpu_torch.ops import _cuda_build
+    from vali_tpu_torch.ops.banded import core_matrix_order
+
+    rng = np.random.default_rng(7)
+    a = rng.integers(-8, 9, (64, 16)).astype(np.float32)
+    bnk = rng.integers(-8, 9, (16, 16)).astype(np.float32)   # [N, K]
+    mn = layout == "mn_major"
+    lbo, sbo = (128, 2064) if mn else (1024, 128)
+    img = st.operand_image(st.bf16_bits(a), lbo, sbo, mn)
+    a_img = torch.from_numpy(img).to(dev)
+    b_img = torch.from_numpy(core_matrix_order(bnk)).to(dev, torch.bfloat16)
+    d = torch.empty((64, 16), dtype=torch.float32, device=dev)
+    lib = _cuda_build.load_kernels()
+    rc = lib.nv12_staged_probe_launch(
+        a_img.data_ptr(), img.size // 16, b_img.data_ptr(), int(mn), lbo,
+        sbo, d.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _cuda_build.check(lib, rc, "staged probe")
+    torch.cuda.synchronize()
+    want = torch.from_numpy(a) @ torch.from_numpy(bnk).T
+    assert torch.equal(d.cpu(), want)
+
+
+@pytest.mark.parametrize("geom", [
+    (1, 1080, 1920, 224, 224),  # one frame of the lab's size
+    (5, 1080, 1920, 224, 224),  # an odd batch
+    (3, 150, 322, 70, 202),     # ragged strips and tiles, element loads
+    (2, 96, 256, 40, 48),       # TMA at a small shape
+])
+def test_staged_b_c_d_within_the_envelope_and_b_equal_c(dev, geom):
+    """The staged B, C and D within the envelope of nv12_preprocess and of
+    their plain version; B and C (equal operands by two cast chains)
+    equal bit for bit; D within the envelope of S2 t16a8, whose products
+    it issues."""
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=b + w)
+    prod, plain = nv12_preprocess(x, **geo), nv12_preprocess_plain(x, **geo)
+    outs = {v: kv.variant_kernel(x, **geo, variant=v) for v in kv.VARIANTS}
+    torch.cuda.synchronize()
+    for v, out in outs.items():
+        assert out.shape == (b, 3, dh, dw)
+        _assert_close(out, prod, (v, geom))
+        _assert_close(out, plain, (v, geom))
+    assert torch.equal(outs["B"], outs["C"])
+    _assert_close(outs["D"], kv.static_kernel2(x, **geo, tile=16, align=8),
+                  geom)
+
+
+@pytest.mark.parametrize("variant", ["B", "D"])
+def test_staged_element_loads_equal_tma(dev, variant):
+    """A view TMA cannot take (start not 16-byte aligned) fills the same
+    landing ring with element loads: the contiguous buffer's bits."""
+    from vali_tpu_torch.lab import staged as st
+
+    geo = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
+    x = kv.make_frames(3, 1620, 1920, dev, seed=9)
+    big = torch.zeros((3, 1620, 1920 + 32), dtype=torch.uint8, device=dev)
+    big[:, :, 1:1921] = x
+    view = big[:, :, 1:1921]
+    assert st.tma_ok(x, 1920, 1080) and not st.tma_ok(view, 1920, 1080)
+    assert torch.equal(kv.variant_kernel(view, **geo, variant=variant),
+                       kv.variant_kernel(x, **geo, variant=variant))
+
+
+@pytest.mark.parametrize("b", [1, 5])
+def test_staged_d_at_32_rows_within_the_envelope(dev, b):
+    """D built for 32-row strips (the A/B's arm, one block an SM) within
+    the envelope of nv12_preprocess and of the plain version."""
+    from vali_tpu_torch.ops.banded import tail_params
+
+    geo = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
+    x = kv.make_frames(b, 1620, 1920, dev, seed=32 + b)
+    tail = tail_params(ColorSpace.BT_709, ColorRange.MPEG, 1.0, torch.uint8,
+                       None)
+    out = kv.staged_launch(x, tail, **geo, variant="D", tile=32)
+    torch.cuda.synchronize()
+    _assert_close(out, nv12_preprocess(x, **geo), b)
+    _assert_close(out, nv12_preprocess_plain(x, **geo), b)
+
+
+def test_staged_refuses_what_does_not_fit_before_a_launch(dev):
+    """Windows whose landing ring and operand buffers pass a block's
+    shared memory (4K -> 32 rows) raise before any launch."""
+    before = kv.variant_kernel.launches
+    for v in kv.VARIANTS:
+        with pytest.raises(ValueError, match="shared memory"):
+            kv.variant_kernel(torch.zeros((1, 3240, 3840), dtype=torch.uint8,
+                                          device=dev),
+                              src_w=3840, src_h=2160, dst_w=224, dst_h=32,
+                              variant=v)
+    assert kv.variant_kernel.launches == before
 
 
 @pytest.mark.parametrize("b", [1, 5])

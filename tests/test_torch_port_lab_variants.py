@@ -284,7 +284,7 @@ def test_bounds_count_the_bytes_the_function_moves():
 
     rows = H * 3 // 2
     out = B * 3 * DH * DW
-    full = kv.case("B", B, rows, **GEO).work
+    full = kv.case("A", B, rows, **GEO).work
     assert full[0] == B * rows * W + out
     assert kv.case("wpass", B, rows, **GEO).work[0] == B * 2 * DH * W + out
     assert kv.case("floor", B, rows + 8, **GEO).work[0] == \
@@ -293,11 +293,12 @@ def test_bounds_count_the_bytes_the_function_moves():
     assert by == "bytes" and ms == pytest.approx(
         full[0] / HBM_BYTES_PER_S * 1e3)
     assert bound_ms(1, 1e15)[1] == "operations"
-    # S2 and G move the product's bytes and count the FMAs they run, zero
-    # taps included: more operations than the product's bands
+    # S2, G and the staged B, C, D move the product's bytes and count the
+    # FMAs they run, zero taps included: more operations than the
+    # product's bands
     for name in ("S", "T", "combo2x32"):
         assert kv.case(name, B, rows, **GEO).work == full
-    for name in ("S2t32a8", "S2t16a8", "G"):
+    for name in ("S2t32a8", "S2t16a8", "G", "B", "C", "D"):
         work = kv.case(name, B, rows, **GEO).work
         assert work[0] == full[0] and work[1] > full[1]
     from vali_tpu_torch.lab.timing import preprocess_work

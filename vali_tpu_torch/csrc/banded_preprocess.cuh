@@ -183,11 +183,8 @@ __device__ __forceinline__ void csc_store(uint8_t* ob, long long plane_sz,
 
 // H pass of one plane segment: `ncols` columns of `rows` output rows,
 // written to dst[r * dst_w + col * step + off]. Row o0 + r of the tables
-// is output row r. With kSplit the segment is an interleaved U/V row and
-// is stored deinterleaved instead: U sample j at dst[r * dst_w + j], V
-// sample j at dst[r * dst_w + ncols / 2 + j] (step and off unused).
-template <typename TIn, bool F32, bool kSharedTables = false,
-          bool kSplit = false>
+// is output row r.
+template <typename TIn, bool F32, bool kSharedTables = false>
 __device__ __forceinline__ void hpass(
     const TIn* plane, long long rs, int ncols, int o0, int rows,
     const int* start, const int* count, const float* w, int k_max,
@@ -216,16 +213,9 @@ __device__ __forceinline__ void hpass(
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = fmaf(wk, x[i], acc[i]);
       }
-      if constexpr (kSplit) {
-        typename M::T* d = dst + r * dst_w + g * (V / 2);
+      typename M::T* d = dst + r * dst_w + (g * V) * step + off;
 #pragma unroll
-        for (int i = 0; i < V; ++i)
-          d[(i & 1) * (ncols / 2) + (i >> 1)] = M::put(acc[i]);
-      } else {
-        typename M::T* d = dst + r * dst_w + (g * V) * step + off;
-#pragma unroll
-        for (int i = 0; i < V; ++i) d[i * step] = M::put(acc[i]);
-      }
+      for (int i = 0; i < V; ++i) d[i * step] = M::put(acc[i]);
     }
   } else {
     for (int item = threadIdx.x; item < rows * ncols; item += blockDim.x) {
@@ -240,9 +230,7 @@ __device__ __forceinline__ void hpass(
       for (int k = 0; k < n; ++k)
         acc = fmaf(tab<kS>(wr + k),
                    In<TIn>::load(src + static_cast<long long>(k) * rs), acc);
-      const int at = kSplit ? (col & 1) * (ncols / 2) + (col >> 1)
-                            : col * step + off;
-      dst[r * dst_w + at] = M::put(acc);
+      dst[r * dst_w + col * step + off] = M::put(acc);
     }
   }
 }
@@ -257,16 +245,15 @@ inline long long smem_bytes(int layout, int rows, int src_w, int elem) {
 // How the lab variants keep their chroma H-pass rows in shared memory.
 enum ChromaRows : int {
   kInterleaved = 0,  // row r at ch[r * pitch]: U at 2j, V at 2j + 1
-  kSplitUV = 1,      // row r at ch[r * pitch]: U samples, then V samples
   kTransposed = 2,   // interleaved column j of row r at ch[j * pitch + r]
 };
 
-// The lab variants' phase 2 (nv12_variants.cu, nv12_grouped.cu): the
-// product kernel's W pass, CSC and round/clip to uint8 of `rows` bf16
-// H-pass rows, for output columns [p0, p0 + np). Luma row r is at
-// yh[r * y_pitch] and holds source columns from ylo on; the chroma rows
-// are laid out as kC says, interleaved columns from clo on (kSplitUV: a
-// full row); tables read from shared memory with kSharedTables. Output
+// The lab variants' phase 2 (nv12_variants.cu): the product kernel's W
+// pass, CSC and round/clip to uint8 of `rows` bf16 H-pass rows, for output
+// columns [p0, p0 + np). Luma row r is at yh[r * y_pitch] and holds source
+// columns from ylo on; the chroma rows are laid out as kC says,
+// interleaved columns from clo on; tables read from shared memory with
+// kSharedTables. Output
 // row r is o0 + r of the [3, dst_h, DW] planes at `ob`.
 template <bool kSharedTables, int kC>
 __device__ __forceinline__ void wpass_store(
@@ -275,7 +262,6 @@ __device__ __forceinline__ void wpass_store(
     int ylo, int clo, const Tables& t, const Tail& tl, uint8_t* ob) {
   using M = Mid<false>;
   constexpr bool kS = kSharedTables;
-  constexpr bool kSplit = kC == kSplitUV;
   const long long plane_sz = static_cast<long long>(dst_h) * DW;
   for (int item = threadIdx.x; item < rows * np; item += blockDim.x) {
     const int r = item / np;
@@ -295,14 +281,9 @@ __device__ __forceinline__ void wpass_store(
     const int cs = tab<kS>(t.wc_start + p), cn = tab<kS>(t.wc_count + p);
     for (int k = 0; k < cn; ++k) {
       const float wk = tab<kS>(t.wc_w + k * DW + p);
-      if constexpr (kSplit) {
-        ua = fmaf(wk, M::get(crow[cs + k]), ua);
-        va = fmaf(wk, M::get(crow[c_pitch / 2 + cs + k]), va);
-      } else {
-        const int j = 2 * (cs + k) - clo;
-        ua = fmaf(wk, M::get(crow[j * cstep]), ua);
-        va = fmaf(wk, M::get(crow[(j + 1) * cstep]), va);
-      }
+      const int j = 2 * (cs + k) - clo;
+      ua = fmaf(wk, M::get(crow[j * cstep]), ua);
+      va = fmaf(wk, M::get(crow[(j + 1) * cstep]), va);
     }
     const float yv = __fsub_rn(ya, tl.y_off);
     const float u = __fsub_rn(ua, tl.c_off);

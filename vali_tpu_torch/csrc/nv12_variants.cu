@@ -6,16 +6,15 @@
 //   - dma_floor           -> nv12_stream_floor_launch
 //   - prod_like           -> nv12_variant_launch, mode full / hpass / wpass;
 //                            the TPU's H-pass tile becomes the strip height
-//   - variant_kernel B, C -> nv12_variant_launch, staged (convert once)
-//   - variant_kernel D    -> nv12_variant_launch, split chroma
 //   - multiframe_kernel   -> nv12_variant_launch, frames per block G
 //   - static_kernel       -> nv12_static_launch, S: H row tables in the
 //                            constant bank, short or long cast chain
 //   - combo_kernel        -> nv12_static_launch, COMBO: G frames x tall
 //                            strips x constant-bank H tables
 //   - transposed_chroma_kernel -> nv12_transposed_launch, T
-// (grouped_kernel and static_kernel2, the resize passes on the tensor
-// cores, are nv12_grouped.cu and nv12_static2.cu.)
+// (grouped_kernel, static_kernel2 and variant_kernel B / C / D, the
+// resize passes on the tensor cores, are nv12_grouped.cu, nv12_static2.cu
+// and nv12_staged.cu.)
 //
 // What bounds them on this card: what bounds the product kernel. One 64 x
 // 1080p -> 224 batch reads ~199 MB and does a few GFLOP of FMAs, far under
@@ -35,19 +34,6 @@
 //               on all three channels, ch interleaved.
 //        wpass  the H pass skipped: yh = bf16(frame rows o), ch = bf16(the
 //               last dst_h rows of the buffer as given), then W pass + tail.
-//   staged      (B, C) the block converts its strip's source window (the
-//               union of its output rows' luma bands, and of their chroma
-//               bands) to bf16 once into shared memory and runs the H pass
-//               from there. A 1080p strip of 8 rows spans 63 luma + 32 chroma
-//               source rows x 1920 (365 KB in bf16), more than a block
-//               holds, so the window is staged in column tiles: `tile_w`
-//               columns at a time, the widest power of two up to 512 that
-//               keeps the block within kStagedBudget (256 at 1080p -> 224:
-//               48.6 KB of window beside the 61.4 KB of H-pass rows). B casts
-//               u8 -> i32 -> f32 -> bf16, C u8 -> i32 -> bf16: equal values.
-//   split       (D) the chroma H-pass rows are stored deinterleaved, U then
-//               V (half width each), and the W pass reads the two halves
-//               with the per-plane chroma column bands.
 //   frames G    one block runs the same strip of G consecutive frames and
 //               first stages the strip's row tables and every column table
 //               in shared memory, then reuses them for each frame.
@@ -100,11 +86,8 @@ using M = Mid<false>;
 using T = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kStagedBudget = 113 * 1024;  // two staged blocks per SM
-constexpr int kMaxTile = 512;              // staged window columns
 
 enum Mode : int { kFull = 0, kHpass = 1, kWpass = 2 };
-enum Chain : int { kNoStage = 0, kChainB = 1, kChainC = 2 };
 
 struct Frames {
   const uint8_t* src;  // frame 0 of [batch, buf_rows, src_w]
@@ -114,23 +97,16 @@ struct Frames {
 };
 
 struct Knobs {
-  int span_y, span_c;  // staged: source rows of the widest strip window
-  int tile_w;          // staged: window columns per tile
   int frames;          // frames per block
   int wy_k, wc_k;      // column taps, for staging the column tables
 };
 
-template <int CHAIN>
 __device__ __forceinline__ T to_bf16(unsigned x) {
-  if constexpr (CHAIN == kChainC)
-    return __int2bfloat16_rn(static_cast<int>(x));
-  else
-    return __float2bfloat16_rn(static_cast<float>(static_cast<int>(x)));
+  return __float2bfloat16_rn(static_cast<float>(static_cast<int>(x)));
 }
 
 // n rows of ncols uint8 samples at src (row stride rs) -> bf16
-// dst[i * dst_w + x].
-template <int CHAIN>
+// dst[i * dst_w + x] (wpass's rows).
 __device__ __forceinline__ void load_rows(const uint8_t* src, long long rs,
                                           int n, int ncols, T* dst,
                                           int dst_w, bool vec) {
@@ -147,56 +123,19 @@ __device__ __forceinline__ void load_rows(const uint8_t* src, long long rs,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          d[4 * j + k] = to_bf16<CHAIN>((w[j] >> (8 * k)) & 0xFFu);
+          d[4 * j + k] = to_bf16((w[j] >> (8 * k)) & 0xFFu);
     }
   } else {
     for (int item = threadIdx.x; item < n * ncols; item += blockDim.x) {
       const int i = item / ncols;
       const int x = item - i * ncols;
       dst[i * dst_w + x] =
-          to_bf16<CHAIN>(__ldg(src + static_cast<long long>(i) * rs + x));
+          to_bf16(__ldg(src + static_cast<long long>(i) * rs + x));
     }
   }
 }
 
-// Source rows [lo, lo + n) that output rows o0 .. o0 + rows - 1 read, the
-// extent ops/banded.py strip_spans computes on the host.
-__device__ __forceinline__ void strip_window(const int* start,
-                                             const int* count, int o0,
-                                             int rows, int span, int& lo,
-                                             int& n) {
-  int a = 0x7fffffff, b = -1;
-  for (int r = 0; r < rows; ++r) {
-    const int s = __ldg(start + o0 + r);
-    a = min(a, s);
-    b = max(b, s + __ldg(count + o0 + r) - 1);
-  }
-  lo = a;
-  n = min(max(b - a + 1, 0), span);  // the host sized the window
-}
-
-// H pass of `rows` output rows over columns [c0, c0 + tw) from a staged
-// window whose row i holds source row lo + i: the FMAs of
-// banded::hpass in the same order.
-__device__ __forceinline__ void hpass_window(
-    const T* win, int win_w, int lo, int tw, int o0, int rows,
-    const int* start, const int* count, const float* w, int k_max, T* dst,
-    int dst_w, int c0) {
-  for (int item = threadIdx.x; item < rows * tw; item += blockDim.x) {
-    const int r = item / tw;
-    const int x = item - r * tw;
-    const int o = o0 + r;
-    const int n = __ldg(count + o);
-    const float* wr = w + static_cast<long long>(o) * k_max;
-    const T* s = win + (__ldg(start + o) - lo) * win_w + x;
-    float acc = 0.0f;
-    for (int k = 0; k < n; ++k)
-      acc = fmaf(__ldg(wr + k), M::get(s[k * win_w]), acc);
-    dst[r * dst_w + c0 + x] = M::put(acc);
-  }
-}
-
-template <int MODE, int CHAIN, bool SPLIT, bool MF>
+template <int MODE, bool MF>
 __global__ void __launch_bounds__(kThreads)
 nv12_variant_kernel(Frames f, Tables t, Tail tl, Geometry g, Knobs kn,
                     uint8_t* __restrict__ out) {
@@ -204,8 +143,8 @@ nv12_variant_kernel(Frames f, Tables t, Tail tl, Geometry g, Knobs kn,
   const int W = g.src_w;  // luma row and interleaved chroma row
   const int DW = g.dst_w;
   T* yh = reinterpret_cast<T*>(smem);  // [rows][W] luma
-  T* ch = yh + g.rows * W;             // [rows][W] U/V interleaved, or U | V
-  T* rest = ch + g.rows * W;           // window tiles, or staged tables
+  T* ch = yh + g.rows * W;             // [rows][W] U/V interleaved
+  T* rest = ch + g.rows * W;           // staged tables
   const int o0 = blockIdx.x * g.rows;
   const int rows = min(g.rows, g.dst_h - o0);
   const bool vec = f.vec != 0;
@@ -270,36 +209,18 @@ nv12_variant_kernel(Frames f, Tables t, Tail tl, Geometry g, Knobs kn,
 
     // ---- phase 1: the H-pass rows in shared memory ---------------------
     if constexpr (MODE == kWpass) {
-      load_rows<kChainB>(frame + static_cast<long long>(o0) * f.rs, f.rs,
-                         rows, W, yh, W, vec);
-      load_rows<kChainB>(
+      load_rows(frame + static_cast<long long>(o0) * f.rs, f.rs, rows, W, yh,
+                W, vec);
+      load_rows(
           frame + static_cast<long long>(f.buf_rows - g.dst_h + o0) * f.rs,
           f.rs, rows, W, ch, W, vec);
-    } else if constexpr (CHAIN != kNoStage) {
-      int ylo, yn, clo, cn;
-      strip_window(t.hy_start, t.hy_count, o0, rows, kn.span_y, ylo, yn);
-      strip_window(t.hc_start, t.hc_count, o0, rows, kn.span_c, clo, cn);
-      T* cwin = rest + kn.span_y * kn.tile_w;
-      for (int c0 = 0; c0 < W; c0 += kn.tile_w) {
-        const int tw = min(kn.tile_w, W - c0);
-        load_rows<CHAIN>(frame + static_cast<long long>(ylo) * f.rs + c0,
-                         f.rs, yn, tw, rest, kn.tile_w, vec);
-        load_rows<CHAIN>(uv + static_cast<long long>(clo) * f.rs + c0, f.rs,
-                         cn, tw, cwin, kn.tile_w, vec);
-        __syncthreads();
-        hpass_window(rest, kn.tile_w, ylo, tw, o0, rows, t.hy_start,
-                     t.hy_count, t.hy_w, t.hy_k, yh, W, c0);
-        hpass_window(cwin, kn.tile_w, clo, tw, o0, rows, t.hc_start,
-                     t.hc_count, t.hc_w, t.hc_k, ch, W, c0);
-        __syncthreads();  // the next tile overwrites the window
-      }
     } else {
       hpass<uint8_t, false, MF>(frame, f.rs, W, ho, rows, tb.hy_start,
                                 tb.hy_count, tb.hy_w, t.hy_k, yh, W, 1, 0,
                                 vec);
-      hpass<uint8_t, false, MF, SPLIT>(uv, f.rs, W, ho, rows, tb.hc_start,
-                                       tb.hc_count, tb.hc_w, t.hc_k, ch, W,
-                                       1, 0, vec);
+      hpass<uint8_t, false, MF>(uv, f.rs, W, ho, rows, tb.hc_start,
+                                tb.hc_count, tb.hc_w, t.hc_k, ch, W, 1, 0,
+                                vec);
     }
     __syncthreads();
 
@@ -319,20 +240,17 @@ nv12_variant_kernel(Frames f, Tables t, Tail tl, Geometry g, Knobs kn,
           ob[c * plane_sz + pix] = static_cast<uint8_t>(q);
       }
     } else {
-      wpass_store<MF, SPLIT ? banded::kSplitUV : banded::kInterleaved>(
-          yh, ch, W, W, rows, o0, g.dst_h, DW, 0, DW, 0, 0, tb, tl, ob);
+      wpass_store<MF, banded::kInterleaved>(yh, ch, W, W, rows, o0, g.dst_h,
+                                            DW, 0, DW, 0, 0, tb, tl, ob);
     }
     if (G > 1) __syncthreads();  // the next frame overwrites the rows
   }
 }
 
 // Shared memory of a variant block.
-long long variant_smem(int rows, int src_w, int dst_w, bool staged, bool mf,
+long long variant_smem(int rows, int src_w, int dst_w, bool mf,
                        const Knobs& kn, int hy_k, int hc_k) {
   long long bytes = 2LL * rows * src_w * sizeof(T);
-  if (staged)
-    bytes += static_cast<long long>(kn.span_y + kn.span_c) * kn.tile_w *
-             sizeof(T);
   if (mf)
     bytes += 4LL * (4 * rows + 4 * dst_w) +
              4LL * (static_cast<long long>(rows) * (hy_k + hc_k) +
@@ -340,11 +258,11 @@ long long variant_smem(int rows, int src_w, int dst_w, bool staged, bool mf,
   return bytes;
 }
 
-template <int MODE, int CHAIN, bool SPLIT, bool MF>
+template <int MODE, bool MF>
 cudaError_t launch_variant(const Frames& f, const Tables& t, const Tail& tl,
                            const Geometry& g, const Knobs& kn, size_t smem,
                            void* out, cudaStream_t stream) {
-  auto kern = nv12_variant_kernel<MODE, CHAIN, SPLIT, MF>;
+  auto kern = nv12_variant_kernel<MODE, MF>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((g.dst_h + g.rows - 1) / g.rows, g.batch / kn.frames);
@@ -751,24 +669,19 @@ extern "C" {
 // buffer with the given batch and row strides (bytes); the interleaved UV
 // rows start at row src_h. Tables as nv12_preprocess_launch takes them
 // (bf16-rounded), `tail` the 18 floats of tail_params. Knobs, at most one
-// set: mode 0 full / 1 hpass / 2 wpass; staged 0 none / 1 cast chain B /
-// 2 cast chain C, with span_y and span_c the source rows of the widest
-// strip window (ops/banded.py strip_spans); split_chroma 1 for D;
-// frames_per_block G >= 1 for the multiframe block (0: one frame per
-// block, tables read from device memory). rows_per_block is the strip
-// height. out is a contiguous [batch, 3, dst_h, dst_w] uint8 tensor.
+// set: mode 0 full / 1 hpass / 2 wpass; frames_per_block G >= 1 for the
+// multiframe block (0: one frame per block, tables read from device
+// memory). rows_per_block is the strip height. out is a contiguous
+// [batch, 3, dst_h, dst_w] uint8 tensor.
 int nv12_variant_launch(const void* src, long long batch_stride,
                         long long row_stride, int buf_rows, int batch,
                         int src_h, int src_w, int dst_h, int dst_w,
                         const int* index, const float* weights, int hy_k,
                         int hc_k, int wy_k, int wc_k, const float* tail,
-                        int mode, int staged, int split_chroma,
-                        int frames_per_block, int rows_per_block, int span_y,
-                        int span_c, void* out, void* stream) {
+                        int mode, int frames_per_block, int rows_per_block,
+                        void* out, void* stream) {
   if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
   const int G = frames_per_block > 0 ? frames_per_block : 1;
-  const int knobs = (mode != kFull) + (staged != kNoStage) +
-                    (split_chroma != 0) + (frames_per_block > 0);
   Frames f;
   Tables t;
   Tail tl;
@@ -777,54 +690,29 @@ int nv12_variant_launch(const void* src, long long batch_stride,
                  src_w, dst_h, dst_w, index, weights, hy_k, hc_k, wy_k, tail,
                  rows_per_block, f, t, tl, g) ||
       frames_per_block < 0 || batch % G != 0 || mode < kFull ||
-      mode > kWpass || staged < kNoStage || staged > kChainC || knobs > 1 ||
+      mode > kWpass || (mode != kFull && frames_per_block > 0) ||
       (mode == kHpass && dst_w > src_w) ||
-      (mode == kWpass && dst_h > buf_rows) ||
-      (staged != kNoStage && (span_y < 1 || span_c < 1)))
+      (mode == kWpass && dst_h > buf_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   Knobs kn;
-  kn.span_y = span_y;
-  kn.span_c = span_c;
   kn.frames = G;
   kn.wy_k = wy_k;
   kn.wc_k = wc_k;
-  const bool is_staged = staged != kNoStage, mf = frames_per_block > 0;
-  kn.tile_w = 16;
-  while (is_staged && kn.tile_w < kMaxTile && kn.tile_w < src_w) {
-    Knobs wider = kn;
-    wider.tile_w = 2 * kn.tile_w;
-    if (variant_smem(g.rows, src_w, dst_w, true, false, wider, hy_k, hc_k) >
-        kStagedBudget)
-      break;
-    kn = wider;
-  }
+  const bool mf = frames_per_block > 0;
   const long long smem =
-      variant_smem(g.rows, src_w, dst_w, is_staged, mf, kn, hy_k, hc_k);
+      variant_smem(g.rows, src_w, dst_w, mf, kn, hy_k, hc_k);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const size_t sb = static_cast<size_t>(smem);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (mf)
-    e = launch_variant<kFull, kNoStage, false, true>(f, t, tl, g, kn, sb, out,
-                                                     s);
-  else if (staged == kChainB)
-    e = launch_variant<kFull, kChainB, false, false>(f, t, tl, g, kn, sb, out,
-                                                     s);
-  else if (staged == kChainC)
-    e = launch_variant<kFull, kChainC, false, false>(f, t, tl, g, kn, sb, out,
-                                                     s);
-  else if (split_chroma)
-    e = launch_variant<kFull, kNoStage, true, false>(f, t, tl, g, kn, sb, out,
-                                                     s);
+    e = launch_variant<kFull, true>(f, t, tl, g, kn, sb, out, s);
   else if (mode == kHpass)
-    e = launch_variant<kHpass, kNoStage, false, false>(f, t, tl, g, kn, sb,
-                                                       out, s);
+    e = launch_variant<kHpass, false>(f, t, tl, g, kn, sb, out, s);
   else if (mode == kWpass)
-    e = launch_variant<kWpass, kNoStage, false, false>(f, t, tl, g, kn, sb,
-                                                       out, s);
+    e = launch_variant<kWpass, false>(f, t, tl, g, kn, sb, out, s);
   else
-    e = launch_variant<kFull, kNoStage, false, false>(f, t, tl, g, kn, sb,
-                                                      out, s);
+    e = launch_variant<kFull, false>(f, t, tl, g, kn, sb, out, s);
   return static_cast<int>(e);
 }
 

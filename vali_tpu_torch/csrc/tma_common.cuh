@@ -1,8 +1,8 @@
 // Hopper copy machinery shared by the lab kernels of this directory
-// (nv12_streamed.cu): tensor maps of uint8 frames encoded on the host,
-// TMA box and bulk copies into shared memory, and the mbarriers that
-// report their arrival. sm_90 (the kernels that include it build for
-// sm_90a).
+// (nv12_streamed.cu, nv12_slabs.cu, nv12_staged.cu): tensor maps of uint8
+// frames encoded on the host, TMA box and bulk copies into shared memory,
+// and the mbarriers that report their arrival. sm_90 (the kernels that
+// include it build for sm_90a).
 //
 // A tensor map is encoded on the host (cuTensorMapEncodeTiled, reached
 // through the runtime's cudaGetDriverEntryPoint, so no -lcuda) and passed
@@ -51,12 +51,14 @@ inline bool rows_mappable(const void* base, long long rs, long long bs) {
 
 // A 3-D uint8 map of `batch` frames of `rows` rows of `bytes` bytes
 // (strides `rs`, `bs`) read in boxes of [box_rows, 128 bytes] of one
-// frame, swizzled by 128 bytes (16-byte chunk k of box row r lands at
-// chunk k ^ (r mod 8) of its 128-byte row in shared memory). Returns a
+// frame, by default swizzled by 128 bytes (16-byte chunk k of box row r
+// lands at chunk k ^ (r mod 8) of its 128-byte row in shared memory);
+// with CU_TENSOR_MAP_SWIZZLE_NONE box row r lands at r * 128. Returns a
 // cudaError_t.
-inline int encode_rows(CUtensorMap* map, const void* base, int bytes,
-                       int rows, int batch, long long rs, long long bs,
-                       int box_rows) {
+inline int encode_rows(
+    CUtensorMap* map, const void* base, int bytes, int rows, int batch,
+    long long rs, long long bs, int box_rows,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bytes),
@@ -68,8 +70,7 @@ inline int encode_rows(CUtensorMap* map, const void* base, int bytes,
   const cuuint32_t step[3] = {1u, 1u, 1u};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
                         const_cast<void*>(base), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -1,6 +1,7 @@
 // Pieces shared by the tensor-core lab kernels of this directory
-// (nv12_grouped.cu, nv12_aligned.cu, nv12_static2.cu, nv12_streamed.cu):
-// wgmma descriptors, fences and products with A from registers, the
+// (nv12_grouped.cu, nv12_aligned.cu, nv12_static2.cu, nv12_streamed.cu,
+// nv12_slabs.cu, nv12_staged.cu): wgmma descriptors, fences, products with
+// A from registers and with A from shared memory, the
 // cp.async staging ring of raw uint8 window rows with the A fragments
 // built from it, the tiled bf16 H rows and the W-pass product over them.
 // sm_90a only.
@@ -193,6 +194,53 @@ __device__ __forceinline__ void mma<96>(float* d, uint4 a, uint64_t b) {
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
       : "memory");
+}
+
+// d (64 x N fp32, N / 2 a thread) += a (64 x 16 bf16, shared memory,
+// descriptor) * b (16 x N, shared memory, descriptor), for N = 16 and 32.
+// TA 1: A is MN-major (its core matrices 8 K rows of 8 contiguous M
+// elements), 0: K-major like B. Without swizzle the descriptor's leading
+// byte offset steps along K and its stride byte offset along M in both
+// layouts (nv12_staged.cu).
+template <int N, int TA>
+struct MmaSS;
+
+template <int TA>
+struct MmaSS<16, TA> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %10, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "n"(TA)
+        : "memory");
+  }
+};
+
+template <int TA>
+struct MmaSS<32, TA> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, %16, %17, p, 1, 1, %18, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "n"(TA)
+        : "memory");
+  }
+};
+
+template <int N, int TA = 1>
+__device__ __forceinline__ void mma_ss(float* d, uint64_t a, uint64_t b) {
+  MmaSS<N, TA>::run(d, a, b);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

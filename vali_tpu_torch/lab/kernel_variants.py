@@ -5,7 +5,8 @@ Counterpart of the TPU notebook ``bench_kernel_variants.py`` (its ``main``,
 ``main_floor``, ``main_modes``, ``main_multiframe``, ``main_static``,
 ``main_sweep2``, ``main_combo``, ``main_transposed`` and ``main_grouped``).
 Nine wrappers over the kernels of ``csrc/nv12_variants.cu``,
-``csrc/nv12_static2.cu`` and ``csrc/nv12_grouped.cu``, each beside its
+``csrc/nv12_staged.cu``, ``csrc/nv12_static2.cu`` and
+``csrc/nv12_grouped.cu``, each beside its
 plain PyTorch version, with the same dispatch as the product wrappers: a
 CUDA tensor launches the kernel, a CPU tensor runs the plain version, any
 other device raises.
@@ -16,9 +17,12 @@ other device raises.
 - :func:`prod_like` (``prod_like``): the product kernel with a phase
   knocked out — ``mode`` full, hpass (H pass only) or wpass (H pass
   skipped) — at a chosen strip height (the TPU's H-pass ``tile``).
-- :func:`variant_kernel` (``variant_kernel``): B and C convert each strip's
-  source window to bf16 once and run the H pass from that copy (two cast
-  chains, equal values); D keeps the chroma H-pass rows deinterleaved.
+- :func:`variant_kernel` (``variant_kernel``): S2's tensor-core block at
+  16-row strips with the H pass's frame operand converted to bf16 once a
+  stage into shared memory and read by a ``wgmma`` descriptor (TMA boxes
+  into a landing ring); B and C convert by two cast chains (equal values)
+  and run the chroma W pass over the interleaved H rows, D converts by
+  C's chain and keeps S2's deinterleaved chroma W pass.
 - :func:`multiframe` (``multiframe_kernel``): G frames per block, the
   strip's band tables staged in shared memory once.
 - :func:`static_kernel` (``static_kernel``): the H row tables in the
@@ -39,10 +43,11 @@ ranges; the lab line says so.
 
 Every full-function variant (B, C, D, full, M*, S*, combo*, T, G) computes
 the product kernel's function, so on the card it is held to
-``nv12_preprocess``: bit for bit, except G and S2 (the tensor cores sum in
-their own order), held to the kernels' envelope with their differing
-samples counted. Their plain version is ``nv12_preprocess_plain``,
-except S2's and G's, which compute from their own host tables. ``wpass``
+``nv12_preprocess``: bit for bit, except B, C, D, G and S2 (the tensor
+cores sum in their own order), held to the kernels' envelope with their
+differing samples counted. Their plain version is
+``nv12_preprocess_plain``, except S2's and G's, which compute from their
+own host tables. ``wpass``
 and the floor read the last DH rows of the buffer as given, as the TPU
 functions do, so their results depend on the buffer's row count.
 
@@ -78,19 +83,20 @@ from ..ops.banded import (CONST_BANK_BYTES, GROUP_STRIP, STATIC2_W_STEPS,
                           column_ranges, const_bank_bytes, core_matrix_order,
                           dense_weights, device_tables, grouped_refusal,
                           grouped_tables, grouped_w_tables, static2_refusal,
-                          static2_tables, static2_w_tables, strip_spans,
+                          static2_tables, static2_w_tables,
                           strip_window_bands, tail_params, w_pass_tail_plain)
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
 from ..ops.resize import LANCZOS_AA, round_to
+from .staged import (STAGED_ALIGN, STAGED_TILE, STAGED_VARIANTS,
+                     staged_device, staged_refusal, tma_ok)
 from .timing import bound_ms, preprocess_work, time_cuda
 
 #: output rows per block of the product kernel (kMaxRows of
 #: csrc/banded_preprocess.cu)
 STRIP_ROWS = 8
 MODES = {"full": 0, "hpass": 1, "wpass": 2}
-VARIANTS = ("B", "C", "D")
-_CHAINS = {"B": 1, "C": 2}
+VARIANTS = tuple(STAGED_VARIANTS)
 #: int32 words of the stream floor's sink
 SINK_WORDS = 64
 
@@ -158,15 +164,13 @@ def _product_tables(nv12: torch.Tensor, src_w: int, src_h: int, dst_w: int,
 
 def _launch(what: str, nv12: torch.Tensor, tail: np.ndarray, *, src_w: int,
             src_h: int, dst_w: int, dst_h: int, mode: int = 0,
-            staged: int = 0, split: int = 0, frames: int = 0,
-            rows_per_block: int = STRIP_ROWS) -> torch.Tensor:
+            frames: int = 0, rows_per_block: int = STRIP_ROWS
+            ) -> torch.Tensor:
     """One ``nv12_variant_launch`` on a checked CUDA buffer."""
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
-    spans = (strip_spans(src_w, src_h, dst_w, dst_h, LANCZOS_AA,
-                         min(rows_per_block, dst_h)) if staged else (0, 0))
     return _call(what, "nv12_variant_launch", nv12, tail,
-                 _product_tables(nv12, **geo), mode, staged, split, frames,
-                 rows_per_block, *spans, **geo)
+                 _product_tables(nv12, **geo), mode, frames, rows_per_block,
+                 **geo)
 
 
 def _floor_checked(nv12, rows, W, DH, DW) -> None:
@@ -292,24 +296,62 @@ def prod_like(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
     return out
 
 
+def staged_launch(nv12: torch.Tensor, tail: np.ndarray, *, src_w: int,
+                  src_h: int, dst_w: int, dst_h: int, variant: str,
+                  tile: int = STAGED_TILE) -> torch.Tensor:
+    """One ``nv12_staged_launch`` of ``variant`` on strips of ``tile`` rows
+    on a checked CUDA buffer (TMA staging where the view allows it)."""
+    from ..ops._cuda_build import check, load_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    args, _ = staged_device(src_w, src_h, dst_w, dst_h, variant, tile,
+                            nv12.device)
+    lib = load_kernels()
+    B = nv12.shape[0]
+    out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
+                      device=nv12.device)
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_staged_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
+            B, src_h, src_w, dst_h, dst_w,
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            STAGED_VARIANTS[variant], tile,
+            int(tma_ok(nv12, src_w, src_h)), *args, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "variant_kernel")
+    return out
+
+
 def variant_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
                    dst_w: int, dst_h: int,
                    space: ColorSpace = ColorSpace.BT_709,
                    crange: ColorRange = ColorRange.MPEG,
                    variant: str = "B") -> torch.Tensor:
-    """The product function through a layout probe: B and C convert each
-    strip's source window to bf16 once (cast chains u8->i32->f32->bf16 and
-    u8->i32->bf16), D keeps chroma deinterleaved in shared memory.
-    [B, 3, dst_h, dst_w] uint8, equal to :func:`nv12_preprocess`."""
+    """The product function with the H pass's frame operand converted to
+    bf16 once: S2's block at strips of 16 rows over windows aligned to 8
+    rows, each stage's window rows landed raw by TMA, converted once
+    (cast chains u8->i32->f32->bf16 for B, u8->i32->bf16 for C and D: equal
+    values) into the layout ``wgmma`` reads A from shared memory, both
+    resize passes on the tensor cores; B and C run the chroma W pass over
+    the interleaved H rows (U and V weights each zero at the other plane's
+    columns), D over the deinterleaved U and V rows. [B, 3, dst_h, dst_w]
+    uint8, within the kernels' envelope of :func:`nv12_preprocess`; on the
+    CPU :func:`nv12_preprocess_plain`. Raises ValueError for a geometry
+    whose shared memory does not fit the kernel
+    (:func:`~vali_tpu_torch.lab.staged.staged_refusal`), on either
+    device."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
     tail = _checked(nv12, src_w, src_h, space, crange)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = staged_refusal(**geo, method=LANCZOS_AA, variant=variant)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("variant_kernel", nv12):
         return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
-    out = _launch("variant_kernel", nv12, tail, **geo,
-                  staged=_CHAINS.get(variant, 0), split=int(variant == "D"))
+    out = staged_launch(nv12, tail, **geo, variant=variant)
     variant_kernel.launches += 1
     return out
 
@@ -414,24 +456,42 @@ def static_kernel2_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
     return _plain_from_row_bands(nv12, luma, chroma, tail, **geo)
 
 
-def static2_work(batch: int, src_w: int, src_h: int, dst_w: int,
-                 dst_h: int, tile: int, align: int):
-    """(bytes, operations) of one S2 batch: the product's bytes; the FLOPs
-    its tables make the kernel issue, zeros included — per strip and
+def _strip_block_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                      dst_h: int, tile: int, align: int, w_steps: int):
+    """(bytes, operations) of one batch of S2's block: the product's bytes;
+    the FLOPs its tables make it issue, zeros included — per strip and
     chunk of 64 frame bytes (each tile's chunks,
     :func:`~vali_tpu_torch.ops.banded.static2_w_tables`), the H chains'
     [64, 16] A times [16, tile] B each of its k_luma / 16 + k_chroma / 16
-    k-steps and the W pass's 4 luma k-steps at N = tile and 2 chroma k-steps at
-    N = 2 tile — and the tail."""
+    k-steps and ``w_steps`` W k-steps at N = tile — and the tail."""
     geo = (src_w, src_h, dst_w, dst_h, LANCZOS_AA)
     t = static2_tables(*geo, tile, align)
-    luma_w, chroma_w = STATIC2_W_STEPS
-    per_chunk = 64 * 16 * tile * ((t.k_luma + t.k_chroma) // 16 + luma_w
-                                  + 2 * chroma_w)
+    per_chunk = 64 * 16 * tile * ((t.k_luma + t.k_chroma) // 16 + w_steps)
     chunks = int(static2_w_tables(*geo).heads[:, 2].sum())
     return preprocess_work(batch, src_w, src_h, dst_w, dst_h,
                            h_fmas=t.luma.shape[0] * chunks * per_chunk,
                            w_fmas=0)
+
+
+def static2_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                 dst_h: int, tile: int, align: int):
+    """(bytes, operations) of one S2 batch (:func:`_strip_block_work`): its
+    W pass's 4 luma k-steps at N = tile and 2 chroma k-steps at N = 2
+    tile."""
+    luma_w, chroma_w = STATIC2_W_STEPS
+    return _strip_block_work(batch, src_w, src_h, dst_w, dst_h, tile, align,
+                             luma_w + 2 * chroma_w)
+
+
+def staged_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                dst_h: int, variant: str, tile: int = STAGED_TILE):
+    """(bytes, operations) of one batch of the staged kernel
+    (:func:`variant_kernel`, :func:`_strip_block_work`): S2's H chains, 4
+    luma W k-steps at N = tile, then D's 2 chroma k-steps at N = 2 tile
+    or B's and C's 8 (4 U, 4 V over the interleaved H rows) at N =
+    tile."""
+    return _strip_block_work(batch, src_w, src_h, dst_w, dst_h, tile,
+                             STAGED_ALIGN, 8 if variant == "D" else 12)
 
 
 @functools.lru_cache(maxsize=16)
@@ -683,7 +743,7 @@ class Case(NamedTuple):
     full_function: bool
     frames: int      # frames the call needs at least (multiframe G)
     work: tuple      # (bytes, operations) of one batch of B frames
-    exact: bool = True   # bit-equal to its reference (G, S2: the envelope)
+    exact: bool = True   # bit-equal to its reference (B-D, G, S2: envelope)
     note: str = ""       # how the kernel ran, for the lab line
 
 
@@ -705,7 +765,8 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
     if name in VARIANTS:
         return Case(variant_kernel,
                     lambda x: variant_kernel(x, **geo, variant=name),
-                    product, True, 1, full)
+                    product, True, 1,
+                    staged_work(batch, **geo, variant=name), exact=False)
     if name == "floor":
         fl = dict(rows=rows, W=src_w, DH=dst_h, DW=dst_w)
         out = batch * 3 * dst_h * dst_w

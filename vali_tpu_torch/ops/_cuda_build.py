@@ -25,6 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
             "csrc/nv12_to_rgb.cu", "csrc/nv12_variants.cu",
             "csrc/nv12_grouped.cu", "csrc/nv12_static2.cu",
+            "csrc/nv12_staged.cu",
             "csrc/nv12_aligned.cu", "csrc/nv12_streamed.cu",
             "csrc/nv12_slabs.cu", "csrc/nv12_resize_variants.cu",
             "csrc/nv12_to_rgb_variants.cu")
@@ -62,7 +63,7 @@ _SIGNATURES = {
     "nv12_to_rgb_launch": [_P, _LL, _LL, _I, _I, _I, _FP, _P, _P],
     "nv12_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
-        _I, _I, _I, _I, _I, _I, _I, _P, _P],
+        _I, _I, _I, _P, _P],
     "nv12_stream_floor_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "nv12_static_launch": [
@@ -77,6 +78,10 @@ _SIGNATURES = {
     "nv12_static2_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _P, _P, _I, _I, _P, _P,
         _P, _P],
+    "nv12_staged_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _I, _P, _P, _I, _I,
+        _P, _P, _P, _P],
+    "nv12_staged_probe_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
     "nv12_convert_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _FP, _I, _P, _P],
     "nv12_convert_probe_launch": [

@@ -235,21 +235,6 @@ def w_pass_tail_plain(yh: torch.Tensor, uh: torch.Tensor, vh: torch.Tensor,
     return torch.stack(chans, dim=1)
 
 
-@functools.lru_cache(maxsize=32)
-def strip_spans(src_w: int, src_h: int, dst_w: int, dst_h: int, method: str,
-                rows: int) -> Tuple[int, int]:
-    """(luma, chroma) source rows of the widest window that a strip of
-    ``rows`` output rows reads under the 4:2:0 row bands: the extent of the
-    shared-memory window of the NV12 lab variants that convert a strip's
-    source rows once (``csrc/nv12_variants.cu``, staged)."""
-    dw = dense_weights(src_w, src_h, dst_w, dst_h, method, "420")
-    spans = []
-    for dense in (dw.luma_h, dw.chroma_h):
-        start, count, _ = band_table(dense, torch.float32)
-        spans.append(tile_window(start, count, rows))
-    return spans[0], spans[1]
-
-
 # --- host tables of the NV12 lab's static-window and grouped variants ------
 # (csrc/nv12_variants.cu nv12_static_launch, csrc/nv12_grouped.cu)
 
