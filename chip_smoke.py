@@ -13,11 +13,12 @@ PySurfaceRotator on 1080p Surfaces, each against the same op on a CPU copy
 of its input; and the NV12 kernel-variant lab's entry point
 (``vali_tpu_torch.lab.kernel_variants``: stream floor, phase knock-outs,
 convert-once and split-chroma variants, multi-frame blocks, static
-windows — constant-bank row tables, aligned strip windows, multi-frame
-tall strips —, transposed chroma and the tensor-core H pass) at 64 x
-1080p -> 224, each lab kernel against its plain version and the
-full-function ones against nv12_preprocess bit for bit (the tensor-core
-one within the kernels' envelope); and the 4K NV12 resize lab's
+windows — constant-bank row tables, aligned strip windows, G frames a
+block on S2's tensor-core block —, transposed chroma and the tensor-core
+H pass) at 64 x 1080p -> 224, each lab kernel against its plain version
+and the full-function ones against nv12_preprocess bit for bit (the
+tensor-core ones within the kernels' envelope, the combo also against S2
+at its strip height); and the 4K NV12 resize lab's
 entry point (``vali_tpu_torch.lab.resize_diag``: phase knock-outs, aligned
 windows, the skewed H/W pipeline, streamed row bands (TMA into an mbarrier
 ring under aligned's tensor-core passes), row-slab split-K sums (aligned's
@@ -70,7 +71,7 @@ too. It times kernels and plain versions with CUDA events and the paths on
 the host clock, and prints:
 
   - the card's name and power limit (nvidia-smi), torch/CUDA versions and
-    the kernel build time;
+    the build time of the product's and the labs' kernel libraries;
   - one line per comparison and per timing;
   - for the Surface path's four kernels, each main path's launches read
     on their own (Surface paths A and B, the two-stage convert + resize),
@@ -106,6 +107,7 @@ B, H, W, DH, DW = 64, 1080, 1920, 224, 224
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 LETTERBOX = 640
 MAIN_BATCHES = 3    # batches per stream on the checked main-path runs
+COMBO_REPLAYS = 10  # replays of each combo instance against its first
 RATE_BATCHES = 30   # batches per stream on the timed pipeline run
 
 
@@ -244,10 +246,24 @@ def main() -> int:
     log(smi)
     log(f"torch={torch.__version__} cuda={torch.version.cuda} "
         f"device={torch.cuda.get_device_name(0)}")
+    # the product's and the labs' kernel libraries, their nvcc processes
+    # all started together
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed_build(load):
+        t = time.perf_counter()
+        load()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    _cuda_build.load_kernels()
+    with ThreadPoolExecutor(2) as pool:
+        lab_build = pool.submit(timed_build, _cuda_build.load_lab_kernels)
+        product_s = timed_build(_cuda_build.load_kernels)
+        lab_s = lab_build.result()
     log(f"kernel_build_s={time.perf_counter() - t0:.3f} "
-        f"library={_cuda_build.library_path()}")
+        f"(product {product_s:.3f}, labs {lab_s:.3f}, built together) "
+        f"library={_cuda_build.library_path()} "
+        f"lab_library={_cuda_build.lab_library_path()}")
     clock = [time.perf_counter()]
 
     def lap(phase):
@@ -1337,7 +1353,10 @@ def lab_phase(torch, np, dev, smi):
     against nv12_preprocess, bit for bit, but the staged B, C, D, G and S2,
     whose resize passes run on the tensor cores, within the kernels'
     envelope with their differing samples counted; B equal to C), the
-    floor's sink against the frames, then the lab's entry point
+    combo's six instances against S2 at the same strip height (bit for bit
+    where its warpgroups split the chunks as S2's do; at T = 64, which S2
+    refuses, its plain version) and each replayed against its first
+    output, the floor's sink against the frames, then the lab's entry point
     (``kernel_variants.run``) name by name with the launch counts set to 0
     just before and read just after, and the plain versions' times.
     Returns the lab kernels' entries of the JSON line."""
@@ -1376,6 +1395,30 @@ def lab_phase(torch, np, dev, smi):
         raise AssertionError("lab B (f32 hop) differs from C (u8 -> i32 -> "
                              "bf16): their operands are equal")
     del staged
+    combo_vs_s2 = {}
+    for name in (n for n in names if n.startswith("combo")):
+        c = cases[name]
+        g, t = (int(v) for v in name[len("combo"):].split("x"))
+        first = c.call(frames)
+        for _ in range(COMBO_REPLAYS):
+            if not torch.equal(c.call(frames), first):
+                raise AssertionError(f"lab {name} differs between replays")
+        if t in (16, 32):
+            s2 = kv.static_kernel2(frames, **geo, tile=t, align=8)
+            combo_vs_s2[name] = int((first != s2).sum().item())
+            if (kv.COMBO_SPLITS[g, t] == "chunks"
+                    and combo_vs_s2[name] != 0):
+                raise AssertionError(f"lab {name} differs from S2 t{t}a8 in "
+                                     f"{combo_vs_s2[name]} samples: its "
+                                     f"warpgroups split the chunks as S2's")
+            del s2
+        torch.cuda.synchronize()
+        log(f"lab {name}: {COMBO_REPLAYS} replays equal to the first; "
+            + (f"{combo_vs_s2[name]} samples differ from S2 t{t}a8 "
+               f"({kv.COMBO_SPLITS[g, t]} split)" if name in combo_vs_s2
+               else "no S2 at this strip height (rows split); held to its "
+               "plain version above"))
+        del first
     sink = torch.zeros(kv.SINK_WORDS, dtype=torch.int32, device=dev)
     kv.stream_floor(frames, rows=rows, W=W, DH=DH, DW=DW, sink=sink)
     got = np.bitwise_xor.reduce(sink.cpu().numpy().view(np.uint32))
@@ -1387,9 +1430,9 @@ def lab_phase(torch, np, dev, smi):
     full_fn = ", ".join(n for n in names
                         if cases[n].full_function and cases[n].exact)
     log(f"lab: every bit-exact full-function variant ({full_fn}) equal to "
-        f"nv12_preprocess, B, C, D, G and S2* within their envelope, B equal "
-        f"to C; the floor's sink equal to the XOR of every word of the "
-        f"frames")
+        f"nv12_preprocess, B, C, D, G, S2* and combo* within their "
+        f"envelope, B equal to C; the floor's sink equal to the XOR of every "
+        f"word of the frames")
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in kv.WRAPPERS:
@@ -1454,11 +1497,23 @@ def lab_phase(torch, np, dev, smi):
             f"by bytes, {s_ops / BF16_OPS_PER_S * 1e3} ms by operations "
             f"({s_ops} FLOP issued, zeros included) ({smi})")
 
+    parts = []
+    for n in (n for n in names if n.startswith("combo")):
+        s2 = "S2t" + n.split("x")[1] + "a8"
+        parts.append(f"{n} {ms[n]} ms" + (
+            f" = {ms[n] / ms[s2]} of {s2}'s, {combo_vs_s2[n]} samples off it"
+            if n in combo_vs_s2 else "") + f", {differ[n][0]} off "
+            f"nv12_preprocess, {differ[n][1]} off its plain version")
+    log("lab combo (S2's wgmma block, G frames a block, each chunk's W "
+        "weights loaded once for the G frames): " + "; ".join(parts)
+        + f"; S2 t16a8 {ms['S2t16a8']} ms, t32a8 {ms['S2t32a8']} ms, A "
+        f"{ms['A']} ms in this run ({smi})")
+
     # ---- phase 3: the plain versions' times -------------------------------
     # the knock-outs' own plain versions, the product's for the variants
-    # that share it, and S2's and G's table-based ones
+    # that share it, and S2's, the combo's and G's table-based ones
     own_plain = ("floor", "hpass", "wpass", "full", "G") + tuple(
-        n for n in names if n.startswith("S2"))
+        n for n in names if n.startswith(("S2", "combo")))
     plain_ms = {}
     for name in own_plain:
         plain_ms[name] = time_ms(lambda c=cases[name]: c.plain(frames),
@@ -1474,6 +1529,7 @@ def lab_phase(torch, np, dev, smi):
             "source": "vali_tpu_torch/csrc/" + {
                 kv.grouped_kernel: "nv12_grouped.cu",
                 kv.static_kernel2: "nv12_static2.cu",
+                kv.combo_kernel: "nv12_combo.cu",
                 kv.variant_kernel: "nv12_staged.cu"}.get(
                     c.wrapper, "nv12_variants.cu"),
             "replaces": LAB_REPLACES[wrapper], "launches": r["launches"],

@@ -261,7 +261,8 @@ def test_ab_builds_key_on_every_file_the_source_includes(tmp_path,
                         lambda path, *a: built.append(path) or path)
     monkeypatch.setattr(cb.ctypes, "CDLL", lambda path: types.SimpleNamespace(
         nv12_grouped_launch=types.SimpleNamespace()))
-    sig = {"nv12_grouped_launch": cb._SIGNATURES["nv12_grouped_launch"]}
+    sig = {"nv12_grouped_launch":
+           cb._LAB_SIGNATURES["nv12_grouped_launch"]}
 
     def build(*flags):
         cb.build_source(src, "ab", "g", sig, flags, [str(tmp_path)])

@@ -68,3 +68,86 @@ def test_a_failed_compile_names_the_tool_and_leaves_nothing(src, tmp_path):
     assert first.startswith(f"{os.path.basename(_compiler()[0])} failed")
     assert str(src) in first
     assert os.listdir(out.parent) == ["lock"]
+
+
+def test_kernel_libraries_build_apart_and_load_once(monkeypatch, tmp_path):
+    """ops/_cuda_build.py builds the product's kernels and the labs' into
+    two libraries under their own build directories (a product wrapper's
+    first launch compiles no lab source), each once a process: a later
+    load hashes no source, so a wrapper's call pays no file reads."""
+    import types
+
+    from vali_tpu_torch.ops import _cuda_build as cb
+
+    built = []
+    monkeypatch.setattr(cb, "_libs", {})
+    monkeypatch.setattr(cb, "BUILD_DIR", str(tmp_path / "product"))
+    monkeypatch.setattr(cb, "LAB_BUILD_DIR", str(tmp_path / "lab"))
+    monkeypatch.setattr(cb, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cb, "locked_build",
+                        lambda path, cmd, sources, link: built.append(
+                            (path, [os.path.relpath(s, cb._PKG_DIR)
+                                    for s in sources])) or path)
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(cb.ctypes, "CDLL", lambda path: Lib())
+    product, lab = cb.load_kernels(), cb.load_lab_kernels()
+    assert product is not lab
+    assert [p for p, _ in built] == [cb.library_path(),
+                                     cb.lab_library_path()]
+    assert built[0][0].startswith(str(tmp_path / "product"))
+    assert built[1][0].startswith(str(tmp_path / "lab"))
+    assert tuple(built[0][1]) == cb._SOURCES
+    assert tuple(built[1][1]) == cb._LAB_SOURCES
+    assert not set(cb._SOURCES) & set(cb._LAB_SOURCES) - {
+        "csrc/cuda_errors.cu"}
+    monkeypatch.setattr(cb, "source_key", None)   # a later hash would fail
+    assert cb.load_kernels() is product and cb.load_lab_kernels() is lab
+    assert len(built) == 2
+
+
+def test_kernel_libraries_build_at_once(monkeypatch, tmp_path):
+    """The product's and the labs' libraries build at the same time from
+    two threads (chip_smoke.py starts both): each build waits, inside its
+    lock, until the other has started."""
+    import threading
+    import types
+
+    from vali_tpu_torch.ops import _cuda_build as cb
+
+    started = {"product": threading.Event(), "lab": threading.Event()}
+    overlapped = []
+
+    def build(path, cmd, sources, link):
+        which = "lab" if path.startswith(str(tmp_path / "lab")) else \
+            "product"
+        started[which].set()
+        other = "product" if which == "lab" else "lab"
+        overlapped.append(started[other].wait(5))
+        return path
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(cb, "_libs", {})
+    monkeypatch.setattr(cb, "BUILD_DIR", str(tmp_path / "product"))
+    monkeypatch.setattr(cb, "LAB_BUILD_DIR", str(tmp_path / "lab"))
+    monkeypatch.setattr(cb, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cb, "locked_build", build)
+    monkeypatch.setattr(cb.ctypes, "CDLL", lambda path: Lib())
+    threads = [threading.Thread(target=f)
+               for f in (cb.load_kernels, cb.load_lab_kernels)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+    assert overlapped == [True, True]

@@ -547,8 +547,8 @@ LAB_NAMES = [n for n in kv.DEFAULT_NAMES if n != "A"]
 @pytest.mark.parametrize("name", LAB_NAMES)
 def test_lab_kernels_match_plain(dev, geom, name):
     """Each lab kernel against its plain version on a padded buffer; the
-    full-function variants (every strip height, M*, S, Slong, combo*, T)
-    equal the product kernel bit for bit, the staged B/C/D, G and S2* (the
+    full-function variants (every strip height, M*, S, Slong, T) equal the
+    product kernel bit for bit, the staged B/C/D, G, S2* and combo* (the
     tensor cores' sums) within 1 LSB."""
     b, h, w, dh, dw = geom
     rows = h * 3 // 2 + 8
@@ -564,13 +564,13 @@ def test_lab_kernels_match_plain(dev, geom, name):
         _assert_close(out, ref, (name, geom))
     if c.full_function and c.exact:
         assert torch.equal(out, nv12_preprocess(x, **geo)), (name, geom)
-    elif c.full_function:   # G, S2: the tensor cores' sums, within 1 LSB
+    elif c.full_function:   # the tensor cores' sums, within 1 LSB
         _assert_close(out, nv12_preprocess(x, **geo), (name, geom))
 
 
 NEW_LAB_NAMES = ["S", "Slong", "S2t32a8", "S2t16a8", "S2t24a8", "S2t48a8",
                  "S2t32a32", "combo2x32", "combo4x32", "combo2x64",
-                 "combo1x64", "T", "G"]
+                 "combo1x64", "combo2x16", "combo4x16", "T", "G"]
 
 
 @pytest.mark.parametrize("geom", [
@@ -596,7 +596,9 @@ def test_static_grouped_transposed_ragged(dev, geom, name):
 
 def test_static_bank_follows_alternating_geometries(dev):
     """S's constant bank holds one geometry: alternating two geometries
-    (and the other chain) in one process re-uploads it every time."""
+    (and the other chain) in one process re-uploads it every time. The
+    combo, which keeps no constant bank, follows them with its tables
+    cached per geometry: S2's bits at 16-row strips each time."""
     geos = [dict(src_w=256, src_h=144, dst_w=96, dst_h=64),
             dict(src_w=320, src_h=180, dst_w=64, dst_h=48)]
     xs = [kv.make_frames(2, g["src_h"] * 3 // 2, g["src_w"], dev, seed=i)
@@ -606,7 +608,9 @@ def test_static_bank_follows_alternating_geometries(dev):
             out = kv.static_kernel(xs[i], **geos[i], shortchain=short)
             assert torch.equal(out, nv12_preprocess(xs[i], **geos[i])), i
         out = kv.combo_kernel(xs[i], **geos[i], gframes=2, tile=16)
-        assert torch.equal(out, nv12_preprocess(xs[i], **geos[i])), i
+        assert torch.equal(out, kv.static_kernel2(xs[i], **geos[i], tile=16,
+                                                  align=8)), i
+        _assert_close(out, nv12_preprocess(xs[i], **geos[i]), i)
 
 
 @pytest.mark.parametrize("geom", [
@@ -664,17 +668,22 @@ def test_swept_tile19_geometry_is_bit_equal(dev, kind):
 @pytest.mark.parametrize("name", ["S2t32a8", "S2t48a8", "combo2x32",
                                   "combo1x64"])
 def test_column_range_strips_equal_the_product(dev, name):
-    """Tall strips at 1080p run in output-column ranges (the lab line says
-    so) and give the product's bits (COMBO), or lie within the kernels'
-    envelope of it (S2: the tensor cores' sums)."""
+    """Tall strips at 1080p run one 64-column output tile a block (the lab
+    line says so) and lie within the kernels' envelope of the product (the
+    tensor cores' sums); combo2x32 gives S2 t32a8's bits (its warpgroups
+    split the chunks as S2's do), combo1x64 (the strip's rows split) lies
+    within the envelope of its plain version."""
     geo = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
     x = kv.make_frames(4, 1620, 1920, dev, seed=11)
     c = kv.case(name, 4, 1620, **geo)
-    assert "column ranges" in c.note
-    if c.exact:
-        assert torch.equal(c.call(x), nv12_preprocess(x, **geo))
-    else:
-        _assert_close(c.call(x), nv12_preprocess(x, **geo), name)
+    assert "column ranges, one 64-column output tile each" in c.note
+    assert not c.exact
+    out = c.call(x)
+    _assert_close(out, nv12_preprocess(x, **geo), name)
+    _assert_close(out, c.plain(x), name)
+    if name == "combo2x32":
+        assert torch.equal(out, kv.static_kernel2(x, **geo, tile=32,
+                                                  align=8))
 
 
 def test_new_lab_wrappers_count_launches_and_reject_bad_input(dev):
@@ -749,6 +758,84 @@ def test_static2_refuses_what_does_not_fit_before_a_launch(dev):
     assert kv.static_kernel2.launches == before
 
 
+COMBO = [(2, 16), (4, 16), (2, 32), (4, 32), (1, 64), (2, 64)]
+
+
+@pytest.mark.parametrize("geom", [
+    (4, 1080, 1920, 224, 224),  # the lab's size
+    (8, 144, 256, 64, 96),      # 16-byte loads
+    (4, 150, 322, 70, 202),     # ragged stages, tiles and strips
+    (4, 62, 130, 30, 34),       # widths that are not whole vectors
+])
+@pytest.mark.parametrize("gframes,tile", COMBO)
+def test_combo_within_the_envelope_and_equal_to_s2_replayed(dev, geom,
+                                                            gframes, tile):
+    """Each combo instance on 20 replays equals its first output, lies
+    within the envelope of its plain version and of nv12_preprocess, and
+    where its warpgroups split the chunks as S2's do equals S2 at the same
+    strip height bit for bit (no race checker runs on the card: the
+    replays stand in for one)."""
+    from vali_tpu_torch.ops.banded import COMBO_SPLITS
+
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=h + tile + gframes)
+    first = kv.combo_kernel(x, **geo, gframes=gframes, tile=tile).clone()
+    for i in range(20):
+        assert torch.equal(kv.combo_kernel(x, **geo, gframes=gframes,
+                                           tile=tile), first), i
+    torch.cuda.synchronize()
+    assert first.shape == (b, 3, dh, dw)
+    _assert_close(first, kv.static_kernel2_plain(x, **geo, tile=tile,
+                                                 align=8), geom)
+    _assert_close(first, nv12_preprocess(x, **geo), geom)
+    if COMBO_SPLITS[gframes, tile] == "chunks":
+        assert torch.equal(first, kv.static_kernel2(x, **geo, tile=tile,
+                                                    align=8))
+
+
+@pytest.mark.parametrize("gframes,tile", COMBO)
+def test_combo_padded_strided_and_misaligned_views(dev, gframes, tile):
+    """A padded row pitch, a larger batch stride and rows that start off
+    16-byte alignment (the element loads) give the contiguous buffer's
+    output; each launch counts once."""
+    b, h, w, dh, dw = 4, 96, 256, 40, 48
+    rows = h * 3 // 2
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = kv.make_frames(b, rows, w, dev, seed=5)
+    want = kv.combo_kernel(x, **geo, gframes=gframes, tile=tile)
+    padded = torch.zeros((b, rows + 3, w + 32), dtype=torch.uint8,
+                         device=dev)
+    padded[:, :rows, :w] = x
+    shifted = torch.zeros((b, rows, w + 17), dtype=torch.uint8, device=dev)
+    shifted[:, :, 1:w + 1] = x
+    before = kv.combo_kernel.launches
+    for view in (padded[:, :rows, :w], shifted[:, :, 1:w + 1]):
+        assert torch.equal(kv.combo_kernel(view, **geo, gframes=gframes,
+                                           tile=tile), want)
+    assert kv.combo_kernel.launches == before + 2
+
+
+def test_combo_refuses_what_does_not_fit_before_a_launch(dev):
+    """A (gframes, tile) that is no instance, a batch that is not a
+    multiple of gframes, and windows whose ring passes a block's shared
+    memory raise before any launch."""
+    x = kv.make_frames(4, 216, 256, dev)
+    geo = dict(src_w=256, src_h=144, dst_w=96, dst_h=64)
+    before = kv.combo_kernel.launches
+    for g, t in ((1, 16), (2, 24), (4, 64), (2, 48)):
+        with pytest.raises(ValueError, match=r"runs \(gframes, tile\)"):
+            kv.combo_kernel(x, **geo, gframes=g, tile=t)
+    with pytest.raises(ValueError, match="multiple"):
+        kv.combo_kernel(x[:3], **geo, gframes=2, tile=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.combo_kernel(torch.zeros((2, 3240, 3840), dtype=torch.uint8,
+                                    device=dev),
+                        src_w=3840, src_h=2160, dst_w=224, dst_h=224,
+                        gframes=2, tile=32)
+    assert kv.combo_kernel.launches == before
+
+
 @pytest.mark.parametrize("layout", ["mn_major", "k_major"])
 def test_staged_shared_memory_a_product_equals_matmul(dev, layout):
     """One m64n16k16 wgmma with A read from shared memory through a
@@ -768,7 +855,7 @@ def test_staged_shared_memory_a_product_equals_matmul(dev, layout):
     a_img = torch.from_numpy(img).to(dev)
     b_img = torch.from_numpy(core_matrix_order(bnk)).to(dev, torch.bfloat16)
     d = torch.empty((64, 16), dtype=torch.float32, device=dev)
-    lib = _cuda_build.load_kernels()
+    lib = _cuda_build.load_lab_kernels()
     rc = lib.nv12_staged_probe_launch(
         a_img.data_ptr(), img.size // 16, b_img.data_ptr(), int(mn), lbo,
         sbo, d.data_ptr(), torch.cuda.current_stream().cuda_stream)

@@ -95,8 +95,10 @@ def test_static_kernel2_matches_the_notebook(nv12, tile, align):
     _assert_u8_close(j, t.numpy())
 
 
-@pytest.mark.parametrize("gframes,tile", [(2, 32), (4, 32), (2, 64),
-                                          (1, 64)])
+COMBO = [(2, 32), (4, 32), (2, 64), (1, 64), (2, 16), (4, 16)]
+
+
+@pytest.mark.parametrize("gframes,tile", COMBO)
 def test_combo_kernel_matches_the_notebook(nv12, gframes, tile):
     j = bkv.combo_kernel(jnp.asarray(nv12), **GEO, gframes=gframes,
                          tile=tile, interpret=True)
@@ -121,12 +123,14 @@ def test_transposed_chroma_matches_the_pallas_product(nv12):
     _assert_u8_close(j, t.numpy())
 
 
-@pytest.mark.parametrize("name", ["S2t%da%d" % p for p in S2_SWEEP] + ["G"])
+@pytest.mark.parametrize("name", ["S2t%da%d" % p for p in S2_SWEEP] + ["G"]
+                         + ["combo%dx%d" % p for p in COMBO])
 def test_table_plain_versions_equal_the_product_plain(nv12, name):
-    """S2's and G's plain versions compute from their own host tables
-    (strip windows with zero taps; block-diagonal matrices over stacked
-    windows); both give the product's plain output bit for bit, which
-    checks the tables the kernels read."""
+    """S2's, the combo's (S2's at its strip height) and G's plain versions
+    compute from their own host tables (strip windows with zero taps;
+    block-diagonal matrices over stacked windows); each gives the
+    product's plain output bit for bit, which checks the tables the
+    kernels read."""
     x = torch.from_numpy(nv12)
     c = kv.case(name, B, nv12.shape[1], **GEO)
     assert c.plain is not None
@@ -135,20 +139,17 @@ def test_table_plain_versions_equal_the_product_plain(nv12, name):
 
 def test_column_ranges_cover_the_w_bands():
     """At 1080p -> 224, strips of 32 and 48 rows run in 2 output-column
-    ranges and COMBO's 64-row strips (W tables staged beside) in 4, 16 and
-    24 rows at full width; each range's source columns hold every W band
-    of its output columns, start on 16-column boundaries and fit a
-    block."""
+    ranges, 8 (S's), 16 and 24 rows at full width; each range's source
+    columns hold every W band of its output columns, start on 16-column
+    boundaries and fit a block."""
     from vali_tpu_torch.ops import banded
     from vali_tpu_torch.ops.resize import LANCZOS_AA
 
     cpu = torch.device("cpu")
     geo = (1920, 1080, 224, 224, LANCZOS_AA)
     _, _, (ys, yc, _), (cs, cc, _) = banded._nv12_bands(*geo)
-    for rows, stage_w, n in ((8, False, 1), (16, False, 1), (24, False, 1),
-                             (32, False, 2), (48, False, 2), (32, True, 2),
-                             (64, True, 4)):
-        r = banded.column_ranges(*geo, rows, stage_w, cpu)
+    for rows, n in ((8, 1), (16, 1), (24, 1), (32, 2), (48, 2)):
+        r = banded.column_ranges(*geo, rows, cpu)
         assert r.n == n, rows
         ext = r.ext.numpy()
         assert (ext % 16 == 0).all()
@@ -250,13 +251,19 @@ def test_wrappers_reject_bad_arguments(nv12):
     with pytest.raises(ValueError, match="does not match"):
         kv.transposed_chroma(x[:, :H], **GEO)
     # 3840x2160 -> 224: 81,536 B of H row tables, over the 64 KB bank
-    big = torch.zeros((1, 3240, 3840), dtype=torch.uint8)
+    big = torch.zeros((2, 3240, 3840), dtype=torch.uint8)
     geo4k = dict(src_w=3840, src_h=2160, dst_w=224, dst_h=224)
     for call in (lambda: kv.static_kernel(big, **geo4k),
-                 lambda: kv.static_kernel(big, **geo4k, shortchain=False),
-                 lambda: kv.combo_kernel(big, **geo4k, gframes=1)):
+                 lambda: kv.static_kernel(big, **geo4k, shortchain=False)):
         with pytest.raises(ValueError, match="81536 B.*constant bank"):
             call()
+    # the combo's tensor-core kernel: 32-row strips' ring, weights and H
+    # rows at 4K -> 224 need 267,648 B of shared memory; (1, 32) is no
+    # instance of it
+    with pytest.raises(ValueError, match="267648 B of shared memory"):
+        kv.combo_kernel(big, **geo4k, gframes=2, tile=32)
+    with pytest.raises(ValueError, match=r"runs \(gframes, tile\)"):
+        kv.combo_kernel(big, **geo4k, gframes=1, tile=32)
     kv.prod_like(x, **GEO, mode="hpass")  # a plain version: no launch
     kv.grouped_kernel(x, **GEO)
     kv.static_kernel2(x, **GEO, tile=16, align=8)
@@ -293,11 +300,16 @@ def test_bounds_count_the_bytes_the_function_moves():
     assert by == "bytes" and ms == pytest.approx(
         full[0] / HBM_BYTES_PER_S * 1e3)
     assert bound_ms(1, 1e15)[1] == "operations"
-    # S2, G and the staged B, C, D move the product's bytes and count the
-    # FMAs they run, zero taps included: more operations than the
-    # product's bands
-    for name in ("S", "T", "combo2x32"):
+    # S and T run the product's FMAs; S2, the combo, G and the staged B,
+    # C, D move the product's bytes and count the FMAs they run, zero taps
+    # included: more operations than the product's bands (the combo S2's
+    # at its strip height, whatever its frames a block)
+    for name in ("S", "T"):
         assert kv.case(name, B, rows, **GEO).work == full
+    for g, t in COMBO:
+        work = kv.case(f"combo{g}x{t}", B, rows, **GEO).work
+        assert work == kv.static2_work(B, **GEO, tile=t, align=8)
+        assert work[0] == full[0] and work[1] > full[1]
     for name in ("S2t32a8", "S2t16a8", "G", "B", "C", "D"):
         work = kv.case(name, B, rows, **GEO).work
         assert work[0] == full[0] and work[1] > full[1]

@@ -87,21 +87,28 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
-def test_launcher_signatures_match_the_c_prototypes():
-    """Every launcher's ctypes argtypes follow its C prototype: a pointer
-    or the stream as c_void_p (or a float pointer), long long as
-    c_longlong, int as c_int. A missing or short list would let ctypes cut
-    a pointer to 32 bits."""
+@pytest.mark.parametrize("library", ["product", "lab"])
+def test_launcher_signatures_match_the_c_prototypes(library):
+    """Every launcher's ctypes argtypes follow its C prototype, in each of
+    the two kernel libraries (the product's, the labs'): a pointer or the
+    stream as c_void_p (or a float pointer), long long as c_longlong, int
+    as c_int. A missing or short list would let ctypes cut a pointer to 32
+    bits. Each library builds its own sources, so a product wrapper's
+    first launch compiles no lab kernel."""
     import ctypes
     import re
 
     from vali_tpu_torch.ops import _cuda_build as cb
 
+    sources, signatures = {
+        "product": (cb._SOURCES, cb._SIGNATURES),
+        "lab": (cb._LAB_SOURCES, cb._LAB_SIGNATURES)}[library]
+    assert "csrc/cuda_errors.cu" in sources   # banded_error_string
     text = "".join(open(os.path.join(cb._PKG_DIR, rel)).read()
-                   for rel in cb._SOURCES)
+                   for rel in sources)
     names = re.findall(r"^int (\w+_launch)\(", text, re.M)
-    assert sorted(names) == sorted(cb._SIGNATURES)
-    for name, argtypes in cb._SIGNATURES.items():
+    assert sorted(names) == sorted(signatures)
+    for name, argtypes in signatures.items():
         params = re.search(r"int %s\(([^)]*)\)" % name, text).group(1)
         want = []
         for p in (p.strip() for p in params.split(",")):

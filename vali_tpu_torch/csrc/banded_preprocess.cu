@@ -791,8 +791,4 @@ int yuv444_preprocess_launch(const void* y, const void* u, const void* v,
       f32_compute, out, out_kind, static_cast<cudaStream_t>(stream)));
 }
 
-const char* banded_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 }  // extern "C"

@@ -9,12 +9,10 @@
 //   - multiframe_kernel   -> nv12_variant_launch, frames per block G
 //   - static_kernel       -> nv12_static_launch, S: H row tables in the
 //                            constant bank, short or long cast chain
-//   - combo_kernel        -> nv12_static_launch, COMBO: G frames x tall
-//                            strips x constant-bank H tables
 //   - transposed_chroma_kernel -> nv12_transposed_launch, T
-// (grouped_kernel, static_kernel2 and variant_kernel B / C / D, the
-// resize passes on the tensor cores, are nv12_grouped.cu, nv12_static2.cu
-// and nv12_staged.cu.)
+// (grouped_kernel, static_kernel2, variant_kernel B / C / D and
+// combo_kernel, the resize passes on the tensor cores, are
+// nv12_grouped.cu, nv12_static2.cu, nv12_staged.cu and nv12_combo.cu.)
 //
 // What bounds them on this card: what bounds the product kernel. One 64 x
 // 1080p -> 224 batch reads ~199 MB and does a few GFLOP of FMAs, far under
@@ -47,12 +45,9 @@
 //          64 KB constant bank (43,008 B at 1080p -> 224), read through the
 //          constant cache instead of __ldg; a warp whose threads straddle
 //          two output rows reads two addresses and serialises.
-//   COMBO  G frames per block on strips of `tile` rows, H tables in the
-//          constant bank, W tables staged in shared memory once per block.
-// Tall strips (COMBO at 32 and 64 rows) do not fit full-width H rows in a
-// block, so they run in output-column ranges: a block (frames, strip,
-// range) runs the H pass only over the source columns its W bands read,
-// the same FMAs per H sample.
+// Rows too wide for full-width H rows in a block run in output-column
+// ranges: a block (strip, range) runs the H pass only over the source
+// columns its W bands read, the same FMAs per H sample.
 //   T      the chroma H-pass rows are kept transposed in shared memory
 //          ([W][rows + pad], the pad making the pitch odd in 32-bit words so
 //          that a warp's 32 column stores hit 32 banks); the W pass reads
@@ -357,15 +352,15 @@ nv12_stream_floor_kernel(Frames f, int W, int DH, int DW, unsigned* sink,
   }
 }
 
-// ---- static windows: S, COMBO ------------------------------------------
+// ---- static windows: S ---------------------------------------------------
 
-// The constant bank of S and COMBO: one geometry's H row tables, as
+// The constant bank of S: one geometry's H row tables, as
 // nv12_static_launch uploads them. Layout in 4-byte words: the luma row
 // starts and counts, the chroma row starts and counts ([dst_h] int32 each,
 // kept as their bits), then the luma row weights [dst_h, hy_k] and the
 // chroma row weights [dst_h, hc_k]. The bank holds ONE geometry at a time:
 // the launcher uploads the tables when the geometry differs from the last
-// upload on the device, so two streams running S or COMBO on two
+// upload on the device, so two streams running S on two
 // geometries at once would race on it.
 constexpr int kBankBytes = 65536;
 __constant__ float c_bank[kBankBytes / 4];
@@ -463,14 +458,13 @@ struct Ranges {
   int n, y_pitch, c_pitch;
 };
 
-// S and COMBO: one block per (strip of g.rows output rows, G frames,
-// output-column range). The H pass reads its row tables from the constant
-// bank, the W pass its tables from device memory or, staged once per
-// block, from shared memory (COMBO); then the product's W pass and tail.
-template <int CAST, bool kStageW>
+// S: one block per (strip of g.rows output rows, frame, output-column
+// range). The H pass reads its row tables from the constant bank; then
+// the product's W pass and tail.
+template <int CAST>
 __global__ void __launch_bounds__(kThreads)
 nv12_static_kernel(Frames f, Tables t, RowBands yb, RowBands cb,
-                   Tail tl, Geometry g, Ranges rg, int G, int wy_k, int wc_k,
+                   Tail tl, Geometry g, Ranges rg,
                    uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int DW = g.dst_w;
@@ -485,73 +479,29 @@ nv12_static_kernel(Frames f, Tables t, RowBands yb, RowBands cb,
   const int clo = __ldg(rg.ext + 4 * z + 2), chi = __ldg(rg.ext + 4 * z + 3);
   const bool vec = f.vec != 0;
 
-  Tables tb = t;
-  if constexpr (kStageW) {
-    const long long at = (2LL * g.rows * (rg.y_pitch + rg.c_pitch) + 15) &
-                         ~15LL;
-    int* wys = reinterpret_cast<int*>(smem + at);
-    int* wyc = wys + DW;
-    int* wcs = wyc + DW;
-    int* wcc = wcs + DW;
-    float* wyw = reinterpret_cast<float*>(wcc + DW);
-    float* wcw = wyw + wy_k * DW;
-    for (int i = threadIdx.x; i < DW; i += blockDim.x) {
-      wys[i] = __ldg(t.wy_start + i);
-      wyc[i] = __ldg(t.wy_count + i);
-      wcs[i] = __ldg(t.wc_start + i);
-      wcc[i] = __ldg(t.wc_count + i);
-    }
-    for (int i = threadIdx.x; i < wy_k * DW; i += blockDim.x)
-      wyw[i] = __ldg(t.wy_w + i);
-    for (int i = threadIdx.x; i < wc_k * DW; i += blockDim.x)
-      wcw[i] = __ldg(t.wc_w + i);
-    tb.wy_start = wys;
-    tb.wy_count = wyc;
-    tb.wy_w = wyw;
-    tb.wc_start = wcs;
-    tb.wc_count = wcc;
-    tb.wc_w = wcw;
-    // the first barrier below orders these stores before the W pass
-  }
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int b = blockIdx.y * G + gi;
-    const uint8_t* frame = f.src + b * f.bs;
-    const uint8_t* uv = frame + static_cast<long long>(g.src_h) * f.rs;
-    hpass_cols<CAST>(frame, f.rs, ylo, yhi, o0, rows, yb, yh, rg.y_pitch,
-                     vec);
-    hpass_cols<CAST>(uv, f.rs, clo, chi, o0, rows, cb, ch, rg.c_pitch, vec);
-    __syncthreads();
-    uint8_t* ob = out + static_cast<long long>(b) * 3 * g.dst_h * DW;
-    wpass_store<kStageW, banded::kInterleaved>(
-        yh, ch, rg.y_pitch, rg.c_pitch, rows, o0, g.dst_h, DW, p0, p1 - p0,
-        ylo, clo, tb, tl, ob);
-    if (G > 1) __syncthreads();  // the next frame overwrites the rows
-  }
+  const int b = blockIdx.y;
+  const uint8_t* frame = f.src + b * f.bs;
+  const uint8_t* uv = frame + static_cast<long long>(g.src_h) * f.rs;
+  hpass_cols<CAST>(frame, f.rs, ylo, yhi, o0, rows, yb, yh, rg.y_pitch, vec);
+  hpass_cols<CAST>(uv, f.rs, clo, chi, o0, rows, cb, ch, rg.c_pitch, vec);
+  __syncthreads();
+  uint8_t* ob = out + static_cast<long long>(b) * 3 * g.dst_h * DW;
+  wpass_store<false, banded::kInterleaved>(
+      yh, ch, rg.y_pitch, rg.c_pitch, rows, o0, g.dst_h, DW, p0, p1 - p0,
+      ylo, clo, t, tl, ob);
 }
 
-// Shared memory of a static-window block.
-long long static_smem(int rows, const Ranges& rg, bool stage_w, int dst_w,
-                      int wy_k, int wc_k) {
-  long long bytes = 2LL * rows * (rg.y_pitch + rg.c_pitch);
-  if (stage_w)
-    bytes = ((bytes + 15) & ~15LL) + 16LL * dst_w +
-            4LL * dst_w * (wy_k + wc_k);
-  return bytes;
-}
-
-template <int CAST, bool kStageW>
+template <int CAST>
 cudaError_t launch_static(const Frames& f, const Tables& t,
                           const RowBands& yb, const RowBands& cb,
                           const Tail& tl, const Geometry& g, const Ranges& rg,
-                          int G, int wy_k, int wc_k, size_t smem, void* out,
-                          cudaStream_t stream) {
-  auto kern = nv12_static_kernel<CAST, kStageW>;
+                          size_t smem, void* out, cudaStream_t stream) {
+  auto kern = nv12_static_kernel<CAST>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((g.dst_h + g.rows - 1) / g.rows, g.batch / G, rg.n);
-  kern<<<grid, kThreads, smem, stream>>>(f, t, yb, cb, tl, g, rg, G, wy_k,
-                                         wc_k, static_cast<uint8_t*>(out));
+  const dim3 grid((g.dst_h + g.rows - 1) / g.rows, g.batch, rg.n);
+  kern<<<grid, kThreads, smem, stream>>>(f, t, yb, cb, tl, g, rg,
+                                         static_cast<uint8_t*>(out));
   return cudaGetLastError();
 }
 
@@ -747,31 +697,25 @@ int nv12_stream_floor_launch(const void* src, long long batch_stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// S and COMBO over `src` as nv12_variant_launch takes it, on strips of
-// rows_per_block output rows, frames_per_block G frames per block (batch
-// % G == 0) and n_ranges output-column ranges: `ranges` [n_ranges, 4]
-// int32 on the device (ops/banded.py column_ranges), y_pitch and c_pitch
-// the widest luma and interleaved chroma range. const_bank must be 1: the
-// H row tables (the first 4 dst_h ints of `index` and the first dst_h
-// (hy_k + hc_k) floats of `weights`) go to the constant bank, at most
-// 64 KB, uploaded on `stream` when the geometry differs from the last
-// upload on this device. short_chain 1 converts samples u8 -> i32 ->
-// bf16, 0 u8 -> i32 -> f32. stage_w 1 stages the W tables in shared
-// memory once per block (COMBO). Instantiated: S (either chain), COMBO
-// (short chain, stage_w).
+// S over `src` as nv12_variant_launch takes it, on strips of
+// rows_per_block output rows and n_ranges output-column ranges: `ranges`
+// [n_ranges, 4] int32 on the device (ops/banded.py column_ranges), y_pitch
+// and c_pitch the widest luma and interleaved chroma range. const_bank
+// must be 1: the H row tables (the first 4 dst_h ints of `index` and the
+// first dst_h (hy_k + hc_k) floats of `weights`) go to the constant bank,
+// at most 64 KB, uploaded on `stream` when the geometry differs from the
+// last upload on this device. short_chain 1 converts samples u8 -> i32 ->
+// bf16, 0 u8 -> i32 -> f32.
 int nv12_static_launch(const void* src, long long batch_stride,
                        long long row_stride, int buf_rows, int batch,
                        int src_h, int src_w, int dst_h, int dst_w,
                        const int* index, const float* weights, int hy_k,
                        int hc_k, int wy_k, int wc_k, const float* tail,
-                       int const_bank, int short_chain, int stage_w,
-                       int frames_per_block, int rows_per_block,
+                       int const_bank, int short_chain, int rows_per_block,
                        const int* ranges, int n_ranges, int y_pitch,
                        int c_pitch, void* out, void* stream) {
+  (void)wc_k;
   if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
-  const int G = frames_per_block;
-  const bool s = const_bank && !stage_w,
-             combo = const_bank && short_chain && stage_w;
   const long long bank = 16LL * dst_h + 4LL * dst_h * (hy_k + hc_k);
   Frames f;
   Tables t;
@@ -780,17 +724,15 @@ int nv12_static_launch(const void* src, long long batch_stride,
   if (!lab_setup(src, batch_stride, row_stride, buf_rows, batch, src_h,
                  src_w, dst_h, dst_w, index, weights, hy_k, hc_k, wy_k, tail,
                  rows_per_block, f, t, tl, g) ||
-      G < 1 || batch % G != 0 || !(s || combo) || n_ranges < 1 ||
-      n_ranges > dst_w || y_pitch < 1 || y_pitch > src_w || c_pitch < 1 ||
-      c_pitch > src_w || bank > kBankBytes)
+      !const_bank || n_ranges < 1 || n_ranges > dst_w || y_pitch < 1 ||
+      y_pitch > src_w || c_pitch < 1 || c_pitch > src_w || bank > kBankBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   Ranges rg;
   rg.ext = ranges;
   rg.n = n_ranges;
   rg.y_pitch = y_pitch;
   rg.c_pitch = c_pitch;
-  const long long smem =
-      static_smem(g.rows, rg, stage_w != 0, dst_w, wy_k, wc_k);
+  const long long smem = 2LL * g.rows * (rg.y_pitch + rg.c_pitch);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const size_t sb = static_cast<size_t>(smem);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -799,15 +741,10 @@ int nv12_static_launch(const void* src, long long batch_stride,
   if (e != cudaSuccess) return static_cast<int>(e);
   const RowBands yb{0, dst_h, 4 * dst_h, hy_k};
   const RowBands cb{2 * dst_h, 3 * dst_h, 4 * dst_h + dst_h * hy_k, hc_k};
-  if (combo)
-    e = launch_static<kCastShort, true>(f, t, yb, cb, tl, g, rg, G, wy_k,
-                                        wc_k, sb, out, st);
-  else if (short_chain)
-    e = launch_static<kCastShort, false>(f, t, yb, cb, tl, g, rg, G, wy_k,
-                                         wc_k, sb, out, st);
+  if (short_chain)
+    e = launch_static<kCastShort>(f, t, yb, cb, tl, g, rg, sb, out, st);
   else
-    e = launch_static<kCastLong, false>(f, t, yb, cb, tl, g, rg, G, wy_k,
-                                        wc_k, sb, out, st);
+    e = launch_static<kCastLong>(f, t, yb, cb, tl, g, rg, sb, out, st);
   return static_cast<int>(e);
 }
 

@@ -1,7 +1,7 @@
 // Pieces shared by the tensor-core lab kernels of this directory
 // (nv12_grouped.cu, nv12_aligned.cu, nv12_static2.cu, nv12_streamed.cu,
-// nv12_slabs.cu, nv12_staged.cu): wgmma descriptors, fences, products with
-// A from registers and with A from shared memory, the
+// nv12_slabs.cu, nv12_staged.cu, nv12_combo.cu): wgmma descriptors,
+// fences, products with A from registers and with A from shared memory, the
 // cp.async staging ring of raw uint8 window rows with the A fragments
 // built from it, the tiled bf16 H rows and the W-pass product over them.
 // sm_90a only.

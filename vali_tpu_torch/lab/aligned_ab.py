@@ -47,7 +47,7 @@ from ..ops import _cuda_build
 from ..ops.nv12_resize import nv12_resize, nv12_resize_plain
 from ..ops.resize import LANCZOS_AA
 from . import resize_diag as rd
-from .grouped_ab import _view, differ, rounds, within_envelope
+from .ab_common import differ, padded_view, rounds, within_envelope
 from .resize_ab import launcher as product_launcher
 from .timing import BF16_OPS_PER_S, bound_ms, time_ms
 
@@ -74,7 +74,7 @@ def build_current(flags):
     tag = "aligned" + "".join(f.split("=")[-1] for f in flags)
     return _cuda_build.build_source(
         source, "aligned_ab", tag,
-        {_LAUNCHER: _cuda_build._SIGNATURES[_LAUNCHER]}, tuple(flags))
+        {_LAUNCHER: _cuda_build._LAB_SIGNATURES[_LAUNCHER]}, tuple(flags))
 
 
 def launcher(lib, nv12: torch.Tensor, geo: dict, h_align: int,
@@ -117,8 +117,8 @@ def cases(device):
     x = rd.make_frames(16, 3240, 3840, device)
     out = [("16x4K->1080p", x, k4, True),
            ("N=1 4K->1080p", x[:1], k4, False),
-           ("3x4K->1080p padded pitch", _view(x[:3], 64, 0), k4, False),
-           ("2x4K->1080p misaligned view", _view(x[3:5], 16, 1), k4,
+           ("3x4K->1080p padded pitch", padded_view(x[:3], 64, 0), k4, False),
+           ("2x4K->1080p misaligned view", padded_view(x[3:5], 16, 1), k4,
             False)]
     for b, h, w, dh, dw in ((3, 288, 512, 144, 256), (2, 150, 322, 70, 202)):
         out.append((f"{b}x{w}x{h}->{dw}x{dh}",
@@ -143,7 +143,7 @@ def summary(times: dict) -> dict:
 
 def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
     builds = {"earlier": build_earlier(source),
-              "current": _cuda_build.load_kernels()}
+              "current": _cuda_build.load_lab_kernels()}
     if knockouts:
         builds.update({f"knockout{m}": build_current(
             [f"-DNV12_ALIGNED_KNOCKOUT={m}"]) for m in (1, 2, 3)})

@@ -104,13 +104,13 @@ def _launch(what: str, launcher: str, nv12: torch.Tensor, *args,
             out: torch.Tensor) -> torch.Tensor:
     """One convert-lab launcher on a checked CUDA buffer: the frames, then
     ``args``, the output and the stream."""
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if (nv12.shape[2] % 16 or nv12.stride(2) != 1 or nv12.stride(1) % 16
             or nv12.stride(0) % 16 or nv12.data_ptr() % 16):
         raise ValueError(f"{what} on the card takes frames of a width that "
                          f"is a multiple of 16 with 16-byte aligned rows")
-    lib = load_kernels()
+    lib = load_lab_kernels()
     with torch.cuda.device(nv12.device):
         rc = getattr(lib, launcher)(
             nv12.data_ptr(), nv12.stride(0), nv12.stride(1), *args,

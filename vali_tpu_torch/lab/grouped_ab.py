@@ -48,6 +48,7 @@ from ..ops.banded import _ceil16, _nv12_bands, device_tables, tail_params
 from ..ops.nv12_preprocess import nv12_preprocess
 from ..ops.resize import LANCZOS_AA
 from . import kernel_variants as kv
+from .ab_common import differ, padded_view, rounds, within_envelope
 from .preprocess_ab import _build
 from .preprocess_ab import launcher as product_launcher
 from .timing import BF16_OPS_PER_S, bound_ms, time_ms
@@ -108,7 +109,7 @@ def build_current(flags) -> ctypes.CDLL:
     source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_grouped.cu")
     tag = "grouped" + "".join(f.split("=")[-1] for f in flags)
     return _build(source, tag,
-                  {_LAUNCHER: _cuda_build._SIGNATURES[_LAUNCHER]},
+                  {_LAUNCHER: _cuda_build._LAB_SIGNATURES[_LAUNCHER]},
                   tuple(flags))
 
 
@@ -145,24 +146,14 @@ def launcher(lib, nv12: torch.Tensor, geo: dict, earlier: bool):
     return call
 
 
-def _view(x: torch.Tensor, pad: int, off: int) -> torch.Tensor:
-    """``x`` as a view of a buffer with ``pad`` more columns a row,
-    starting ``off`` bytes into its rows."""
-    b, rows, w = x.shape
-    big = torch.zeros((b, rows, w + pad + off), dtype=x.dtype,
-                      device=x.device)
-    big[:, :, off:off + w] = x
-    return big[:, :, off:off + w]
-
-
 def cases(device):
     """(name, frames, geometry, timed)."""
     hd = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
     x = kv.make_frames(64, 1620, 1920, device)
     out = [("64x1080p->224", x, hd, True),
            ("N=1 1080p->224", x[:1], hd, False),
-           ("5x1080p->224 padded pitch", _view(x[:5], 64, 0), hd, False),
-           ("3x1080p->224 misaligned view", _view(x[5:8], 16, 1), hd,
+           ("5x1080p->224 padded pitch", padded_view(x[:5], 64, 0), hd, False),
+           ("3x1080p->224 misaligned view", padded_view(x[5:8], 16, 1), hd,
             False)]
     for b, h, w, dh, dw in ((3, 150, 322, 70, 202), (4, 90, 162, 20, 50),
                             (4, 62, 130, 30, 34), (5, 144, 256, 64, 96)):
@@ -170,30 +161,9 @@ def cases(device):
         y = kv.make_frames(b, h * 3 // 2, w, device, seed=h + w)
         out.append((f"{b}x{w}x{h}->{dw}x{dh}", y, geo, False))
     out.append(("5x62x130->30x34 misaligned padded view",
-                _view(kv.make_frames(5, 93, 130, device, seed=8), 5, 1),
+                padded_view(kv.make_frames(5, 93, 130, device, seed=8), 5, 1),
                 dict(src_w=130, src_h=62, dst_w=34, dst_h=30), False))
     return out
-
-
-def differ(a: torch.Tensor, b: torch.Tensor) -> dict:
-    """Samples in which two uint8 outputs differ, and by how much."""
-    d = (a.int() - b.int()).abs()
-    return dict(differ=int((d > 0).sum().item()), maxdiff=int(d.max().item()))
-
-
-def within_envelope(d: dict, samples: int) -> bool:
-    return d["maxdiff"] <= 1 and d["differ"] < 1e-3 * samples
-
-
-def rounds(calls: dict, pairs: int) -> dict:
-    """``pairs`` rounds of :func:`time_ms` of each call, the order reversed
-    every other round: each call's times."""
-    times = {k: [] for k in calls}
-    names = list(calls)
-    for i in range(pairs):
-        for k in (names if i % 2 == 0 else names[::-1]):
-            times[k].append(time_ms(calls[k]))
-    return times
 
 
 def summary(times: dict) -> dict:
@@ -211,7 +181,7 @@ def summary(times: dict) -> dict:
 
 def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
     builds = {"earlier": build_earlier(source),
-              "current": _cuda_build.load_kernels(),
+              "current": _cuda_build.load_lab_kernels(),
               "other": build_current([f"-DNV12_GROUPED_WPASS={OTHER_WPASS}"])}
     if knockouts:
         builds.update({f"knockout{m}": build_current(

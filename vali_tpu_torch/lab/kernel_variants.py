@@ -5,8 +5,9 @@ Counterpart of the TPU notebook ``bench_kernel_variants.py`` (its ``main``,
 ``main_floor``, ``main_modes``, ``main_multiframe``, ``main_static``,
 ``main_sweep2``, ``main_combo``, ``main_transposed`` and ``main_grouped``).
 Nine wrappers over the kernels of ``csrc/nv12_variants.cu``,
-``csrc/nv12_staged.cu``, ``csrc/nv12_static2.cu`` and
-``csrc/nv12_grouped.cu``, each beside its
+``csrc/nv12_staged.cu``, ``csrc/nv12_static2.cu``, ``csrc/nv12_combo.cu``
+and ``csrc/nv12_grouped.cu`` (the labs' library,
+``ops/_cuda_build.load_lab_kernels``), each beside its
 plain PyTorch version, with the same dispatch as the product wrappers: a
 CUDA tensor launches the kernel, a CPU tensor runs the plain version, any
 other device raises.
@@ -31,23 +32,24 @@ other device raises.
   windows aligned to ``align`` rows, zero taps included, both resize
   passes on the tensor cores with the strip height as N (wgmma fed by a
   cp.async ring, one block per 64-column output tile).
-- :func:`combo_kernel` (``combo_kernel``): G frames per block on strips of
-  ``tile`` rows, constant-bank H tables, W tables staged once per block.
+- :func:`combo_kernel` (``combo_kernel``): G frames per block on S2's
+  strips of ``tile`` rows, S2's tensor-core block with each chunk's W
+  weights loaded once for the G frames.
 - :func:`transposed_chroma` (``transposed_chroma_kernel``): the chroma
   H-pass rows kept transposed in shared memory.
 - :func:`grouped_kernel` (``grouped_kernel``): the H pass as a dense
   block-diagonal product on the tensor cores (wgmma fed by a cp.async
   ring), the W pass there too (or, by a build knob, the product's).
-Strips too tall for full-width H rows in one block run in output-column
+Rows too wide for full-width H rows in one block run in output-column
 ranges; the lab line says so.
 
 Every full-function variant (B, C, D, full, M*, S*, combo*, T, G) computes
 the product kernel's function, so on the card it is held to
-``nv12_preprocess``: bit for bit, except B, C, D, G and S2 (the tensor
-cores sum in their own order), held to the kernels' envelope with their
-differing samples counted. Their plain version is
-``nv12_preprocess_plain``, except S2's and G's, which compute from their
-own host tables. ``wpass``
+``nv12_preprocess``: bit for bit, except B, C, D, G, S2 and the combo (the
+tensor cores sum in their own order), held to the kernels' envelope with
+their differing samples counted. Their plain version is
+``nv12_preprocess_plain``, except S2's, the combo's (S2's at its strip
+height) and G's, which compute from their own host tables. ``wpass``
 and the floor read the last DH rows of the buffer as given, as the TPU
 functions do, so their results depend on the buffer's row count.
 
@@ -78,10 +80,11 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
-from ..ops.banded import (CONST_BANK_BYTES, GROUP_STRIP, STATIC2_W_STEPS,
-                          DeviceTables,
-                          column_ranges, const_bank_bytes, core_matrix_order,
-                          dense_weights, device_tables, grouped_refusal,
+from ..ops.banded import (COMBO_ALIGN, COMBO_SPLITS, CONST_BANK_BYTES,
+                          GROUP_STRIP, STATIC2_W_STEPS, DeviceTables,
+                          column_ranges, combo_refusal, const_bank_bytes,
+                          core_matrix_order, dense_weights, device_tables,
+                          grouped_refusal,
                           grouped_tables, grouped_w_tables, static2_refusal,
                           static2_tables, static2_w_tables,
                           strip_window_bands, tail_params, w_pass_tail_plain)
@@ -103,8 +106,8 @@ SINK_WORDS = 64
 DEFAULT_NAMES = ("A", "B", "C", "D", "floor", "full", "hpass", "wpass",
                  "full4", "full16", "full24", "M2", "M4", "M8", "S", "Slong",
                  "S2t32a8", "S2t16a8", "S2t24a8", "S2t48a8", "S2t32a32",
-                 "combo2x32", "combo4x32", "combo2x64", "combo1x64", "T",
-                 "G")
+                 "combo2x32", "combo4x32", "combo2x64", "combo1x64",
+                 "combo2x16", "combo4x16", "T", "G")
 CARD_SIZE = (64, 1920, 1080, 224, 224)   # batch, W, H, DW, DH
 CPU_SIZE = (8, 256, 144, 96, 64)
 
@@ -137,11 +140,11 @@ def _call(what: str, launcher: str, nv12: torch.Tensor, tail: np.ndarray,
     """One launch of a lab launcher that takes the frames, the geometry,
     ``tabs`` and the tail, then its ``knobs``, the output and the stream,
     on a checked CUDA buffer."""
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("NV12 rows must be contiguous (stride 1)")
-    lib = load_kernels()
+    lib = load_lab_kernels()
     B = nv12.shape[0]
     out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
                       device=nv12.device)
@@ -207,7 +210,7 @@ def stream_floor(nv12: torch.Tensor, *, rows: int, W: int, DH: int,
     _floor_checked(nv12, rows, W, DH, DW)
     if _on_cpu("stream_floor", nv12):
         return stream_floor_plain(nv12, rows=rows, W=W, DH=DH, DW=DW)
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("rows must be contiguous (stride 1)")
@@ -217,7 +220,7 @@ def stream_floor(nv12: torch.Tensor, *, rows: int, W: int, DH: int,
             or not sink.is_contiguous() or sink.numel() < 1):
         raise ValueError("sink must be a contiguous int32 tensor on the "
                          "frames' device")
-    lib = load_kernels()
+    lib = load_lab_kernels()
     B = nv12.shape[0]
     out = torch.empty((B, 3, DH, DW), dtype=torch.uint8, device=nv12.device)
     with torch.cuda.device(nv12.device):
@@ -301,13 +304,13 @@ def staged_launch(nv12: torch.Tensor, tail: np.ndarray, *, src_w: int,
                   tile: int = STAGED_TILE) -> torch.Tensor:
     """One ``nv12_staged_launch`` of ``variant`` on strips of ``tile`` rows
     on a checked CUDA buffer (TMA staging where the view allows it)."""
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("NV12 rows must be contiguous (stride 1)")
     args, _ = staged_device(src_w, src_h, dst_w, dst_h, variant, tile,
                             nv12.device)
-    lib = load_kernels()
+    lib = load_lab_kernels()
     B = nv12.shape[0]
     out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
                       device=nv12.device)
@@ -384,16 +387,14 @@ def _bank_checked(src_w, src_h, dst_w, dst_h) -> None:
                          f"{CONST_BANK_BYTES} B constant bank")
 
 
-def _static_call(what, nv12, tail, tabs, *, const_bank, short_chain,
-                 stage_w, frames, rows, **geo) -> torch.Tensor:
-    """One ``nv12_static_launch`` (S, COMBO) in the fewest output-column
-    ranges whose strips fit a block."""
+def _static_call(what, nv12, tail, tabs, *, short_chain, rows,
+                 **geo) -> torch.Tensor:
+    """One ``nv12_static_launch`` (S) with the constant bank, in the fewest
+    output-column ranges whose strips fit a block."""
     ranges = column_ranges(geo["src_w"], geo["src_h"], geo["dst_w"],
-                           geo["dst_h"], LANCZOS_AA, rows, stage_w,
-                           nv12.device)
-    return _call(what, "nv12_static_launch", nv12, tail, tabs,
-                 int(const_bank), int(short_chain), int(stage_w), frames,
-                 rows, *ranges.args(), **geo)
+                           geo["dst_h"], LANCZOS_AA, rows, nv12.device)
+    return _call(what, "nv12_static_launch", nv12, tail, tabs, 1,
+                 int(short_chain), rows, *ranges.args(), **geo)
 
 
 def static_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
@@ -411,8 +412,7 @@ def static_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
     if _on_cpu("static_kernel", nv12):
         return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
     out = _static_call("static_kernel", nv12, tail,
-                       _product_tables(nv12, **geo), const_bank=True,
-                       short_chain=shortchain, stage_w=False, frames=1,
+                       _product_tables(nv12, **geo), short_chain=shortchain,
                        rows=STRIP_ROWS, **geo)
     static_kernel.launches += 1
     return out
@@ -483,6 +483,32 @@ def static2_work(batch: int, src_w: int, src_h: int, dst_w: int,
                              luma_w + 2 * chroma_w)
 
 
+def combo_work(batch: int, src_w: int, src_h: int, dst_w: int,
+               dst_h: int, tile: int):
+    """(bytes, operations) of one combo batch at any frames a block (they
+    divide the W weights' reads, not the products): S2's at (tile, align
+    8) (:func:`static2_work`), since each frame's chunks get S2's H chains
+    and W products at N = tile, or, where the warpgroups split a strip's
+    rows, two of each at N = tile / 2."""
+    return static2_work(batch, src_w, src_h, dst_w, dst_h, tile,
+                        COMBO_ALIGN)
+
+
+def combo_w_fragment_bytes(batch: int, src_w: int, src_h: int, dst_w: int,
+                           dst_h: int, gframes: int, tile: int) -> int:
+    """Bytes of W-pass A fragments one combo batch reads (from L2): each
+    chunk's 6 k-steps of [128, 8] bf16 once a block and warpgroup that
+    sums it — one warpgroup a chunk in the chunks split, both in the
+    frames and rows splits — for strips x batch / gframes blocks a tile.
+    S2 at the same strip height is gframes = 1 in the chunks split."""
+    chunks = int(static2_w_tables(src_w, src_h, dst_w, dst_h,
+                                  LANCZOS_AA).heads[:, 2].sum())
+    split = COMBO_SPLITS.get((gframes, tile), "chunks")
+    readers = 1 if split == "chunks" else 2
+    strips = -(-dst_h // tile)
+    return chunks * 6 * 128 * 16 * readers * strips * (batch // gframes)
+
+
 def staged_work(batch: int, src_w: int, src_h: int, dst_w: int,
                 dst_h: int, variant: str, tile: int = STAGED_TILE):
     """(bytes, operations) of one batch of the staged kernel
@@ -544,13 +570,13 @@ def static_kernel2(nv12: torch.Tensor, *, src_w: int, src_h: int,
     if _on_cpu("static_kernel2", nv12):
         return static_kernel2_plain(nv12, **geo, tile=tile, align=align,
                                     space=space, crange=crange)
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("NV12 rows must be contiguous (stride 1)")
     args, _ = _static2_device(src_w, src_h, dst_w, dst_h, tile, align,
                               nv12.device)
-    lib = load_kernels()
+    lib = load_lab_kernels()
     B = nv12.shape[0]
     out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
                       device=nv12.device)
@@ -569,25 +595,57 @@ def combo_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
                  dst_w: int, dst_h: int, gframes: int = 2, tile: int = 32,
                  space: ColorSpace = ColorSpace.BT_709,
                  crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
-    """COMBO: ``gframes`` frames per block (B % gframes == 0) on strips of
-    ``tile`` output rows, the H row tables in the constant bank, the W
-    tables staged in shared memory once per block, the short cast chain.
-    Tall strips run in output-column ranges. [B, 3, dst_h, dst_w] uint8,
-    equal to :func:`nv12_preprocess`."""
+    """COMBO: the product function with ``gframes`` frames per block (B %
+    gframes == 0) on S2's strips of ``tile`` output rows over windows
+    aligned to 8 rows (the notebook's ALIGN), zero taps included. Both
+    resize passes run on the tensor cores as in S2 (one block per 64-column
+    output tile, strip and G frames, the stacked windows streamed through
+    a cp.async ring, the block walking the G frames of a column group
+    before the next), each chunk's W weights loaded once for the G frames
+    and each frame's W products into its own accumulators; then the
+    product's tail. [B, 3, dst_h, dst_w] uint8, within the kernels'
+    envelope of :func:`nv12_preprocess` (the tensor cores sum in their own
+    order), equal to S2 at the same strip height where the warpgroups
+    split the chunks as S2's do (:data:`COMBO_SPLITS`); on the CPU
+    :func:`static_kernel2_plain` at (tile, 8). Raises ValueError for a
+    batch that is not a multiple of ``gframes``, for tile < 1, and for a
+    (gframes, tile) the kernel does not run or a geometry whose shared
+    memory does not fit it
+    (:func:`~vali_tpu_torch.ops.banded.combo_refusal`), on either
+    device."""
     tail = _checked(nv12, src_w, src_h, space, crange)
     if gframes < 1 or nv12.shape[0] % gframes:
         raise ValueError(f"batch {nv12.shape[0]} is not a multiple of "
                          f"gframes={gframes}")
     if tile < 1:
         raise ValueError(f"tile must be >= 1, got {tile}")
-    _bank_checked(src_w, src_h, dst_w, dst_h)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = combo_refusal(**geo, method=LANCZOS_AA, gframes=gframes,
+                        tile=tile)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("combo_kernel", nv12):
-        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
-    out = _static_call("combo_kernel", nv12, tail,
-                       _product_tables(nv12, **geo), const_bank=True,
-                       short_chain=True, stage_w=True, frames=gframes,
-                       rows=tile, **geo)
+        return static_kernel2_plain(nv12, **geo, tile=tile,
+                                    align=COMBO_ALIGN, space=space,
+                                    crange=crange)
+    from ..ops._cuda_build import check, load_lab_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    args, _ = _static2_device(src_w, src_h, dst_w, dst_h, tile, COMBO_ALIGN,
+                              nv12.device)
+    lib = load_lab_kernels()
+    B = nv12.shape[0]
+    out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
+                      device=nv12.device)
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_combo_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
+            B, src_h, src_w, dst_h, dst_w,
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), gframes,
+            tile, *args, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "combo_kernel")
     combo_kernel.launches += 1
     return out
 
@@ -747,10 +805,10 @@ class Case(NamedTuple):
     note: str = ""       # how the kernel ran, for the lab line
 
 
-def _ranges_note(src_w, src_h, dst_w, dst_h, rows, stage_w) -> str:
-    n = column_ranges(src_w, src_h, dst_w, dst_h, LANCZOS_AA, rows, stage_w,
-                      torch.device("cpu")).n
-    return f"in {n} column ranges" if n > 1 else ""
+def _tiles_note(dst_w: int) -> str:
+    tiles = -(-dst_w // 64)
+    return (f"in {tiles} column ranges, one 64-column output tile each"
+            if tiles > 1 else "")
 
 
 def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
@@ -795,23 +853,22 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
     m = re.fullmatch(r"S2t(\d+)a(\d+)", name)
     if m:
         tile, align = int(m.group(1)), int(m.group(2))
-        tiles = -(-dst_w // 64)
         return Case(
             static_kernel2,
             lambda x: static_kernel2(x, **geo, tile=tile, align=align),
             lambda x: static_kernel2_plain(x, **geo, tile=tile, align=align),
             True, 1, static2_work(batch, **geo, tile=tile, align=align),
-            exact=False,
-            note=(f"in {tiles} column ranges, one 64-column output tile each"
-                  if tiles > 1 else ""))
+            exact=False, note=_tiles_note(dst_w))
     m = re.fullmatch(r"combo(\d+)x(\d+)", name)
     if m:
         g, tile = int(m.group(1)), int(m.group(2))
-        return Case(combo_kernel,
-                    lambda x: combo_kernel(x, **geo, gframes=g, tile=tile),
-                    product, True, g, full,
-                    note=_ranges_note(src_w, src_h, dst_w, dst_h, tile,
-                                      True))
+        return Case(
+            combo_kernel,
+            lambda x: combo_kernel(x, **geo, gframes=g, tile=tile),
+            lambda x: static_kernel2_plain(x, **geo, tile=tile,
+                                           align=COMBO_ALIGN),
+            True, g, combo_work(batch, **geo, tile=tile),
+            exact=False, note=_tiles_note(dst_w))
     m = re.fullmatch(r"(full|hpass|wpass)(\d*)", name)
     if m:
         mode, strip = m.group(1), int(m.group(2) or STRIP_ROWS)

@@ -135,11 +135,11 @@ def _launch(what: str, launcher: str, nv12: torch.Tensor, tabs, knobs,
             out: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
             dst_h: int) -> torch.Tensor:
     """One resize-lab launcher on a checked CUDA buffer."""
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("NV12 rows must be contiguous (stride 1)")
-    lib = load_kernels()
+    lib = load_lab_kernels()
     with torch.cuda.device(nv12.device):
         rc = getattr(lib, launcher)(
             nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],
@@ -505,14 +505,14 @@ def aligned_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
         raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("aligned_resize", nv12):
         return nv12_resize_plain(nv12, **geo)
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("NV12 rows must be contiguous (stride 1)")
     args, _ = _aligned_device(src_w, src_h, dst_w, dst_h, h_align, w_align,
                               nv12.device)
     out = _full_out(nv12, dst_w, dst_h)
-    lib = load_kernels()
+    lib = load_lab_kernels()
     with torch.cuda.device(nv12.device):
         rc = lib.nv12_resize_aligned_launch(
             nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],
@@ -803,7 +803,7 @@ def streamed_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
         raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("streamed_resize", nv12):
         return nv12_resize_plain(nv12, **geo)
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("NV12 rows must be contiguous (stride 1)")
@@ -812,7 +812,7 @@ def streamed_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
                                nv12.shape[0], sm_count(nv12.device),
                                nv12.device)
     out = _full_out(nv12, dst_w, dst_h)
-    lib = load_kernels()
+    lib = load_lab_kernels()
     with torch.cuda.device(nv12.device):
         rc = lib.nv12_resize_streamed_launch(
             nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],
@@ -1119,7 +1119,7 @@ def slabs_resize(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
         raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("slabs_resize", nv12):
         return slabs_resize_plain(nv12, **geo, nslabs=nslabs)
-    from ..ops._cuda_build import check, load_kernels
+    from ..ops._cuda_build import check, load_lab_kernels
 
     if nv12.stride(2) != 1:
         raise ValueError("NV12 rows must be contiguous (stride 1)")
@@ -1127,7 +1127,7 @@ def slabs_resize(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
     args, _ = _slabs_device(src_w, src_h, dst_w, dst_h, nslabs, h_align,
                             w_align, nv12.device)
     out = _full_out(nv12, dst_w, dst_h)
-    lib = load_kernels()
+    lib = load_lab_kernels()
     with torch.cuda.device(nv12.device):
         rc = lib.nv12_resize_slabs_launch(
             nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],

@@ -59,9 +59,9 @@ from ..ops.nv12_resize import nv12_resize
 from ..ops.resize import LANCZOS_AA
 from . import aligned_ab
 from . import resize_diag as rd
-from .grouped_ab import _view, differ, rounds, within_envelope
+from .ab_common import (differ, kernel_ms, padded_view, rounds,
+                        within_envelope)
 from .resize_ab import launcher as product_launcher
-from .streamed_ab import kernel_ms
 from .timing import BF16_OPS_PER_S, bound_ms, time_ms
 
 _LAUNCHER = "nv12_resize_slabs_launch"
@@ -88,7 +88,7 @@ def build_current(flags):
                             .lower() + f.split("=")[-1] for f in flags)
     return _cuda_build.build_source(
         source, "slabs_ab", tag,
-        {_LAUNCHER: _cuda_build._SIGNATURES[_LAUNCHER]}, tuple(flags))
+        {_LAUNCHER: _cuda_build._LAB_SIGNATURES[_LAUNCHER]}, tuple(flags))
 
 
 def launcher(lib, nv12: torch.Tensor, geo: dict, nslabs: int,
@@ -131,10 +131,10 @@ def cases(device):
     x = rd.make_frames(16, 3240, 3840, device)
     out = [("16x4K->1080p", x, k4, NSLABS, True),
            ("N=1 4K->1080p", x[:1], k4, NSLABS, False),
-           ("3x4K->1080p padded pitch", _view(x[:3], 64, 0), k4, NSLABS,
+           ("3x4K->1080p padded pitch", padded_view(x[:3], 64, 0), k4, NSLABS,
             False),
-           ("2x4K->1080p misaligned view", _view(x[3:5], 16, 1), k4, NSLABS,
-            False)]
+           ("2x4K->1080p misaligned view", padded_view(x[3:5], 16, 1), k4,
+            NSLABS, False)]
     for b, h, w, dh, dw in ((3, 288, 512, 144, 256), (2, 150, 322, 70, 202),
                             (3, 96, 256, 40, 120)):
         out.append((f"{b}x{w}x{h}->{dw}x{dh}",
@@ -192,7 +192,7 @@ def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
                 aligned_ab.build_current, [f"-DNV12_ALIGNED_KNOCKOUT={m}"])
     with ThreadPoolExecutor(len(todo) + 1) as pool:   # nvcc runs in parallel
         futures = {k: pool.submit(f) for k, f in todo.items()}
-        futures["current"] = pool.submit(_cuda_build.load_kernels)
+        futures["current"] = pool.submit(_cuda_build.load_lab_kernels)
         builds = {k: f.result() for k, f in futures.items()}
     kernels = builds["current"]
     rows = []
@@ -241,7 +241,8 @@ def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
             timed_calls["aligned8x32"] = aligned_ab.launcher(
                 kernels, x, geo, 8, 32, False)
             timed_calls["nv12_resize"] = product_launcher(
-                kernels, "nv12", x, geo, LANCZOS_AA, None, False)
+                _cuda_build.load_kernels(), "nv12", x, geo, LANCZOS_AA, None,
+                False)
             timed_calls["dma_only"] = (
                 lambda: rd.resize_phases(x, **geo, mode="dma_only"))
             row.update(summary(rounds(timed_calls, pairs)))

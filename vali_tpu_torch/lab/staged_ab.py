@@ -58,11 +58,11 @@ from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
 from ..ops.resize import LANCZOS_AA
 from . import grouped_ab, static2_ab
 from . import kernel_variants as kv
-from .grouped_ab import _view, differ, rounds, within_envelope
+from .ab_common import (differ, kernel_ms, padded_view, rounds,
+                        within_envelope)
 from .preprocess_ab import launcher as product_launcher
 from .staged import (STAGED_ALIGN, STAGED_VARIANTS, blocks_per_sm,
                      staged_device, staged_smem_bytes, tma_ok)
-from .streamed_ab import kernel_ms
 from .timing import BF16_OPS_PER_S, bound_ms, time_ms
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -99,7 +99,7 @@ def build_current(flags):
     tag = "staged" + "".join(f.split("=")[-1] for f in flags)
     return _cuda_build.build_source(
         source, "staged_ab", tag,
-        {_CURRENT: _cuda_build._SIGNATURES[_CURRENT]}, tuple(flags))
+        {_CURRENT: _cuda_build._LAB_SIGNATURES[_CURRENT]}, tuple(flags))
 
 
 @functools.lru_cache(maxsize=8)
@@ -157,8 +157,8 @@ def cases(device):
     x = kv.make_frames(64, 1620, 1920, device)
     out = [("64x1080p->224", x, hd, True),
            ("N=1 1080p->224", x[:1], hd, False),
-           ("5x1080p->224 padded pitch", _view(x[:5], 64, 0), hd, False),
-           ("3x1080p->224 misaligned view", _view(x[5:8], 16, 1), hd,
+           ("5x1080p->224 padded pitch", padded_view(x[:5], 64, 0), hd, False),
+           ("3x1080p->224 misaligned view", padded_view(x[5:8], 16, 1), hd,
             False)]
     for b, h, w, dh, dw in ((4, 90, 162, 20, 50), (4, 62, 130, 30, 34),
                             (4, 96, 256, 40, 48), (8, 144, 256, 64, 96),
@@ -213,7 +213,7 @@ def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
                 static2_ab.build_current, [f"-DNV12_STATIC2_KNOCKOUT={m}"])
     with ThreadPoolExecutor(len(todo) + 1) as pool:   # nvcc runs in parallel
         futures = {k: pool.submit(f) for k, f in todo.items()}
-        futures["current"] = pool.submit(_cuda_build.load_kernels)
+        futures["current"] = pool.submit(_cuda_build.load_lab_kernels)
         builds = {k: f.result() for k, f in futures.items()}
     kernels = builds["current"]
     rows = []
@@ -256,7 +256,7 @@ def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
                                                     False)
             calls["G"] = grouped_ab.launcher(kernels, x, geo, False)
             calls["nv12_preprocess"] = product_launcher(
-                kernels, "nv12", [x], geo, {}, False)
+                _cuda_build.load_kernels(), "nv12", [x], geo, {}, False)
             row.update(summary(rounds(calls, pairs)))
             row["kernel_ms"] = kernel_ms(
                 {k: calls[k] for k in calls

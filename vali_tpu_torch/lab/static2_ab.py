@@ -55,7 +55,7 @@ from ..ops.nv12_preprocess import nv12_preprocess
 from ..ops.resize import LANCZOS_AA
 from . import grouped_ab
 from . import kernel_variants as kv
-from .grouped_ab import _view, differ, rounds, within_envelope
+from .ab_common import differ, padded_view, rounds, within_envelope
 from .preprocess_ab import launcher as product_launcher
 from .timing import BF16_OPS_PER_S, bound_ms, time_ms
 
@@ -67,12 +67,19 @@ SWEEP = ((16, 8), (24, 8), (32, 8), (48, 8), (32, 32))
 TIMED = ((16, 8), (32, 8), (48, 8), (32, 32))
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the earlier launcher's C signature (its stage_w and frames_per_block
+#: knobs since removed with the CUDA-core COMBO)
+EARLIER_SIGNATURE = [_P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                     _I, _I, ctypes.POINTER(ctypes.c_float), _I, _I, _I, _I,
+                     _I, _P, _I, _I, _I, _P, _P]
+
+
 def build_earlier(source: str):
     """The earlier source, its own headers first, with its launcher's C
-    signature (unchanged since: S and COMBO keep it)."""
+    signature."""
     return _cuda_build.build_source(
-        source, "static2_ab", "earlier",
-        {_EARLIER: _cuda_build._SIGNATURES[_EARLIER]},
+        source, "static2_ab", "earlier", {_EARLIER: EARLIER_SIGNATURE},
         include_dirs=[os.path.dirname(os.path.abspath(source))])
 
 
@@ -82,7 +89,7 @@ def build_current(flags):
     tag = "static2" + "".join(f.split("=")[-1] for f in flags)
     return _cuda_build.build_source(
         source, "static2_ab", tag,
-        {_CURRENT: _cuda_build._SIGNATURES[_CURRENT]}, tuple(flags))
+        {_CURRENT: _cuda_build._LAB_SIGNATURES[_CURRENT]}, tuple(flags))
 
 
 def launcher(lib, nv12: torch.Tensor, geo: dict, tile: int, align: int,
@@ -105,7 +112,7 @@ def launcher(lib, nv12: torch.Tensor, geo: dict, tile: int, align: int,
         wy, wc = _nv12_bands(sw, sh, dw, dh, LANCZOS_AA)[2:]
         tabs = pack_tables([*strip_window_bands(sw, sh, dw, dh, LANCZOS_AA,
                                                 tile, align), wy, wc], dev)
-        ranges = column_ranges(sw, sh, dw, dh, LANCZOS_AA, tile, False, dev)
+        ranges = column_ranges(sw, sh, dw, dh, LANCZOS_AA, tile, dev)
         fn = getattr(lib, _EARLIER)
         args = (*head, tabs.index.data_ptr(), tabs.weights.data_ptr(),
                 *tabs.taps, tail_p, 0, 0, 0, 1, tile, *ranges.args(),
@@ -131,8 +138,8 @@ def cases(device):
     x = kv.make_frames(64, 1620, 1920, device)
     out = [("64x1080p->224", x, hd, True),
            ("N=1 1080p->224", x[:1], hd, False),
-           ("5x1080p->224 padded pitch", _view(x[:5], 64, 0), hd, False),
-           ("3x1080p->224 misaligned view", _view(x[5:8], 16, 1), hd,
+           ("5x1080p->224 padded pitch", padded_view(x[:5], 64, 0), hd, False),
+           ("3x1080p->224 misaligned view", padded_view(x[5:8], 16, 1), hd,
             False)]
     for b, h, w, dh, dw in ((4, 90, 162, 20, 50), (4, 62, 130, 30, 34),
                             (4, 96, 256, 40, 48), (8, 144, 256, 64, 96)):
@@ -174,7 +181,7 @@ def summary(times: dict) -> dict:
 
 def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
     builds = {"earlier": build_earlier(source),
-              "current": _cuda_build.load_kernels()}
+              "current": _cuda_build.load_lab_kernels()}
     if knockouts:
         builds.update({f"knockout{m}": build_current(
             [f"-DNV12_STATIC2_KNOCKOUT={m}"]) for m in (1, 2, 3)})
@@ -205,7 +212,7 @@ def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
                                              n))
             del plain, wrapper
         if timed:
-            lib = _cuda_build.load_kernels()
+            lib = builds["current"]
             timed_calls = {k: calls[k] for t, a in TIMED
                            for k in (f"earlier_t{t}a{a}",
                                      f"current_t{t}a{a}")}
@@ -213,7 +220,7 @@ def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
             timed_calls["G"] = grouped_ab.launcher(lib, x, geo, False)
             row["G_vs_product"] = differ(timed_calls["G"]().clone(), product)
             timed_calls["nv12_preprocess"] = product_launcher(
-                lib, "nv12", [x], geo, {}, False)
+                _cuda_build.load_kernels(), "nv12", [x], geo, {}, False)
             row.update(summary(rounds(timed_calls, pairs)))
             rows_ = x.shape[1]
             row["floor_ms"] = time_ms(lambda: kv.stream_floor(

@@ -60,7 +60,8 @@ from ..ops.nv12_resize import nv12_resize, nv12_resize_plain
 from ..ops.resize import LANCZOS_AA, resize_weights
 from . import aligned_ab
 from . import resize_diag as rd
-from .grouped_ab import _view, differ, rounds, within_envelope
+from .ab_common import (differ, kernel_ms, padded_view, rounds,
+                        within_envelope)
 from .resize_ab import launcher as product_launcher
 from .timing import BF16_OPS_PER_S, bound_ms, time_ms
 
@@ -95,7 +96,7 @@ def build_current(flags):
     source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_streamed.cu")
     tag = "streamed" + "".join(f.split("=")[-1].removeprefix("-D").lower()
                                for f in flags)
-    signatures = {_LAUNCHER: _cuda_build._SIGNATURES[_LAUNCHER]}
+    signatures = {_LAUNCHER: _cuda_build._LAB_SIGNATURES[_LAUNCHER]}
     if _ENCODE_FLAG in flags:
         signatures[_ENCODE] = _ENCODE_SIGNATURE
     return _cuda_build.build_source(source, "streamed_ab", tag, signatures,
@@ -151,8 +152,8 @@ def cases(device):
     x = rd.make_frames(16, 3240, 3840, device)
     out = [("16x4K->1080p", x, k4, True),
            ("N=1 4K->1080p", x[:1], k4, False),
-           ("3x4K->1080p padded pitch", _view(x[:3], 64, 0), k4, False),
-           ("2x4K->1080p misaligned view", _view(x[3:5], 16, 1), k4,
+           ("3x4K->1080p padded pitch", padded_view(x[:3], 64, 0), k4, False),
+           ("2x4K->1080p misaligned view", padded_view(x[3:5], 16, 1), k4,
             False)]
     for b, h, w, dh, dw in ((3, 288, 512, 144, 256), (2, 150, 322, 70, 202),
                             (3, 96, 256, 40, 120)):
@@ -217,25 +218,6 @@ def encode_us(lib, nv12: torch.Tensor, geo: dict, band: int,
     return (time.perf_counter() - t0) / reps * 1e6
 
 
-def kernel_ms(calls: dict, reps: int = 20) -> dict:
-    """Each call's kernels' mean device ms by name (torch.profiler), in
-    launch order: the luma launch, then the chroma one."""
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out[name] = {e.key: e.device_time_total / e.count / 1e3
-                     for e in prof.key_averages()
-                     if e.count and e.device_time_total}
-    return out
-
-
 def summary(times: dict) -> dict:
     """Median and range of each call's times, each round's ratios of the
     earlier design, aligned8x32 and nv12_resize to the current kernel at
@@ -255,7 +237,7 @@ def summary(times: dict) -> dict:
 
 
 def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
-    kernels = _cuda_build.load_kernels()
+    kernels = _cuda_build.load_lab_kernels()
     builds = {"earlier": build_earlier(source), "current": kernels}
     encoder = build_current([_ENCODE_FLAG])
     if knockouts:
@@ -301,7 +283,8 @@ def run(source: str, pairs: int = 10, knockouts: bool = False, log=print):
             timed_calls["aligned8x32"] = aligned_ab.launcher(
                 kernels, x, geo, 8, 32, False)
             timed_calls["nv12_resize"] = product_launcher(
-                kernels, "nv12", x, geo, LANCZOS_AA, None, False)
+                _cuda_build.load_kernels(), "nv12", x, geo, LANCZOS_AA, None,
+                False)
             timed_calls["dma_only"] = (
                 lambda: rd.resize_phases(x, **geo, mode="dma_only"))
             row.update(summary(rounds(timed_calls, pairs)))

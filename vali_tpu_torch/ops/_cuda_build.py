@@ -1,13 +1,17 @@
 """Build and load the package's CUDA kernels.
 
 The kernels are CUDA C++ for Hopper (``csrc/*.cu``) with a plain C
-interface. At first use each source is compiled by its own nvcc process,
-all started together, and the objects are linked into one shared library
-under ``build/vali_tpu_torch_kernels/`` beside the package, keyed by a hash
-of the sources and flags, under a file lock so concurrent processes build
-once (``utils/_build.locked_build``); later calls load the cached library
-with ``ctypes``. Importing the package never runs nvcc. A failed build raises with the tail of nvcc's
-output.
+interface, in two shared libraries: the product kernels (``_SOURCES``,
+:func:`load_kernels`, under ``build/vali_tpu_torch_kernels/``) and the
+labs' kernels (``_LAB_SOURCES``, :func:`load_lab_kernels`, under
+``build/vali_tpu_torch_lab_kernels/``), so that a product wrapper's first
+launch compiles no lab source. At first use each source of a library is
+compiled by its own nvcc process, all started together, and the objects
+are linked into the library beside the package, keyed by a hash of the
+sources, headers and flags, under a file lock so concurrent processes
+build once (``utils/_build.locked_build``); later calls load the cached
+library with ``ctypes``. Importing the package never runs nvcc. A failed
+build raises with the tail of nvcc's output.
 """
 
 from __future__ import annotations
@@ -22,18 +26,22 @@ from typing import List, Sequence
 from ..utils._build import locked_build, source_key
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# cuda_errors.cu (banded_error_string, which check() reads) goes into both
 _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
-            "csrc/nv12_to_rgb.cu", "csrc/nv12_variants.cu",
-            "csrc/nv12_grouped.cu", "csrc/nv12_static2.cu",
-            "csrc/nv12_staged.cu",
-            "csrc/nv12_aligned.cu", "csrc/nv12_streamed.cu",
-            "csrc/nv12_slabs.cu", "csrc/nv12_resize_variants.cu",
-            "csrc/nv12_to_rgb_variants.cu")
+            "csrc/nv12_to_rgb.cu", "csrc/cuda_errors.cu")
+_LAB_SOURCES = ("csrc/nv12_variants.cu", "csrc/nv12_grouped.cu",
+                "csrc/nv12_static2.cu", "csrc/nv12_staged.cu",
+                "csrc/nv12_combo.cu", "csrc/nv12_aligned.cu",
+                "csrc/nv12_streamed.cu", "csrc/nv12_slabs.cu",
+                "csrc/nv12_resize_variants.cu",
+                "csrc/nv12_to_rgb_variants.cu", "csrc/cuda_errors.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
             "csrc/wgmma_common.cuh", "csrc/aligned_passes.cuh",
             "csrc/tma_common.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
+LAB_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                             "vali_tpu_torch_lab_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -61,6 +69,8 @@ _SIGNATURES = {
         _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
         _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "nv12_to_rgb_launch": [_P, _LL, _LL, _I, _I, _I, _FP, _P, _P],
+}
+_LAB_SIGNATURES = {
     "nv12_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
         _I, _I, _I, _P, _P],
@@ -68,7 +78,7 @@ _SIGNATURES = {
         _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "nv12_static_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
-        _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+        _I, _I, _I, _P, _I, _I, _I, _P, _P],
     "nv12_transposed_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
         _I, _P, _P],
@@ -82,6 +92,9 @@ _SIGNATURES = {
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _I, _P, _P, _I, _I,
         _P, _P, _P, _P],
     "nv12_staged_probe_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
+    "nv12_combo_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _P, _P, _I, _I,
+        _P, _P, _P, _P],
     "nv12_convert_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _FP, _I, _P, _P],
     "nv12_convert_probe_launch": [
@@ -100,7 +113,7 @@ _STREAMED_PLANE = _ALIGNED_PLANE + [_I, _P, _P, _I]
 # lab kernel slabs: aligned's plane (B: the pieces' B_p), then the strips'
 # first pieces, the pieces and B's blocks a strip
 _SLABS_PLANE = _ALIGNED_PLANE + [_P, _P, _I]
-_SIGNATURES.update({
+_LAB_SIGNATURES.update({
     "nv12_resize_aligned_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
     + _ALIGNED_PLANE * 2 + [_P, _P],
     "nv12_resize_streamed_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
@@ -113,8 +126,9 @@ _SIGNATURES.update({
                                                  _P, _P],
 })
 
-_lib = None
-_lock = threading.Lock()
+_libs = {}
+# one lock a library, so that the product's and the labs' build together
+_locks = {"product": threading.Lock(), "lab": threading.Lock()}
 
 
 def _nvcc() -> str:
@@ -128,37 +142,55 @@ def _nvcc() -> str:
         "kernels of vali_tpu_torch are built from source at first use")
 
 
-def _source_key() -> str:
-    return source_key(NVCC_FLAGS, _PKG_DIR, _SOURCES + _HEADERS)
+def _source_key(sources=_SOURCES) -> str:
+    return source_key(NVCC_FLAGS, _PKG_DIR, sources + _HEADERS)
 
 
 def library_path() -> str:
     return os.path.join(BUILD_DIR, f"vali_kernels_{_source_key()}.so")
 
 
-def load_kernels() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
+def lab_library_path() -> str:
+    return os.path.join(LAB_BUILD_DIR,
+                        f"vali_lab_kernels_{_source_key(_LAB_SOURCES)}.so")
+
+
+def _load(which: str, sources: Sequence[str],
+          signatures: dict) -> ctypes.CDLL:
+    """Library ``which`` ("product" or "lab"), built from ``sources`` on
+    first use, its launchers given their ctypes ``signatures``; loaded
+    once a process (a wrapper's later calls hash no source)."""
+    lib = _libs.get(which)
+    if lib is not None:
+        return lib
+    with _locks[which]:
+        if which in _libs:
+            return _libs[which]
+        path = library_path() if which == "product" else lab_library_path()
         if not os.path.exists(path):  # nvcc is needed only to build
             nvcc = [_nvcc(), *NVCC_FLAGS]
             locked_build(path, nvcc,
-                         [os.path.join(_PKG_DIR, rel) for rel in _SOURCES],
+                         [os.path.join(_PKG_DIR, rel) for rel in sources],
                          [*nvcc, "-shared"])
         lib = ctypes.CDLL(path)
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.banded_error_string.argtypes = [ctypes.c_int]
         lib.banded_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _libs[which] = lib
         return lib
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The product kernels' shared library, built on first use."""
+    return _load("product", _SOURCES, _SIGNATURES)
+
+
+def load_lab_kernels() -> ctypes.CDLL:
+    """The labs' kernels' shared library, built on first use."""
+    return _load("lab", _LAB_SOURCES, _LAB_SIGNATURES)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -238,7 +238,7 @@ def w_pass_tail_plain(yh: torch.Tensor, uh: torch.Tensor, vh: torch.Tensor,
 # --- host tables of the NV12 lab's static-window and grouped variants ------
 # (csrc/nv12_variants.cu nv12_static_launch, csrc/nv12_grouped.cu)
 
-#: the constant bank that holds S's and COMBO's H row tables
+#: the constant bank that holds S's H row tables
 CONST_BANK_BYTES = 65536
 #: dynamic shared memory one block may use on sm_90 (kSmemLimit)
 SMEM_LIMIT = 232448
@@ -327,16 +327,15 @@ class ColumnRanges(NamedTuple):
 
 @functools.lru_cache(maxsize=32)
 def column_ranges(src_w: int, src_h: int, dst_w: int, dst_h: int,
-                  method: str, rows: int, stage_w: bool,
+                  method: str, rows: int,
                   device: torch.device) -> ColumnRanges:
     """The fewest output-column ranges whose H rows fit one block: a strip
     of ``rows`` output rows keeps its luma and interleaved chroma H rows
-    in bf16 for the source columns its range's W bands read (plus the W
-    tables with ``stage_w``, COMBO). One range is the full row."""
-    _, _, (ys, yc, yw), (cs, cc, cw) = _nv12_bands(src_w, src_h, dst_w,
-                                                   dst_h, method)
+    in bf16 for the source columns its range's W bands read. One range is
+    the full row."""
+    _, _, (ys, yc, _), (cs, cc, _) = _nv12_bands(src_w, src_h, dst_w, dst_h,
+                                                 method)
     rows = min(rows, dst_h)
-    extra = 16 * dst_w + 4 * dst_w * (yw.shape[1] + cw.shape[1])
     for n in range(1, dst_w + 1):
         if n == 1:
             ext = np.array([[0, src_w, 0, src_w]], np.int32)
@@ -350,10 +349,7 @@ def column_ranges(src_w: int, src_h: int, dst_w: int, dst_h: int,
                           min(src_w, _ceil16(2 * int((cs + cc)[p0:p1].max()))))
         y_pitch = int((ext[:, 1] - ext[:, 0]).max())
         c_pitch = int((ext[:, 3] - ext[:, 2]).max())
-        smem = 2 * rows * (y_pitch + c_pitch)
-        if stage_w:
-            smem = _ceil16(smem) + extra
-        if smem <= SMEM_LIMIT:
+        if 2 * rows * (y_pitch + c_pitch) <= SMEM_LIMIT:
             return ColumnRanges(torch.from_numpy(ext).to(device), y_pitch,
                                 c_pitch)
     raise ValueError(f"{rows}-row strips of {src_w}-wide rows do not fit a "
@@ -633,6 +629,54 @@ def static2_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
     if smem > SMEM_LIMIT:
         return (f"S2's ring, weights and H rows need {smem} B of shared "
                 f"memory, over a block's {SMEM_LIMIT} B")
+    return ""
+
+
+#: the combo's instances (csrc/nv12_combo.cu): (frames a block, strip
+#: height) -> how its two warpgroups split the block, so that a thread
+#: holds at most 96 fp32 W accumulators (1.5 x the strip rows a frame):
+#: "chunks" (S2's: each warpgroup one chunk of a 128-column stage, every
+#: frame, partial sums traded at the end), "frames" (each warpgroup half
+#: the frames, every chunk) or "rows" (64-column stages, each warpgroup
+#: half the strip's rows of every frame)
+COMBO_SPLITS = {(2, 16): "chunks", (4, 16): "chunks", (2, 32): "chunks",
+                (4, 32): "frames", (1, 64): "rows", (2, 64): "rows"}
+#: the combo's strips start on multiples of this many rows (the notebook's
+#: ALIGN)
+COMBO_ALIGN = 8
+
+
+def combo_smem_bytes(gframes: int, tile: int, k_luma: int,
+                     k_chroma: int) -> int:
+    """Shared memory of one of the combo's blocks: the ring of
+    STATIC2_STAGES stages of the stacked windows (128 columns, or 64 where
+    the warpgroups split the rows), or the partial W sums its warpgroups
+    trade at the end (the chunks split: gframes frames of 4 (N / 2 + N)
+    128 bytes), the larger; B_y and B_c in bf16; and each warpgroup's H
+    rows of a chunk at its N (tile, or tile / 2 in the rows split)."""
+    split = COMBO_SPLITS[gframes, tile]
+    cols, n = (64, tile // 2) if split == "rows" else (128, tile)
+    kst = k_luma + k_chroma
+    trade = gframes * 4 * (n // 2 + n) * 128 if split == "chunks" else 0
+    ring = max(STATIC2_STAGES * kst * cols, trade)
+    chunk = 8 * (16 * n + 16) + 4 * (32 * n + 16)
+    return ring + 2 * kst * tile + 2 * chunk
+
+
+def combo_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  method: str, gframes: int, tile: int) -> str:
+    """Why the combo's kernel cannot take these frames a block, strip
+    height and geometry, or "" when it can: a (gframes, tile) that is not
+    one of COMBO_SPLITS, or a block's shared memory over a block's."""
+    if (gframes, tile) not in COMBO_SPLITS:
+        return (f"the combo's tensor-core kernel runs (gframes, tile) "
+                f"{', '.join(map(str, COMBO_SPLITS))}, got "
+                f"{(gframes, tile)}")
+    t = static2_tables(src_w, src_h, dst_w, dst_h, method, tile, COMBO_ALIGN)
+    smem = combo_smem_bytes(gframes, tile, t.k_luma, t.k_chroma)
+    if smem > SMEM_LIMIT:
+        return (f"the combo's ring, weights and H rows need {smem} B of "
+                f"shared memory, over a block's {SMEM_LIMIT} B")
     return ""
 
 
