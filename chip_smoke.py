@@ -92,7 +92,9 @@ last line. Run it from the repository root:
     python3 chip_smoke.py
 """
 
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1555,18 +1557,21 @@ RESIZE_LAB_REPLACES = {  # resize-lab wrapper -> its TPU notebook kernel
 def resize_lab_phase(torch, np, dev, smi):
     """The 4K NV12 resize lab at 16 x 4K -> 1080p: every lab kernel against
     its plain version on the card (the full-function variants but slabs,
-    aligned and streamed also against nv12_resize bit for bit, ``both``
-    against its luma rows; aligned, streamed and slabs, the tensor-core
-    passes, within the uint8 envelope of nv12_resize, streamed equal to
-    aligned8x32 bit for bit and slabs equal to it off the rows that
-    straddle a slab edge, both staged by TMA; the samples in which slabs,
-    aligned and streamed differ from nv12_resize are counted, with both
-    bounds), the sinks of
+    aligned, streamed and striped also against nv12_resize bit for bit,
+    ``both`` against its luma rows; aligned, streamed, slabs and striped,
+    the tensor-core passes, within the uint8 envelope of nv12_resize,
+    streamed and striped equal to aligned8x32 bit for bit and slabs equal
+    to it off the rows that straddle a slab edge, streamed and slabs staged
+    by TMA; the samples in which they differ from nv12_resize are counted,
+    with both bounds; striped's resident clusters, and its instances timed
+    against aligned8x32 in alternating rounds), the sinks of
     dma_only and w_only against the frames, then the lab's entry point
     (``resize_diag.run``) name by name with the launch counts set to 0 just
     before and read just after, the H/W split, and the plain versions'
     times. Returns the lab kernels' entries of the JSON line."""
     from vali_tpu_torch.lab import resize_diag as rd
+    from vali_tpu_torch.lab import striped_ab
+    from vali_tpu_torch.lab.ab_common import rounds
     from vali_tpu_torch.lab.timing import BF16_OPS_PER_S, HBM_BYTES_PER_S
     from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
 
@@ -1585,7 +1590,8 @@ def resize_lab_phase(torch, np, dev, smi):
         tma = rd.streamed_resize.tma_launches + rd.slabs_resize.tma_launches
         out = c.call(frames)
         full_plain = c.exact or c.wrapper in (rd.aligned_resize,
-                                              rd.streamed_resize)
+                                              rd.streamed_resize,
+                                              rd.striped_resize)
         ref = (plain_full[:, :H] if name == "both" else plain_full
                if full_plain else c.plain(frames))
         torch.cuda.synchronize()
@@ -1597,10 +1603,20 @@ def resize_lab_phase(torch, np, dev, smi):
             raise AssertionError(f"resize lab {name} differs from "
                                  f"nv12_resize")
         if c.wrapper in (rd.aligned_resize, rd.streamed_resize,
-                         rd.slabs_resize):
+                         rd.slabs_resize, rd.striped_resize):
             compare(torch, f"resize lab {name} vs nv12_resize", out, product)
             nb, ops = c.work
             staged = ""
+            if c.wrapper is rd.striped_resize:
+                if not torch.equal(out, aligned8x32):
+                    raise AssertionError(f"resize lab {name} differs from "
+                                         f"aligned8x32")
+                nw, store = re.fullmatch(r"striped(\d+)(\w+)",
+                                         name).groups()
+                held = rd.striped_clusters(frames, **geo, nw=int(nw),
+                                           store=store)
+                staged = (f", 0 from aligned8x32; resident clusters "
+                          f"(luma, chroma) {held}")
             if c.wrapper in (rd.streamed_resize, rd.slabs_resize):
                 # slabs: the rows whose band lies in one slab
                 keep = (torch.from_numpy(~rd.straddling_rows(
@@ -1640,9 +1656,18 @@ def resize_lab_phase(torch, np, dev, smi):
             raise AssertionError(f"{mode}'s sink misses bytes of the frames")
     exact = ", ".join(n for n in names if cases[n].exact)
     log(f"resize lab: {exact} equal to nv12_resize (both: its luma rows), "
-        f"aligned, streamed and slabs within their envelope, streamed equal "
-        f"to aligned8x32, slabs off the slab edges; the dma_only and w_only "
-        f"sinks equal to the XOR of every word of the frames")
+        f"aligned, streamed, slabs and striped within their envelope, "
+        f"streamed and striped equal to aligned8x32, slabs off the slab "
+        f"edges; the dma_only and w_only sinks equal to the XOR of every "
+        f"word of the frames")
+    # striped against aligned8x32 in alternating rounds (the A/B lab,
+    # lab/striped_ab.py, also times the earlier design)
+    ab = {f"current_{n}": functools.partial(cases[n].call, frames)
+          for n in names if n.startswith("striped")}
+    ab["aligned8x32"] = functools.partial(cases["aligned8x32"].call, frames)
+    log(f"striped A/B summary ({smi}): " + json.dumps(
+        {k: v for k, v in striped_ab.summary(rounds(ab, 3)).items()
+         if k.endswith(("_ms", "_median"))}))
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in rd.WRAPPERS:
@@ -1691,7 +1716,8 @@ def resize_lab_phase(torch, np, dev, smi):
             "source": "vali_tpu_torch/csrc/" + {
                 rd.aligned_resize: "nv12_aligned.cu",
                 rd.streamed_resize: "nv12_streamed.cu",
-                rd.slabs_resize: "nv12_slabs.cu"}.get(
+                rd.slabs_resize: "nv12_slabs.cu",
+                rd.striped_resize: "nv12_striped.cu"}.get(
                     c.wrapper, "nv12_resize_variants.cu"),
             "replaces": RESIZE_LAB_REPLACES[wrapper],
             "launches": r["launches"], "max_abs_err": err[name],

@@ -357,15 +357,20 @@ def test_nv12_to_rgb_matches_plain(dev, geom, kw):
     (1, 2160, 3840, 1080, 1920),  # 4K -> 1080p, one frame
 ])
 def test_nv12_resize_equals_the_lab_both_and_striped(dev, geom):
-    """The lab's ``both`` (luma rows) and ``striped`` keep the earlier
-    8-row-strip arithmetic in csrc/nv12_resize_variants.cu: the streaming
-    kernel's bits are theirs."""
+    """The lab's ``both`` (luma rows) keeps the earlier 8-row-strip
+    arithmetic in csrc/nv12_resize_variants.cu: the streaming kernel's bits
+    are its. ``striped`` (csrc/nv12_striped.cu) runs aligned's tensor-core
+    passes at 8x32: aligned8x32's bits, within the uint8 envelope of
+    nv12_resize."""
     b, h, w, dh, dw = geom
     geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
     x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h)
     out = nv12_resize(x, **geo)
     assert torch.equal(rd.resize_phases(x, **geo, mode="both"), out[:, :dh])
-    assert torch.equal(rd.striped_resize(x, **geo, nw=3, store="dyn"), out)
+    striped = rd.striped_resize(x, **geo, nw=3, store="dyn")
+    assert torch.equal(striped, rd.aligned_resize(x, **geo, h_align=8,
+                                                  w_align=32))
+    _assert_close(striped, out, geom)
 
 
 def test_resize_geometry_that_does_not_fit_raises_before_launch(dev):
@@ -1320,12 +1325,85 @@ def test_slabs_at_4k_equal_aligned_8x32_off_the_slab_edges(dev, nslabs):
 @pytest.mark.parametrize("nw,store", [(1, "dyn"), (8, "unroll"),
                                       (7, "relay"), (3, "unroll")])
 def test_striped_stores_equal_nv12_resize(dev, nw, store):
-    """One stripe, the most the unroll store instantiates, and stripes
-    that do not divide the row: nv12_resize's bits."""
+    """One stripe, the most a cluster holds, and stripes that do not divide
+    the row (stripes that own no tile, halos from several peers): each
+    store gives aligned8x32's bits, within the uint8 envelope of
+    nv12_resize."""
     geo = dict(src_w=322, src_h=150, dst_w=202, dst_h=70)
     x = rd.make_frames(2, 225, 322, dev, seed=nw)
-    assert torch.equal(rd.striped_resize(x, **geo, nw=nw, store=store),
-                       nv12_resize(x, **geo))
+    out = rd.striped_resize(x, **geo, nw=nw, store=store)
+    assert torch.equal(out, rd.aligned_resize(x, **geo, h_align=8,
+                                              w_align=32))
+    _assert_close(out, nv12_resize(x, **geo), (nw, store))
+
+
+STRIPED_4K = [(2, "dyn"), (3, "dyn"), (5, "dyn"), (6, "dyn"),
+              (3, "relay"), (3, "unroll")]
+
+
+@pytest.mark.parametrize("nw,store", STRIPED_4K)
+def test_striped_at_4k_equals_aligned_8x32_on_20_replays(dev, nw, store):
+    """The A/B's instances at 16 x 4K -> 1080p: 20 calls, each equal to
+    aligned8x32 bit for bit (one reference: a race between the stripes'
+    exchange and their W products would show as a call that differs), and
+    within the uint8 envelope of nv12_resize and striped_resize_plain."""
+    geo = dict(src_w=3840, src_h=2160, dst_w=1920, dst_h=1080)
+    x = rd.make_frames(16, 3240, 3840, dev, seed=nw)
+    ref = rd.aligned_resize(x, **geo, h_align=8, w_align=32)
+    for i in range(20):
+        assert torch.equal(rd.striped_resize(x, **geo, nw=nw, store=store),
+                           ref), (nw, store, i)
+    _assert_close(ref, nv12_resize(x, **geo), (nw, store))
+    _assert_close(ref, rd.striped_resize_plain(x, **geo, nw=nw), (nw, store))
+
+
+@pytest.mark.parametrize("store", rd.STORES)
+@pytest.mark.parametrize("geom", [(2, 150, 322, 70, 202),
+                                  (3, 96, 256, 40, 120)])
+def test_striped_ragged_strips_and_tiles_on_20_replays(dev, geom, store):
+    """Ragged strips and tiles at every nw a store takes up to 8: 20 calls
+    of each, every one aligned8x32's bits."""
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = rd.make_frames(b, h * 3 // 2, w, dev, seed=w)
+    ref = rd.aligned_resize(x, **geo, h_align=8, w_align=32)
+    for nw in range(1, 9):
+        for i in range(20):
+            out = rd.striped_resize(x, **geo, nw=nw, store=store)
+            assert torch.equal(out, ref), (nw, store, i)
+
+
+@pytest.mark.parametrize("nw,store", STRIPED_4K)
+def test_striped_clusters_are_resident_at_4k(dev, nw, store):
+    """Each 4K instance's cluster of nw blocks fits the card (at least one
+    resident a plane); relay runs no cluster."""
+    geo = dict(src_w=3840, src_h=2160, dst_w=1920, dst_h=1080)
+    x = rd.make_frames(1, 3240, 3840, dev)
+    clusters = rd.striped_clusters(x, **geo, nw=nw, store=store)
+    if store == "relay":
+        assert clusters == (0, 0)
+    else:
+        assert min(clusters) > 0, clusters
+
+
+def test_striped_refuses_before_any_launch(dev):
+    """More stripes than a cluster holds, a stripe under 16 bytes and a
+    window past the kernel's K raise on the card before any launch; the
+    relay store, which runs no cluster, takes nine stripes."""
+    geo = dict(src_w=322, src_h=150, dst_w=202, dst_h=70)
+    x = rd.make_frames(1, 225, 322, dev, seed=9)
+    before = rd.striped_resize.launches
+    for nw, store, why in ((9, "dyn", "cluster"), (9, "unroll", "cluster"),
+                           (21, "relay", "narrower"), (0, "dyn", "nw")):
+        with pytest.raises(ValueError, match=why):
+            rd.striped_resize(x, **geo, nw=nw, store=store)
+    y = torch.zeros((1, 3240, 3840), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="exceed"):
+        rd.striped_resize(y, src_w=3840, src_h=2160, dst_w=64, dst_h=16)
+    assert rd.striped_resize.launches == before
+    assert torch.equal(rd.striped_resize(x, **geo, nw=9, store="relay"),
+                       rd.aligned_resize(x, **geo, h_align=8, w_align=32))
+    assert rd.striped_resize.launches == before + 1
 
 
 # --- the NV12 -> RGB convert lab (csrc/nv12_to_rgb_variants.cu) -------------

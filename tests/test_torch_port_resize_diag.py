@@ -272,17 +272,22 @@ def test_work_counts_the_frame_and_the_output():
     operations are the FLOPs its tensor-core tables issue, zeros included:
     more than the product's FMAs, and more at the coarser alignment; the
     streamed kernel issues aligned's at 8x32, the slabs kernel those and a
-    chain more for each piece past a window's first."""
+    chain more for each piece past a window's first, the striped kernel
+    aligned's W products and each row's H columns once."""
     from vali_tpu_torch.lab.timing import HBM_BYTES_PER_S, bound_ms
 
     frame = B * H * 3 // 2 * W
     full = rd.case("prod", B, **GEO).work
     assert full[0] == frame + B * DH * 3 // 2 * DW
-    for name in ("skewed", "striped3relay"):
-        assert rd.case(name, B, **GEO).work == full
+    assert rd.case("skewed", B, **GEO).work == full
     fine, coarse = (rd.case(n, B, **GEO).work
                     for n in ("aligned8x32", "aligned32x128"))
     assert fine == rd.aligned_work(B, **GEO, h_align=8, w_align=32)
+    for name in ("striped3dyn", "striped5dyn", "striped3relay",
+                 "striped3unroll"):
+        striped = rd.case(name, B, **GEO).work
+        assert striped == rd.striped_work(B, **GEO)
+        assert striped[0] == full[0] and full[1] < striped[1] <= fine[1]
     assert rd.case("streamed64", B, **GEO).work == fine
     slabs = rd.case("slabs4", B, **GEO).work
     assert slabs == rd.slabs_work(B, **GEO, nslabs=4)

@@ -6,7 +6,7 @@
 //   - variant  (dma_only, h_only, w_only, both) -> nv12_resize_phases_launch
 //   - skewed                                    -> nv12_resize_skewed_launch
 //   - slabs                                     -> nv12_slabs.cu
-//   - striped  (nw, store)                      -> nv12_resize_striped_launch
+//   - striped  (nw, store)                      -> nv12_striped.cu
 //
 // What bounds them on this card: what bounds nv12_resize. 16 x 4K NV12 ->
 // 1080p reads 199 MB and writes 50 MB for ~3.6 GFLOP of FMAs, far under the
@@ -22,13 +22,9 @@
 //             of the block runs frame b's H pass into one of two H-pass
 //             buffers while the consumer half runs frame b - 1's W pass from
 //             the other, handing off at one barrier per step.
-//   slabs     (split-K by row slab) lives in nv12_slabs.cu, on
-//             aligned's tensor-core passes.
-//   striped   whether cutting each frame into column stripes pays: the H
-//             pass runs per (stripe, strip, frame) into a bf16 scratch in
-//             device memory, and the W pass reads it back in a second
-//             kernel. The scratch costs 2 x 199 MB of traffic at 16 x 4K
-//             beside the product's 249 MB; same FMAs, nv12_resize's bits.
+//   slabs     (split-K by row slab) and striped (column stripes as one
+//             thread-block cluster) live in nv12_slabs.cu and
+//             nv12_striped.cu, on aligned's tensor-core passes.
 //
 // The block design is banded_resize.cu's: a block of (frame, strip of kRows
 // output rows, tile of tile_w output pixels) runs the H pass of the strip
@@ -419,154 +415,6 @@ skewed_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
                     cim, batch, c_ldm, smem, s_win);
 }
 
-// ---- striped: H pass per (stripe, strip, frame), then the W pass -------
-//
-// The TPU kernel keeps a frame's H-pass rows in VMEM (12.4 MB at 4K) and
-// runs the W pass on the frame's last stripe. A block here has at most
-// 227 KB, so the H-pass rows of every frame go to a bf16 scratch in device
-// memory, and the W pass is a second kernel on the same stream: a single
-// launch would have to spin-wait for the stripes of other blocks, which
-// need not be resident, so it could deadlock.
-
-constexpr int kMaxStripes = 8;  // stripes of the unroll store
-
-// Stripe geometry and the H-pass scratch. Stripes cut the source lanes at
-// multiples of `sw` (a multiple of 4: even, so a UV pair is never split,
-// and hpass's 4-lane writes stay inside their stripe); the last takes the
-// remainder.
-struct Stripes {
-  int nw, sw;
-  MT* hres;     // [batch][dst_h * 3 / 2][ldh] H-pass rows: luma, then chroma
-  MT* relay;    // [batch][nw][dst_h * 3 / 2][ldr] (relay store) or null
-  int ldh, ldr; // pitches in elements (multiples of 4)
-  int rows;     // dst_h * 3 / 2
-};
-
-// H pass of stripe s over one strip of one plane of frame b into `dst`
-// (lane 0 of the stripe in output row o0, pitch ldm).
-__device__ __forceinline__ void stripe_hpass(const uint8_t* plane,
-                                             const Bands& bd, const Image& im,
-                                             int C, const Stripes& st, int s,
-                                             int o0, float* wd, MT* dst,
-                                             int ldm) {
-  const int rows = min(kRows, im.dst_h - o0);
-  int r_lo, span;
-  strip_rows(bd, im.dst_h, o0, wd, r_lo, span);
-  const int len = im.src_w * C;  // W lanes in both planes
-  const int l0 = s * st.sw;
-  const int nl = s == st.nw - 1 ? len - l0 : st.sw;
-  const uint8_t* base = plane + l0;
-  const bool vec = (reinterpret_cast<uintptr_t>(base) % 4) == 0 && im.in_rs % 4 == 0;
-  hpass<4>(base, im.in_rs, vec, len - l0, r_lo, span, wd, bd.span, rows, nl,
-           dst, ldm, threadIdx.x, blockDim.x);
-}
-
-// One block: stripe s (blockIdx.x or the template's S), strip blockIdx.y
-// (luma strips, then chroma strips), frame blockIdx.z.
-template <int S>
-__device__ __forceinline__ void stripe_block(const uint8_t* src,
-                                             const Bands& y, const Image& yim,
-                                             const Bands& c, const Image& cim,
-                                             const Stripes& st, int relay,
-                                             float* wd) {
-  const int s = S < 0 ? static_cast<int>(blockIdx.x) : S;
-  const int b = blockIdx.z;
-  const int ny = (yim.dst_h + kRows - 1) / kRows;
-  const bool luma = static_cast<int>(blockIdx.y) < ny;
-  const int o0 = (luma ? blockIdx.y : blockIdx.y - ny) * kRows;
-  const int row = (luma ? 0 : yim.dst_h) + o0;  // H-pass row in the scratch
-  const uint8_t* frame = src + b * yim.in_bs;
-  const uint8_t* plane = luma ? frame : frame + yim.src_h * yim.in_rs;
-  MT* dst;
-  int ldm;
-  if (relay) {
-    dst = st.relay + ((static_cast<long long>(b) * st.nw + s) * st.rows + row) * st.ldr;
-    ldm = st.ldr;
-  } else {
-    dst = st.hres + (static_cast<long long>(b) * st.rows + row) * st.ldh + s * st.sw;
-    ldm = st.ldh;
-  }
-  if (luma)
-    stripe_hpass(plane, y, yim, 1, st, s, o0, wd, dst, ldm);
-  else
-    stripe_hpass(plane, c, cim, 2, st, s, o0, wd, dst, ldm);
-}
-
-// store 0 dyn: the stripe index from blockIdx.x, written at its lane
-// offset; 1 relay: into the stripe's own [rows][ldr] scratch, relaid out by
-// relay_kernel; 2 unroll: the stripe index a template parameter, one
-// instantiation per stripe up to kMaxStripes.
-__global__ void __launch_bounds__(kThreads)
-stripe_hpass_kernel(const uint8_t* __restrict__ src, Bands y, Image yim,
-                    Bands c, Image cim, Stripes st, int store) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* wd = reinterpret_cast<float*>(smem);
-  if (store != 2) {
-    stripe_block<-1>(src, y, yim, c, cim, st, store == 1, wd);
-    return;
-  }
-  switch (blockIdx.x) {
-    case 0: stripe_block<0>(src, y, yim, c, cim, st, 0, wd); break;
-    case 1: stripe_block<1>(src, y, yim, c, cim, st, 0, wd); break;
-    case 2: stripe_block<2>(src, y, yim, c, cim, st, 0, wd); break;
-    case 3: stripe_block<3>(src, y, yim, c, cim, st, 0, wd); break;
-    case 4: stripe_block<4>(src, y, yim, c, cim, st, 0, wd); break;
-    case 5: stripe_block<5>(src, y, yim, c, cim, st, 0, wd); break;
-    case 6: stripe_block<6>(src, y, yim, c, cim, st, 0, wd); break;
-    default: stripe_block<7>(src, y, yim, c, cim, st, 0, wd); break;
-  }
-}
-
-// relay -> hres: 4 lanes (8 bytes) per thread; stripe edges are multiples
-// of 4 lanes, so a group never straddles two stripes.
-__global__ void __launch_bounds__(kThreads)
-relay_kernel(Stripes st, int batch) {
-  const int groups = st.ldh / 4;
-  const long long total = static_cast<long long>(batch) * st.rows * groups;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       g < total; g += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int lane = static_cast<int>(g % groups) * 4;
-    const long long br = g / groups;  // b * rows + row
-    const int s = min(lane / st.sw, st.nw - 1);
-    const long long b = br / st.rows;
-    const long long row = br - b * st.rows;
-    const MT* from = st.relay + ((b * st.nw + s) * st.rows + row) * st.ldr +
-                     (lane - s * st.sw);
-    *reinterpret_cast<uint2*>(st.hres + br * st.ldh + lane) =
-        *reinterpret_cast<const uint2*>(from);
-  }
-}
-
-// W pass of strip o0 of one plane from the scratch's H-pass rows, whose
-// first row is scratch (and output) row `row0` + o0.
-template <int C>
-__device__ __forceinline__ void stripe_wpass(uint8_t* out, const Bands& bd,
-                                             const Image& im,
-                                             const Stripes& st, int row0,
-                                             int o0) {
-  const int b = blockIdx.z;
-  const int p0 = blockIdx.x * bd.tile_w;
-  if (p0 >= im.dst_w) return;  // the whole block
-  const int row = row0 + o0;
-  wpass<C>(st.hres + (static_cast<long long>(b) * st.rows + row) * st.ldh,
-           st.ldh, 0, bd, im.dst_w, min(kRows, im.dst_h - o0), p0,
-           min(bd.tile_w, im.dst_w - p0),
-           out + b * im.out_bs + static_cast<long long>(row) * im.out_rs + p0 * C,
-           im.out_rs, threadIdx.x, blockDim.x);
-}
-
-// W pass of the scratch: block (column tile, strip, frame), strips of
-// luma then of chroma, as the product's W pass.
-__global__ void __launch_bounds__(kThreads)
-stripe_wpass_kernel(uint8_t* __restrict__ out, Bands y, Image yim, Bands c,
-                    Image cim, Stripes st) {
-  const int ny = (yim.dst_h + kRows - 1) / kRows;
-  if (static_cast<int>(blockIdx.y) < ny)
-    stripe_wpass<1>(out, y, yim, st, 0, blockIdx.y * kRows);
-  else
-    stripe_wpass<2>(out, c, cim, st, yim.dst_h, (blockIdx.y - ny) * kRows);
-}
-
 // ---- host side ------------------------------------------------------------
 
 // The column tap count is implicit in the transposed column weights.
@@ -718,65 +566,6 @@ int nv12_resize_skewed_launch(const void* src, long long batch_stride,
   skewed_kernel<<<grid, 2 * kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(out), n.y, n.yim,
       n.c, n.cim, batch, y_ldm, c_ldm);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The full resize on (stripe, strip, frame) blocks: stripes of `sw` source
-// lanes (the last takes the rest) run the H pass into `hres`, a bf16
-// [batch][dst_h*3/2][ldh] scratch (store 0 dyn, 2 unroll: at the stripe's
-// lane offset; 1 relay: into `relay`, [batch][nw][dst_h*3/2][ldr], then a
-// relayout kernel copies it into hres), then the W pass reads hres. Launches
-// on one stream: H pass, (relayout,) W pass.
-int nv12_resize_striped_launch(const void* src, long long batch_stride,
-                               long long row_stride, int batch, int src_h,
-                               int src_w, int dst_h, int dst_w,
-                               const int* y_index, const float* y_weights,
-                               int y_h_k, int y_w_k, int y_tile_w,
-                               int y_window, int y_span, const int* c_index,
-                               const float* c_weights, int c_h_k, int c_w_k,
-                               int c_tile_w, int c_window, int c_span, int nw,
-                               int sw, int store, void* hres, int ldh,
-                               void* relay, int ldr, void* out,
-                               void* stream) {
-  (void)y_w_k;
-  (void)c_w_k;
-  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
-  const Nv12 n = nv12(batch_stride, row_stride, src_h, src_w, dst_h, dst_w,
-                      y_index, y_weights, y_h_k, y_tile_w, y_window, y_span,
-                      c_index, c_weights, c_h_k, c_tile_w, c_window, c_span,
-                      static_cast<long long>(dst_h) * 3 / 2 * dst_w, 0);
-  const int last = src_w - (nw - 1) * sw;  // lanes of the last stripe
-  if (!n.ok || nw < 1 || sw < 4 || sw % 4 || last < sw || store < 0 ||
-      store > 2 || (store == 2 && nw > kMaxStripes) || batch > 65535 ||
-      hres == nullptr || ldh % 4 || ldh < (src_w + 3) / 4 * 4 ||
-      (store == 1 && (relay == nullptr || ldr % 4 || ldr < (last + 3) / 4 * 4)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Stripes st;
-  st.nw = nw;
-  st.sw = sw;
-  st.hres = static_cast<MT*>(hres);
-  st.relay = static_cast<MT*>(relay);
-  st.ldh = ldh;
-  st.ldr = ldr;
-  st.rows = dst_h / 2 * 3;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * kRows * (y_span > c_span ? y_span : c_span);
-  cudaError_t e = allow_smem(stripe_hpass_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int strips = (dst_h + kRows - 1) / kRows + (dst_h / 2 + kRows - 1) / kRows;
-  stripe_hpass_kernel<<<dim3(nw, strips, batch), kThreads, smem, s>>>(
-      static_cast<const uint8_t*>(src), n.y, n.yim, n.c, n.cim, st, store);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (store == 1) {
-    relay_kernel<<<132 * 16, kThreads, 0, s>>>(st, batch);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int tiles = max((dst_w + y_tile_w - 1) / y_tile_w,
-                        (dst_w / 2 + c_tile_w - 1) / c_tile_w);
-  stripe_wpass_kernel<<<dim3(tiles, strips, batch), kThreads, 0, s>>>(
-      static_cast<uint8_t*>(out), n.y, n.yim, n.c, n.cim, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -46,6 +45,7 @@ import torch
 from ..ops import _cuda_build
 from ..ops.nv12_resize import nv12_resize, nv12_resize_plain
 from ..ops.resize import LANCZOS_AA
+from . import ab_common
 from . import resize_diag as rd
 from .ab_common import differ, padded_view, rounds, within_envelope
 from .resize_ab import launcher as product_launcher
@@ -63,18 +63,14 @@ TIMED_ALIGNS = ((8, 32), (32, 128))
 
 def build_earlier(source: str):
     """The earlier source, its own headers first, with its C signature."""
-    return _cuda_build.build_source(
-        source, "aligned_ab", "earlier", {_LAUNCHER: EARLIER_SIGNATURE},
-        include_dirs=[os.path.dirname(os.path.abspath(source))])
+    return ab_common.build_earlier(source, "aligned_ab",
+                                   {_LAUNCHER: EARLIER_SIGNATURE})
 
 
 def build_current(flags):
     """The current ``csrc/nv12_aligned.cu`` alone, with -D ``flags``."""
-    source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_aligned.cu")
-    tag = "aligned" + "".join(f.split("=")[-1] for f in flags)
-    return _cuda_build.build_source(
-        source, "aligned_ab", tag,
-        {_LAUNCHER: _cuda_build._LAB_SIGNATURES[_LAUNCHER]}, tuple(flags))
+    return ab_common.build_current("nv12_aligned.cu", "aligned_ab",
+                                   [_LAUNCHER], flags)
 
 
 def launcher(lib, nv12: torch.Tensor, geo: dict, h_align: int,

@@ -49,12 +49,10 @@ import argparse
 import ctypes
 import functools
 import json
-import os
 import re
 import statistics
 import subprocess
 import sys
-import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -68,6 +66,7 @@ from ..ops.banded import (COMBO_ALIGN, COMBO_SPLITS, SMEM_LIMIT,
                           tail_params)
 from ..ops.nv12_preprocess import nv12_preprocess
 from ..ops.resize import LANCZOS_AA
+from . import ab_common
 from . import kernel_variants as kv
 from . import static2_ab
 from .ab_common import (differ, kernel_ms, padded_view, rounds,
@@ -91,62 +90,26 @@ def _arm(gframes: int, tile: int) -> str:
 
 def build_earlier(source: str):
     """The earlier source, its own headers first, with its C signature."""
-    return _cuda_build.build_source(
-        source, "combo_ab", "earlier",
-        {_EARLIER: static2_ab.EARLIER_SIGNATURE},
-        include_dirs=[os.path.dirname(os.path.abspath(source))])
+    return ab_common.build_earlier(source, "combo_ab",
+                                   {_EARLIER: static2_ab.EARLIER_SIGNATURE})
 
 
 def build_current(flags):
     """The current ``csrc/nv12_combo.cu`` alone, with -D ``flags``."""
-    source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_combo.cu")
-    tag = "combo" + "".join(f.split("=")[-1] for f in flags)
-    return _cuda_build.build_source(
-        source, "combo_ab", tag,
-        {_CURRENT: _cuda_build._LAB_SIGNATURES[_CURRENT]}, tuple(flags))
-
-
-_PTXAS_FN = re.compile(r"Function properties for (\S+)")
-_PTXAS_REGS = re.compile(r"Used (\d+) registers")
-_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads")
+    return ab_common.build_current("nv12_combo.cu", "combo_ab", [_CURRENT],
+                                   flags)
 
 
 def ptxas_report() -> dict:
     """Per instance of ``csrc/nv12_combo.cu`` (its kernel's mangled name
     holds Cfg<T, G, split>), from ``nvcc -Xptxas -v``: registers, spill
     store and load bytes; and every line of ptxas's C75xx warnings."""
-    source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_combo.cu")
-    with tempfile.TemporaryDirectory() as tmp:
-        run = subprocess.run(
-            [_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-             "-c", "-o", os.path.join(tmp, "combo.o"), source],
-            capture_output=True, text=True, timeout=600)
-    text = run.stdout + run.stderr
-    if run.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text[-4000:]}")
-    out, name = {}, None
-    for line in text.splitlines():
-        m = _PTXAS_FN.search(line) or re.search(r"Compiling entry function "
-                                                r"'(\S+)'", line)
-        if m:
-            name = m.group(1)
-            continue
-        if name is None or "nv12_combo_kernel" not in name:
-            continue
+    def instance(name):
         m = re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d)E", name)
-        if not m:
-            continue
-        tile, g = int(m.group(1)), int(m.group(2))
-        row = out.setdefault(_arm(g, tile), {})
-        if (r := _PTXAS_REGS.search(line)):
-            row["registers"] = int(r.group(1))
-        if (s := _PTXAS_SPILL.search(line)):
-            row["spill_store_bytes"] = int(s.group(1))
-            row["spill_load_bytes"] = int(s.group(2))
-    out["warnings"] = [ln for ln in text.splitlines()
-                       if re.search(r"C75\d\d", ln)]
-    return out
+        if "nv12_combo_kernel" not in name or not m:
+            return None
+        return _arm(int(m.group(2)), int(m.group(1)))
+    return ab_common.ptxas_report("nv12_combo.cu", instance)
 
 
 def earlier_ranges(src_w: int, src_h: int, dst_w: int, dst_h: int,

@@ -5,8 +5,8 @@ Counterpart of the TPU notebook ``resize_diag.py`` (its ``main``,
 ``main_aligned``, ``main_skewed``, ``main_streamed``, ``main_slabs`` and
 ``main_striped``). Six wrappers
 over the kernels of ``csrc/nv12_resize_variants.cu``,
-``csrc/nv12_aligned.cu``, ``csrc/nv12_streamed.cu`` and
-``csrc/nv12_slabs.cu``, each beside its
+``csrc/nv12_aligned.cu``, ``csrc/nv12_streamed.cu``,
+``csrc/nv12_slabs.cu`` and ``csrc/nv12_striped.cu``, each beside its
 plain PyTorch version, with the same dispatch as the product wrappers: a CUDA
 tensor launches the kernel, a CPU tensor runs the plain version, any other
 device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
@@ -40,13 +40,17 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   in slab order. Equal to ``aligned8x32`` where no row band straddles a
   slab edge, within 1 LSB on fewer than 1e-3 of the samples of
   :func:`nv12_resize` everywhere.
-- :func:`striped_resize` (``striped``): the full resize with each frame's
-  H pass cut into ``nw`` column stripes into a bf16 scratch in device
-  memory, then the W pass; ``store`` dyn, relay or unroll.
+- :func:`striped_resize` (``striped``): the full resize with each strip's
+  H pass cut into ``nw`` column stripes on ``aligned``'s tensor-core
+  passes at 8x32; ``store`` dyn or unroll (the stripes of a strip one
+  thread-block cluster that trades the W tiles' halo through distributed
+  shared memory) or relay (the H rows through device memory). Equal to
+  ``aligned8x32``.
 
-Every full-function variant but ``slabs``, ``aligned`` and ``streamed``,
-and ``both``, equals :func:`nv12_resize` bit for bit on the card; on the
-CPU its plain version is the product's, split as the variant splits it.
+Every full-function variant but ``slabs``, ``aligned``, ``streamed`` and
+``striped``, and ``both``, equals :func:`nv12_resize` bit for bit on the
+card; on the CPU its plain version is the product's, split as the variant
+splits it.
 
 Run the lab (16 x 4K -> 1080p on ``cuda:0``; ``--device cpu`` runs the
 plain versions at 3 x 512x288 -> 256x144 and times nothing)::
@@ -1142,14 +1146,18 @@ def slabs_resize(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
 # --- column stripes (notebook ``striped``) ---------------------------------
 
 STORES = ("dyn", "relay", "unroll")
-#: stripes the unroll store instantiates (kMaxStripes of the kernel)
-MAX_UNROLL_STRIPES = 8
+#: stripes a cluster store (dyn, unroll) runs as one thread-block cluster:
+#: the portable cluster size, and the unroll store's switch (kMaxStripes)
+MAX_CLUSTER_STRIPES = 8
+#: the kernel's stripes are whole runs of this many bytes of a row, so no
+#: UV pair is split and every stripe edge is a column group of 8 pixels
+STRIPE_ALIGN = 16
 
 
 def stripe_width(src_w: int, nw: int) -> int:
     """Lanes of each of ``nw`` stripes of the NV12 rows but the last, which
     takes the rest: ``src_w // nw`` rounded down to a multiple of 4 (even,
-    so no UV pair is split)."""
+    so no UV pair is split). The plain version's cut."""
     if nw < 1:
         raise ValueError(f"nw must be >= 1, got {nw}")
     sw = src_w // nw // 4 * 4
@@ -1163,6 +1171,200 @@ def stripe_edges(src_w: int, nw: int) -> List[int]:
     """Lane edges of the ``nw`` stripes of :func:`stripe_width`."""
     sw = stripe_width(src_w, nw)
     return [s * sw for s in range(nw)] + [src_w]
+
+
+def striped_stripe_bytes(src_w: int, nw: int) -> int:
+    """Bytes of a row in each of the kernel's ``nw`` stripes but the last,
+    which takes the rest: the notebook's ``src_w // nw`` rounded down to a
+    multiple of STRIPE_ALIGN (the same bytes in both planes: chroma's
+    stripes hold half as many pixel pairs)."""
+    if nw < 1:
+        raise ValueError(f"nw must be >= 1, got {nw}")
+    sw = src_w // nw // STRIPE_ALIGN * STRIPE_ALIGN
+    if sw < STRIPE_ALIGN:
+        raise ValueError(f"{nw} stripes of a {src_w}-byte row are narrower "
+                         f"than {STRIPE_ALIGN} bytes")
+    return sw
+
+
+class StripedPlane(NamedTuple):
+    """One plane's tables of :func:`striped_resize` (csrc/nv12_striped.cu):
+    ``aligned``'s tables at 8x32 (``tables``: the window starts, B, the W
+    heads and fragments) cut into stripes of ``spx`` pixels (the last
+    taking the rest of the row's pixels rounded up to 16). Each W tile
+    belongs to the stripe that holds its band's first column (``owner``
+    [tiles]); ``order`` [tiles] int32 lists the tiles stripe by stripe;
+    ``stripes`` [nw, 4] int32: per stripe its first entry of ``order``,
+    its tiles, its own pixels and the pixels it holds (its own, then the
+    halo its tiles' bands reach past them; own alone for the relay
+    store)."""
+    tables: AlignedPlane
+    channels: int
+    spx: int
+    owner: np.ndarray
+    order: np.ndarray
+    stripes: np.ndarray
+
+    @property
+    def hcols(self) -> int:
+        """The most pixels a stripe holds: a block's H rows."""
+        return int(self.stripes[:, 3].max())
+
+    @property
+    def wcols(self) -> int:
+        """Pixels of the widest tile band: the relay store's W block."""
+        return 16 * int(self.tables.heads[:, 2].max())
+
+
+@functools.lru_cache(maxsize=64)
+def striped_plane_tables(n_in: int, n_out: int, px: int, ow: int,
+                         channels: int, nw: int, sw: int,
+                         relay: bool) -> StripedPlane:
+    """The tables of one plane of ``n_in`` rows of ``px`` pixels
+    (``channels`` interleaved) resized to ``n_out`` rows of ``ow``:
+    :func:`aligned_plane_tables` at 8x32, cut into ``nw`` stripes of
+    ``sw`` bytes of a row (:func:`striped_stripe_bytes`)."""
+    t = aligned_plane_tables(n_in, n_out, px, ow, channels, 8, 32)
+    spx = sw // channels
+    wp = -(-px // 16) * 16
+    c0, nk = t.heads[:, 1], t.heads[:, 2]
+    owner = np.minimum(c0 // spx, nw - 1).astype(np.int32)
+    order = np.argsort(owner, kind="stable").astype(np.int32)
+    count = np.bincount(owner, minlength=nw)
+    first = np.concatenate([[0], np.cumsum(count)[:-1]])
+    x0 = np.arange(nw) * spx
+    own = np.where(np.arange(nw) < nw - 1, spx, wp - x0)
+    held = own.copy()
+    if not relay:
+        np.maximum.at(held, owner, c0 + 16 * nk - x0[owner])
+    stripes = np.stack([first, count, own, held], axis=1).astype(np.int32)
+    return StripedPlane(t, channels, spx, owner, order, stripes)
+
+
+def _striped_planes(src_w, src_h, dst_w, dst_h, nw, store):
+    """(luma, chroma) :class:`StripedPlane` tables."""
+    sw = striped_stripe_bytes(src_w, nw)
+    relay = store == "relay"
+    return (striped_plane_tables(src_h, dst_h, src_w, dst_w, 1, nw, sw,
+                                 relay),
+            striped_plane_tables(src_h // 2, dst_h // 2, src_w // 2,
+                                 dst_w // 2, 2, nw, sw, relay))
+
+
+def striped_smem_bytes(channels: int, hcols: int, k_pad: int) -> int:
+    """Shared memory of one stripe's block: its tiled H rows (``hcols``
+    pixels: own and halo), B and the ring, as ``aligned``'s block
+    (:func:`aligned_smem_bytes`)."""
+    return aligned_smem_bytes(channels, hcols, k_pad)
+
+
+def striped_w_smem_bytes(channels: int, wcols: int) -> int:
+    """Shared memory of one block of the relay store's W launch: the tiled
+    H rows of the widest tile band."""
+    return wcols // 8 * (16 * ALIGNED_ROWS * channels + 16)
+
+
+@functools.lru_cache(maxsize=64)
+def striped_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                    nw: int, store: str) -> str:
+    """Why the striped kernel cannot take ``nw`` stripes under ``store`` at
+    this geometry, or "" when it can: ``nw`` < 1, a stripe under
+    STRIPE_ALIGN bytes, more than MAX_CLUSTER_STRIPES stripes under a
+    cluster store, a window past ALIGNED_MAX_K rows, or a block's shared
+    memory over a block's."""
+    if store not in STORES:
+        return f"store must be one of {STORES}, got {store!r}"
+    if nw < 1:
+        return f"nw must be >= 1, got {nw}"
+    if src_w // nw < STRIPE_ALIGN:
+        return (f"{nw} stripes of a {src_w}-byte row are narrower than "
+                f"{STRIPE_ALIGN} bytes")
+    if store != "relay" and nw > MAX_CLUSTER_STRIPES:
+        return (f"the {store} store runs the {nw} stripes of a strip as one "
+                f"thread-block cluster of at most {MAX_CLUSTER_STRIPES} "
+                f"blocks, got nw={nw}")
+    for name, ch, p in zip(("luma", "chroma"), (1, 2),
+                           _striped_planes(src_w, src_h, dst_w, dst_h, nw,
+                                           store)):
+        k_pad = p.tables.k_pad
+        if k_pad > ALIGNED_MAX_K:
+            return (f"its {name} windows of {k_pad} rows exceed the "
+                    f"kernel's {ALIGNED_MAX_K}")
+        smem = max(striped_smem_bytes(ch, p.hcols, k_pad),
+                   striped_w_smem_bytes(ch, p.wcols)
+                   if store == "relay" else 0)
+        if smem > SMEM_LIMIT:
+            return (f"its {name} stripes' H rows, weights and ring need "
+                    f"{smem} B of shared memory, over a block's "
+                    f"{SMEM_LIMIT} B")
+    return ""
+
+
+def striped_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                 dst_h: int) -> Tuple[int, int]:
+    """(bytes, operations) of one striped batch, at any ``nw`` and store:
+    the product's bytes, and the FLOPs the kernel issues, zeros included:
+    per strip [ALIGNED_ROWS, k_pad] weights times each row's pixels
+    (rounded up to 16) once, no column twice, and ``aligned``'s W
+    products."""
+    h_fmas = w_fmas = 0
+    for ch, t in zip((1, 2), _aligned_planes(src_w, src_h, dst_w, dst_h, 8,
+                                             32)):
+        strips = t.weights.shape[0]
+        px = src_w // ch
+        h_fmas += strips * ALIGNED_ROWS * t.k_pad * ch * (-(-px // 16) * 16)
+        w_fmas += (strips * ALIGNED_W_TILE * 16 * ALIGNED_ROWS * ch
+                   * int(t.heads[:, 2].sum()))
+    return nv12_resize_work(batch, src_h, src_w, dst_h, dst_w,
+                            h_fmas=h_fmas, w_fmas=w_fmas)
+
+
+def striped_halo_bytes(batch: int, src_w: int, src_h: int, dst_w: int,
+                       dst_h: int, nw: int) -> int:
+    """Bytes of bf16 H rows a cluster store's blocks copy from their peers
+    in one batch: each stripe's halo pixels, ALIGNED_ROWS rows (chroma: U
+    and V) of 2 bytes, per strip and frame."""
+    total = 0
+    for ch, p in zip((1, 2), _striped_planes(src_w, src_h, dst_w, dst_h, nw,
+                                             "dyn")):
+        halo = int((p.stripes[:, 3] - p.stripes[:, 2]).sum())
+        total += p.tables.weights.shape[0] * halo * ALIGNED_ROWS * ch * 2
+    return batch * total
+
+
+def striped_scratch_elems(batch: int, src_w: int, src_h: int, dst_w: int,
+                          dst_h: int) -> int:
+    """bf16 elements of the relay store's scratch: per frame, plane and
+    strip, every pixel of a row (rounded up to 16) x ALIGNED_ROWS rows
+    (chroma: U and V)."""
+    n = 0
+    for px, oh, ch in ((src_w, dst_h, 1), (src_w // 2, dst_h // 2, 2)):
+        n += -(-oh // ALIGNED_ROWS) * (-(-px // 16) * 16) * ALIGNED_ROWS * ch
+    return batch * n
+
+
+@functools.lru_cache(maxsize=16)
+def _striped_device(src_w, src_h, dst_w, dst_h, nw, store, device):
+    """The launcher's table arguments on ``device``, uploaded once per
+    geometry, ``nw`` and store: per plane B in bf16 core-matrix order, the
+    window starts, k_pad, the stripes, the most pixels a stripe holds, the
+    widest tile band, the tiles' order, the heads and the bf16 A
+    fragments; with the tensors they point into."""
+    args, keep = [], []
+    for p in _striped_planes(src_w, src_h, dst_w, dst_h, nw, store):
+        t = p.tables
+        b, starts, stripes, order, heads, frags = (
+            torch.from_numpy(core_matrix_order(t.weights)).to(device, _BF16),
+            torch.from_numpy(t.starts).to(device),
+            torch.from_numpy(p.stripes.reshape(-1)).to(device),
+            torch.from_numpy(p.order).to(device),
+            torch.from_numpy(t.heads.reshape(-1)).to(device),
+            torch.from_numpy(t.frags).to(device, _BF16))
+        keep += [b, starts, stripes, order, heads, frags]
+        args += [b.data_ptr(), starts.data_ptr(), t.k_pad,
+                 stripes.data_ptr(), p.hcols, p.wcols, order.data_ptr(),
+                 heads.data_ptr(), frags.data_ptr()]
+    return tuple(args), keep
 
 
 def striped_resize_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
@@ -1181,36 +1383,81 @@ def striped_resize_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
     return _planes_plain(nv12, src_w, src_h, dst_w, dst_h, h_pass)
 
 
+def _striped_call(nv12, geo, nw, store, batch, out, scratch, resident):
+    """One call of the striped launcher (``batch`` 0: the residency query
+    alone)."""
+    from ..ops._cuda_build import check, load_lab_kernels
+
+    args, _ = _striped_device(geo["src_w"], geo["src_h"], geo["dst_w"],
+                              geo["dst_h"], nw, store, nv12.device)
+    lib = load_lab_kernels()
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_resize_striped_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), batch,
+            geo["src_h"], geo["src_w"], geo["dst_h"], geo["dst_w"], *args,
+            nw, striped_stripe_bytes(geo["src_w"], nw), STORES.index(store),
+            scratch, resident, out,
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "striped_resize")
+
+
+def striped_clusters(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                     dst_w: int, dst_h: int, nw: int = 3,
+                     store: str = "dyn") -> Tuple[int, int]:
+    """(luma, chroma) clusters of ``nw`` blocks the card can hold at once
+    for the cluster stores (``cudaOccupancyMaxActiveClusters``; 0 for
+    relay, which runs no cluster), asked of the launcher without a
+    launch."""
+    import ctypes
+
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = striped_refusal(**geo, nw=nw, store=store)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
+    if store == "relay":
+        return 0, 0
+    res = (ctypes.c_int * 2)()
+    _striped_call(nv12, geo, nw, store, 0, None, None,
+                  ctypes.addressof(res))
+    return res[0], res[1]
+
+
 def striped_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
                    dst_w: int, dst_h: int, nw: int = 3,
                    store: str = "dyn") -> torch.Tensor:
-    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with each frame's H
-    pass cut into ``nw`` column stripes (:func:`stripe_edges`) into a bf16
-    scratch in device memory, then the W pass; ``store`` (dyn, relay,
-    unroll) is how a stripe writes the scratch. Equal to
-    :func:`nv12_resize`."""
+    """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with each strip's H
+    pass cut into ``nw`` column stripes (:func:`striped_stripe_bytes`) on
+    ``aligned``'s tensor-core passes at 8x32 (:func:`striped_plane_tables`).
+    ``store`` dyn or unroll: the stripes of a strip are one thread-block
+    cluster, each block holding its stripe's H rows and copying its W
+    tiles' halo from its neighbours' shared memory (unroll: the H pass
+    compiled once a stripe); relay: the H rows through a bf16 scratch in
+    device memory, then a W launch. Equal to
+    ``aligned_resize(h_align=8, w_align=32)``, so within the uint8
+    envelope of :func:`nv12_resize`; on the CPU
+    :func:`striped_resize_plain`. Raises ValueError for a store, ``nw`` or
+    geometry the kernel cannot take (:func:`striped_refusal`), on either
+    device, and RuntimeError where no cluster of ``nw`` blocks fits the
+    card."""
     if store not in STORES:
         raise ValueError(f"store must be one of {STORES}, got {store!r}")
-    edges = stripe_edges(src_w, nw)
-    if store == "unroll" and nw > MAX_UNROLL_STRIPES:
-        raise ValueError(f"the unroll store instantiates at most "
-                         f"{MAX_UNROLL_STRIPES} stripes, got nw={nw}")
     _checked(nv12, src_w, src_h, dst_w, dst_h)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = striped_refusal(**geo, nw=nw, store=store)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("striped_resize", nv12):
         return striped_resize_plain(nv12, **geo, nw=nw)
-    rows, dev = dst_h * 3 // 2, nv12.device
-    ldh = -(-src_w // 4) * 4
-    ldr = -(-(src_w - edges[-2]) // 4) * 4
-    hres = torch.empty((nv12.shape[0], rows, ldh), dtype=_BF16, device=dev)
-    relay = (torch.empty((nv12.shape[0], nw, rows, ldr), dtype=_BF16,
-                         device=dev) if store == "relay" else None)
-    out = _launch("striped_resize", "nv12_resize_striped_launch", nv12,
-                  _tables(src_w, src_h, dst_w, dst_h, dev, _product_tables),
-                  (nw, stripe_width(src_w, nw), STORES.index(store),
-                   hres.data_ptr(), ldh,
-                   None if relay is None else relay.data_ptr(), ldr),
-                  _full_out(nv12, dst_w, dst_h), **geo)
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    out = _full_out(nv12, dst_w, dst_h)
+    if nv12.shape[0] == 0:
+        return out
+    scratch = (torch.empty(striped_scratch_elems(nv12.shape[0], **geo),
+                           dtype=_BF16, device=nv12.device)
+               if store == "relay" else None)
+    _striped_call(nv12, geo, nw, store, nv12.shape[0], out.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), None)
     striped_resize.launches += 1
     return out
 
@@ -1294,7 +1541,7 @@ def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
         return Case(striped_resize,
                     lambda x: striped_resize(x, **geo, nw=nw, store=store),
                     lambda x: striped_resize_plain(x, **geo, nw=nw),
-                    product, True, full)
+                    product, False, striped_work(batch, **geo))
     raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES}, "
                      f"aligned{{h}}x{{w}}, streamed{{band}}, slabs{{n}} or "
                      f"striped{{nw}}{{dyn|relay|unroll}}")

@@ -45,7 +45,6 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -57,6 +56,7 @@ import torch
 from ..ops import _cuda_build
 from ..ops.nv12_resize import nv12_resize
 from ..ops.resize import LANCZOS_AA
+from . import ab_common
 from . import aligned_ab
 from . import resize_diag as rd
 from .ab_common import (differ, kernel_ms, padded_view, rounds,
@@ -76,19 +76,14 @@ _CPASYNC_FLAG = "-DNV12_SLABS_CPASYNC=1"
 
 def build_earlier(source: str):
     """The earlier source, its own headers first, with its C signature."""
-    return _cuda_build.build_source(
-        source, "slabs_ab", "earlier", {_LAUNCHER: EARLIER_SIGNATURE},
-        include_dirs=[os.path.dirname(os.path.abspath(source))])
+    return ab_common.build_earlier(source, "slabs_ab",
+                                   {_LAUNCHER: EARLIER_SIGNATURE})
 
 
 def build_current(flags):
     """The current ``csrc/nv12_slabs.cu`` alone, with -D ``flags``."""
-    source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_slabs.cu")
-    tag = "slabs" + "".join(f.split("=")[0].removeprefix("-DNV12_SLABS_")
-                            .lower() + f.split("=")[-1] for f in flags)
-    return _cuda_build.build_source(
-        source, "slabs_ab", tag,
-        {_LAUNCHER: _cuda_build._LAB_SIGNATURES[_LAUNCHER]}, tuple(flags))
+    return ab_common.build_current("nv12_slabs.cu", "slabs_ab", [_LAUNCHER],
+                                   flags)
 
 
 def launcher(lib, nv12: torch.Tensor, geo: dict, nslabs: int,

@@ -42,7 +42,6 @@ import argparse
 import ctypes
 import functools
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -56,6 +55,7 @@ from ..ops.banded import (band_table, dense_weights, device_tables,
                           static2_tables, tail_params, tile_window)
 from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
 from ..ops.resize import LANCZOS_AA
+from . import ab_common
 from . import grouped_ab, static2_ab
 from . import kernel_variants as kv
 from .ab_common import (differ, kernel_ms, padded_view, rounds,
@@ -88,18 +88,14 @@ def _arm(variant: str, tile: int) -> str:
 
 def build_earlier(source: str):
     """The earlier source, its own headers first, with its C signature."""
-    return _cuda_build.build_source(
-        source, "staged_ab", "earlier", {_EARLIER: EARLIER_SIGNATURE},
-        include_dirs=[os.path.dirname(os.path.abspath(source))])
+    return ab_common.build_earlier(source, "staged_ab",
+                                   {_EARLIER: EARLIER_SIGNATURE})
 
 
 def build_current(flags):
     """The current ``csrc/nv12_staged.cu`` alone, with -D ``flags``."""
-    source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_staged.cu")
-    tag = "staged" + "".join(f.split("=")[-1] for f in flags)
-    return _cuda_build.build_source(
-        source, "staged_ab", tag,
-        {_CURRENT: _cuda_build._LAB_SIGNATURES[_CURRENT]}, tuple(flags))
+    return ab_common.build_current("nv12_staged.cu", "staged_ab", [_CURRENT],
+                                   flags)
 
 
 @functools.lru_cache(maxsize=8)

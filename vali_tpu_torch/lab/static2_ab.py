@@ -39,7 +39,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -53,6 +52,7 @@ from ..ops.banded import (_nv12_bands, column_ranges, pack_tables,
                           strip_window_bands, tail_params)
 from ..ops.nv12_preprocess import nv12_preprocess
 from ..ops.resize import LANCZOS_AA
+from . import ab_common
 from . import grouped_ab
 from . import kernel_variants as kv
 from .ab_common import differ, padded_view, rounds, within_envelope
@@ -76,20 +76,15 @@ EARLIER_SIGNATURE = [_P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
 
 
 def build_earlier(source: str):
-    """The earlier source, its own headers first, with its launcher's C
-    signature."""
-    return _cuda_build.build_source(
-        source, "static2_ab", "earlier", {_EARLIER: EARLIER_SIGNATURE},
-        include_dirs=[os.path.dirname(os.path.abspath(source))])
+    """The earlier source, its own headers first, with its C signature."""
+    return ab_common.build_earlier(source, "static2_ab",
+                                   {_EARLIER: EARLIER_SIGNATURE})
 
 
 def build_current(flags):
     """The current ``csrc/nv12_static2.cu`` alone, with -D ``flags``."""
-    source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_static2.cu")
-    tag = "static2" + "".join(f.split("=")[-1] for f in flags)
-    return _cuda_build.build_source(
-        source, "static2_ab", tag,
-        {_CURRENT: _cuda_build._LAB_SIGNATURES[_CURRENT]}, tuple(flags))
+    return ab_common.build_current("nv12_static2.cu", "static2_ab", [_CURRENT],
+                                   flags)
 
 
 def launcher(lib, nv12: torch.Tensor, geo: dict, tile: int, align: int,

@@ -45,7 +45,6 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -58,6 +57,7 @@ from ..ops import _cuda_build
 from ..ops.banded import band_table, pack_resize_tables, sm_count
 from ..ops.nv12_resize import nv12_resize, nv12_resize_plain
 from ..ops.resize import LANCZOS_AA, resize_weights
+from . import ab_common
 from . import aligned_ab
 from . import resize_diag as rd
 from .ab_common import (differ, kernel_ms, padded_view, rounds,
@@ -84,23 +84,17 @@ BANDS = (64, 256)
 
 def build_earlier(source: str):
     """The earlier source, its own headers first, with its C signature."""
-    return _cuda_build.build_source(
-        source, "streamed_ab", "earlier", {_LAUNCHER: EARLIER_SIGNATURE},
-        include_dirs=[os.path.dirname(os.path.abspath(source))])
+    return ab_common.build_earlier(source, "streamed_ab",
+                                   {_LAUNCHER: EARLIER_SIGNATURE})
 
 
 def build_current(flags):
     """The current ``csrc/nv12_streamed.cu`` alone, with -D ``flags`` (with
     ``-DNV12_STREAMED_ENCODE`` it also exports the tensor-map encoding that
     :func:`encode_us` times)."""
-    source = os.path.join(_cuda_build._PKG_DIR, "csrc", "nv12_streamed.cu")
-    tag = "streamed" + "".join(f.split("=")[-1].removeprefix("-D").lower()
-                               for f in flags)
-    signatures = {_LAUNCHER: _cuda_build._LAB_SIGNATURES[_LAUNCHER]}
-    if _ENCODE_FLAG in flags:
-        signatures[_ENCODE] = _ENCODE_SIGNATURE
-    return _cuda_build.build_source(source, "streamed_ab", tag, signatures,
-                                    tuple(flags))
+    return ab_common.build_current(
+        "nv12_streamed.cu", "streamed_ab", [_LAUNCHER], flags,
+        {_ENCODE: _ENCODE_SIGNATURE} if _ENCODE_FLAG in flags else None)
 
 
 @functools.lru_cache(maxsize=16)

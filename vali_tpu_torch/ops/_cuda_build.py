@@ -33,7 +33,7 @@ _LAB_SOURCES = ("csrc/nv12_variants.cu", "csrc/nv12_grouped.cu",
                 "csrc/nv12_static2.cu", "csrc/nv12_staged.cu",
                 "csrc/nv12_combo.cu", "csrc/nv12_aligned.cu",
                 "csrc/nv12_streamed.cu", "csrc/nv12_slabs.cu",
-                "csrc/nv12_resize_variants.cu",
+                "csrc/nv12_striped.cu", "csrc/nv12_resize_variants.cu",
                 "csrc/nv12_to_rgb_variants.cu", "csrc/cuda_errors.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
             "csrc/wgmma_common.cuh", "csrc/aligned_passes.cuh",
@@ -113,6 +113,9 @@ _STREAMED_PLANE = _ALIGNED_PLANE + [_I, _P, _P, _I]
 # lab kernel slabs: aligned's plane (B: the pieces' B_p), then the strips'
 # first pieces, the pieces and B's blocks a strip
 _SLABS_PLANE = _ALIGNED_PLANE + [_P, _P, _I]
+# lab kernel striped: B, starts, k_pad, stripes, the most pixels a stripe
+# holds, the widest tile band, the tiles' order, heads, fragments
+_STRIPED_PLANE = [_P, _P, _I, _P, _I, _I, _P, _P, _P]
 _LAB_SIGNATURES.update({
     "nv12_resize_aligned_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
     + _ALIGNED_PLANE * 2 + [_P, _P],
@@ -122,8 +125,8 @@ _LAB_SIGNATURES.update({
     "nv12_resize_skewed_launch": _RESIZE_LAB + [_P, _P],
     "nv12_resize_slabs_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
     + _SLABS_PLANE * 2 + [_I, _P, _P],
-    "nv12_resize_striped_launch": _RESIZE_LAB + [_I, _I, _I, _P, _I, _P, _I,
-                                                 _P, _P],
+    "nv12_resize_striped_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
+    + _STRIPED_PLANE * 2 + [_I, _I, _I, _P, _P, _P, _P],
 })
 
 _libs = {}
