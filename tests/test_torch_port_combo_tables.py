@@ -28,23 +28,33 @@ GEOMETRIES = [(1920, 1080, 224, 224), (162, 90, 50, 20), (130, 62, 34, 30),
 STAGES = banded.STATIC2_STAGES
 
 
+def _rounds(gframes, split):
+    """Rounds of frames a block walks (nv12_combo.cu Cfg::R)."""
+    return gframes // 4 if split == "rounds" else 1
+
+
 def _layout(gframes, tile):
-    """(slot columns, a warpgroup's N, frames a warpgroup sums) of an
-    instance, as nv12_combo.cu's Cfg lays them out."""
+    """(slot columns, a warpgroup's N, frames a warpgroup sums a round) of
+    an instance, as nv12_combo.cu's Cfg lays them out."""
     split = banded.COMBO_SPLITS[gframes, tile]
+    per_round = gframes // _rounds(gframes, split)
     return ((64, tile // 2, gframes) if split == "rows" else
-            (128, tile, gframes // 2 if split == "frames" else gframes))
+            (128, tile, per_round // 2 if split in ("frames", "rounds")
+             else gframes))
 
 
-def _step(split, fw, s):
-    """Step s's column group q, frame f, and its slot halves: (frame of the
-    block's G, first column from x0) each (nv12_combo.cu issue_step)."""
-    q, f = divmod(s, fw)
+def _step(split, fw, s, rsteps):
+    """Step s's round, column group q, frame f, and its slot halves:
+    (frame of the block's G, first column from x0) each (nv12_combo.cu
+    issue_step; ``rsteps`` steps a round)."""
+    rd, sr = divmod(s, rsteps)
+    q, f = divmod(sr, fw)
     if split == "chunks":
-        return q, f, [(f, 128 * q), (f, 128 * q + 64)]
-    if split == "frames":
-        return q, f, [(f, 64 * q), (fw + f, 64 * q)]
-    return q, f, [(f, 64 * q)]
+        return rd, q, f, [(f, 128 * q), (f, 128 * q + 64)]
+    if split in ("frames", "rounds"):
+        first = 2 * fw * rd    # the round's first frame
+        return rd, q, f, [(first + f, 64 * q), (first + fw + f, 64 * q)]
+    return rd, q, f, [(f, 64 * q)]
 
 
 def _bf16(x):
@@ -58,7 +68,9 @@ def _walk(nv12, geo, gframes, tile, split=None):
     products rounded to bf16) and W products into its frames' sums, the
     chunks split's partial sums added at the end; then the product's tail.
     ``split`` overrides the instance's (S2's own walk: 1 frame, chunks).
-    Returns the output and the W-fragment bytes the warpgroups load."""
+    Returns the output, the W-fragment bytes the warpgroups load and, per
+    block, the (frame, chunk) pairs each warpgroup's W products took and
+    the most W accumulators a thread held at once."""
     src_w, src_h, dst_w, dst_h = geo
     split = split or banded.COMBO_SPLITS[gframes, tile]
     sc, n, fw = ((128, tile, gframes) if split == "chunks" else
@@ -72,6 +84,8 @@ def _walk(nv12, geo, gframes, tile, split=None):
     rng = np.random.default_rng(7)
     sums = np.zeros((3, b, strips * tile, dst_w), np.float32)
     frag_bytes = 0
+    visits, most_acc = [], 0
+    rounds = _rounds(gframes, split)
     for strip in range(strips):
         rows = np.concatenate([
             np.minimum(t.starts[strip, 0] + np.arange(ky), src_h - 1),
@@ -84,10 +98,12 @@ def _walk(nv12, geo, gframes, tile, split=None):
                 frames = nv12[z * gframes:(z + 1) * gframes]
                 # stale bytes past a row: anything, since they weigh 0
                 ring = [None] * STAGES
-                nsteps = groups * fw
+                rsteps = groups * fw
+                nsteps = rsteps * rounds
+                seen = []
 
                 def issue(s):
-                    q, f, halves = _step(split, fw, s)
+                    _, q, f, halves = _step(split, fw, s, rsteps)
                     slot = rng.integers(0, 256, (ky + kc, sc)).astype(
                         np.float32)
                     for h, (fr, c0) in enumerate(halves):
@@ -101,15 +117,21 @@ def _walk(nv12, geo, gframes, tile, split=None):
 
                 for s in range(min(STAGES - 1, nsteps)):
                     issue(s)
-                acc = np.zeros((2, fw, 3, n, 64), np.float32)
                 for s in range(nsteps):
                     tag, slot = ring[s % STAGES]
                     assert tag == s    # the step this slot was filled for
                     if s + STAGES - 1 < nsteps:
                         issue(s + STAGES - 1)
-                    q, f, _ = _step(split, fw, s)
+                    rd, q, f, halves = _step(split, fw, s, rsteps)
+                    if s % rsteps == 0:   # a round's accumulators
+                        acc = np.zeros((2, fw, 3, n, 64), np.float32)
+                        # luma N / 2 and U, V N a frame, per thread
+                        most_acc = max(most_acc, fw * (n // 2 + n))
                     for wg in range(2):
                         chunk = 2 * q + wg if split == "chunks" else q
+                        fr = (halves[wg][0] if split in ("frames", "rounds")
+                              else f)
+                        seen.append((fr, chunk))
                         if f == 0:
                             frag_bytes += 6 * 128 * 16
                         a = slot[:, 64 * wg:64 * wg + 64] \
@@ -123,29 +145,35 @@ def _walk(nv12, geo, gframes, tile, split=None):
                             acc[wg, f, c] += np.einsum(
                                 "mk,rk->rm",
                                 w[:, cols * chunk:cols * (chunk + 1)], h)
-                p0 = 64 * tile_i
-                m = min(64, dst_w - p0)
-                r = slice(strip * tile, (strip + 1) * tile)
-                for f in range(fw):
-                    if split == "chunks":
-                        out = acc[0, f] + acc[1, f]
-                        sums[:, z * gframes + f, r, p0:p0 + m] = out[..., :m]
-                    elif split == "frames":
-                        for wg in range(2):
-                            sums[:, z * gframes + wg * fw + f, r,
-                                 p0:p0 + m] = acc[wg, f][..., :m]
-                    else:
-                        for wg in range(2):
-                            rr = slice(strip * tile + n * wg,
-                                       strip * tile + n * (wg + 1))
-                            sums[:, z * gframes + f, rr, p0:p0 + m] = \
-                                acc[wg, f][..., :m]
+                    if s % rsteps < rsteps - 1:
+                        continue
+                    # the round's end: its frames' sums, stored
+                    p0 = 64 * tile_i
+                    m = min(64, dst_w - p0)
+                    r = slice(strip * tile, (strip + 1) * tile)
+                    first = z * gframes + rd * (gframes // rounds)
+                    for f in range(fw):
+                        if split == "chunks":
+                            out = acc[0, f] + acc[1, f]
+                            sums[:, first + f, r, p0:p0 + m] = out[..., :m]
+                        elif split in ("frames", "rounds"):
+                            for wg in range(2):
+                                sums[:, first + wg * fw + f, r,
+                                     p0:p0 + m] = acc[wg, f][..., :m]
+                        else:
+                            for wg in range(2):
+                                rr = slice(strip * tile + n * wg,
+                                           strip * tile + n * (wg + 1))
+                                sums[:, first + f, rr, p0:p0 + m] = \
+                                    acc[wg, f][..., :m]
+                visits.append(seen)
     eye = torch.eye(dst_w)
     tail = banded.tail_params(ColorSpace.BT_709, ColorRange.MPEG, 1.0,
                               torch.uint8, None)
     y, u, v = (torch.from_numpy(x[:, :dst_h]) for x in sums)
     return (banded.w_pass_tail_plain(y, u, v, eye, eye, tail,
-                                     torch.uint8).numpy(), frag_bytes)
+                                     torch.uint8).numpy(), frag_bytes,
+            visits, most_acc)
 
 
 def _frames(geo, batch, seed):
@@ -178,12 +206,12 @@ def test_walk_equals_static_kernel2_plain(geo, gframes, tile):
     walk bit for bit, and the W fragments it loads are S2's over
     gframes."""
     x = _frames(geo, 2 * gframes, sum(geo) + tile)
-    got, frag = _walk(x, geo, gframes, tile)
+    got, frag, _, _ = _walk(x, geo, gframes, tile)
     _close(got, _plain(x, geo, tile))
     assert frag == kv.combo_w_fragment_bytes(2 * gframes, *geo,
                                              gframes=gframes, tile=tile)
     if banded.COMBO_SPLITS[gframes, tile] == "chunks":
-        s2, s2_frag = _walk(x, geo, 1, tile, split="chunks")
+        s2, s2_frag, _, _ = _walk(x, geo, 1, tile, split="chunks")
         assert np.array_equal(got, s2)
         assert frag * gframes == s2_frag
 
@@ -202,6 +230,7 @@ def test_w_fragment_bytes_at_1080p():
     assert mb[1, 32] == 36 * chunk * 7 * 64
     assert mb[2, 32] * 2 == mb[1, 32]
     assert mb[4, 32] == mb[1, 32] // 2   # each warpgroup: 2 of 4 frames
+    assert mb[8, 32] == mb[4, 32]        # M8: two rounds of 4x32's walk
     assert mb[1, 64] == 36 * chunk * 4 * 64 * 2 == 2 * mb[2, 64]
 
 
@@ -259,7 +288,8 @@ def test_source_instances_are_the_splits():
 
     src = open(os.path.join(_cuda_build._PKG_DIR, "csrc",
                             "nv12_combo.cu")).read()
-    split = {"kChunks": "chunks", "kFrames": "frames", "kRows": "rows"}
+    split = {"kChunks": "chunks", "kFrames": "frames", "kRows": "rows",
+             "kRounds": "rounds"}
     got = {(int(g), int(t)): split[s] for g, t, s in re.findall(
         r"case (\d)0(\d\d): return go\(Cfg<\d+, \d+, (\w+)>", src)}
     assert got == banded.COMBO_SPLITS

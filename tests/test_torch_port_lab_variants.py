@@ -54,15 +54,26 @@ def test_variant_kernel_matches_the_notebook(nv12, variant):
     _assert_u8_close(j, t.numpy())
 
 
-@pytest.mark.parametrize("tile", [32, 16])
+@pytest.mark.parametrize("tile", [32, 16, 8, 4])
 @pytest.mark.parametrize("mode", ["full", "hpass", "wpass"])
 def test_prod_like_matches_the_notebook(nv12, mode, tile):
     """The TPU's H-pass tile is the port's strip height; each knock-out
-    gives its own output, the same in both packages."""
+    gives its own output, the same in both packages: through the wrapper
+    where the port's kernel runs the mode at that strip height, else
+    through the plain version (hpass and wpass at 4 and 8 rows). The
+    notebook pads a buffer shorter than its tile's windows need, and wpass
+    reads the buffer's last rows, so at 4 and 8 rows both get 64 more
+    random rows: one buffer, as given to each."""
+    from vali_tpu_torch.lab.prodlike import PRODLIKE_STRIPS
+
+    if tile < 16:
+        more = np.random.default_rng(tile).integers(
+            0, 256, (B, 64, W), dtype=np.uint8)
+        nv12 = np.concatenate([nv12, more], axis=1)
     j = bkv.prod_like(jnp.asarray(nv12), **GEO, mode=mode, tile=tile,
                       interpret=True)
-    t = kv.prod_like(torch.from_numpy(nv12), **GEO, mode=mode,
-                     rows_per_block=tile)
+    fn = kv.prod_like if tile in PRODLIKE_STRIPS[mode] else kv.prod_like_plain
+    t = fn(torch.from_numpy(nv12), **GEO, mode=mode, rows_per_block=tile)
     _assert_u8_close(j, t.numpy())
 
 
@@ -71,6 +82,17 @@ def test_multiframe_matches_the_notebook(nv12, gframes):
     j = bkv.multiframe_kernel(jnp.asarray(nv12), **GEO, gframes=gframes,
                               interpret=True)
     t = kv.multiframe(torch.from_numpy(nv12), **GEO, gframes=gframes)
+    _assert_u8_close(j, t.numpy())
+
+
+def test_multiframe_at_8_frames_matches_the_notebook(nv12):
+    """M8 (the combo's block walking 8 frames in two rounds of 4) on a
+    batch of 8: the notebook's multiframe_kernel at gframes=8 (its 32-row
+    tile, align 8) against the port's CPU route, within the envelope."""
+    x8 = np.concatenate([nv12, nv12[::-1] ^ 0x5A])
+    j = bkv.multiframe_kernel(jnp.asarray(x8), **GEO, gframes=8,
+                              interpret=True)
+    t = kv.multiframe(torch.from_numpy(x8), **GEO, gframes=8)
     _assert_u8_close(j, t.numpy())
 
 
@@ -124,13 +146,14 @@ def test_transposed_chroma_matches_the_pallas_product(nv12):
 
 
 @pytest.mark.parametrize("name", ["S2t%da%d" % p for p in S2_SWEEP] + ["G"]
-                         + ["combo%dx%d" % p for p in COMBO])
+                         + ["combo%dx%d" % p for p in COMBO]
+                         + ["full", "full4", "full8", "full48", "M2", "M8"])
 def test_table_plain_versions_equal_the_product_plain(nv12, name):
-    """S2's, the combo's (S2's at its strip height) and G's plain versions
-    compute from their own host tables (strip windows with zero taps;
-    block-diagonal matrices over stacked windows); each gives the
-    product's plain output bit for bit, which checks the tables the
-    kernels read."""
+    """S2's, the combo's, full's and M*'s (S2's at their strip height) and
+    G's plain versions compute from their own host tables (strip windows
+    with zero taps; block-diagonal matrices over stacked windows); each
+    gives the product's plain output bit for bit, which checks the tables
+    the kernels read."""
     x = torch.from_numpy(nv12)
     c = kv.case(name, B, nv12.shape[1], **GEO)
     assert c.plain is not None

@@ -184,13 +184,12 @@ __device__ __forceinline__ void csc_store(uint8_t* ob, long long plane_sz,
 // H pass of one plane segment: `ncols` columns of `rows` output rows,
 // written to dst[r * dst_w + col * step + off]. Row o0 + r of the tables
 // is output row r.
-template <typename TIn, bool F32, bool kSharedTables = false>
+template <typename TIn, bool F32>
 __device__ __forceinline__ void hpass(
     const TIn* plane, long long rs, int ncols, int o0, int rows,
     const int* start, const int* count, const float* w, int k_max,
     typename Mid<F32>::T* dst, int dst_w, int step, int off, bool vec) {
   using M = Mid<F32>;
-  constexpr bool kS = kSharedTables;
   if (vec) {
     constexpr int V = In<TIn>::kVec;
     const int groups = ncols / V;
@@ -198,10 +197,10 @@ __device__ __forceinline__ void hpass(
       const int r = item / groups;
       const int g = item - r * groups;
       const int o = o0 + r;
-      const int n = tab<kS>(count + o);
+      const int n = __ldg(count + o);
       const float* wr = w + static_cast<long long>(o) * k_max;
       const TIn* src = plane +
-                       static_cast<long long>(tab<kS>(start + o)) * rs +
+                       static_cast<long long>(__ldg(start + o)) * rs +
                        static_cast<long long>(g) * V;
       float acc[V];
 #pragma unroll
@@ -209,7 +208,7 @@ __device__ __forceinline__ void hpass(
       for (int k = 0; k < n; ++k) {
         float x[V];
         In<TIn>::load_vec(src + static_cast<long long>(k) * rs, x);
-        const float wk = tab<kS>(wr + k);
+        const float wk = __ldg(wr + k);
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = fmaf(wk, x[i], acc[i]);
       }
@@ -222,13 +221,13 @@ __device__ __forceinline__ void hpass(
       const int r = item / ncols;
       const int col = item - r * ncols;
       const int o = o0 + r;
-      const int n = tab<kS>(count + o);
+      const int n = __ldg(count + o);
       const float* wr = w + static_cast<long long>(o) * k_max;
       const TIn* src = plane +
-                       static_cast<long long>(tab<kS>(start + o)) * rs + col;
+                       static_cast<long long>(__ldg(start + o)) * rs + col;
       float acc = 0.0f;
       for (int k = 0; k < n; ++k)
-        acc = fmaf(tab<kS>(wr + k),
+        acc = fmaf(__ldg(wr + k),
                    In<TIn>::load(src + static_cast<long long>(k) * rs), acc);
       dst[r * dst_w + col * step + off] = M::put(acc);
     }
@@ -252,16 +251,14 @@ enum ChromaRows : int {
 // pass, CSC and round/clip to uint8 of `rows` bf16 H-pass rows, for output
 // columns [p0, p0 + np). Luma row r is at yh[r * y_pitch] and holds source
 // columns from ylo on; the chroma rows are laid out as kC says,
-// interleaved columns from clo on; tables read from shared memory with
-// kSharedTables. Output
-// row r is o0 + r of the [3, dst_h, DW] planes at `ob`.
-template <bool kSharedTables, int kC>
+// interleaved columns from clo on. Output row r is o0 + r of the [3,
+// dst_h, DW] planes at `ob`.
+template <int kC>
 __device__ __forceinline__ void wpass_store(
     const __nv_bfloat16* yh, const __nv_bfloat16* ch, int y_pitch,
     int c_pitch, int rows, int o0, int dst_h, int DW, int p0, int np,
     int ylo, int clo, const Tables& t, const Tail& tl, uint8_t* ob) {
   using M = Mid<false>;
-  constexpr bool kS = kSharedTables;
   const long long plane_sz = static_cast<long long>(dst_h) * DW;
   for (int item = threadIdx.x; item < rows * np; item += blockDim.x) {
     const int r = item / np;
@@ -272,15 +269,15 @@ __device__ __forceinline__ void wpass_store(
     const int cstep = kC == kTransposed ? c_pitch : 1;
 
     float ya = 0.0f;
-    const int ys = tab<kS>(t.wy_start + p) - ylo;
-    const int yn = tab<kS>(t.wy_count + p);
+    const int ys = __ldg(t.wy_start + p) - ylo;
+    const int yn = __ldg(t.wy_count + p);
     for (int k = 0; k < yn; ++k)
-      ya = fmaf(tab<kS>(t.wy_w + k * DW + p), M::get(yrow[ys + k]), ya);
+      ya = fmaf(__ldg(t.wy_w + k * DW + p), M::get(yrow[ys + k]), ya);
 
     float ua = 0.0f, va = 0.0f;
-    const int cs = tab<kS>(t.wc_start + p), cn = tab<kS>(t.wc_count + p);
+    const int cs = __ldg(t.wc_start + p), cn = __ldg(t.wc_count + p);
     for (int k = 0; k < cn; ++k) {
-      const float wk = tab<kS>(t.wc_w + k * DW + p);
+      const float wk = __ldg(t.wc_w + k * DW + p);
       const int j = 2 * (cs + k) - clo;
       ua = fmaf(wk, M::get(crow[j * cstep]), ua);
       va = fmaf(wk, M::get(crow[(j + 1) * cstep]), va);

@@ -70,6 +70,14 @@
 //         warpgroup w owns strip rows 32 w .. 32 w + 31 (N = 32 in both
 //         passes, B read 32 w rows in; 1.5 G 32 accumulators) of every
 //         frame. No exchange.
+//       kRounds (8x32: the notebook's M8): 8 frames of 32-row strips
+//         would need 384 accumulators a thread in kFrames, so the block
+//         walks its frames in G / 4 rounds of kFrames' 4x32 walk (frames
+//         4 r .. 4 r + 3 in round r): each round loads each chunk's W
+//         fragments once, sums its 4 frames (96 accumulators a thread),
+//         and stores them while the ring already holds the next round's
+//         first steps. So a block reads B once for 8 frames and the W
+//         fragments once for 4.
 //     The swizzle of a slot's rows (16-byte chunk ch of row k at ch xor
 //     (k / 2 mod SC / 16)) keeps a warp's A-fragment reads of rows 2 tq
 //     (+1, +8, +9) in distinct banks at either slot width SC.
@@ -127,15 +135,19 @@ constexpr int kStages = 3;     // ring depth: two steps in flight
 constexpr int kHBatch = 4;     // H-pass k-steps a batch of products
 constexpr int kWSteps = 6;     // W k-steps a chunk: 4 luma, 2 chroma
 
-enum Split : int { kChunks = 0, kFrames = 1, kRows = 2 };
+enum Split : int { kChunks = 0, kFrames = 1, kRows = 2, kRounds = 3 };
 
 // One instance: G frames a block on strips of T rows, split as S.
 template <int T_, int G_, int S_>
 struct Cfg {
   static constexpr int T = T_, G = G_, S = S_;
+  static constexpr int R = S == kRounds ? G / 4 : 1;  // rounds of frames
+  static constexpr int GR = G / R;                    // frames a round
+  // a slot holds chunk q of two frames, one a warpgroup
+  static constexpr bool kHalves = S == kFrames || S == kRounds;
   static constexpr int SC = S == kRows ? 64 : 128;  // slot columns
   static constexpr int N = S == kRows ? T / 2 : T;  // a warpgroup's N
-  static constexpr int FW = S == kFrames ? G / 2 : G;  // its frames
+  static constexpr int FW = kHalves ? GR / 2 : GR;  // its frames a round
   // bytes of one 8-column group of a warpgroup's H rows: N luma rows (U
   // then V rows for chroma) of 16 bytes, and 16 of padding
   static constexpr int kGy = 16 * N + 16;
@@ -149,6 +161,7 @@ struct Cfg {
   static constexpr int kMinBlocks = T <= 16 && 3 * G * T <= 96 ? 2 : 1;
   static_assert(3 * FW * N <= 192, "at most 96 W accumulators a thread");
   static_assert(S != kFrames || G % 2 == 0, "frames split in halves");
+  static_assert(S != kRounds || G % 4 == 0, "rounds of 4 frames");
 };
 
 // Bytes of the ring (or the traded sums, the larger) for kst window rows.
@@ -174,11 +187,12 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
 }
 
 // Copy step (q, f) into a slot: its SC / 64 halves of 64 columns, half h
-// the bytes from column col(h) of frame fr(h) (from x0) of the kw stacked
-// window rows (row k at frame + row_of(k) * rs); only bytes below `end`
-// are copied. Every thread commits one group.
+// the bytes from column col(h) of frame fr(h) (from x0; frames from
+// `base`, the round's first) of the kw stacked window rows (row k at
+// frame + row_of(k) * rs); only bytes below `end` are copied. Every thread
+// commits one group.
 //   kChunks: frame f, columns 128 q + 64 h;
-//   kFrames: frame h G / 2 + f, columns 64 q;
+//   kFrames, kRounds: frame h FW + f, columns 64 q;
 //   kRows:   frame f, columns 64 q.
 template <class C, typename RowOf>
 __device__ __forceinline__ void issue_step(unsigned char* slot,
@@ -188,7 +202,7 @@ __device__ __forceinline__ void issue_step(unsigned char* slot,
                                            RowOf row_of) {
   constexpr int SC = C::SC;
   const auto frame = [&](int h) {
-    return base + (C::S == kFrames ? h * C::FW + f : f) * bs;
+    return base + (C::kHalves ? h * C::FW + f : f) * bs;
   };
   const auto col = [&](int h) {
     return C::S == kChunks ? 128 * q + 64 * h : 64 * q;
@@ -287,7 +301,8 @@ nv12_combo_kernel(const uint8_t* __restrict__ src, long long bs,
   const int tile = blockIdx.x, strip = blockIdx.y;
   const int4 hd = __ldg(heads + tile);  // first chunk, x0, chunks
   const int groups = C::S == kChunks ? hd.z / 2 : hd.z;
-  const int nsteps = groups * FW;
+  const int rsteps = groups * FW;  // steps a round
+  const int nsteps = rsteps * C::R;
   const int o0 = strip * T;
   const int rows = min(T, g.dst_h - o0);
   // frame 0 of the block's G, from x0
@@ -301,9 +316,12 @@ nv12_combo_kernel(const uint8_t* __restrict__ src, long long bs,
                   : h + min(st.y + k - ky, h / 2 - 1);
   };
   const auto issue = [&](int s) {
-    const int q = s / FW;
-    issue_step<C>(ring + s % kStages * kst * SC, base, bs, rs, q,
-                  s - q * FW, kst, end, vec, row_of);
+    int rd = 0;  // the round of step s
+    if constexpr (C::R > 1) rd = s / rsteps;
+    const int sr = s - rd * rsteps, q = sr / FW;
+    issue_step<C>(ring + s % kStages * kst * SC,
+                  base + static_cast<long long>(rd) * C::GR * bs, bs, rs, q,
+                  sr - q * FW, kst, end, vec, row_of);
   };
 
   for (int s = 0; s < kStages - 1; ++s) {
@@ -328,131 +346,137 @@ nv12_combo_kernel(const uint8_t* __restrict__ src, long long bs,
   step_offsets<SC>(off, (C::S == kRows ? 0 : 64 * wg) + lcol, tq);
   const uint4* wf = frags + static_cast<long long>(hd.x) * kWSteps * 128 +
                     wt;
-  float dy[FW][N / 2], duv[FW][N];
-#pragma unroll
-  for (int f = 0; f < FW; ++f) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) dy[f][i] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) duv[f][i] = 0.0f;
-  }
-
-  for (int q = 0; q < groups; ++q) {
-    // the warpgroup's chunk of column group q, its W weights loaded once
-    // for the FW frames' steps
-    const int chunk = C::S == kChunks ? 2 * q + wg : q;
-    uint4 wa[kWSteps];  // kept in registers over the frames
+  // kRounds: a round at a time (R = 1 for the other splits)
+  for (int rd = 0; rd < C::R; ++rd) {
+    float dy[FW][N / 2], duv[FW][N];
 #pragma unroll
     for (int f = 0; f < FW; ++f) {
-      const int s = q * FW + f;
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // step s landed; slot (s - 1) % kStages is free
-      if (s + kStages - 1 < nsteps)
-        issue(s + kStages - 1);
-      else
-        cp_async_commit();
-      if (!(kKnockout & 1) && f == 0) {  // f: unrolled, no run-time branch
-        // every product of group q - 1 completed before the barrier
-        const uint4* fq =
-            wf + static_cast<long long>(chunk) * kWSteps * 128;
 #pragma unroll
-        for (int i = 0; i < kWSteps; ++i) wa[i] = __ldg(fq + i * 128);
-      }
-      if constexpr (!(kKnockout & 2)) {
-        const unsigned char* slot = ring + s % kStages * kst * SC;
-        float d[N / 2];
-        // d[4 j + e], d[4 j + 2 + e]: row 8 j + 2 tq + e of byte columns
-        // lcol and lcol + 1 (luma: two pixels; chroma: U and V of one)
-        h_chain<C>(d, slot, ky / 16, off, bdesc_y);
+      for (int i = 0; i < N / 2; ++i) dy[f][i] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < N / 8; ++j)
+      for (int i = 0; i < N; ++i) duv[f][i] = 0.0f;
+    }
+
+    for (int q = 0; q < groups; ++q) {
+      // the warpgroup's chunk of column group q, its W weights loaded once
+      // for the FW frames' steps
+      const int chunk = C::S == kChunks ? 2 * q + wg : q;
+      uint4 wa[kWSteps];  // kept in registers over the frames
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            *reinterpret_cast<unsigned*>(
-                hy + h_off(8 * j + 2 * tq + e, lcol, kGy)) =
-                pack_bf16(d[4 * j + e], d[4 * j + 2 + e]);
-        h_chain<C>(d, slot + ky * SC, kc / 16, off, bdesc_c);
+      for (int f = 0; f < FW; ++f) {
+        const int s = rd * rsteps + q * FW + f;
+        cp_async_wait<kStages - 2>();
+        __syncthreads();  // step s landed; slot (s - 1) % kStages is free
+        if (s + kStages - 1 < nsteps)
+          issue(s + kStages - 1);
+        else
+          cp_async_commit();
+        if (!(kKnockout & 1) && f == 0) {  // f: unrolled, no run-time branch
+          // every product of group q - 1 completed before the barrier
+          const uint4* fq =
+              wf + static_cast<long long>(chunk) * kWSteps * 128;
 #pragma unroll
-        for (int j = 0; j < N / 8; ++j)
+          for (int i = 0; i < kWSteps; ++i) wa[i] = __ldg(fq + i * 128);
+        }
+        if constexpr (!(kKnockout & 2)) {
+          const unsigned char* slot = ring + s % kStages * kst * SC;
+          float d[N / 2];
+          // d[4 j + e], d[4 j + 2 + e]: row 8 j + 2 tq + e of byte columns
+          // lcol and lcol + 1 (luma: two pixels; chroma: U and V of one)
+          h_chain<C>(d, slot, ky / 16, off, bdesc_y);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int r = 8 * j + 2 * tq + e;
-            *reinterpret_cast<__nv_bfloat16*>(hc +
-                                              h_off(r, lcol / 2, kGc)) =
-                __float2bfloat16_rn(d[4 * j + e]);
-            *reinterpret_cast<__nv_bfloat16*>(
-                hc + h_off(N + r, lcol / 2, kGc)) =
-                __float2bfloat16_rn(d[4 * j + 2 + e]);
-          }
-        fence_proxy_async();  // the H rows, read by wgmma below
-        warpgroup_sync(wg);
-      }
-      if constexpr (!(kKnockout & 1)) {
-        wgmma::fence();
+          for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wgmma::mma<N>(dy[f], wa[i], desc(hy + 2 * i * kGy, kGy, 128));
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<unsigned*>(
+                  hy + h_off(8 * j + 2 * tq + e, lcol, kGy)) =
+                  pack_bf16(d[4 * j + e], d[4 * j + 2 + e]);
+          h_chain<C>(d, slot + ky * SC, kc / 16, off, bdesc_c);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wgmma::mma<2 * N>(duv[f], wa[4 + i],
-                            desc(hc + 2 * i * kGc, kGc, 128));
-        wgmma::commit();
-        // before the next step's H rows overwrite these (and the next
-        // group's weights overwrite wa): a wgmma reads its operands until
-        // its group completes
-        wgmma::wait_all();
+          for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = 8 * j + 2 * tq + e;
+              *reinterpret_cast<__nv_bfloat16*>(
+                  hc + h_off(r, lcol / 2, kGc)) =
+                  __float2bfloat16_rn(d[4 * j + e]);
+              *reinterpret_cast<__nv_bfloat16*>(
+                  hc + h_off(N + r, lcol / 2, kGc)) =
+                  __float2bfloat16_rn(d[4 * j + 2 + e]);
+            }
+          fence_proxy_async();  // the H rows, read by wgmma below
+          warpgroup_sync(wg);
+        }
+        if constexpr (!(kKnockout & 1)) {
+          wgmma::fence();
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            wgmma::mma<N>(dy[f], wa[i], desc(hy + 2 * i * kGy, kGy, 128));
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            wgmma::mma<2 * N>(duv[f], wa[4 + i],
+                              desc(hc + 2 * i * kGc, kGc, 128));
+          wgmma::commit();
+          // before the next step's H rows overwrite these (and the next
+          // group's weights overwrite wa): a wgmma reads its operands
+          // until its group completes
+          wgmma::wait_all();
+        }
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every step read: the ring's bytes are free
-  if constexpr (kKnockout & 1) return;
+    if (C::R == 1 || rd == C::R - 1) {
+      cp_async_wait<0>();
+      __syncthreads();  // every step read: the ring's bytes are free
+    }
+    if constexpr (kKnockout & 1) continue;
 
-  const long long plane_sz = static_cast<long long>(g.dst_h) * g.dst_w;
-  float* trade = reinterpret_cast<float*>(ring);
-  if constexpr (C::S == kChunks) {
-    // warpgroup w finishes the pixels of accumulators e with e / 2 == w
-    // (tile columns 16 warp + gq + 8 w); it hands the other its sums of
-    // the rest, frame by frame, in the fragment layout both share
+    const long long plane_sz = static_cast<long long>(g.dst_h) * g.dst_w;
+    float* trade = reinterpret_cast<float*>(ring);
+    if constexpr (C::S == kChunks) {
+      // warpgroup w finishes the pixels of accumulators e with e / 2 == w
+      // (tile columns 16 warp + gq + 8 w); it hands the other its sums of
+      // the rest, frame by frame, in the fragment layout both share
+#pragma unroll
+      for (int f = 0; f < FW; ++f) {
+        float* tf = trade + f * C::kTrade * 128;
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i)
+          if (((i & 3) >> 1) != wg) tf[i * 128 + wt] = dy[f][i];
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          if (((i & 3) >> 1) != wg) tf[(N / 2 + i) * 128 + wt] = duv[f][i];
+      }
+      __syncthreads();
+    }
+    // pixel of accumulator 4 j + e: tile column 16 warp + gq + 8 (e / 2),
+    // row 8 j + 2 tq + e mod 2 of the warpgroup's N rows; U from duv[4 j +
+    // e], V from duv[4 (j + N / 8) + e] (the V rows are N rows N on)
+    const int r0 = C::S == kRows ? N * wg : 0;
 #pragma unroll
     for (int f = 0; f < FW; ++f) {
-      float* tf = trade + f * C::kTrade * 128;
+      const int b = blockIdx.z * C::G + rd * C::GR +
+                    (C::kHalves ? wg * FW : 0) + f;
+      uint8_t* ob = out + static_cast<long long>(b) * 3 * plane_sz;
+      const float* tf = trade + f * C::kTrade * 128;
 #pragma unroll
-      for (int i = 0; i < N / 2; ++i)
-        if (((i & 3) >> 1) != wg) tf[i * 128 + wt] = dy[f][i];
+      for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
-      for (int i = 0; i < N; ++i)
-        if (((i & 3) >> 1) != wg) tf[(N / 2 + i) * 128 + wt] = duv[f][i];
-    }
-    __syncthreads();
-  }
-  // pixel of accumulator 4 j + e: tile column 16 warp + gq + 8 (e / 2),
-  // row 8 j + 2 tq + e mod 2 of the warpgroup's N rows; U from duv[4 j +
-  // e], V from duv[4 (j + N / 8) + e] (the V rows are N rows N on)
-  const int r0 = C::S == kRows ? N * wg : 0;
-#pragma unroll
-  for (int f = 0; f < FW; ++f) {
-    const int b = blockIdx.z * C::G + (C::S == kFrames ? wg * FW : 0) + f;
-    uint8_t* ob = out + static_cast<long long>(b) * 3 * plane_sz;
-    const float* tf = trade + f * C::kTrade * 128;
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + 8 * j + 2 * tq + (e & 1);
-        const int p = 64 * tile + 16 * warp + gq + 8 * (e >> 1);
-        const bool mine = C::S != kChunks || (e >> 1) == wg;
-        if (mine && r < rows && p < g.dst_w) {
-          const int iy = 4 * j + e, iv = 4 * (j + N / 8) + e;
-          float ya = dy[f][iy], ua = duv[f][iy], va = duv[f][iv];
-          if constexpr (C::S == kChunks) {
-            ya += tf[iy * 128 + wt];
-            ua += tf[(N / 2 + iy) * 128 + wt];
-            va += tf[(N / 2 + iv) * 128 + wt];
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + 8 * j + 2 * tq + (e & 1);
+          const int p = 64 * tile + 16 * warp + gq + 8 * (e >> 1);
+          const bool mine = C::S != kChunks || (e >> 1) == wg;
+          if (mine && r < rows && p < g.dst_w) {
+            const int iy = 4 * j + e, iv = 4 * (j + N / 8) + e;
+            float ya = dy[f][iy], ua = duv[f][iy], va = duv[f][iv];
+            if constexpr (C::S == kChunks) {
+              ya += tf[iy * 128 + wt];
+              ua += tf[(N / 2 + iy) * 128 + wt];
+              va += tf[(N / 2 + iv) * 128 + wt];
+            }
+            csc_store(ob, plane_sz,
+                      static_cast<long long>(o0 + r) * g.dst_w + p, ya, ua,
+                      va, tl);
           }
-          csc_store(ob, plane_sz,
-                    static_cast<long long>(o0 + r) * g.dst_w + p, ya, ua, va,
-                    tl);
         }
       }
     }
@@ -493,7 +517,8 @@ extern "C" {
 // The combo over `src`, frame 0 of a [batch, buf_rows, src_w] uint8 NV12
 // buffer with the given batch and row strides (bytes), `gframes` frames a
 // block (batch % gframes == 0) on strips of `tile` output rows; (gframes,
-// tile) one of (2, 16), (4, 16), (2, 32), (4, 32), (1, 64), (2, 64).
+// tile) one of (2, 16), (4, 16), (2, 32), (4, 32), (1, 64), (2, 64),
+// (8, 32).
 // tail: the 18 floats of ops/banded.py tail_params. The tables are S2's
 // at (tile, align 8), as nv12_static2_launch takes them: b_tiles [strips,
 // (k_luma + k_chroma) * tile] bf16 on the device, per strip B_y then B_c
@@ -548,6 +573,7 @@ int nv12_combo_launch(const void* src, long long batch_stride,
     case 4032: return go(Cfg<32, 4, kFrames>());
     case 1064: return go(Cfg<64, 1, kRows>());
     case 2064: return go(Cfg<64, 2, kRows>());
+    case 8032: return go(Cfg<32, 8, kRounds>());
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

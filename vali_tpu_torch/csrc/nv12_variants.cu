@@ -4,15 +4,13 @@
 //
 // Replaces the TPU lab-notebook kernels of bench_kernel_variants.py:
 //   - dma_floor           -> nv12_stream_floor_launch
-//   - prod_like           -> nv12_variant_launch, mode full / hpass / wpass;
-//                            the TPU's H-pass tile becomes the strip height
-//   - multiframe_kernel   -> nv12_variant_launch, frames per block G
 //   - static_kernel       -> nv12_static_launch, S: H row tables in the
 //                            constant bank, short or long cast chain
 //   - transposed_chroma_kernel -> nv12_transposed_launch, T
-// (grouped_kernel, static_kernel2, variant_kernel B / C / D and
-// combo_kernel, the resize passes on the tensor cores, are
-// nv12_grouped.cu, nv12_static2.cu, nv12_staged.cu and nv12_combo.cu.)
+// (grouped_kernel, static_kernel2, variant_kernel B / C / D, combo_kernel,
+// prod_like and multiframe_kernel, the resize passes on the tensor cores,
+// are nv12_grouped.cu, nv12_static2.cu, nv12_staged.cu, nv12_combo.cu,
+// nv12_prodlike.cu and nv12_combo.cu again.)
 //
 // What bounds them on this card: what bounds the product kernel. One 64 x
 // 1080p -> 224 batch reads ~199 MB and does a few GFLOP of FMAs, far under
@@ -22,25 +20,12 @@
 // load and XORed into a small sink, so no load is dead. Its rate is the
 // measured bound the variants (and the product kernels) are held to.
 //
-// The variants keep the block design of banded_preprocess.cu: one block per
-// (frame, strip of `rows` output rows), the H pass into shared memory as
-// bf16 rows (banded_preprocess.cuh), then the W pass, CSC and round/clip
-// to uint8 (wpass_store, the product kernel's phase 2 with the knobs
-// below). Knobs, one at a time:
-//   mode full   the product kernel.
-//        hpass  the H pass only: out[c] = clip(round(yh[:, :DW] + ch[:, :DW]))
-//               on all three channels, ch interleaved.
-//        wpass  the H pass skipped: yh = bf16(frame rows o), ch = bf16(the
-//               last dst_h rows of the buffer as given), then W pass + tail.
-//   frames G    one block runs the same strip of G consecutive frames and
-//               first stages the strip's row tables and every column table
-//               in shared memory, then reuses them for each frame.
-// Only these combinations are instantiated, all uint8 in, uint8 out and
-// bf16 compute; every full-function variant gives the product kernel's
-// bits (same FMAs in the same order).
-//
-// The static-window family (nv12_static_kernel) keeps the same block
-// design and changes where the H pass finds its windows:
+// S and T keep the block design of banded_preprocess.cu's earlier form:
+// one block per (frame, strip of `rows` output rows), the H pass into
+// shared memory as bf16 rows (banded_preprocess.cuh), then the W pass, CSC
+// and round/clip to uint8 (wpass_store), the same FMAs in the same order
+// as the product kernel, so its bits. They change where the H pass finds
+// its windows or keeps its rows:
 //   S      the TPU's trace-time window starts become row tables in the
 //          64 KB constant bank (43,008 B at 1080p -> 224), read through the
 //          constant cache instead of __ldg; a warp whose threads straddle
@@ -72,7 +57,6 @@ using banded::Geometry;
 using banded::hpass;
 using banded::kSmemLimit;
 using banded::Mid;
-using banded::tab;
 using banded::Tables;
 using banded::Tail;
 using banded::wpass_store;
@@ -82,189 +66,12 @@ using T = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 
-enum Mode : int { kFull = 0, kHpass = 1, kWpass = 2 };
-
 struct Frames {
   const uint8_t* src;  // frame 0 of [batch, buf_rows, src_w]
   long long bs, rs;    // batch and row strides in bytes
   int buf_rows;        // rows of the buffer as given (>= src_h * 3 / 2)
   int vec;             // 1: aligned start, strides and width: 16-byte loads
 };
-
-struct Knobs {
-  int frames;          // frames per block
-  int wy_k, wc_k;      // column taps, for staging the column tables
-};
-
-__device__ __forceinline__ T to_bf16(unsigned x) {
-  return __float2bfloat16_rn(static_cast<float>(static_cast<int>(x)));
-}
-
-// n rows of ncols uint8 samples at src (row stride rs) -> bf16
-// dst[i * dst_w + x] (wpass's rows).
-__device__ __forceinline__ void load_rows(const uint8_t* src, long long rs,
-                                          int n, int ncols, T* dst,
-                                          int dst_w, bool vec) {
-  if (vec) {
-    const int groups = ncols / 16;
-    for (int item = threadIdx.x; item < n * groups; item += blockDim.x) {
-      const int i = item / groups;
-      const int g = item - i * groups;
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(i) * rs + g * 16));
-      const unsigned w[4] = {q.x, q.y, q.z, q.w};
-      T* d = dst + i * dst_w + g * 16;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          d[4 * j + k] = to_bf16((w[j] >> (8 * k)) & 0xFFu);
-    }
-  } else {
-    for (int item = threadIdx.x; item < n * ncols; item += blockDim.x) {
-      const int i = item / ncols;
-      const int x = item - i * ncols;
-      dst[i * dst_w + x] =
-          to_bf16(__ldg(src + static_cast<long long>(i) * rs + x));
-    }
-  }
-}
-
-template <int MODE, bool MF>
-__global__ void __launch_bounds__(kThreads)
-nv12_variant_kernel(Frames f, Tables t, Tail tl, Geometry g, Knobs kn,
-                    uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int W = g.src_w;  // luma row and interleaved chroma row
-  const int DW = g.dst_w;
-  T* yh = reinterpret_cast<T*>(smem);  // [rows][W] luma
-  T* ch = yh + g.rows * W;             // [rows][W] U/V interleaved
-  T* rest = ch + g.rows * W;           // staged tables
-  const int o0 = blockIdx.x * g.rows;
-  const int rows = min(g.rows, g.dst_h - o0);
-  const bool vec = f.vec != 0;
-
-  // the tables this block reads; row-table index of the strip's first row
-  Tables tb = t;
-  int ho = o0;
-  if constexpr (MF) {
-    int* hys = reinterpret_cast<int*>(rest);
-    int* hyc = hys + g.rows;
-    int* hcs = hyc + g.rows;
-    int* hcc = hcs + g.rows;
-    int* wys = hcc + g.rows;
-    int* wyc = wys + DW;
-    int* wcs = wyc + DW;
-    int* wcc = wcs + DW;
-    float* hyw = reinterpret_cast<float*>(wcc + DW);
-    float* hcw = hyw + g.rows * t.hy_k;
-    float* wyw = hcw + g.rows * t.hc_k;
-    float* wcw = wyw + kn.wy_k * DW;
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-      hys[i] = __ldg(t.hy_start + o0 + i);
-      hyc[i] = __ldg(t.hy_count + o0 + i);
-      hcs[i] = __ldg(t.hc_start + o0 + i);
-      hcc[i] = __ldg(t.hc_count + o0 + i);
-    }
-    for (int i = threadIdx.x; i < rows * t.hy_k; i += blockDim.x)
-      hyw[i] = __ldg(t.hy_w + static_cast<long long>(o0) * t.hy_k + i);
-    for (int i = threadIdx.x; i < rows * t.hc_k; i += blockDim.x)
-      hcw[i] = __ldg(t.hc_w + static_cast<long long>(o0) * t.hc_k + i);
-    for (int i = threadIdx.x; i < DW; i += blockDim.x) {
-      wys[i] = __ldg(t.wy_start + i);
-      wyc[i] = __ldg(t.wy_count + i);
-      wcs[i] = __ldg(t.wc_start + i);
-      wcc[i] = __ldg(t.wc_count + i);
-    }
-    for (int i = threadIdx.x; i < kn.wy_k * DW; i += blockDim.x)
-      wyw[i] = __ldg(t.wy_w + i);
-    for (int i = threadIdx.x; i < kn.wc_k * DW; i += blockDim.x)
-      wcw[i] = __ldg(t.wc_w + i);
-    __syncthreads();
-    tb.hy_start = hys;
-    tb.hy_count = hyc;
-    tb.hy_w = hyw;
-    tb.hc_start = hcs;
-    tb.hc_count = hcc;
-    tb.hc_w = hcw;
-    tb.wy_start = wys;
-    tb.wy_count = wyc;
-    tb.wy_w = wyw;
-    tb.wc_start = wcs;
-    tb.wc_count = wcc;
-    tb.wc_w = wcw;
-    ho = 0;
-  }
-
-  const int G = MF ? kn.frames : 1;
-  for (int gi = 0; gi < G; ++gi) {
-    const int b = blockIdx.y * G + gi;
-    const uint8_t* frame = f.src + b * f.bs;
-    const uint8_t* uv = frame + static_cast<long long>(g.src_h) * f.rs;
-
-    // ---- phase 1: the H-pass rows in shared memory ---------------------
-    if constexpr (MODE == kWpass) {
-      load_rows(frame + static_cast<long long>(o0) * f.rs, f.rs, rows, W, yh,
-                W, vec);
-      load_rows(
-          frame + static_cast<long long>(f.buf_rows - g.dst_h + o0) * f.rs,
-          f.rs, rows, W, ch, W, vec);
-    } else {
-      hpass<uint8_t, false, MF>(frame, f.rs, W, ho, rows, tb.hy_start,
-                                tb.hy_count, tb.hy_w, t.hy_k, yh, W, 1, 0,
-                                vec);
-      hpass<uint8_t, false, MF>(uv, f.rs, W, ho, rows, tb.hc_start,
-                                tb.hc_count, tb.hc_w, t.hc_k, ch, W, 1, 0,
-                                vec);
-    }
-    __syncthreads();
-
-    // ---- phase 2 ---------------------------------------------------------
-    uint8_t* ob = out + static_cast<long long>(b) * 3 * g.dst_h * DW;
-    if constexpr (MODE == kHpass) {
-      const long long plane_sz = static_cast<long long>(g.dst_h) * DW;
-      for (int item = threadIdx.x; item < rows * DW; item += blockDim.x) {
-        const int r = item / DW;
-        const int p = item - r * DW;
-        float q = rintf(
-            __fadd_rn(M::get(yh[r * W + p]), M::get(ch[r * W + p])));
-        q = fminf(fmaxf(q, 0.0f), 255.0f);
-        const long long pix = static_cast<long long>(o0 + r) * DW + p;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          ob[c * plane_sz + pix] = static_cast<uint8_t>(q);
-      }
-    } else {
-      wpass_store<MF, banded::kInterleaved>(yh, ch, W, W, rows, o0, g.dst_h,
-                                            DW, 0, DW, 0, 0, tb, tl, ob);
-    }
-    if (G > 1) __syncthreads();  // the next frame overwrites the rows
-  }
-}
-
-// Shared memory of a variant block.
-long long variant_smem(int rows, int src_w, int dst_w, bool mf,
-                       const Knobs& kn, int hy_k, int hc_k) {
-  long long bytes = 2LL * rows * src_w * sizeof(T);
-  if (mf)
-    bytes += 4LL * (4 * rows + 4 * dst_w) +
-             4LL * (static_cast<long long>(rows) * (hy_k + hc_k) +
-                    static_cast<long long>(dst_w) * (kn.wy_k + kn.wc_k));
-  return bytes;
-}
-
-template <int MODE, bool MF>
-cudaError_t launch_variant(const Frames& f, const Tables& t, const Tail& tl,
-                           const Geometry& g, const Knobs& kn, size_t smem,
-                           void* out, cudaStream_t stream) {
-  auto kern = nv12_variant_kernel<MODE, MF>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((g.dst_h + g.rows - 1) / g.rows, g.batch / kn.frames);
-  kern<<<grid, kThreads, smem, stream>>>(f, t, tl, g, kn,
-                                         static_cast<uint8_t*>(out));
-  return cudaGetLastError();
-}
 
 bool vec_frames(const void* src, long long bs, long long rs, int src_w) {
   return aligned16(src) && src_w % 16 == 0 && bs % 16 == 0 && rs % 16 == 0;
@@ -486,7 +293,7 @@ nv12_static_kernel(Frames f, Tables t, RowBands yb, RowBands cb,
   hpass_cols<CAST>(uv, f.rs, clo, chi, o0, rows, cb, ch, rg.c_pitch, vec);
   __syncthreads();
   uint8_t* ob = out + static_cast<long long>(b) * 3 * g.dst_h * DW;
-  wpass_store<false, banded::kInterleaved>(
+  wpass_store<banded::kInterleaved>(
       yh, ch, rg.y_pitch, rg.c_pitch, rows, o0, g.dst_h, DW, p0, p1 - p0,
       ylo, clo, t, tl, ob);
 }
@@ -580,7 +387,7 @@ nv12_transposed_kernel(Frames f, Tables t, Tail tl, Geometry g, int pitch,
     cht[col * pitch + r] = M::put(acc);
   }
   __syncthreads();
-  wpass_store<false, banded::kTransposed>(
+  wpass_store<banded::kTransposed>(
       yh, cht, W, pitch, rows, o0, g.dst_h, g.dst_w, 0, g.dst_w, 0, 0, t, tl,
       out + static_cast<long long>(b) * 3 * g.dst_h * g.dst_w);
 }
@@ -615,57 +422,6 @@ bool lab_setup(const void* src, long long batch_stride, long long row_stride,
 
 extern "C" {
 
-// One NV12 variant over `src`, frame 0 of a [batch, buf_rows, src_w] uint8
-// buffer with the given batch and row strides (bytes); the interleaved UV
-// rows start at row src_h. Tables as nv12_preprocess_launch takes them
-// (bf16-rounded), `tail` the 18 floats of tail_params. Knobs, at most one
-// set: mode 0 full / 1 hpass / 2 wpass; frames_per_block G >= 1 for the
-// multiframe block (0: one frame per block, tables read from device
-// memory). rows_per_block is the strip height. out is a contiguous
-// [batch, 3, dst_h, dst_w] uint8 tensor.
-int nv12_variant_launch(const void* src, long long batch_stride,
-                        long long row_stride, int buf_rows, int batch,
-                        int src_h, int src_w, int dst_h, int dst_w,
-                        const int* index, const float* weights, int hy_k,
-                        int hc_k, int wy_k, int wc_k, const float* tail,
-                        int mode, int frames_per_block, int rows_per_block,
-                        void* out, void* stream) {
-  if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
-  const int G = frames_per_block > 0 ? frames_per_block : 1;
-  Frames f;
-  Tables t;
-  Tail tl;
-  Geometry g;
-  if (!lab_setup(src, batch_stride, row_stride, buf_rows, batch, src_h,
-                 src_w, dst_h, dst_w, index, weights, hy_k, hc_k, wy_k, tail,
-                 rows_per_block, f, t, tl, g) ||
-      frames_per_block < 0 || batch % G != 0 || mode < kFull ||
-      mode > kWpass || (mode != kFull && frames_per_block > 0) ||
-      (mode == kHpass && dst_w > src_w) ||
-      (mode == kWpass && dst_h > buf_rows))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Knobs kn;
-  kn.frames = G;
-  kn.wy_k = wy_k;
-  kn.wc_k = wc_k;
-  const bool mf = frames_per_block > 0;
-  const long long smem =
-      variant_smem(g.rows, src_w, dst_w, mf, kn, hy_k, hc_k);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t sb = static_cast<size_t>(smem);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (mf)
-    e = launch_variant<kFull, true>(f, t, tl, g, kn, sb, out, s);
-  else if (mode == kHpass)
-    e = launch_variant<kHpass, false>(f, t, tl, g, kn, sb, out, s);
-  else if (mode == kWpass)
-    e = launch_variant<kWpass, false>(f, t, tl, g, kn, sb, out, s);
-  else
-    e = launch_variant<kFull, false>(f, t, tl, g, kn, sb, out, s);
-  return static_cast<int>(e);
-}
-
 // The stream floor over `src`, frame 0 of a [batch, rows, src_w] uint8
 // buffer with the given batch and row strides (bytes): every byte read and
 // XORed into sink[block % sink_words] (int32 words, not cleared here), and
@@ -697,7 +453,10 @@ int nv12_stream_floor_launch(const void* src, long long batch_stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// S over `src` as nv12_variant_launch takes it, on strips of
+// S over `src`, frame 0 of a [batch, buf_rows, src_w] uint8 buffer with
+// the given batch and row strides (bytes; the interleaved UV rows start at
+// row src_h), with the product's tables as nv12_preprocess_launch takes
+// them (bf16-rounded) and `tail` the 18 floats of tail_params, on strips of
 // rows_per_block output rows and n_ranges output-column ranges: `ranges`
 // [n_ranges, 4] int32 on the device (ops/banded.py column_ranges), y_pitch
 // and c_pitch the widest luma and interleaved chroma range. const_bank
@@ -748,7 +507,7 @@ int nv12_static_launch(const void* src, long long batch_stride,
   return static_cast<int>(e);
 }
 
-// T over `src` as nv12_variant_launch takes it, on strips of
+// T over `src` as nv12_static_launch takes it, on strips of
 // rows_per_block output rows: the chroma H-pass rows kept transposed in
 // shared memory, [src_w][pitch] with pitch the strip height rounded up so
 // that pitch / 2 is odd.

@@ -7,9 +7,9 @@ block: the product's banded FMA loops on the CUDA cores over G frames of
 a strip, H row tables in the constant bank, tall strips in output-column
 ranges). This builds that source into a throwaway library under
 ``build/combo_ab/`` with its own headers first on the include path, then
-at each case — 64 x 1080p -> 224, four frames, a padded pitch, a
+at each case — 64 x 1080p -> 224, eight frames, a padded pitch, a
 misaligned view (element loads) and the card tests' small shapes — counts
-the output samples in which each of the new kernel's six instances
+the output samples in which each of the new kernel's seven instances
 (``combo{G}x{T}``) differs from S2 at the same strip height
 (``static_kernel2`` at (T, 8); none at T = 64, which S2 refuses), from
 ``static_kernel2_plain`` at (T, 8) and from ``nv12_preprocess``, and each
@@ -18,7 +18,7 @@ kernels' uint8 envelope (1 LSB on fewer than 1e-3 of the samples), those
 whose warpgroups split the chunks as S2's do to S2's bits, every earlier
 one to ``nv12_preprocess``'s bits and the wrapper to the launcher. At the
 timed case it times the earlier COMBO at its four instances, the new one
-at its six, S2 t16a8 and t32a8 and ``nv12_preprocess`` with CUDA events
+at its seven, S2 t16a8 and t32a8 and ``nv12_preprocess`` with CUDA events
 in ``--pairs`` rounds (the order reversed every other round), each through
 one prepared call, and reports each one's median and range, each
 round's ratios (new against earlier, combo GxT against S2 tT), each
@@ -181,18 +181,19 @@ def launcher(lib, nv12: torch.Tensor, geo: dict, gframes: int, tile: int,
 
 
 def cases(device):
-    """(name, frames, geometry, timed): every batch a multiple of 4."""
+    """(name, frames, geometry, timed): every batch a multiple of 8 (M8's
+    rounds split)."""
     hd = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
     x = kv.make_frames(64, 1620, 1920, device)
     out = [("64x1080p->224", x, hd, True),
-           ("4x1080p->224", x[:4], hd, False),
-           ("4x1080p->224 padded pitch", padded_view(x[:4], 64, 0), hd,
+           ("8x1080p->224", x[:8], hd, False),
+           ("8x1080p->224 padded pitch", padded_view(x[:8], 64, 0), hd,
             False),
-           ("4x1080p->224 misaligned view", padded_view(x[4:8], 16, 1), hd,
+           ("8x1080p->224 misaligned view", padded_view(x[8:16], 16, 1), hd,
             False)]
-    for b, h, w, dh, dw in ((4, 90, 162, 20, 50), (4, 62, 130, 30, 34),
-                            (4, 96, 256, 40, 48), (8, 144, 256, 64, 96),
-                            (4, 150, 322, 70, 202)):
+    for b, h, w, dh, dw in ((8, 90, 162, 20, 50), (8, 62, 130, 30, 34),
+                            (8, 96, 256, 40, 48), (8, 144, 256, 64, 96),
+                            (8, 150, 322, 70, 202)):
         geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
         y = kv.make_frames(b, h * 3 // 2, w, device, seed=h + w)
         out.append((f"{b}x{w}x{h}->{dw}x{dh}", y, geo, False))

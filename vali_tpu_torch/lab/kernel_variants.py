@@ -5,8 +5,9 @@ Counterpart of the TPU notebook ``bench_kernel_variants.py`` (its ``main``,
 ``main_floor``, ``main_modes``, ``main_multiframe``, ``main_static``,
 ``main_sweep2``, ``main_combo``, ``main_transposed`` and ``main_grouped``).
 Nine wrappers over the kernels of ``csrc/nv12_variants.cu``,
-``csrc/nv12_staged.cu``, ``csrc/nv12_static2.cu``, ``csrc/nv12_combo.cu``
-and ``csrc/nv12_grouped.cu`` (the labs' library,
+``csrc/nv12_prodlike.cu``, ``csrc/nv12_staged.cu``,
+``csrc/nv12_static2.cu``, ``csrc/nv12_combo.cu`` and
+``csrc/nv12_grouped.cu`` (the labs' library,
 ``ops/_cuda_build.load_lab_kernels``), each beside its
 plain PyTorch version, with the same dispatch as the product wrappers: a
 CUDA tensor launches the kernel, a CPU tensor runs the plain version, any
@@ -15,17 +16,17 @@ other device raises.
 - :func:`stream_floor` (``dma_floor``): streams every byte of each
   [rows, W] frame and writes ``(f[:DH, :DW] + f[rows-DH:, :DW]) & 255`` on
   all three channels; its rate is the measured bound of the NV12 kernels.
-- :func:`prod_like` (``prod_like``): the product kernel with a phase
-  knocked out — ``mode`` full, hpass (H pass only) or wpass (H pass
-  skipped) — at a chosen strip height (the TPU's H-pass ``tile``).
+- :func:`prod_like` (``prod_like``): S2's tensor-core block with a phase
+  knocked out — ``mode`` full (S2), hpass (the H chains only) or wpass (no
+  H chain) — at a chosen strip height (the TPU's H-pass ``tile``).
 - :func:`variant_kernel` (``variant_kernel``): S2's tensor-core block at
   16-row strips with the H pass's frame operand converted to bf16 once a
   stage into shared memory and read by a ``wgmma`` descriptor (TMA boxes
   into a landing ring); B and C convert by two cast chains (equal values)
   and run the chroma W pass over the interleaved H rows, D converts by
   C's chain and keeps S2's deinterleaved chroma W pass.
-- :func:`multiframe` (``multiframe_kernel``): G frames per block, the
-  strip's band tables staged in shared memory once.
+- :func:`multiframe` (``multiframe_kernel``): G frames per block on
+  32-row strips: the combo's block (G = 2, 4, 8), S2's at G = 1.
 - :func:`static_kernel` (``static_kernel``): the H row tables in the
   64 KB constant bank, two cast chains.
 - :func:`static_kernel2` (``static_kernel2``): strips of ``tile`` rows over
@@ -45,13 +46,14 @@ ranges; the lab line says so.
 
 Every full-function variant (B, C, D, full, M*, S*, combo*, T, G) computes
 the product kernel's function, so on the card it is held to
-``nv12_preprocess``: bit for bit, except B, C, D, G, S2 and the combo (the
-tensor cores sum in their own order), held to the kernels' envelope with
-their differing samples counted. Their plain version is
-``nv12_preprocess_plain``, except S2's, the combo's (S2's at its strip
-height) and G's, which compute from their own host tables. ``wpass``
-and the floor read the last DH rows of the buffer as given, as the TPU
-functions do, so their results depend on the buffer's row count.
+``nv12_preprocess``: bit for bit, except the ones on the tensor cores (B,
+C, D, G, S2, the combo, full and M*: they sum in their own order), held to
+the kernels' envelope with their differing samples counted. Their plain
+version is ``nv12_preprocess_plain``, except S2's, the combo's, full's and
+M*'s (S2's at their strip height) and G's, which compute from their own
+host tables. ``wpass`` and the floor read the last DH rows of the buffer
+as given, as the TPU functions do, so their results depend on the
+buffer's row count.
 
 Run the lab (64 x 1080p -> 224 on ``cuda:0``; ``--device cpu`` runs the
 plain versions at 8 x 256x144 -> 96x64 and times nothing)::
@@ -60,7 +62,7 @@ plain versions at 8 x 256x144 -> 96x64 and times nothing)::
 
 Names: ``A`` (the product kernel), ``B``, ``C``, ``D``, ``floor``,
 ``full``, ``hpass``, ``wpass`` (a number after a mode sets the strip
-height: ``full16``), ``M2``, ``M4``, ``M8``, ``S``, ``Slong``,
+height: ``full32``; 16 without), ``M2``, ``M4``, ``M8``, ``S``, ``Slong``,
 ``S2t{tile}a{align}`` (``S2t32a8``), ``combo{G}x{tile}`` (``combo2x32``),
 ``T``, ``G``. Each prints one line: ms per batch, spread, maxdiff against
 its reference, frames/s, and the bound.
@@ -91,20 +93,26 @@ from ..ops.banded import (COMBO_ALIGN, COMBO_SPLITS, CONST_BANK_BYTES,
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
 from ..ops.resize import LANCZOS_AA, round_to
+from .prodlike import (MODES, PRODLIKE_ALIGN, PRODLIKE_TILE, PRODLIKE_TILES,
+                       prodlike_device, prodlike_n, prodlike_refusal)
 from .staged import (STAGED_ALIGN, STAGED_TILE, STAGED_VARIANTS,
                      staged_device, staged_refusal, tma_ok)
 from .timing import bound_ms, preprocess_work, time_cuda
 
 #: output rows per block of the product kernel (kMaxRows of
-#: csrc/banded_preprocess.cu)
+#: csrc/banded_preprocess.cu), S's and T's strips
 STRIP_ROWS = 8
-MODES = {"full": 0, "hpass": 1, "wpass": 2}
+#: the strip height of multiframe's blocks (the notebook's default tile)
+MULTIFRAME_TILE = 32
+#: multiframe's frames a block: S2's block at 1, the combo's instances
+MULTIFRAME_FRAMES = (1, 2, 4, 8)
 VARIANTS = tuple(STAGED_VARIANTS)
 #: int32 words of the stream floor's sink
 SINK_WORDS = 64
 
 DEFAULT_NAMES = ("A", "B", "C", "D", "floor", "full", "hpass", "wpass",
-                 "full4", "full16", "full24", "M2", "M4", "M8", "S", "Slong",
+                 "full4", "full8", "full24", "full32", "full48", "hpass32",
+                 "wpass32", "M2", "M4", "M8", "S", "Slong",
                  "S2t32a8", "S2t16a8", "S2t24a8", "S2t48a8", "S2t32a32",
                  "combo2x32", "combo4x32", "combo2x64", "combo1x64",
                  "combo2x16", "combo4x16", "T", "G")
@@ -163,17 +171,6 @@ def _product_tables(nv12: torch.Tensor, src_w: int, src_h: int, dst_w: int,
                     dst_h: int) -> DeviceTables:
     return device_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420",
                          torch.bfloat16, nv12.device)
-
-
-def _launch(what: str, nv12: torch.Tensor, tail: np.ndarray, *, src_w: int,
-            src_h: int, dst_w: int, dst_h: int, mode: int = 0,
-            frames: int = 0, rows_per_block: int = STRIP_ROWS
-            ) -> torch.Tensor:
-    """One ``nv12_variant_launch`` on a checked CUDA buffer."""
-    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
-    return _call(what, "nv12_variant_launch", nv12, tail,
-                 _product_tables(nv12, **geo), mode, frames, rows_per_block,
-                 **geo)
 
 
 def _floor_checked(nv12, rows, W, DH, DW) -> None:
@@ -235,30 +232,29 @@ def stream_floor(nv12: torch.Tensor, *, rows: int, W: int, DH: int,
 
 def prod_like_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
                     dst_w: int, dst_h: int, mode: str = "full",
+                    rows_per_block: int = PRODLIKE_TILE,
                     space: ColorSpace = ColorSpace.BT_709,
                     crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
     """Plain PyTorch version of :func:`prod_like` (any device), with the
     kernel's cast points: bf16 weights, fp32 products with TF32 off, the
-    H-pass rows rounded to bf16."""
+    H-pass rows rounded to bf16. full is :func:`static_kernel2_plain` at
+    (rows_per_block, 8); hpass and wpass do not depend on the strip
+    height."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     tail = _checked(nv12, src_w, src_h, space, crange)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
     if mode == "full":
-        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
+        return static_kernel2_plain(nv12, **geo, tile=rows_per_block,
+                                    align=PRODLIKE_ALIGN, space=space,
+                                    crange=crange)
+    if mode == "hpass":
+        yh, ch = _hpass_sums(nv12, **geo)
+        x = torch.clamp(torch.round(yh + ch), 0.0, 255.0).to(torch.uint8)
+        return x.unsqueeze(1).expand(-1, 3, -1, -1).contiguous()
     bf = torch.bfloat16
     dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420")
     dev = nv12.device
-    if mode == "hpass":
-        wyh, wch = (round_to(m, bf).to(dev) for m in (dw.luma_h,
-                                                      dw.chroma_h))
-        uv = nv12[:, src_h:src_h * 3 // 2]   # interleaved U/V rows
-        with exact_f32_matmul():
-            yh = round_to(torch.matmul(wyh, to_f32(nv12[:, :src_h])), bf)
-            ch = round_to(torch.matmul(wch, to_f32(uv)), bf)
-        x = torch.clamp(torch.round(yh[..., :dst_w] + ch[..., :dst_w]),
-                        0.0, 255.0).to(torch.uint8)
-        return x.unsqueeze(1).expand(-1, 3, -1, -1).contiguous()
     rows = nv12.shape[1]
     yh = to_f32(nv12[:, :dst_h])
     ch = to_f32(nv12[:, rows - dst_h:])
@@ -267,16 +263,62 @@ def prod_like_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
                              tail, torch.uint8)
 
 
+def _hpass_sums(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
+                dst_h: int):
+    """hpass's H sums at its output samples: the luma and the interleaved
+    chroma H rows' first dst_w columns, [B, dst_h, dst_w] fp32 of bf16
+    values (fp32 products with TF32 off, rounded to bf16)."""
+    bf = torch.bfloat16
+    dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420")
+    wyh, wch = (round_to(m, bf).to(nv12.device) for m in (dw.luma_h,
+                                                          dw.chroma_h))
+    uv = nv12[:, src_h:src_h * 3 // 2]   # interleaved U/V rows
+    with exact_f32_matmul():
+        yh = round_to(torch.matmul(wyh, to_f32(nv12[:, :src_h])), bf)
+        ch = round_to(torch.matmul(wch, to_f32(uv)), bf)
+    return yh[..., :dst_w], ch[..., :dst_w]
+
+
+def hpass_tolerance(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                    dst_w: int, dst_h: int) -> torch.Tensor:
+    """[B, 3, dst_h, dst_w]: how far hpass's kernel may lie from
+    :func:`prod_like_plain` at each sample. hpass stores round(bf16(yh) +
+    bf16(ch)); the tensor cores' fp32 sums may round an H sum to the
+    neighbouring bf16 value, and an ulp of bf16 is 1 at 128-255 and 2 at
+    256-511, where the stored sum moves by it. So a sample may lie 1 LSB
+    plus the two sums' ulps (at the plain version's sums) off, rounded
+    down: 1 where both sums are under 64, 2 or 3 above (the lab also holds
+    hpass to fewer than 1e-3 of its samples differing)."""
+    def ulp(v):   # bf16: 8 significant bits
+        return torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8)
+
+    yh, ch = _hpass_sums(nv12, src_w=src_w, src_h=src_h, dst_w=dst_w,
+                         dst_h=dst_h)
+    tol = torch.floor(ulp(yh) + ulp(ch)) + 1
+    return tol.unsqueeze(1).expand(-1, 3, -1, -1)
+
+
 def prod_like(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
               dst_h: int, mode: str = "full",
-              rows_per_block: int = STRIP_ROWS,
+              rows_per_block: int = PRODLIKE_TILE,
               space: ColorSpace = ColorSpace.BT_709,
               crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
-    """The product NV12 kernel with a phase knocked out: ``mode`` full
-    (the product kernel), hpass (H pass only; out = clip(round(yh[:DH, :DW]
-    + ch[:DH, :DW])) on every channel, ch interleaved) or wpass (no H pass;
-    yh = frame rows 0..DH-1, ch = the buffer's last DH rows), on strips of
-    ``rows_per_block`` output rows. [B, 3, dst_h, dst_w] uint8."""
+    """S2's tensor-core block (:func:`static_kernel2`) with a phase
+    knocked out, on strips of ``rows_per_block`` output rows over windows
+    aligned to 8 rows: ``mode`` full (S2's kernel itself at its strip
+    heights; 4-row strips run S2's block at wgmma's N = 8 with B's columns
+    4-7 zero), hpass (every H chain, no W pass; out
+    = clip(round(yh[:DH, :DW] + ch[:DH, :DW])) on every channel, ch the
+    interleaved chroma H row, each column stored by one block) or wpass (no
+    H chain; yh = frame rows 0..DH-1, ch = the buffer's last DH rows, then
+    S2's W pass and tail). [B, 3, dst_h, dst_w] uint8, within the kernels'
+    envelope of its plain version (the tensor cores sum in their own
+    order; hpass within :func:`hpass_tolerance`); on the CPU
+    :func:`prod_like_plain` itself. Raises ValueError for a strip height
+    the mode does not run (full: 4 and S2's, 8 to 48; hpass and wpass: 16,
+    32) or whose block does not fit shared memory
+    (:func:`~vali_tpu_torch.lab.prodlike.prodlike_refusal`), on either
+    device."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     if rows_per_block < 1:
@@ -290,11 +332,36 @@ def prod_like(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
         raise ValueError("wpass reads the buffer's last dst_h rows: dst_h "
                          "must not exceed its rows")
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = prodlike_refusal(**geo, mode=mode, tile=rows_per_block)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("prod_like", nv12):
-        return prod_like_plain(nv12, **geo, mode=mode, space=space,
+        return prod_like_plain(nv12, **geo, mode=mode,
+                               rows_per_block=rows_per_block, space=space,
                                crange=crange)
-    out = _launch("prod_like", nv12, tail, **geo, mode=MODES[mode],
-                  rows_per_block=rows_per_block)
+    if mode == "full" and rows_per_block not in PRODLIKE_TILES["full"]:
+        out = _static2_launch(nv12, tail, geo, rows_per_block,
+                              PRODLIKE_ALIGN)
+        prod_like.launches += 1
+        return out
+    from ..ops._cuda_build import check, load_lab_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    args, _ = prodlike_device(src_w, src_h, dst_w, dst_h, mode,
+                              rows_per_block, nv12.device)
+    lib = load_lab_kernels()
+    B = nv12.shape[0]
+    out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
+                      device=nv12.device)
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_prodlike_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
+            B, src_h, src_w, dst_h, dst_w,
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), MODES[mode],
+            rows_per_block, *args, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "prod_like")
     prod_like.launches += 1
     return out
 
@@ -364,16 +431,35 @@ def multiframe(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
                space: ColorSpace = ColorSpace.BT_709,
                crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
     """The product function with ``gframes`` consecutive frames per block
-    (B % gframes == 0), the strip's band tables staged once per block.
-    [B, 3, dst_h, dst_w] uint8, equal to :func:`nv12_preprocess`."""
+    (B % gframes == 0) on 32-row strips over windows aligned to 8 rows
+    (the notebook's defaults): the combo's tensor-core block at (gframes,
+    32) for G = 2, 4, 8 (:func:`combo_kernel`: each chunk's W weights
+    loaded once for the frames a warpgroup sums; 8 frames in two rounds of
+    4), S2's (:func:`static_kernel2`) for G = 1. [B, 3, dst_h, dst_w]
+    uint8, bit for bit the combo's (S2's) at those arguments, within the
+    kernels' envelope of :func:`nv12_preprocess`; on the CPU
+    :func:`static_kernel2_plain` at (32, 8). Raises ValueError for a batch
+    that is not a multiple of ``gframes``, a G the block does not run, or
+    a geometry whose shared memory does not fit it, on either device."""
     tail = _checked(nv12, src_w, src_h, space, crange)
     if gframes < 1 or nv12.shape[0] % gframes:
         raise ValueError(f"batch {nv12.shape[0]} is not a multiple of "
                          f"gframes={gframes}")
+    if gframes not in MULTIFRAME_FRAMES:
+        raise ValueError(f"multiframe runs {MULTIFRAME_FRAMES} frames a "
+                         f"block, got gframes={gframes}")
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    t = MULTIFRAME_TILE
+    why = (static2_refusal(**geo, method=LANCZOS_AA, tile=t, align=COMBO_ALIGN)
+           if gframes == 1 else
+           combo_refusal(**geo, method=LANCZOS_AA, gframes=gframes, tile=t))
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("multiframe", nv12):
-        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
-    out = _launch("multiframe", nv12, tail, **geo, frames=gframes)
+        return static_kernel2_plain(nv12, **geo, tile=t, align=COMBO_ALIGN,
+                                    space=space, crange=crange)
+    out = (_static2_launch(nv12, tail, geo, t, COMBO_ALIGN) if gframes == 1
+           else _combo_launch(nv12, tail, geo, gframes, t))
     multiframe.launches += 1
     return out
 
@@ -483,6 +569,39 @@ def static2_work(batch: int, src_w: int, src_h: int, dst_w: int,
                              luma_w + 2 * chroma_w)
 
 
+def prodlike_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                  dst_h: int, mode: str, tile: int):
+    """(bytes, operations) of one batch of :func:`prod_like` in ``mode``
+    at strips of ``tile`` rows, each writing the planar output. full: S2's
+    (:func:`static2_work` at (tile, 8)), the NV12 frames read and the
+    FLOPs its tables make it issue, zeros included, per strip and chunk at
+    wgmma's N (8 for 4-row strips). wpass: two DH-row slabs a frame read
+    and the W k-steps of every chunk alone (and the tail). hpass: what its
+    output needs, the luma and interleaved chroma bytes of the first
+    dst_w columns and their H sums (the windows' taps, zeros included, at
+    N; and one add and round a pixel), though the kernel reads and sums
+    every column of its tiles' chunks."""
+    geo = (src_w, src_h, dst_w, dst_h, LANCZOS_AA)
+    t = static2_tables(*geo, tile, PRODLIKE_ALIGN)
+    chunks = int(static2_w_tables(*geo).heads[:, 2].sum())
+    # FMAs of one k-step [64, 16] x [16, N] over every strip and chunk
+    n_strips = prodlike_n(tile) * t.luma.shape[0]
+    step = 64 * 16 * n_strips * chunks
+    h_steps = (t.k_luma + t.k_chroma) // 16
+    luma_w, chroma_w = STATIC2_W_STEPS
+    w_steps = luma_w + 2 * chroma_w
+    sizes = (batch, src_w, src_h, dst_w, dst_h)
+    if mode == "hpass":
+        _, ops = preprocess_work(*sizes, w_pass=False, h_fmas=(
+            n_strips * (t.k_luma + t.k_chroma) * dst_w))
+        return batch * (src_h * dst_w + (src_h // 2) * dst_w
+                        + 3 * dst_h * dst_w), ops
+    if mode == "wpass":
+        return preprocess_work(*sizes, h_pass=False, w_fmas=step * w_steps)
+    return preprocess_work(*sizes, h_fmas=step * (h_steps + w_steps),
+                           w_fmas=0)
+
+
 def combo_work(batch: int, src_w: int, src_h: int, dst_w: int,
                dst_h: int, tile: int):
     """(bytes, operations) of one combo batch at any frames a block (they
@@ -497,16 +616,19 @@ def combo_work(batch: int, src_w: int, src_h: int, dst_w: int,
 def combo_w_fragment_bytes(batch: int, src_w: int, src_h: int, dst_w: int,
                            dst_h: int, gframes: int, tile: int) -> int:
     """Bytes of W-pass A fragments one combo batch reads (from L2): each
-    chunk's 6 k-steps of [128, 8] bf16 once a block and warpgroup that
-    sums it — one warpgroup a chunk in the chunks split, both in the
-    frames and rows splits — for strips x batch / gframes blocks a tile.
+    chunk's 6 k-steps of [128, 8] bf16 once a block, round and warpgroup
+    that sums it — one warpgroup a chunk in the chunks split, both in the
+    frames, rounds and rows splits; gframes / 4 rounds in the rounds
+    split, one in the others — for strips x batch / gframes blocks a tile.
     S2 at the same strip height is gframes = 1 in the chunks split."""
     chunks = int(static2_w_tables(src_w, src_h, dst_w, dst_h,
                                   LANCZOS_AA).heads[:, 2].sum())
     split = COMBO_SPLITS.get((gframes, tile), "chunks")
     readers = 1 if split == "chunks" else 2
+    rounds = gframes // 4 if split == "rounds" else 1
     strips = -(-dst_h // tile)
-    return chunks * 6 * 128 * 16 * readers * strips * (batch // gframes)
+    return (chunks * 6 * 128 * 16 * readers * rounds * strips
+            * (batch // gframes))
 
 
 def staged_work(batch: int, src_w: int, src_h: int, dst_w: int,
@@ -540,6 +662,45 @@ def _static2_device(src_w, src_h, dst_w, dst_h, tile, align, device):
     return args, keep
 
 
+def _s2_tables_launch(launcher: str, what: str, nv12: torch.Tensor,
+                      tail: np.ndarray, geo: dict, knobs: tuple, tile: int,
+                      align: int) -> torch.Tensor:
+    """One launch of a launcher that takes S2's tables at (tile, align)
+    after the frames, the geometry, the tail and its ``knobs``, on a
+    checked CUDA buffer; counts nothing."""
+    from ..ops._cuda_build import check, load_lab_kernels
+
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    args, _ = _static2_device(geo["src_w"], geo["src_h"], geo["dst_w"],
+                              geo["dst_h"], tile, align, nv12.device)
+    lib = load_lab_kernels()
+    B = nv12.shape[0]
+    out = torch.empty((B, 3, geo["dst_h"], geo["dst_w"]), dtype=torch.uint8,
+                      device=nv12.device)
+    with torch.cuda.device(nv12.device):
+        rc = getattr(lib, launcher)(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
+            B, geo["src_h"], geo["src_w"], geo["dst_h"], geo["dst_w"],
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), *knobs,
+            *args, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, what)
+    return out
+
+
+def _static2_launch(nv12, tail, geo, tile, align) -> torch.Tensor:
+    """One ``nv12_static2_launch`` (S2 at (tile, align))."""
+    return _s2_tables_launch("nv12_static2_launch", "static_kernel2", nv12,
+                             tail, geo, (tile,), tile, align)
+
+
+def _combo_launch(nv12, tail, geo, gframes, tile) -> torch.Tensor:
+    """One ``nv12_combo_launch`` at (gframes, tile) on S2's tables at
+    (tile, COMBO_ALIGN)."""
+    return _s2_tables_launch("nv12_combo_launch", "combo_kernel", nv12, tail,
+                             geo, (gframes, tile), tile, COMBO_ALIGN)
+
+
 def static_kernel2(nv12: torch.Tensor, *, src_w: int, src_h: int,
                    dst_w: int, dst_h: int, tile: int = 32, align: int = 8,
                    space: ColorSpace = ColorSpace.BT_709,
@@ -570,23 +731,7 @@ def static_kernel2(nv12: torch.Tensor, *, src_w: int, src_h: int,
     if _on_cpu("static_kernel2", nv12):
         return static_kernel2_plain(nv12, **geo, tile=tile, align=align,
                                     space=space, crange=crange)
-    from ..ops._cuda_build import check, load_lab_kernels
-
-    if nv12.stride(2) != 1:
-        raise ValueError("NV12 rows must be contiguous (stride 1)")
-    args, _ = _static2_device(src_w, src_h, dst_w, dst_h, tile, align,
-                              nv12.device)
-    lib = load_lab_kernels()
-    B = nv12.shape[0]
-    out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
-                      device=nv12.device)
-    with torch.cuda.device(nv12.device):
-        rc = lib.nv12_static2_launch(
-            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
-            B, src_h, src_w, dst_h, dst_w,
-            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), tile, *args,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, "static_kernel2")
+    out = _static2_launch(nv12, tail, geo, tile, align)
     static_kernel2.launches += 1
     return out
 
@@ -628,24 +773,7 @@ def combo_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
         return static_kernel2_plain(nv12, **geo, tile=tile,
                                     align=COMBO_ALIGN, space=space,
                                     crange=crange)
-    from ..ops._cuda_build import check, load_lab_kernels
-
-    if nv12.stride(2) != 1:
-        raise ValueError("NV12 rows must be contiguous (stride 1)")
-    args, _ = _static2_device(src_w, src_h, dst_w, dst_h, tile, COMBO_ALIGN,
-                              nv12.device)
-    lib = load_lab_kernels()
-    B = nv12.shape[0]
-    out = torch.empty((B, 3, dst_h, dst_w), dtype=torch.uint8,
-                      device=nv12.device)
-    with torch.cuda.device(nv12.device):
-        rc = lib.nv12_combo_launch(
-            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
-            B, src_h, src_w, dst_h, dst_w,
-            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), gframes,
-            tile, *args, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, "combo_kernel")
+    out = _combo_launch(nv12, tail, geo, gframes, tile)
     combo_kernel.launches += 1
     return out
 
@@ -801,8 +929,17 @@ class Case(NamedTuple):
     full_function: bool
     frames: int      # frames the call needs at least (multiframe G)
     work: tuple      # (bytes, operations) of one batch of B frames
-    exact: bool = True   # bit-equal to its reference (B-D, G, S2: envelope)
+    exact: bool = True   # bit-equal to its reference (the tensor cores'
+    #                      B-D, G, S2, combo, prod_like, M*: envelope)
     note: str = ""       # how the kernel ran, for the lab line
+    # per-sample bound against the plain version where the envelope's
+    # 1 LSB does not hold (hpass: hpass_tolerance), on the given frames
+    tol: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def tolerance(self, frames: torch.Tensor):
+        """How far the kernel may lie from its plain version on
+        ``frames``: ``tol`` or the envelope's 1 LSB."""
+        return self.tol(frames) if self.tol else 1
 
 
 def _tiles_note(dst_w: int) -> str:
@@ -836,7 +973,10 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
     if m:
         g = int(m.group(1))
         return Case(multiframe, lambda x: multiframe(x, **geo, gframes=g),
-                    product, True, g, full)
+                    lambda x: static_kernel2_plain(
+                        x, **geo, tile=MULTIFRAME_TILE, align=COMBO_ALIGN),
+                    True, g, combo_work(batch, **geo, tile=MULTIFRAME_TILE),
+                    exact=False, note=_tiles_note(dst_w))
     if name in ("S", "Slong"):
         short = name == "S"
         return Case(static_kernel,
@@ -871,17 +1011,16 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
             exact=False, note=_tiles_note(dst_w))
     m = re.fullmatch(r"(full|hpass|wpass)(\d*)", name)
     if m:
-        mode, strip = m.group(1), int(m.group(2) or STRIP_ROWS)
-        work = {"full": full,
-                "hpass": preprocess_work(batch, src_w, src_h, dst_w, dst_h,
-                                         w_pass=False),
-                "wpass": preprocess_work(batch, src_w, src_h, dst_w, dst_h,
-                                         h_pass=False)}[mode]
+        mode, strip = m.group(1), int(m.group(2) or PRODLIKE_TILE)
         return Case(
             prod_like,
             lambda x: prod_like(x, **geo, mode=mode, rows_per_block=strip),
-            lambda x: prod_like_plain(x, **geo, mode=mode), mode == "full",
-            1, work)
+            lambda x: prod_like_plain(x, **geo, mode=mode,
+                                      rows_per_block=strip), mode == "full",
+            1, prodlike_work(batch, **geo, mode=mode, tile=strip),
+            exact=False, note=_tiles_note(dst_w),
+            tol=((lambda x: hpass_tolerance(x, **geo)) if mode == "hpass"
+                 else None))
     raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES}, "
                      f"a mode with a strip height (full16), M{{G}}, "
                      f"S2t{{tile}}a{{align}} or combo{{G}}x{{tile}}")
@@ -901,7 +1040,10 @@ def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,
         log: Callable[[str], None] = print) -> List[Dict[str, object]]:
     """Run each lab name on ``frames`` [B, rows, src_w]: its maxdiff on the
     first max(2, G) frames against its reference (the product kernel for
-    the full-function variants, else the plain version), and on the card
+    the full-function variants, else the plain version) and by how much
+    it passes its limit there (``excess``, 0 when within: 0 where the case
+    is exact, the envelope's 1 LSB against the product,
+    :meth:`Case.tolerance` against the plain version), and on the card
     its time per batch. Logs one line per name; returns one dict per
     name."""
     batch, rows = frames.shape[0], frames.shape[1]
@@ -916,9 +1058,12 @@ def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,
         diff = (c.call(head).int() - ref.int()).abs()
         maxdiff = int(diff.max().item())
         ndiff = int((diff > 0).sum().item())
+        limit = (0 if c.exact else 1 if c.full_function
+                 else c.tolerance(head))
+        excess = int((diff - limit).clamp(min=0).max().item())
         bound, bound_by = bound_ms(*c.work)
-        row = dict(name=name, maxdiff=maxdiff, ndiff=ndiff, bound_ms=bound,
-                   bound_by=bound_by, ms=None, spread=None)
+        row = dict(name=name, maxdiff=maxdiff, ndiff=ndiff, excess=excess,
+                   bound_ms=bound, bound_by=bound_by, ms=None, spread=None)
         # G's differing samples (of the head frames), and how a kernel ran
         extra = "".join(
             [f"  differing={ndiff} of {diff.numel()}" if not c.exact else "",

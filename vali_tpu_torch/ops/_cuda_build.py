@@ -31,13 +31,14 @@ _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
             "csrc/nv12_to_rgb.cu", "csrc/cuda_errors.cu")
 _LAB_SOURCES = ("csrc/nv12_variants.cu", "csrc/nv12_grouped.cu",
                 "csrc/nv12_static2.cu", "csrc/nv12_staged.cu",
-                "csrc/nv12_combo.cu", "csrc/nv12_aligned.cu",
+                "csrc/nv12_combo.cu", "csrc/nv12_prodlike.cu",
+                "csrc/nv12_aligned.cu",
                 "csrc/nv12_streamed.cu", "csrc/nv12_slabs.cu",
                 "csrc/nv12_striped.cu", "csrc/nv12_resize_variants.cu",
                 "csrc/nv12_to_rgb_variants.cu", "csrc/cuda_errors.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
             "csrc/wgmma_common.cuh", "csrc/aligned_passes.cuh",
-            "csrc/tma_common.cuh")
+            "csrc/tma_common.cuh", "csrc/static2_passes.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
 LAB_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -71,9 +72,6 @@ _SIGNATURES = {
     "nv12_to_rgb_launch": [_P, _LL, _LL, _I, _I, _I, _FP, _P, _P],
 }
 _LAB_SIGNATURES = {
-    "nv12_variant_launch": [
-        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
-        _I, _I, _I, _P, _P],
     "nv12_stream_floor_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "nv12_static_launch": [
@@ -95,6 +93,9 @@ _LAB_SIGNATURES = {
     "nv12_combo_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _P, _P, _I, _I,
         _P, _P, _P, _P],
+    "nv12_prodlike_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _P, _P, _I, _I,
+        _P, _P, _P, _P, _P],
     "nv12_convert_variant_launch": [
         _P, _LL, _LL, _I, _I, _I, _FP, _I, _P, _P],
     "nv12_convert_probe_launch": [

@@ -637,10 +637,12 @@ def static2_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
 #: holds at most 96 fp32 W accumulators (1.5 x the strip rows a frame):
 #: "chunks" (S2's: each warpgroup one chunk of a 128-column stage, every
 #: frame, partial sums traded at the end), "frames" (each warpgroup half
-#: the frames, every chunk) or "rows" (64-column stages, each warpgroup
-#: half the strip's rows of every frame)
+#: the frames, every chunk), "rounds" (the frames split on 4 frames at a
+#: time, gframes / 4 rounds: the lab's M8) or "rows" (64-column stages,
+#: each warpgroup half the strip's rows of every frame)
 COMBO_SPLITS = {(2, 16): "chunks", (4, 16): "chunks", (2, 32): "chunks",
-                (4, 32): "frames", (1, 64): "rows", (2, 64): "rows"}
+                (4, 32): "frames", (1, 64): "rows", (2, 64): "rows",
+                (8, 32): "rounds"}
 #: the combo's strips start on multiples of this many rows (the notebook's
 #: ALIGN)
 COMBO_ALIGN = 8
