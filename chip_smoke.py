@@ -1612,20 +1612,21 @@ RESIZE_LAB_REPLACES = {  # resize-lab wrapper -> its TPU notebook kernel
 
 def resize_lab_phase(torch, np, dev, smi):
     """The 4K NV12 resize lab at 16 x 4K -> 1080p: every lab kernel against
-    its plain version on the card (the full-function variants but slabs,
-    aligned, streamed and striped also against nv12_resize bit for bit,
-    ``both`` against its luma rows; aligned, streamed, slabs and striped,
-    the tensor-core passes, within the uint8 envelope of nv12_resize,
-    streamed and striped equal to aligned8x32 bit for bit and slabs equal
-    to it off the rows that straddle a slab edge, streamed and slabs staged
-    by TMA; the samples in which they differ from nv12_resize are counted,
-    with both bounds; striped's resident clusters, and its instances timed
-    against aligned8x32 in alternating rounds), the sinks of
+    its plain version on the card (the knock-outs on aligned's block:
+    dma_only equal, h_only within h_only_tolerance, w_only within the
+    envelope, ``both`` equal to aligned8x32's luma rows; aligned, skewed,
+    streamed, slabs and striped, the tensor-core passes, within the uint8
+    envelope of nv12_resize, skewed, streamed and striped equal to
+    aligned8x32 bit for bit and slabs equal to it off the rows that
+    straddle a slab edge, streamed and slabs staged by TMA; the samples in
+    which they differ are counted, with both bounds; skewed's resident
+    blocks and striped's clusters, and both timed against aligned8x32 in
+    alternating rounds), the sinks of
     dma_only and w_only against the frames, then the lab's entry point
     (``resize_diag.run``) name by name with the launch counts set to 0 just
     before and read just after, the H/W split, and the plain versions'
     times. Returns the lab kernels' entries of the JSON line."""
-    from vali_tpu_torch.lab import resize_diag as rd
+    from vali_tpu_torch.lab import phases_ab, resize_diag as rd
     from vali_tpu_torch.lab import striped_ab
     from vali_tpu_torch.lab.ab_common import rounds
     from vali_tpu_torch.lab.timing import BF16_OPS_PER_S, HBM_BYTES_PER_S
@@ -1641,38 +1642,70 @@ def resize_lab_phase(torch, np, dev, smi):
     # one plain run of the full function serves every full-function variant
     # and both (its luma rows); the 4K plain versions take ~0.1 s a call
     plain_full = nv12_resize_plain(frames, **geo)
-    err, aligned8x32 = {}, None
+    # both, skewed*, streamed and striped are held to aligned8x32 bit for bit
+    aligned8x32 = cases["aligned8x32"].call(frames)
+    err = {}
     for name, c in cases.items():
         tma = rd.streamed_resize.tma_launches + rd.slabs_resize.tma_launches
         out = c.call(frames)
-        full_plain = c.exact or c.wrapper in (rd.aligned_resize,
-                                              rd.streamed_resize,
-                                              rd.striped_resize)
+        full_plain = c.wrapper in (rd.aligned_resize, rd.skewed_resize,
+                                   rd.streamed_resize, rd.striped_resize)
         ref = (plain_full[:, :H] if name == "both" else plain_full
                if full_plain else c.plain(frames))
         torch.cuda.synchronize()
-        err[name] = compare(torch, f"resize lab {name} vs plain", out, ref)
+        if name == "h_only":
+            # the low bytes of truncated H values: the distance mod 256,
+            # within rd.h_only_tolerance on fewer than 1e-3 of the samples
+            d = rd.wrap_distance(out, ref)
+            err[name] = int(d.max().item())
+            log(f"resize lab h_only vs plain: max_wrap_diff={err[name]} "
+                f"frac_diff={(d > 0).double().mean().item()} above_1="
+                f"{int((d > 1).sum().item())}")
+            if not c.within(out, frames):
+                raise AssertionError("resize lab h_only lies outside "
+                                     "h_only_tolerance of its plain version")
+        else:
+            err[name] = compare(torch, f"resize lab {name} vs plain", out,
+                                ref)
         if name == "dma_only" and not torch.equal(out, ref):
             raise AssertionError("dma_only differs from its plain version")
-        want = product[:, :H] if name == "both" else product
-        if c.exact and not torch.equal(out, want):
-            raise AssertionError(f"resize lab {name} differs from "
-                                 f"nv12_resize")
-        if c.wrapper in (rd.aligned_resize, rd.streamed_resize,
-                         rd.slabs_resize, rd.striped_resize):
+        if c.wrapper is rd.resize_phases:
+            nb, ops = c.work
+            held = ""
+            if name == "both":
+                if not torch.equal(out, aligned8x32[:, :H]):
+                    raise AssertionError("resize lab both differs from "
+                                         "aligned8x32's luma rows")
+                compare(torch, "resize lab both vs nv12_resize luma rows",
+                        out, product[:, :H])
+                held = (f", 0 from aligned8x32's luma rows, "
+                        f"{int((out != product[:, :H]).sum().item())} from "
+                        f"nv12_resize's")
+            log(f"resize lab {name}: {int((out != ref).sum().item())} of "
+                f"{out.numel()} samples differ from its plain version{held}"
+                f"; bound {nb / HBM_BYTES_PER_S * 1e3} ms by bytes ({nb} B),"
+                f" {ops / BF16_OPS_PER_S * 1e3} ms by operations ({ops} "
+                f"FLOP issued, zeros included)")
+        if c.wrapper in (rd.aligned_resize, rd.skewed_resize,
+                         rd.streamed_resize, rd.slabs_resize,
+                         rd.striped_resize):
             compare(torch, f"resize lab {name} vs nv12_resize", out, product)
             nb, ops = c.work
             staged = ""
-            if c.wrapper is rd.striped_resize:
+            if c.wrapper in (rd.skewed_resize, rd.striped_resize):
                 if not torch.equal(out, aligned8x32):
                     raise AssertionError(f"resize lab {name} differs from "
                                          f"aligned8x32")
+                staged = ", 0 from aligned8x32"
+            if c.wrapper is rd.striped_resize:
                 nw, store = re.fullmatch(r"striped(\d+)(\w+)",
                                          name).groups()
                 held = rd.striped_clusters(frames, **geo, nw=int(nw),
                                            store=store)
-                staged = (f", 0 from aligned8x32; resident clusters "
-                          f"(luma, chroma) {held}")
+                staged += f"; resident clusters (luma, chroma) {held}"
+            if c.wrapper is rd.skewed_resize:
+                held = rd.resident_blocks(frames, **geo, mode="skewed")
+                staged += f"; resident blocks an SM (luma, chroma) {held}"
             if c.wrapper in (rd.streamed_resize, rd.slabs_resize):
                 # slabs: the rows whose band lies in one slab
                 keep = (torch.from_numpy(~rd.straddling_rows(
@@ -1699,8 +1732,6 @@ def resize_lab_phase(torch, np, dev, smi):
                 f"{nb / HBM_BYTES_PER_S * 1e3} ms by bytes ({nb} B), "
                 f"{ops / BF16_OPS_PER_S * 1e3} ms by operations ({ops} FLOP "
                 f"issued, zeros included)")
-        if name == "aligned8x32":
-            aligned8x32 = out
     del plain_full
     want = np.bitwise_xor.reduce(frames.cpu().numpy().view(np.uint32),
                                  axis=None)
@@ -1710,29 +1741,39 @@ def resize_lab_phase(torch, np, dev, smi):
         got = np.bitwise_xor.reduce(sink.cpu().numpy().view(np.uint32))
         if got != want:
             raise AssertionError(f"{mode}'s sink misses bytes of the frames")
-    exact = ", ".join(n for n in names if cases[n].exact)
-    log(f"resize lab: {exact} equal to nv12_resize (both: its luma rows), "
-        f"aligned, streamed, slabs and striped within their envelope, "
-        f"streamed and striped equal to aligned8x32, slabs off the slab "
-        f"edges; the dma_only and w_only sinks equal to the XOR of every "
-        f"word of the frames")
-    # striped against aligned8x32 in alternating rounds (the A/B lab,
-    # lab/striped_ab.py, also times the earlier design)
+    log("resize lab: dma_only equal to its plain version, h_only within "
+        "h_only_tolerance, w_only within the envelope, both equal to "
+        "aligned8x32's luma rows; aligned, skewed, streamed, slabs and "
+        "striped within the envelope of nv12_resize, skewed, streamed and "
+        "striped equal to aligned8x32, slabs off the slab edges; the "
+        "dma_only and w_only sinks equal to the XOR of every word of the "
+        "frames")
+    # striped and skewed against aligned8x32 in alternating rounds (their
+    # A/B labs, lab/striped_ab.py and lab/phases_ab.py, also time the
+    # earlier designs)
     ab = {f"current_{n}": functools.partial(cases[n].call, frames)
           for n in names if n.startswith("striped")}
     ab["aligned8x32"] = functools.partial(cases["aligned8x32"].call, frames)
     log(f"striped A/B summary ({smi}): " + json.dumps(
         {k: v for k, v in striped_ab.summary(rounds(ab, 3)).items()
          if k.endswith(("_ms", "_median"))}))
+    ab = {n: functools.partial(cases[n].call, frames)
+          for n in names if n.startswith("skewed")}
+    ab["aligned8x32"] = functools.partial(cases["aligned8x32"].call, frames)
+    log(f"skewed A/B summary ({smi}): "
+        + json.dumps(phases_ab.over_aligned(rounds(ab, 3))))
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
     for w in rd.WRAPPERS:
         w.launches = 0
     results = {}
     for name in rd.DEFAULT_NAMES:
-        before = sum(w.launches for w in rd.WRAPPERS)
+        # the name's own wrapper: both's reference launches aligned_resize
+        wrapper = (cases[name] if name in cases else
+                   rd.case(name, B4K, **geo)).wrapper
+        before = wrapper.launches
         (row,) = rd.run([name], frames, **geo, log=log)
-        row["launches"] = sum(w.launches for w in rd.WRAPPERS) - before
+        row["launches"] = wrapper.launches - before
         results[name] = row
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in rd.WRAPPERS}
@@ -1741,7 +1782,7 @@ def resize_lab_phase(torch, np, dev, smi):
             results[n]["launches"] for n in names) < 1:
         raise AssertionError("a kernel of the resize lab was not launched")
     for n, r in results.items():
-        if r["maxdiff"] > (0 if n == "prod" or cases[n].exact else 1):
+        if not r["within"]:
             raise AssertionError(f"resize lab {n} differs from its reference")
     ms = {n: r["ms"] for n, r in results.items()}
     log("resize lab H/W split: " + ", ".join(
@@ -1770,11 +1811,12 @@ def resize_lab_phase(torch, np, dev, smi):
         entries.append({
             "name": f"{wrapper} {name}", "route": "cuda",
             "source": "vali_tpu_torch/csrc/" + {
+                rd.resize_phases: "nv12_phases.cu",
                 rd.aligned_resize: "nv12_aligned.cu",
+                rd.skewed_resize: "nv12_skewed.cu",
                 rd.streamed_resize: "nv12_streamed.cu",
                 rd.slabs_resize: "nv12_slabs.cu",
-                rd.striped_resize: "nv12_striped.cu"}.get(
-                    c.wrapper, "nv12_resize_variants.cu"),
+                rd.striped_resize: "nv12_striped.cu"}[c.wrapper],
             "replaces": RESIZE_LAB_REPLACES[wrapper],
             "launches": r["launches"], "max_abs_err": err[name],
             "ms": r["ms"],

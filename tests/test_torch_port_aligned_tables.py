@@ -141,12 +141,18 @@ def test_weights_are_the_bf16_bands_widened_with_zeros(geo, h_align,
                 assert np.array_equal(a[m], want), (tile, m)
 
 
-def _walk(nv12, geo, h_align, w_align):
+def _walk(nv12, geo, h_align, w_align, steps=None):
     """Both passes of the aligned kernel in numpy from its tables, block
     by block as the kernel runs them (fp32 sums, H rows rounded to bf16,
-    round half to even and clip), and the FLOPs its products issue."""
+    round half to even and clip), and the FLOPs its products issue a
+    frame. ``steps`` is each block's walk over the frames: a list of
+    (frames of the H pass or None, the H buffer it writes, frames of the W
+    pass or None, the H buffer it reads); by default one H buffer, every
+    frame's H pass, then its W pass."""
     sw, sh, dw, dh = geo
     b = nv12.shape[0]
+    every = np.arange(b)
+    steps = steps or [(every, 0, every, 0)]
     out = np.zeros((b, dh * 3 // 2, dw), np.uint8)
     flops = 0
     for (n_in, n_out, px, ow, ch, t), (row0, orow0) in zip(
@@ -159,29 +165,40 @@ def _walk(nv12, geo, h_align, w_align):
             rows = np.minimum(t.starts[s] + np.arange(t.k_pad), n_in - 1)
             win = plane[:, rows]                  # [b, k_pad, sw bytes]
             for t0, n, x0, hw in t.ranges.tolist():
-                x = np.zeros((b, t.k_pad, hw * ch), np.float32)
                 cols = x0 * ch + np.arange(hw * ch)
-                x[..., cols < sw] = win[..., cols[cols < sw]]
-                h = torch.from_numpy(bmat[s] @ x).to(torch.bfloat16).float()
-                flops += 2 * R * t.k_pad * hw * ch
-                # chroma's H rows: R U rows, then R V rows
-                h = torch.cat([h[..., c::ch] for c in range(ch)], dim=1)
-                for tile in range(t0, t0 + n):
-                    _, c0, nk = t.heads[tile].tolist()
-                    a = amat[tile]
-                    hk = h[..., c0 - x0:c0 - x0 + 16 * nk].numpy()
-                    d = np.einsum("mk,bnk->bmn", a, hk)   # [b, 64, ch R]
-                    flops += 2 * 64 * 16 * nk * R * ch
-                    q = np.clip(np.rint(d), 0, 255).astype(np.uint8)
-                    p = rd.ALIGNED_W_TILE * tile + np.arange(64)
-                    keep = p < ow
-                    for c in range(ch):
-                        vals = q[:, keep, c * R:(c + 1) * R]  # [b, px, R]
-                        o = R * s + np.arange(R)
-                        ok = o < n_out
-                        out[:, orow0 + o[ok][:, None], ch * p[keep] + c] = \
-                            vals[..., ok].transpose(0, 2, 1)
-    return out, flops
+                hbufs = {}
+                for hf, hb, wf, wb in steps:
+                    if hf is not None:
+                        x = np.zeros((len(hf), t.k_pad, hw * ch), np.float32)
+                        x[..., cols < sw] = win[hf][..., cols[cols < sw]]
+                        h = torch.from_numpy(bmat[s] @ x).to(
+                            torch.bfloat16).float()
+                        flops += 2 * R * t.k_pad * hw * ch * len(hf)
+                        # chroma's H rows: R U rows, then R V rows
+                        hbufs[hb] = torch.cat(
+                            [h[..., c::ch] for c in range(ch)], dim=1)
+                    if wf is None:
+                        continue
+                    h = hbufs[wb]
+                    assert h.shape[0] == len(wf)
+                    for tile in range(t0, t0 + n):
+                        _, c0, nk = t.heads[tile].tolist()
+                        a = amat[tile]
+                        hk = h[..., c0 - x0:c0 - x0 + 16 * nk].numpy()
+                        d = np.einsum("mk,bnk->bmn", a, hk)  # [b, 64, ch R]
+                        flops += 2 * 64 * 16 * nk * R * ch * len(wf)
+                        q = np.clip(np.rint(d), 0, 255).astype(np.uint8)
+                        p = rd.ALIGNED_W_TILE * tile + np.arange(64)
+                        keep = p < ow
+                        for c in range(ch):
+                            vals = q[:, keep, c * R:(c + 1) * R]
+                            o = R * s + np.arange(R)
+                            ok = o < n_out
+                            out[np.asarray(wf)[:, None, None],
+                                orow0 + o[ok][None, :, None],
+                                ch * p[keep][None, None] + c] = \
+                                vals[..., ok].transpose(0, 2, 1)
+    return out, flops // b
 
 
 @pytest.mark.parametrize("h_align,w_align", ALIGNS)
@@ -246,8 +263,8 @@ def test_ab_builds_key_on_every_file_the_source_includes(tmp_path,
     csrc = os.path.join(cb._PKG_DIR, "csrc")
     assert [os.path.basename(f) for f in cb.included_files(
         os.path.join(csrc, "nv12_aligned.cu"))] == [
-        "nv12_aligned.cu", "aligned_passes.cuh", "banded_common.cuh",
-        "wgmma_common.cuh"]
+        "nv12_aligned.cu", "aligned_block.cuh", "aligned_passes.cuh",
+        "banded_common.cuh", "wgmma_common.cuh"]
     for name in ("nv12_grouped.cu", "banded_preprocess.cuh",
                  "banded_common.cuh", "wgmma_common.cuh"):
         shutil.copy(os.path.join(csrc, name), tmp_path / name)

@@ -23,6 +23,7 @@ from vali_tpu_torch.core.formats import format_info
 from vali_tpu_torch.lab import convert_lab as cl
 from vali_tpu_torch.lab import kernel_variants as kv
 from vali_tpu_torch.lab import resize_diag as rd
+from vali_tpu_torch.lab.ab_common import padded_view
 from vali_tpu_torch.ops.nv12_resize import nv12_resize, nv12_resize_plain
 from vali_tpu_torch.ops.nv12_to_rgb import nv12_to_rgb, nv12_to_rgb_plain
 from vali_tpu_torch.ops.packed_resize import (packed_resize,
@@ -359,19 +360,20 @@ def test_nv12_to_rgb_matches_plain(dev, geom, kw):
     (1, 2160, 3840, 1080, 1920),  # 4K -> 1080p, one frame
 ])
 def test_nv12_resize_equals_the_lab_both_and_striped(dev, geom):
-    """The lab's ``both`` (luma rows) keeps the earlier 8-row-strip
-    arithmetic in csrc/nv12_resize_variants.cu: the streaming kernel's bits
-    are its. ``striped`` (csrc/nv12_striped.cu) runs aligned's tensor-core
-    passes at 8x32: aligned8x32's bits, within the uint8 envelope of
-    nv12_resize."""
+    """The lab's ``both`` (csrc/nv12_phases.cu) and ``striped``
+    (csrc/nv12_striped.cu) run aligned's tensor-core passes at 8x32:
+    aligned8x32's bits (``both`` its luma rows), within the uint8 envelope
+    of nv12_resize."""
     b, h, w, dh, dw = geom
     geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
     x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h)
     out = nv12_resize(x, **geo)
-    assert torch.equal(rd.resize_phases(x, **geo, mode="both"), out[:, :dh])
+    aligned = rd.aligned_resize(x, **geo, h_align=8, w_align=32)
+    both = rd.resize_phases(x, **geo, mode="both")
+    assert torch.equal(both, aligned[:, :dh])
+    _assert_close(both, out[:, :dh], geom)
     striped = rd.striped_resize(x, **geo, nw=3, store="dyn")
-    assert torch.equal(striped, rd.aligned_resize(x, **geo, h_align=8,
-                                                  w_align=32))
+    assert torch.equal(striped, aligned)
     _assert_close(striped, out, geom)
 
 
@@ -1106,7 +1108,8 @@ def test_lab_wrappers_count_launches_and_reject_bad_input(dev):
     assert [f.launches for f in kv.WRAPPERS] == after
 
 
-# --- the NV12 resize lab (csrc/nv12_resize_variants.cu) --------------------
+# --- the NV12 resize lab (csrc/nv12_phases.cu, nv12_aligned.cu, ----------
+# --- nv12_skewed.cu, nv12_streamed.cu, nv12_slabs.cu, nv12_striped.cu) ----
 
 RESIZE_LAB_NAMES = [n for n in rd.DEFAULT_NAMES if n != "prod"]
 
@@ -1117,10 +1120,11 @@ RESIZE_LAB_NAMES = [n for n in rd.DEFAULT_NAMES if n != "prod"]
 ])
 @pytest.mark.parametrize("name", RESIZE_LAB_NAMES)
 def test_resize_lab_kernels_match_plain(dev, geom, name):
-    """Each resize-lab kernel against its plain version; the full-function
-    variants equal nv12_resize bit for bit, and ``both`` its luma rows, but
-    slabs, aligned and streamed (tensor-core sums), which keep within the
-    uint8 envelope of their references."""
+    """Each resize-lab kernel against its plain version: ``dma_only``
+    equal, ``h_only``'s low bytes within h_only_tolerance (mod 256), the
+    others within the uint8 envelope (tensor-core sums); ``both`` equals
+    aligned8x32's luma rows, the full-function variants keep within the
+    envelope of nv12_resize."""
     b, h, w, dh, dw = geom
     x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h + w)
     geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
@@ -1130,11 +1134,13 @@ def test_resize_lab_kernels_match_plain(dev, geom, name):
     assert out.shape == ref.shape
     if name == "dma_only":
         assert torch.equal(out, ref)
+    elif name == "h_only":
+        assert c.within(out, x), (name, geom)
     else:
         _assert_close(out, ref, (name, geom))
     if c.exact:
         assert torch.equal(out, c.reference(x)), (name, geom)
-    else:
+    elif name != "h_only":
         _assert_close(out, c.reference(x), (name, geom))
 
 
@@ -1235,17 +1241,106 @@ def test_resize_lab_kernels_padded_strided_views(dev, name):
 @pytest.mark.parametrize("b", [1, 3])
 def test_skewed_resize_single_and_odd_batches(dev, b):
     """The skew crosses frames: one frame (no overlap) and an odd count
-    (the last W pass from the other buffer) equal nv12_resize."""
+    (the last W pass from the other buffer), G frames a block or the
+    batch, equal aligned8x32, within the envelope of nv12_resize."""
     geo = dict(src_w=512, src_h=288, dst_w=256, dst_h=144)
     x = rd.make_frames(b, 432, 512, dev, seed=b)
-    assert torch.equal(rd.skewed_resize(x, **geo), nv12_resize(x, **geo))
+    ref = rd.aligned_resize(x, **geo)
+    for g in (1, 2, None):
+        out = rd.skewed_resize(x, **geo, frames_per_block=g)
+        assert torch.equal(out, ref), g
+        _assert_close(out, nv12_resize(x, **geo), g)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("g", [2, 4, 8, None])
+@pytest.mark.parametrize("geom", [(288, 512, 144, 256), (150, 322, 70, 202),
+                                  (2160, 3840, 1080, 1920)])
+def test_skewed_every_g_equals_aligned_8x32(dev, geom, g, b):
+    """Every G of the lab (2, 4, 8, the batch) issues aligned's products
+    per (strip, column) in aligned's order: aligned8x32's bits, for one
+    frame, an odd batch and the lab's 16."""
+    h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = rd.make_frames(b, h * 3 // 2, w, dev, seed=b + h)
+    out = rd.skewed_resize(x, **geo, frames_per_block=g)
+    assert torch.equal(out, rd.aligned_resize(x, **geo)), (geom, g, b)
+
+
+@pytest.mark.parametrize("pad,off", [(64, 0), (16, 1)])
+def test_skewed_padded_and_misaligned_views(dev, pad, off):
+    """A padded pitch (cp.async) and a misaligned view (element loads)
+    give the contiguous buffer's output, at every G."""
+    geo = dict(src_w=322, src_h=150, dst_w=202, dst_h=70)
+    x = rd.make_frames(5, 225, 322, dev, seed=9)
+    view = padded_view(x, pad, off)
+    for g in (2, 4, None):
+        assert torch.equal(rd.skewed_resize(view, **geo, frames_per_block=g),
+                           rd.aligned_resize(x, **geo)), (pad, off, g)
+
+
+def test_skewed_refuses_other_alignments_and_keeps_two_blocks_an_sm(dev):
+    """Another alignment is refused on the card before any launch; at 4K
+    both planes' blocks are resident two to an SM."""
+    geo = dict(src_w=3840, src_h=2160, dst_w=1920, dst_h=1080)
+    x = rd.make_frames(2, 3240, 3840, dev)
+    before = rd.skewed_resize.launches
+    with pytest.raises(ValueError, match="8, 32 only"):
+        rd.skewed_resize(x, **geo, h_align=32, w_align=128)
+    with pytest.raises(ValueError, match="frames_per_block"):
+        rd.skewed_resize(x, **geo, frames_per_block=0)
+    assert rd.skewed_resize.launches == before
+    assert rd.resident_blocks(x, **geo, mode="skewed") == (2, 2)
+    assert rd.resident_blocks(x, **geo, mode="both") == (2, 2)
+
+
+@pytest.mark.parametrize("mode", ["dma_only", "h_only", "w_only", "both"])
+@pytest.mark.parametrize("geom", [(3, 96, 256, 40, 120),
+                                  (2, 144, 256, 72, 128),
+                                  (2, 150, 322, 70, 202)])
+@pytest.mark.parametrize("pad,off", [(0, 0), (64, 0), (16, 1)])
+def test_phases_modes_match_plain_at_padded_and_misaligned_views(
+        dev, mode, geom, pad, off):
+    """Each knock-out on aligned's block against its plain version at the
+    card tests' shapes, contiguous, at a padded pitch (cp.async) and a
+    misaligned view (element loads): dma_only equal, h_only within
+    h_only_tolerance, w_only within the envelope, both equal to
+    aligned8x32's luma rows."""
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+    x = rd.make_frames(b, h * 3 // 2, w, dev, seed=h + pad + off)
+    v = padded_view(x, pad, off) if pad else x
+    c = rd.case(mode, b, **geo)
+    out = rd.resize_phases(v, **geo, mode=mode)
+    if mode in ("dma_only", "both"):
+        assert torch.equal(out, c.reference(x)), (mode, geom)
+    else:
+        assert c.within(out, x), (mode, geom)
+
+
+def test_phases_at_4k_within_their_tolerances(dev):
+    """16 x 4K -> 1080p, as the lab runs it: both equals aligned8x32's luma
+    rows, h_only lies within h_only_tolerance and w_only within the uint8
+    envelope of their plain versions on fewer than 1e-3 of the samples,
+    dma_only equals its plain version."""
+    geo = dict(src_w=3840, src_h=2160, dst_w=1920, dst_h=1080)
+    x = rd.make_frames(16, 3240, 3840, dev)
+    for mode in rd.MODES:
+        c = rd.case(mode, 16, **geo)
+        out = c.call(x)
+        if mode in ("dma_only", "both"):
+            assert torch.equal(out, c.reference(x)), mode
+        else:
+            assert c.within(out, x), mode
 
 
 @pytest.mark.parametrize("mode", ["dma_only", "w_only"])
 def test_resize_phases_sink_reads_every_byte(dev, mode):
     """On a zeroed sink the XOR of its words is the XOR of every 32-bit
-    word of the frames, and one byte changed outside the output corner and
-    the W pass's rows changes the sink but not the output."""
+    word of the frames (each byte folded by one block of aligned's grid,
+    as lab/resize_diag.py sink_partition shares them), and one byte
+    changed outside the output corner and the W pass's rows changes the
+    sink but not the output."""
     h, w = 144, 256
     geo = dict(src_w=w, src_h=h, dst_w=128, dst_h=72)
     x = rd.make_frames(2, h * 3 // 2, w, dev, seed=3)

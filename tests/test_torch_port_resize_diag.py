@@ -30,6 +30,8 @@ from vali_tpu_torch.ops.banded import band_table  # noqa: E402
 from vali_tpu_torch.ops.nv12_resize import nv12_resize_plain  # noqa: E402
 from vali_tpu_torch.ops.resize import LANCZOS_AA, resize_weights  # noqa: E402
 
+from tests.test_torch_port_skewed_tables import skewed_walk  # noqa: E402
+
 # DW a multiple of LANE_TILE, so the notebook's padded width equals DW
 B, H, W, DH, DW = 3, 288, 512, 144, 256
 PAD = 64
@@ -110,6 +112,42 @@ def test_skewed_matches_the_notebook(nv12):
     j = nb.skewed(jnp.asarray(nv12))
     _assert_u8_close(j, rd.skewed_resize(torch.from_numpy(nv12),
                                          **GEO).numpy())
+
+
+@pytest.mark.parametrize("frames_per_block", [2, 16])
+def test_skewed_frames_per_block_matches_the_notebook(nv12, frames_per_block,
+                                                      monkeypatch):
+    """The notebook's skew at its (8, 32) windows against the wrapper's
+    CPU route (nv12_resize_plain, whatever G) and against a numpy replay of
+    the skewed kernel's walk at G frames a block (2: groups of 2 and 1 of
+    the 3 frames; 16: one group of all of them), each block's H pass of a
+    frame one step before its W pass, over two H buffers."""
+    j = nb.skewed(jnp.asarray(nv12), h_align=8, w_align=32)
+    t = rd.skewed_resize(torch.from_numpy(nv12), **GEO, h_align=8,
+                         w_align=32, frames_per_block=frames_per_block)
+    _assert_u8_close(j, t.numpy())
+    assert torch.equal(t, nv12_resize_plain(torch.from_numpy(nv12), **GEO))
+    walk, _ = skewed_walk(nv12[:, :H * 3 // 2], (W, H, DW, DH),
+                          frames_per_block, monkeypatch)
+    _assert_u8_close(j, walk)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(h_align=4), "8, 32 only"), (dict(w_align=16), "8, 32 only"),
+    (dict(h_align=32, w_align=128), "8, 32 only"),
+    (dict(frames_per_block=0), "frames_per_block"),
+    (dict(frames_per_block=-2), "frames_per_block"),
+    (dict(frames_per_block=2.0), "frames_per_block")])
+def test_skewed_rejects_bad_keywords(nv12, kw, match):
+    """An alignment but the notebook's (8, 32), or a G under 1 or not an
+    int, is refused on the CPU before any plain run or launch."""
+    x = torch.from_numpy(nv12)
+    before = [w.launches for w in rd.WRAPPERS]
+    with pytest.raises(ValueError, match=match):
+        rd.skewed_resize(x, **GEO, **kw)
+    with pytest.raises(ValueError, match=match):
+        rd.skewed_resize(x.to("meta"), **GEO, **kw)
+    assert [w.launches for w in rd.WRAPPERS] == before
 
 
 @pytest.mark.parametrize("band", [32, 128])
@@ -273,13 +311,19 @@ def test_work_counts_the_frame_and_the_output():
     more than the product's FMAs, and more at the coarser alignment; the
     streamed kernel issues aligned's at 8x32, the slabs kernel those and a
     chain more for each piece past a window's first, the striped kernel
-    aligned's W products and each row's H columns once."""
+    aligned's W products and each row's H columns once, the skewed kernel
+    aligned's on its own column ranges at every G, and the knock-outs
+    aligned's at 8x32 but the chroma W products."""
     from vali_tpu_torch.lab.timing import HBM_BYTES_PER_S, bound_ms
 
     frame = B * H * 3 // 2 * W
     full = rd.case("prod", B, **GEO).work
     assert full[0] == frame + B * DH * 3 // 2 * DW
-    assert rd.case("skewed", B, **GEO).work == full
+    skewed = rd.case("skewed", B, **GEO).work
+    assert skewed == rd.skewed_work(B, **GEO)
+    assert all(rd.case(f"skewed{g}", B, **GEO).work == skewed
+               for g in (2, 4, 8))
+    assert skewed[0] == full[0] and full[1] < skewed[1]
     fine, coarse = (rd.case(n, B, **GEO).work
                     for n in ("aligned8x32", "aligned32x128"))
     assert fine == rd.aligned_work(B, **GEO, h_align=8, w_align=32)
@@ -298,7 +342,8 @@ def test_work_counts_the_frame_and_the_output():
         assert rd.case(mode, B, **GEO).work[0] == frame + B * DH * DW
     assert rd.case("dma_only", B, **GEO).work[1] == 0
     ops = {m: rd.case(m, B, **GEO).work[1] for m in rd.MODES}
-    assert ops["both"] == ops["h_only"] + ops["w_only"] < full[1]
+    assert ops["both"] == ops["h_only"] + ops["w_only"] < fine[1]
+    assert ops == {m: rd.phases_work(B, **GEO, mode=m)[1] for m in rd.MODES}
     ms, by = bound_ms(*full)
     assert by == "bytes" and ms == pytest.approx(
         full[0] / HBM_BYTES_PER_S * 1e3)

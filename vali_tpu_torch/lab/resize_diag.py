@@ -4,8 +4,8 @@ run on the card.
 Counterpart of the TPU notebook ``resize_diag.py`` (its ``main``,
 ``main_aligned``, ``main_skewed``, ``main_streamed``, ``main_slabs`` and
 ``main_striped``). Six wrappers
-over the kernels of ``csrc/nv12_resize_variants.cu``,
-``csrc/nv12_aligned.cu``, ``csrc/nv12_streamed.cu``,
+over the kernels of ``csrc/nv12_phases.cu``, ``csrc/nv12_aligned.cu``,
+``csrc/nv12_skewed.cu``, ``csrc/nv12_streamed.cu``,
 ``csrc/nv12_slabs.cu`` and ``csrc/nv12_striped.cu``, each beside its
 plain PyTorch version, with the same dispatch as the product wrappers: a CUDA
 tensor launches the kernel, a CPU tensor runs the plain version, any other
@@ -13,14 +13,16 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
 
 - :func:`resize_phases` (``variant``): the luma resize with a phase
   knocked out, as the notebook computes it where unwritten scratch reads
-  as zero. ``both`` is the luma rows of :func:`nv12_resize`; ``h_only`` the
-  H pass of luma and chroma, with output lanes < LANE_TILE the luma H-pass
-  rows truncated to int and cut to their low byte; ``w_only`` the luma W
-  pass of H-pass rows that are the frame's first TILE rows, then zeros;
-  ``dma_only`` the frame's first TILE rows x LANE_TILE lanes. On the card
-  what a mode must not drop goes into a sink, so ``h_only - dma_only`` and
-  ``w_only - dma_only`` are the H and W costs over a stream of the same
-  bytes.
+  as zero, on ``aligned``'s tensor-core block at 8x32. ``both`` is the
+  luma rows of :func:`aligned_resize` (so within the uint8 envelope of
+  :func:`nv12_resize`'s); ``h_only`` the H pass of luma and chroma, with
+  output lanes < LANE_TILE the luma H-pass rows truncated to int and cut
+  to their low byte (within :func:`h_only_tolerance` of its plain
+  version); ``w_only`` the luma W pass of H-pass rows that are the frame's
+  first TILE rows, then zeros; ``dma_only`` the frame's first TILE rows x
+  LANE_TILE lanes. On the card what a mode must not drop goes into a sink,
+  so ``h_only - dma_only`` and ``w_only - dma_only`` are the H and W costs
+  over a stream of the same bytes.
 - :func:`aligned_resize` (``aligned``): the full resize with both passes
   as products on the tensor cores (wgmma fed by a cp.async ring) over
   aligned windows: each strip's source-row window aligned to ``h_align``
@@ -28,7 +30,9 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   added). Within 1 LSB on fewer than 1e-3 of the samples of
   :func:`nv12_resize`.
 - :func:`skewed_resize` (``skewed``): the full resize with frame b's H pass
-  beside frame b - 1's W pass inside one block.
+  beside frame b - 1's W pass inside one block, ``aligned``'s tensor-core
+  passes at 8x32 split between a producer and a consumer warpgroup over
+  ``frames_per_block`` frames; equal to ``aligned8x32``.
 - :func:`streamed_resize` (``streamed``): the full resize with each block
   walking down the frame, source rows copied in bands of ``band`` rows by
   TMA into an ``mbarrier`` ring under ``aligned``'s tensor-core passes at
@@ -47,10 +51,11 @@ device raises. uint8 NV12 in, bf16 compute, lanczos_aa.
   shared memory) or relay (the H rows through device memory). Equal to
   ``aligned8x32``.
 
-Every full-function variant but ``slabs``, ``aligned``, ``streamed`` and
-``striped``, and ``both``, equals :func:`nv12_resize` bit for bit on the
-card; on the CPU its plain version is the product's, split as the variant
-splits it.
+On the card every full-function variant runs the tensor cores, so it
+lies within the uint8 envelope of :func:`nv12_resize` (``skewed``,
+``streamed`` and ``striped`` equal ``aligned8x32`` bit for bit, ``both``
+its luma rows); on the CPU its plain version is the product's, split as
+the variant splits it.
 
 Run the lab (16 x 4K -> 1080p on ``cuda:0``; ``--device cpu`` runs the
 plain versions at 3 x 512x288 -> 256x144 and times nothing)::
@@ -59,10 +64,12 @@ plain versions at 3 x 512x288 -> 256x144 and times nothing)::
 
 Names: ``prod`` (:func:`nv12_resize` itself), ``dma_only``, ``h_only``,
 ``w_only``, ``both``, ``aligned{h}x{w}`` (``aligned8x32``),
-``skewed``, ``streamed{band}`` (``streamed64``), ``slabs{n}`` (``slabs4``),
+``skewed{G}`` (``skewed2``, ``skewed4``, ``skewed8``; ``skewed``: G the
+batch), ``streamed{band}`` (``streamed64``), ``slabs{n}`` (``slabs4``),
 ``striped{nw}{dyn|relay|unroll}`` (``striped3dyn``). Each prints one line: ms
-per batch, spread, maxdiff against its reference, GB/s and the bound; on
-the card also the H/W split as shares of ``prod``.
+per batch, spread, maxdiff against its reference (``h_only``: the low
+bytes' distance mod 256), GB/s and the bound; on the card also the H/W
+split as shares of ``prod``.
 """
 
 from __future__ import annotations
@@ -97,7 +104,8 @@ LANE_TILE = 128
 MODES = {"both": 0, "h_only": 1, "w_only": 2, "dma_only": 3}
 
 DEFAULT_NAMES = ("prod", "dma_only", "h_only", "w_only", "both",
-                 "aligned8x32", "aligned32x128", "aligned4x16", "skewed",
+                 "aligned8x32", "aligned32x128", "aligned4x16", "skewed2",
+                 "skewed4", "skewed8", "skewed",
                  "streamed64", "streamed256", "slabs2", "slabs4", "slabs6",
                  "striped3dyn", "striped5dyn", "striped3relay",
                  "striped3unroll")
@@ -133,24 +141,6 @@ def _tables(src_w, src_h, dst_w, dst_h, device, build, **knobs):
 def _product_tables(src_h, dst_h, src_w, dst_w, *, channels, device):
     return resize_tables(src_h, dst_h, src_w, dst_w, LANCZOS_AA, _BF16,
                          channels, device)
-
-
-def _launch(what: str, launcher: str, nv12: torch.Tensor, tabs, knobs,
-            out: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
-            dst_h: int) -> torch.Tensor:
-    """One resize-lab launcher on a checked CUDA buffer."""
-    from ..ops._cuda_build import check, load_lab_kernels
-
-    if nv12.stride(2) != 1:
-        raise ValueError("NV12 rows must be contiguous (stride 1)")
-    lib = load_lab_kernels()
-    with torch.cuda.device(nv12.device):
-        rc = getattr(lib, launcher)(
-            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[0],
-            src_h, src_w, dst_h, dst_w, *tabs[0].args(), *tabs[1].args(),
-            *knobs, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, what)
-    return out
 
 
 def _full_out(nv12, dst_w, dst_h) -> torch.Tensor:
@@ -197,18 +187,24 @@ def resize_phases(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
                   dst_h: int, mode: str,
                   sink: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The luma NV12 resize with phases knocked out -> [B, dst_h, dst_w]
-    uint8 (``mode``: both, h_only, w_only, dma_only; see the module).
+    uint8 (``mode``: both, h_only, w_only, dma_only; see the module), on
+    ``aligned``'s tensor-core block at 8x32 (:func:`phases_tables`).
 
     On the card each block XORs into one of the int32 words of ``sink`` (a
     fresh zeroed one of SINK_WORDS when None) what its mode would otherwise
     drop: the H-pass values (h_only: luma and chroma; both: chroma), or its
-    share of the frame's bytes (w_only, dma_only: the XOR of the sink after
-    a call on a zeroed sink is then the XOR of every 32-bit word of the
-    frames' H*3/2 rows)."""
+    share of the frame's bytes (w_only, dma_only: each byte by one block,
+    so the XOR of the sink after a call on a zeroed sink is the XOR of
+    every 32-bit word of the frames' H*3/2 rows). Raises ValueError for a
+    geometry the block cannot take (:func:`phases_refusal`), on either
+    device."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     _checked(nv12, src_w, src_h, dst_w, dst_h)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = phases_refusal(**geo)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("resize_phases", nv12):
         return resize_phases_plain(nv12, **geo, mode=mode)
     if sink is None:
@@ -217,14 +213,30 @@ def resize_phases(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
             or not sink.is_contiguous() or sink.numel() < 1):
         raise ValueError("sink must be a contiguous int32 tensor on the "
                          "frames' device")
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
     out = torch.empty((nv12.shape[0], dst_h, dst_w), dtype=torch.uint8,
                       device=nv12.device)
-    _launch("resize_phases", "nv12_resize_phases_launch", nv12,
-            _tables(src_w, src_h, dst_w, dst_h, nv12.device,
-                    _product_tables),
-            (MODES[mode], sink.data_ptr(), sink.numel()), out, **geo)
+    _phases_call(nv12, geo, mode, nv12.shape[0], sink, out.data_ptr(), None)
     resize_phases.launches += 1
     return out
+
+
+def _phases_call(nv12, geo, mode, batch, sink, out, resident):
+    """One call of the phases launcher (``batch`` 0: the residency query
+    alone)."""
+    from ..ops._cuda_build import check, load_lab_kernels
+
+    args, _ = _phases_device(geo["src_w"], geo["src_h"], geo["dst_w"],
+                             geo["dst_h"], nv12.device)
+    lib = load_lab_kernels()
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_resize_phases_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), batch,
+            geo["src_h"], geo["src_w"], geo["dst_h"], geo["dst_w"], *args,
+            MODES[mode], sink.data_ptr(), sink.numel(), resident, out,
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "resize_phases")
 
 
 # --- aligned windows (notebook ``aligned``) --------------------------------
@@ -452,26 +464,33 @@ def aligned_work(batch: int, src_w: int, src_h: int, dst_w: int,
     k_pad] weights times the H columns of each of its ranges (bytes of a
     row), and per strip each tile's [64, 16] A times its ALIGNED_ROWS H
     rows (chroma: U and V) each k-step."""
-    h_fmas = w_fmas = 0
-    for ch, t in zip((1, 2), _aligned_planes(src_w, src_h, dst_w, dst_h,
-                                             h_align, w_align)):
-        strips = t.weights.shape[0]
-        h_fmas += (strips * ALIGNED_ROWS * t.k_pad * ch
-                   * int(t.ranges[:, 3].sum()))
-        w_fmas += (strips * ALIGNED_W_TILE * 16 * ALIGNED_ROWS * ch
-                   * int(t.heads[:, 2].sum()))
+    (yh, yw), (ch, cw) = (_plane_fmas(t, c) for c, t in zip(
+        (1, 2), _aligned_planes(src_w, src_h, dst_w, dst_h, h_align,
+                                w_align)))
     return nv12_resize_work(batch, src_h, src_w, dst_h, dst_w,
-                            h_fmas=h_fmas, w_fmas=w_fmas)
+                            h_fmas=yh + ch, w_fmas=yw + cw)
 
 
-@functools.lru_cache(maxsize=8)
-def _aligned_device(src_w, src_h, dst_w, dst_h, h_align, w_align, device):
-    """The launcher's table arguments on ``device``, uploaded once per
-    geometry: per plane B in bf16 core-matrix order, the window starts,
-    k_pad, the ranges, their count, the H columns, the heads and the bf16
-    A fragments; with the tensors they point into."""
+def _plane_fmas(t: AlignedPlane, channels: int) -> Tuple[int, int]:
+    """(H, W) FMAs a frame's plane issues on the tensor cores from tables
+    ``t``, zeros included: per strip [ALIGNED_ROWS, k_pad] weights times
+    the H columns of each of its ranges (bytes of a row), and per strip
+    each tile's [64, 16] A times its ALIGNED_ROWS H rows (chroma: U and V)
+    each k-step."""
+    strips = t.weights.shape[0]
+    return (strips * ALIGNED_ROWS * t.k_pad * channels
+            * int(t.ranges[:, 3].sum()),
+            strips * ALIGNED_W_TILE * 16 * ALIGNED_ROWS * channels
+            * int(t.heads[:, 2].sum()))
+
+
+def _planes_device(planes, device):
+    """A launcher's table arguments on ``device`` for (luma, chroma)
+    :class:`AlignedPlane` tables: per plane B in bf16 core-matrix order,
+    the window starts, k_pad, the ranges, their count, the H columns, the
+    heads and the bf16 A fragments; with the tensors they point into."""
     args, keep = [], []
-    for t in _aligned_planes(src_w, src_h, dst_w, dst_h, h_align, w_align):
+    for t in planes:
         b, starts, ranges, heads, frags = (
             torch.from_numpy(core_matrix_order(t.weights)).to(device, _BF16),
             torch.from_numpy(t.starts).to(device),
@@ -482,6 +501,15 @@ def _aligned_device(src_w, src_h, dst_w, dst_h, h_align, w_align, device):
         args += [b.data_ptr(), starts.data_ptr(), t.k_pad, ranges.data_ptr(),
                  len(t.ranges), t.hcols, heads.data_ptr(), frags.data_ptr()]
     return tuple(args), keep
+
+
+@functools.lru_cache(maxsize=8)
+def _aligned_device(src_w, src_h, dst_w, dst_h, h_align, w_align, device):
+    """aligned's launcher arguments (:func:`_planes_device`), uploaded once
+    per geometry."""
+    return _planes_device(
+        _aligned_planes(src_w, src_h, dst_w, dst_h, h_align, w_align),
+        device)
 
 
 def aligned_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
@@ -527,21 +555,307 @@ def aligned_resize(nv12: torch.Tensor, *, src_w: int, src_h: int,
     return out
 
 
+# --- the knock-outs' tables (``resize_phases`` on aligned's block) ---------
+
+#: the windows the knock-outs run at: the notebook's production defaults
+PHASES_ALIGN = (8, 32)
+
+
+def sink_partition(t: AlignedPlane, n_in: int, row_bytes: int,
+                   channels: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The knock-outs' sink partition of a plane of ``n_in`` rows of
+    ``row_bytes`` bytes: ([strips, 2], [ranges, 2]) int32, the plane rows
+    [lo, hi) each strip's blocks fold and the row bytes [lo, hi) each
+    range's blocks fold, so that every byte of the plane lies in exactly
+    one (range, strip) share. A strip owns the rows from its window's
+    first to the next window's first (the first strip from row 0, the last
+    to the plane's end), a range the bytes from its first H byte to the
+    next range's: each share lies in its block's window and ring where the
+    windows overlap, and the kernel folds what does not by element
+    loads."""
+    rows = np.concatenate([[0], t.starts[1:].astype(np.int64), [n_in]])
+    rows = np.clip(np.maximum.accumulate(rows), 0, n_in)
+    xb = t.ranges[:, 2].astype(np.int64) * channels
+    cols = np.concatenate([[0], xb[1:], [row_bytes]])
+    cols = np.clip(np.maximum.accumulate(cols), 0, row_bytes)
+    return (np.stack([rows[:-1], rows[1:]], 1).astype(np.int32),
+            np.stack([cols[:-1], cols[1:]], 1).astype(np.int32))
+
+
+def h_only_owners(t: AlignedPlane, lanes: int) -> np.ndarray:
+    """[ranges, 2] int32: per column range of the luma tables ``t`` the
+    pixels [lo, hi) below ``lanes`` whose H rows h_only's blocks of that
+    range store, each pixel by the lowest range whose H columns hold it.
+    Raises ValueError where a pixel lies in no range's H columns, or a
+    range's pixels do not form one run."""
+    x0 = t.ranges[:, 2].astype(np.int64)
+    holds = ((x0[:, None] <= np.arange(lanes))
+             & (np.arange(lanes) < (x0 + t.ranges[:, 3])[:, None]))
+    if lanes and not holds.any(axis=0).all():
+        raise ValueError(f"h_only keeps the H rows of pixels 0 .. "
+                         f"{lanes - 1}, but no column range holds pixel "
+                         f"{int(np.argmin(holds.any(axis=0)))}")
+    owner = holds.argmax(axis=0)
+    own = np.zeros((len(t.ranges), 2), np.int32)
+    for r in range(len(t.ranges)):
+        px = np.flatnonzero(owner == r) if lanes else np.zeros(0, int)
+        if len(px):
+            if px[-1] - px[0] + 1 != len(px):
+                raise ValueError(f"h_only: range {r}'s pixels are not one "
+                                 f"run")
+            own[r] = (px[0], px[-1] + 1)
+    return own
+
+
+@functools.lru_cache(maxsize=8)
+def phases_tables(src_w: int, src_h: int, dst_w: int,
+                  dst_h: int) -> Tuple[np.ndarray, ...]:
+    """The knock-outs' tables beside aligned's at 8x32: luma and chroma
+    :func:`sink_partition` (rows, bytes each), then luma's
+    :func:`h_only_owners` of the LANE_TILE corner."""
+    y, c = _aligned_planes(src_w, src_h, dst_w, dst_h, *PHASES_ALIGN)
+    return (*sink_partition(y, src_h, src_w, 1),
+            *sink_partition(c, src_h // 2, src_w, 2),
+            h_only_owners(y, min(LANE_TILE, dst_w, src_w)))
+
+
+@functools.lru_cache(maxsize=32)
+def phases_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int) -> str:
+    """Why the knock-outs' block cannot take this geometry, or "" when it
+    can: aligned's refusal at 8x32, or a pixel of h_only's corner that no
+    column range holds."""
+    why = aligned_refusal(src_w, src_h, dst_w, dst_h, *PHASES_ALIGN)
+    if why:
+        return why
+    try:
+        phases_tables(src_w, src_h, dst_w, dst_h)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def phases_work(batch: int, src_w: int, src_h: int, dst_w: int, dst_h: int,
+                mode: str) -> Tuple[int, int]:
+    """(bytes, operations) of one knock-out batch: the NV12 frames read
+    once and the luma rows written once, and the FLOPs the mode's products
+    issue from aligned's tables at 8x32, zeros included: the H products of
+    both planes (h_only, both) and the luma W products (w_only, both)."""
+    (yh, yw), (ch, _) = (_plane_fmas(t, c) for c, t in zip(
+        (1, 2), _aligned_planes(src_w, src_h, dst_w, dst_h,
+                                *PHASES_ALIGN)))
+    h, w = mode in ("h_only", "both"), mode in ("w_only", "both")
+    return nv12_resize_work(batch, src_h, src_w, dst_h, dst_w, h_pass=h,
+                            w_pass=w, chroma=False, h_fmas=yh + ch,
+                            w_fmas=yw)
+
+
+@functools.lru_cache(maxsize=8)
+def _phases_device(src_w, src_h, dst_w, dst_h, device):
+    """The phases launcher's table arguments on ``device``: aligned's at
+    8x32 (:func:`_aligned_device`), then :func:`phases_tables`; with the
+    tensors they point into."""
+    args, keep = _aligned_device(src_w, src_h, dst_w, dst_h, *PHASES_ALIGN,
+                                 device)
+    parts = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+             for a in phases_tables(src_w, src_h, dst_w, dst_h)]
+    return args + tuple(a.data_ptr() for a in parts), (keep, parts)
+
+
+def resident_blocks(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                    dst_w: int, dst_h: int,
+                    mode: str = "both") -> Tuple[int, int]:
+    """(luma, chroma) blocks an SM holds of the knock-out ``mode``'s
+    launches, or with ``mode`` "skewed" of :func:`skewed_resize`'s
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), asked of the
+    launcher without a launch."""
+    import ctypes
+
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    res = (ctypes.c_int * 2)()
+    if mode == "skewed":
+        _skewed_call(nv12, geo, 1, 0, None, ctypes.addressof(res))
+    else:
+        sink = torch.zeros(1, dtype=torch.int32, device=nv12.device)
+        _phases_call(nv12, geo, mode, 0, sink, None, ctypes.addressof(res))
+    return res[0], res[1]
+
+
+def wrap_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| mod 256 the nearer way round: how far apart two low bytes
+    of truncated H values lie."""
+    d = (a.int() - b.int()) % 256
+    return torch.minimum(d, 256 - d)
+
+
+def _abs_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.int() - b.int()).abs()
+
+
+def h_sum_tolerance(sums: torch.Tensor) -> torch.Tensor:
+    """How far (mod 256) the low byte of trunc(v) may move when an H sum v
+    rounds one bf16 ulp apart: one ulp of |v| (8 significant bits: 1 at
+    128-255, 2 at 256-511), and at least 1 (truncation moves an integer
+    across by one below 128). int32, the shape of ``sums``."""
+    ulp = torch.ldexp(torch.ones_like(sums),
+                      torch.frexp(sums.abs()).exponent - 8)
+    return torch.clamp(ulp, min=1.0).to(torch.int32)
+
+
+def h_only_tolerance(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                     dst_w: int, dst_h: int) -> torch.Tensor:
+    """[B, dst_h, dst_w] int32: how far, taken mod 256 (the nearer way
+    round), h_only's kernel may lie from :func:`resize_phases_plain` at
+    each sample. The tensor cores' fp32 sum may round to the bf16 value one
+    ulp from the plain version's, which truncation and the low byte turn
+    into :func:`h_sum_tolerance` of the plain sum (255.x against 256 reads
+    255 against 0: 1 the nearer way round); the lanes past LANE_TILE are 0
+    exactly. The lab also holds h_only to fewer than 1e-3 of its samples
+    differing."""
+    luma = nv12[:, :src_h]
+    lanes = min(LANE_TILE, dst_w, src_w)
+    wh = round_to(resize_weights(src_h, dst_h, LANCZOS_AA), _BF16).to(
+        nv12.device)
+    with exact_f32_matmul():
+        yh = round_to(torch.matmul(wh, to_f32(luma[..., :lanes])), _BF16)
+    tol = torch.zeros((nv12.shape[0], dst_h, dst_w), dtype=torch.int32,
+                      device=nv12.device)
+    tol[..., :lanes] = h_sum_tolerance(yh)
+    return tol
+
+
 # --- the skewed pipeline (notebook ``skewed``) -----------------------------
 
+#: the windows the skewed kernel runs at: the notebook's defaults
+SKEWED_ALIGN = (8, 32)
+
+
+def skewed_smem_bytes(channels: int, hcols: int, k_pad: int) -> int:
+    """Shared memory of one block of the skewed kernel: aligned's
+    (:func:`aligned_smem_bytes`) and a second buffer of the tiled H
+    rows."""
+    return (aligned_smem_bytes(channels, hcols, k_pad)
+            + hcols // 8 * (16 * ALIGNED_ROWS * channels + 16))
+
+
+@functools.lru_cache(maxsize=16)
+def skewed_plane_tables(n_in: int, n_out: int, px: int, ow: int,
+                        channels: int) -> AlignedPlane:
+    """aligned's tables at 8x32 (:func:`aligned_plane_tables`) with the
+    column ranges cut anew: the fewest runs of tiles whose two H buffers,
+    B and ring leave a block two to an SM (:func:`skewed_smem_bytes`); one
+    tile a run where none do."""
+    t = aligned_plane_tables(n_in, n_out, px, ow, channels, *SKEWED_ALIGN)
+    ranges = _fewest_ranges(
+        t.heads, channels, lambda r: skewed_smem_bytes(
+            channels, int(r[:, 3].max()), t.k_pad) <= ALIGNED_TWO_BLOCKS)
+    if ranges is None:
+        ranges = _column_ranges(t.heads, channels, len(t.heads))
+    return t._replace(ranges=ranges)
+
+
+def _skewed_planes(src_w, src_h, dst_w, dst_h):
+    """(luma, chroma) :func:`skewed_plane_tables`."""
+    return (skewed_plane_tables(src_h, dst_h, src_w, dst_w, 1),
+            skewed_plane_tables(src_h // 2, dst_h // 2, src_w // 2,
+                                dst_w // 2, 2))
+
+
+@functools.lru_cache(maxsize=32)
+def skewed_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                   h_align: int, w_align: int) -> str:
+    """Why the skewed kernel cannot take this geometry and alignment, or
+    "" when it can: an alignment but SKEWED_ALIGN, a window of more than
+    ALIGNED_MAX_K rows, or a block's shared memory over a block's."""
+    if (h_align, w_align) != SKEWED_ALIGN:
+        return (f"skewed runs aligned's windows at h_align, w_align = "
+                f"{SKEWED_ALIGN[0]}, {SKEWED_ALIGN[1]} only, got {h_align}, "
+                f"{w_align}")
+    for name, ch, t in zip(("luma", "chroma"), (1, 2),
+                           _skewed_planes(src_w, src_h, dst_w, dst_h)):
+        if t.k_pad > ALIGNED_MAX_K:
+            return (f"its {name} windows of {t.k_pad} rows exceed the "
+                    f"kernel's {ALIGNED_MAX_K}")
+        smem = skewed_smem_bytes(ch, t.hcols, t.k_pad)
+        if smem > SMEM_LIMIT:
+            return (f"its {name} H buffers, weights and ring need {smem} B "
+                    f"of shared memory, over a block's {SMEM_LIMIT} B")
+    return ""
+
+
+def skewed_work(batch: int, src_w: int, src_h: int, dst_w: int,
+                dst_h: int) -> Tuple[int, int]:
+    """(bytes, operations) of one skewed batch: the product's bytes, and
+    the FLOPs its tables issue, zeros included (:func:`aligned_work`'s
+    count on :func:`skewed_plane_tables`' column ranges)."""
+    (yh, yw), (ch, cw) = (_plane_fmas(t, c) for c, t in zip(
+        (1, 2), _skewed_planes(src_w, src_h, dst_w, dst_h)))
+    return nv12_resize_work(batch, src_h, src_w, dst_h, dst_w,
+                            h_fmas=yh + ch, w_fmas=yw + cw)
+
+
+def skewed_groups(batch: int, frames_per_block: int) -> List[Tuple[int, int]]:
+    """Per grid z of a skewed launch the frames its blocks walk: (first
+    frame, frames), G = ``frames_per_block`` each, the last fewer; block z
+    runs frame f0 + s's H pass and frame f0 + s - 1's W pass at step s = 0
+    .. frames."""
+    return [(f0, min(frames_per_block, batch - f0))
+            for f0 in range(0, batch, frames_per_block)]
+
+
+@functools.lru_cache(maxsize=8)
+def _skewed_device(src_w, src_h, dst_w, dst_h, device):
+    """The skewed launcher's table arguments (:func:`_planes_device`),
+    uploaded once per geometry."""
+    return _planes_device(_skewed_planes(src_w, src_h, dst_w, dst_h), device)
+
+
+def _skewed_call(nv12, geo, group, batch, out, resident):
+    """One call of the skewed launcher (``batch`` 0: the residency query
+    alone)."""
+    from ..ops._cuda_build import check, load_lab_kernels
+
+    args, _ = _skewed_device(geo["src_w"], geo["src_h"], geo["dst_w"],
+                             geo["dst_h"], nv12.device)
+    lib = load_lab_kernels()
+    with torch.cuda.device(nv12.device):
+        rc = lib.nv12_resize_skewed_launch(
+            nv12.data_ptr(), nv12.stride(0), nv12.stride(1), batch,
+            geo["src_h"], geo["src_w"], geo["dst_h"], geo["dst_w"], *args,
+            group, resident, out, torch.cuda.current_stream().cuda_stream)
+    check(lib, rc, "skewed_resize")
+
+
 def skewed_resize(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
-                  dst_h: int) -> torch.Tensor:
+                  dst_h: int, h_align: int = 8, w_align: int = 32,
+                  frames_per_block: Optional[int] = None) -> torch.Tensor:
     """The NV12 resize -> [B, dst_h*3/2, dst_w] uint8 with frame b's H pass
-    beside frame b - 1's W pass in each block; equal to
-    :func:`nv12_resize`."""
+    beside frame b - 1's W pass in each block: ``aligned``'s tensor-core
+    passes at (``h_align``, ``w_align``) = (8, 32), each block of (column
+    range, strip, plane) walking ``frames_per_block`` frames (None: the
+    batch), one warpgroup running the H products of a frame while the other
+    runs the W tiles of the one before. Equal to
+    ``aligned_resize(h_align=8, w_align=32)``, so within the uint8
+    envelope of :func:`nv12_resize`; on the CPU :func:`nv12_resize_plain`.
+    Raises ValueError for another alignment or a geometry the kernel cannot
+    take (:func:`skewed_refusal`), on either device."""
     _checked(nv12, src_w, src_h, dst_w, dst_h)
+    group = nv12.shape[0] if frames_per_block is None else frames_per_block
+    if not isinstance(group, int) or (frames_per_block is not None
+                                      and group < 1):
+        raise ValueError(f"frames_per_block must be an int >= 1, got "
+                         f"{frames_per_block!r}")
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    why = skewed_refusal(**geo, h_align=h_align, w_align=w_align)
+    if why:
+        raise ValueError(f"{src_w}x{src_h} -> {dst_w}x{dst_h}: {why}")
     if _on_cpu("skewed_resize", nv12):
         return nv12_resize_plain(nv12, **geo)
-    out = _launch("skewed_resize", "nv12_resize_skewed_launch", nv12,
-                  _tables(src_w, src_h, dst_w, dst_h, nv12.device,
-                          _product_tables), (),
-                  _full_out(nv12, dst_w, dst_h), **geo)
+    if nv12.stride(2) != 1:
+        raise ValueError("NV12 rows must be contiguous (stride 1)")
+    out = _full_out(nv12, dst_w, dst_h)
+    if nv12.shape[0] == 0:
+        return out
+    _skewed_call(nv12, geo, group, nv12.shape[0], out.data_ptr(), None)
     skewed_resize.launches += 1
     return out
 
@@ -1487,14 +1801,34 @@ class Case(NamedTuple):
     reference: Callable[[torch.Tensor], torch.Tensor]
     exact: bool
     work: tuple      # (bytes, operations) of one batch of B frames
+    # per-sample bound against the reference where the envelope's 1 LSB
+    # does not hold (h_only: h_only_tolerance), on the given frames
+    tol: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    # how far two outputs lie apart (h_only: its low bytes mod 256)
+    distance: Callable[[torch.Tensor, torch.Tensor],
+                       torch.Tensor] = _abs_distance
+
+    def tolerance(self, frames: torch.Tensor):
+        """How far the kernel may lie from its reference on ``frames``:
+        ``tol``, 0 where it is exact, or the envelope's 1 LSB."""
+        return self.tol(frames) if self.tol else 0 if self.exact else 1
+
+    def within(self, out: torch.Tensor, frames: torch.Tensor) -> bool:
+        """Whether ``out`` of ``frames`` lies within :meth:`tolerance` of
+        the reference, fewer than 1e-3 of its samples differing."""
+        d = self.distance(out, self.reference(frames))
+        return (bool((d <= self.tolerance(frames)).all())
+                and int((d > 0).sum()) < 1e-3 * d.numel())
 
 
 def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
          dst_h: int) -> Case:
     """The :class:`Case` of a lab name on [batch, >= src_h*3/2, src_w]
-    frames. The full-function variants and ``both`` are held to
-    :func:`nv12_resize` (its luma rows for ``both``), the other knock-outs
-    to their plain versions."""
+    frames. ``both`` is held to ``aligned8x32``'s luma rows bit for bit,
+    the full-function variants to :func:`nv12_resize` (bit for bit on the
+    CUDA cores, within its envelope on the tensor cores), the other
+    knock-outs to their plain versions (h_only within
+    :func:`h_only_tolerance`)."""
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
     full = nv12_resize_work(batch, src_h, src_w, dst_h, dst_w)
     product = (lambda x: nv12_resize(x, **geo))
@@ -1502,14 +1836,19 @@ def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
     if name == "prod":
         return Case(nv12_resize, product, plain, product, True, full)
     if name in MODES:
-        h, w = name in ("h_only", "both"), name in ("w_only", "both")
         call = (lambda x: resize_phases(x, **geo, mode=name))
         knock_plain = (lambda x: resize_phases_plain(x, **geo, mode=name))
-        ref = ((lambda x: nv12_resize(x, **geo)[:, :dst_h])
-               if name == "both" else knock_plain)
-        return Case(resize_phases, call, knock_plain, ref, name == "both",
-                    nv12_resize_work(batch, src_h, src_w, dst_h, dst_w,
-                                     h_pass=h, w_pass=w, chroma=False))
+        work = phases_work(batch, **geo, mode=name)
+        if name == "both":
+            return Case(resize_phases, call, knock_plain,
+                        lambda x: aligned_resize(x, **geo)[:, :dst_h], True,
+                        work)
+        if name == "h_only":
+            return Case(resize_phases, call, knock_plain, knock_plain, False,
+                        work, lambda x: h_only_tolerance(x, **geo),
+                        wrap_distance)
+        return Case(resize_phases, call, knock_plain, knock_plain, False,
+                    work)
     m = re.fullmatch(r"aligned(\d+)x(\d+)", name)
     if m:
         ha, wa = int(m.group(1)), int(m.group(2))
@@ -1518,9 +1857,12 @@ def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
                                              w_align=wa),
                     plain, product, False,
                     aligned_work(batch, **geo, h_align=ha, w_align=wa))
-    if name == "skewed":
-        return Case(skewed_resize, lambda x: skewed_resize(x, **geo), plain,
-                    product, True, full)
+    m = re.fullmatch(r"skewed(\d*)", name)
+    if m:
+        g = int(m.group(1)) if m.group(1) else None
+        return Case(skewed_resize,
+                    lambda x: skewed_resize(x, **geo, frames_per_block=g),
+                    plain, product, False, skewed_work(batch, **geo))
     m = re.fullmatch(r"streamed(\d+)", name)
     if m:
         band = int(m.group(1))
@@ -1543,15 +1885,16 @@ def case(name: str, batch: int, src_w: int, src_h: int, dst_w: int,
                     lambda x: striped_resize_plain(x, **geo, nw=nw),
                     product, False, striped_work(batch, **geo))
     raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES}, "
-                     f"aligned{{h}}x{{w}}, streamed{{band}}, slabs{{n}} or "
-                     f"striped{{nw}}{{dyn|relay|unroll}}")
+                     f"aligned{{h}}x{{w}}, skewed{{G}}, streamed{{band}}, "
+                     f"slabs{{n}} or striped{{nw}}{{dyn|relay|unroll}}")
 
 
 def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,
         src_h: int, dst_w: int, dst_h: int,
         log: Callable[[str], None] = print) -> List[Dict[str, object]]:
     """Run each lab name on ``frames`` [B, >= src_h*3/2, src_w]: its maxdiff
-    on the first three frames against its reference, and on the card its
+    on the first three frames against its reference and whether that lies
+    within the name's tolerance (:meth:`Case.within`), and on the card its
     time per batch. Logs one line per name, and on the card the H/W split
     as shares of ``prod``; returns one dict per name."""
     batch = frames.shape[0]
@@ -1561,11 +1904,11 @@ def run(names: Sequence[str], frames: torch.Tensor, *, src_w: int,
     results = []
     for name in names:
         c = case(name, batch, **geo)
-        maxdiff = int((c.call(head).int() - c.reference(head).int()).abs()
-                      .max().item())
+        out = c.call(head)
+        maxdiff = int(c.distance(out, c.reference(head)).max().item())
         bound, bound_by = bound_ms(*c.work)
-        row = dict(name=name, maxdiff=maxdiff, bound_ms=bound,
-                   bound_by=bound_by, ms=None, spread=None)
+        row = dict(name=name, maxdiff=maxdiff, within=c.within(out, head),
+                   bound_ms=bound, bound_by=bound_by, ms=None, spread=None)
         if on_card:
             ms, spread = time_cuda(c.call, frames)
             row.update(ms=ms, spread=spread,

@@ -32,12 +32,14 @@ _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
 _LAB_SOURCES = ("csrc/nv12_variants.cu", "csrc/nv12_grouped.cu",
                 "csrc/nv12_static2.cu", "csrc/nv12_staged.cu",
                 "csrc/nv12_combo.cu", "csrc/nv12_prodlike.cu",
-                "csrc/nv12_aligned.cu",
+                "csrc/nv12_aligned.cu", "csrc/nv12_phases.cu",
+                "csrc/nv12_skewed.cu",
                 "csrc/nv12_streamed.cu", "csrc/nv12_slabs.cu",
-                "csrc/nv12_striped.cu", "csrc/nv12_resize_variants.cu",
+                "csrc/nv12_striped.cu",
                 "csrc/nv12_to_rgb_variants.cu", "csrc/cuda_errors.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
             "csrc/wgmma_common.cuh", "csrc/aligned_passes.cuh",
+            "csrc/aligned_block.cuh",
             "csrc/tma_common.cuh", "csrc/static2_passes.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
@@ -101,8 +103,9 @@ _LAB_SIGNATURES = {
     "nv12_convert_probe_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _FP, _I, _P, _I, _P, _P],
 }
-# the NV12 resize lab: frames, geometry, luma and chroma tables, then each
-# launcher's knobs, the output and the stream
+# the earlier CUDA-core NV12 resize lab's launchers (their A/Bs build them
+# from an earlier checkout): frames, geometry, luma and chroma band
+# tables, then each launcher's knobs, the output and the stream
 _RESIZE_LAB = [_P, _LL, _LL, _I, _I, _I, _I, _I,
                _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I]
 # lab kernel aligned: per plane B, starts, k_pad, ranges, their count, H
@@ -122,8 +125,13 @@ _LAB_SIGNATURES.update({
     + _ALIGNED_PLANE * 2 + [_P, _P],
     "nv12_resize_streamed_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
     + _STREAMED_PLANE * 2 + [_I, _I, _P, _P],
-    "nv12_resize_phases_launch": _RESIZE_LAB + [_I, _P, _I, _P, _P],
-    "nv12_resize_skewed_launch": _RESIZE_LAB + [_P, _P],
+    # aligned's planes, then the sink's partition per plane and h_only's
+    # owned pixels, the mode, the sink, its words, the residency query
+    "nv12_resize_phases_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
+    + _ALIGNED_PLANE * 2 + [_P] * 5 + [_I, _P, _I, _P, _P, _P],
+    # aligned's planes, then the frames a block, the residency query
+    "nv12_resize_skewed_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
+    + _ALIGNED_PLANE * 2 + [_I, _P, _P, _P],
     "nv12_resize_slabs_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
     + _SLABS_PLANE * 2 + [_I, _P, _P],
     "nv12_resize_striped_launch": [_P, _LL, _LL, _I, _I, _I, _I, _I]
