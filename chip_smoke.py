@@ -1355,9 +1355,10 @@ LAB_REPLACES = {  # lab kernel -> its TPU notebook kernel
 def lab_phase(torch, np, dev, smi):
     """The NV12 kernel-variant lab at 64 x 1080p -> 224: every lab kernel
     against its plain version on the card (the full-function variants also
-    against nv12_preprocess, bit for bit, but the staged B, C, D, G and S2,
-    whose resize passes run on the tensor cores, within the kernels'
-    envelope with their differing samples counted; B equal to C), the
+    against nv12_preprocess: all run their resize passes on the tensor
+    cores, so within the kernels' envelope with their differing samples
+    counted; B equal to C; S, Slong and T at 32 and 16 rows equal to S2 at
+    their strip bit for bit), the
     combo's six instances against S2 at the same strip height (bit for bit
     where its warpgroups split the chunks as S2's do; at T = 64, which S2
     refuses, its plain version) and each replayed against its first
@@ -1370,9 +1371,14 @@ def lab_phase(torch, np, dev, smi):
     just before and read just after, and the plain versions' times.
     Returns the lab kernels' entries of the JSON line."""
     from vali_tpu_torch.lab import kernel_variants as kv
+    from vali_tpu_torch.lab.chains import CHAINS_TILE, CHAINS_TILES
     from vali_tpu_torch.lab.timing import BF16_OPS_PER_S, HBM_BYTES_PER_S
     from vali_tpu_torch.ops.nv12_preprocess import (nv12_preprocess,
                                                     nv12_preprocess_plain)
+
+    def chains_tile(name):   # S / Slong / T's strip height, else None
+        m = re.fullmatch(r"(S|Slong|T)(\d*)", name)
+        return m and int(m.group(2) or CHAINS_TILE)
 
     rows = H * 3 // 2
     geo = dict(src_w=W, src_h=H, dst_w=DW, dst_h=DH)
@@ -1416,6 +1422,23 @@ def lab_phase(torch, np, dev, smi):
         raise AssertionError("lab B (f32 hop) differs from C (u8 -> i32 -> "
                              "bf16): their operands are equal")
     del staged
+    # S, Slong and T (S2's block, other cast chains or chroma layout): S2's
+    # bits at their strip
+    chains_vs_s2 = {}
+    for t in CHAINS_TILES:
+        s2 = kv.static_kernel2(frames, **geo, tile=t, align=8)
+        for name in (n for n in names if chains_tile(n) == t):
+            chains_vs_s2[name] = int((cases[name].call(frames) != s2)
+                                     .sum().item())
+            torch.cuda.synchronize()
+            log(f"lab {name}: {chains_vs_s2[name]} of {s2.numel()} samples "
+                f"differ from S2 t{t}a8, {differ[name][0]} from "
+                f"nv12_preprocess, {differ[name][1]} from its plain version")
+            if chains_vs_s2[name]:
+                raise AssertionError(f"lab {name} differs from S2 t{t}a8: "
+                                     f"equal cast chains and layouts give "
+                                     f"S2's bits")
+        del s2
     combo_vs_s2 = {}
     for name in (n for n in names if n.startswith("combo")):
         c = cases[name]
@@ -1471,9 +1494,10 @@ def lab_phase(torch, np, dev, smi):
                              "frames")
     full_fn = ", ".join(n for n in names
                         if cases[n].full_function and cases[n].exact)
-    log(f"lab: every bit-exact full-function variant ({full_fn}) equal to "
-        f"nv12_preprocess, B, C, D, G, S2*, combo*, full* and M* within "
-        f"their envelope, B equal to C; the floor's sink equal to the XOR "
+    log(f"lab: every bit-exact full-function variant ({full_fn or 'none'}) "
+        f"equal to nv12_preprocess, B, C, D, G, S2*, combo*, full*, M*, S*, "
+        f"Slong* and T* within their envelope, B equal to C, S* / Slong* / "
+        f"T* equal to S2 at their strip; the floor's sink equal to the XOR "
         f"of every word of the frames")
 
     # ---- phase 2: the lab's entry point, the counts read per name --------
@@ -1515,7 +1539,12 @@ def lab_phase(torch, np, dev, smi):
         f"{ms['combo4x32']} ms ({smi})")
     log(f"lab H-pass variants against A {ms['A']} ms: " + ", ".join(
         f"{n} {ms[n]} ms ({ms[n] / ms['A']})"
-        for n in ("S", "Slong", "T", "G", "S2t16a8", "combo2x32"))
+        for n in ("G", "S2t16a8", "combo2x32")) + f" ({smi})")
+    log("lab S / Slong / T (S2's wgmma block: the TPU's short and long cast "
+        "chains; the chroma H rows interleaved, read MN-major) over S2 at "
+        "their strip: " + ", ".join(
+            f"{n} {ms[n]} ms = {ms[n] / ms[s2]} of {s2}'s {ms[s2]} ms"
+            for n in chains_vs_s2 for s2 in [f"S2t{chains_tile(n)}a8"])
         + f" ({smi})")
     g_bytes, g_ops = cases["G"].work
     log(f"lab G (wgmma H pass, {kv.GROUPED_WPASS} W pass): {ms['G']} ms = "
@@ -1564,8 +1593,8 @@ def lab_phase(torch, np, dev, smi):
     # ---- phase 3: the plain versions' times -------------------------------
     # the product's plain version for the variants that share it, each
     # other's own (the knock-outs', and S2's, the combo's, prod_like's,
-    # multiframe's and G's table-based ones)
-    product_plain = ("B", "C", "D", "S", "Slong", "T")
+    # multiframe's, S's, Slong's, T's and G's table-based ones)
+    product_plain = ("B", "C", "D")
     own_plain = tuple(n for n in names if n not in product_plain)
     plain_ms = {"product": time_ms(
         lambda: nv12_preprocess_plain(frames, **geo), samples=5, calls=1)}
@@ -1588,6 +1617,8 @@ def lab_phase(torch, np, dev, smi):
                     kv.combo_kernel: "nv12_combo.cu",
                     kv.multiframe: "nv12_combo.cu",
                     kv.prod_like: "nv12_prodlike.cu",
+                    kv.static_kernel: "nv12_chains.cu",
+                    kv.transposed_chroma: "nv12_chains.cu",
                     kv.variant_kernel: "nv12_staged.cu"}.get(
                         c.wrapper, "nv12_variants.cu")),
             "replaces": LAB_REPLACES[wrapper], "launches": r["launches"],

@@ -556,9 +556,9 @@ LAB_NAMES = [n for n in kv.DEFAULT_NAMES if n != "A"]
 @pytest.mark.parametrize("name", LAB_NAMES)
 def test_lab_kernels_match_plain(dev, geom, name):
     """Each lab kernel against its plain version on a padded buffer; the
-    full-function variants (every strip height, M*, S, Slong, T) equal the
-    product kernel bit for bit, the staged B/C/D, G, S2* and combo* (the
-    tensor cores' sums) within 1 LSB."""
+    full-function variants (the staged B/C/D, G, S2*, combo*, every strip
+    height, M*, S*, Slong*, T*: the tensor cores' sums) within 1 LSB of
+    the product kernel."""
     b, h, w, dh, dw = geom
     rows = h * 3 // 2 + 8
     x = kv.make_frames(b, rows, w, dev, seed=h + w)
@@ -579,7 +579,8 @@ def test_lab_kernels_match_plain(dev, geom, name):
 
 NEW_LAB_NAMES = ["S", "Slong", "S2t32a8", "S2t16a8", "S2t24a8", "S2t48a8",
                  "S2t32a32", "combo2x32", "combo4x32", "combo2x64",
-                 "combo1x64", "combo2x16", "combo4x16", "T", "G"]
+                 "combo1x64", "combo2x16", "combo4x16", "T", "G", "S16",
+                 "Slong16", "T16"]
 
 
 @pytest.mark.parametrize("geom", [
@@ -604,18 +605,24 @@ def test_static_grouped_transposed_ragged(dev, geom, name):
 
 
 def test_static_bank_follows_alternating_geometries(dev):
-    """S's constant bank holds one geometry: alternating two geometries
-    (and the other chain) in one process re-uploads it every time. The
-    combo, which keeps no constant bank, follows them with its tables
-    cached per geometry: S2's bits at 16-row strips each time."""
+    """S, Slong and T (S2's block; the earlier S's constant bank, which
+    held one geometry, is gone) follow two alternating geometries in one
+    process with S2's tables cached per geometry: S2's bits at their strip
+    each time. The combo follows them too: S2's bits at 16-row strips
+    each time."""
     geos = [dict(src_w=256, src_h=144, dst_w=96, dst_h=64),
             dict(src_w=320, src_h=180, dst_w=64, dst_h=48)]
     xs = [kv.make_frames(2, g["src_h"] * 3 // 2, g["src_w"], dev, seed=i)
           for i, g in enumerate(geos)]
     for i in (0, 1, 0, 1, 0):
-        for short in (True, False):
-            out = kv.static_kernel(xs[i], **geos[i], shortchain=short)
-            assert torch.equal(out, nv12_preprocess(xs[i], **geos[i])), i
+        for tile in (32, 16):
+            s2 = kv.static_kernel2(xs[i], **geos[i], tile=tile, align=8)
+            for short in (True, False):
+                out = kv.static_kernel(xs[i], **geos[i], shortchain=short,
+                                       tile=tile)
+                assert torch.equal(out, s2), (i, tile, short)
+            assert torch.equal(kv.transposed_chroma(xs[i], **geos[i],
+                                                    tile=tile), s2), (i, tile)
         out = kv.combo_kernel(xs[i], **geos[i], gframes=2, tile=16)
         assert torch.equal(out, kv.static_kernel2(xs[i], **geos[i], tile=16,
                                                   align=8)), i
@@ -628,18 +635,25 @@ def test_static_bank_follows_alternating_geometries(dev):
     (1, 62, 130, 30, 34),       # widths that are not whole vectors
 ])
 def test_nv12_preprocess_equals_the_lab_full_and_slong(dev, geom):
-    """The lab's ``S`` and ``Slong`` (8-row strips, constant-bank row
-    tables) keep the earlier arithmetic in csrc/nv12_variants.cu: the
-    streaming kernel's bits are theirs. The lab's ``full`` runs S2's
-    tensor-core kernel (csrc/nv12_static2.cu at 16-row strips), whose sums
-    take the tensor cores' order: within the envelope."""
+    """The lab's ``S``, ``Slong`` and ``T`` (csrc/nv12_chains.cu: S2's
+    block with the TPU's cast chains, or the chroma H rows kept
+    interleaved) at 32 and 16 rows give S2's bits at their strip (every
+    uint8 is exact in bf16 by each chain; T moves the chroma sums, not
+    their sums), within the envelope of the streaming kernel. The lab's
+    ``full`` runs S2's tensor-core kernel (csrc/nv12_static2.cu at 16-row
+    strips), whose sums take the tensor cores' order: within the
+    envelope."""
     b, h, w, dh, dw = geom
     geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
     x = kv.make_frames(b, h * 3 // 2, w, dev, seed=h + dw)
     out = nv12_preprocess(x, **geo)
-    for name in ("S", "Slong"):
-        assert torch.equal(kv.case(name, b, h * 3 // 2, **geo).call(x),
-                           out), (name, geom)
+    for tile in (32, 16):
+        s2 = kv.static_kernel2(x, **geo, tile=tile, align=8)
+        for name in ("S", "Slong", "T"):
+            name += "" if tile == 32 else "16"
+            got = kv.case(name, b, h * 3 // 2, **geo).call(x)
+            assert torch.equal(got, s2), (name, geom)
+            _assert_close(got, out, (name, geom))
     _assert_close(kv.case("full", b, h * 3 // 2, **geo).call(x), out, geom)
 
 
@@ -719,14 +733,17 @@ def test_new_lab_wrappers_count_launches_and_reject_bad_input(dev):
     with pytest.raises(ValueError, match="tile and align"):
         kv.static_kernel2(x, **geo, tile=0)
     big = torch.zeros((1, 3240, 3840), dtype=torch.uint8, device=dev)
-    with pytest.raises(ValueError, match="constant bank"):
-        kv.static_kernel(big, src_w=3840, src_h=2160, dst_w=224, dst_h=224)
+    for f in (kv.static_kernel, kv.transposed_chroma):
+        with pytest.raises(ValueError, match="shared memory"):
+            f(big, src_w=3840, src_h=2160, dst_w=224, dst_h=224)
+        with pytest.raises(ValueError, match="strips of 16 and 32"):
+            f(x, **geo, tile=24)
     assert [f.launches for f in new] == after
 
 
 @pytest.mark.parametrize("name", ["B", "D", "M2", "M8", "hpass", "wpass",
                                   "floor", "S", "S2t32a8", "combo2x32", "T",
-                                  "G"])
+                                  "G", "Slong16", "T16"])
 def test_lab_kernels_padded_strided_views(dev, name):
     """A padded row pitch and a larger batch stride give the output of the
     contiguous buffer."""
@@ -911,6 +928,22 @@ def test_staged_shared_memory_a_product_equals_matmul(dev, layout):
     torch.cuda.synchronize()
     want = torch.from_numpy(a) @ torch.from_numpy(bnk).T
     assert torch.equal(d.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("mn_major", [True, False])
+def test_chains_probe_pins_the_mn_major_b_descriptor(dev, n, mn_major):
+    """One m64nNk16 wgmma with A from registers and B through a descriptor
+    (csrc/nv12_chains.cu's probe): at N = 32 and 64, T's chroma W products
+    at 16- and 32-row strips, with T's offsets (leading byte offset
+    kGroupC along K, stride 128 along N), MN-major as T lays out its
+    operand and K-major as S2 does, against the matmul of the same small
+    integers (every sum exact)."""
+    from vali_tpu_torch.lab import chains_ab
+    from vali_tpu_torch.ops import _cuda_build
+
+    assert chains_ab.probe(_cuda_build.load_lab_kernels(), n, mn_major,
+                           seed=n + mn_major)
 
 
 @pytest.mark.parametrize("geom", [

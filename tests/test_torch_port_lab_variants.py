@@ -147,13 +147,14 @@ def test_transposed_chroma_matches_the_pallas_product(nv12):
 
 @pytest.mark.parametrize("name", ["S2t%da%d" % p for p in S2_SWEEP] + ["G"]
                          + ["combo%dx%d" % p for p in COMBO]
-                         + ["full", "full4", "full8", "full48", "M2", "M8"])
+                         + ["full", "full4", "full8", "full48", "M2", "M8"]
+                         + ["S", "Slong", "T", "S16", "Slong16", "T16"])
 def test_table_plain_versions_equal_the_product_plain(nv12, name):
-    """S2's, the combo's, full's and M*'s (S2's at their strip height) and
-    G's plain versions compute from their own host tables (strip windows
-    with zero taps; block-diagonal matrices over stacked windows); each
-    gives the product's plain output bit for bit, which checks the tables
-    the kernels read."""
+    """S2's, the combo's, full's, M*'s, S's, Slong's and T's (S2's at their
+    strip height) and G's plain versions compute from their own host
+    tables (strip windows with zero taps; block-diagonal matrices over
+    stacked windows); each gives the product's plain output bit for bit,
+    which checks the tables the kernels read."""
     x = torch.from_numpy(nv12)
     c = kv.case(name, B, nv12.shape[1], **GEO)
     assert c.plain is not None
@@ -162,9 +163,10 @@ def test_table_plain_versions_equal_the_product_plain(nv12, name):
 
 def test_column_ranges_cover_the_w_bands():
     """At 1080p -> 224, strips of 32 and 48 rows run in 2 output-column
-    ranges, 8 (S's), 16 and 24 rows at full width; each range's source
-    columns hold every W band of its output columns, start on 16-column
-    boundaries and fit a block."""
+    ranges, 8, 16 and 24 rows at full width; each range's source columns
+    hold every W band of its output columns, start on 16-column boundaries
+    and fit a block (the earlier CUDA-core designs' ranges, which their
+    A/Bs build)."""
     from vali_tpu_torch.ops import banded
     from vali_tpu_torch.ops.resize import LANCZOS_AA
 
@@ -182,7 +184,6 @@ def test_column_ranges_cover_the_w_bands():
             assert ext[z, 0] <= ys[p].min() and (ys + yc)[p].max() <= ext[z, 1]
             assert ext[z, 2] <= 2 * cs[p].min()
             assert 2 * (cs + cc)[p].max() <= ext[z, 3]
-    assert banded.const_bank_bytes(*geo) == 43008
     gt = banded.grouped_tables(*geo)
     assert gt.weights.shape == (28, 16, 96)   # a block a strip, K 95 -> 96
     assert (gt.luma_rows, gt.chroma_rows) == (63, 32)
@@ -273,12 +274,20 @@ def test_wrappers_reject_bad_arguments(nv12):
         kv.grouped_kernel(x.float(), **GEO)
     with pytest.raises(ValueError, match="does not match"):
         kv.transposed_chroma(x[:, :H], **GEO)
-    # 3840x2160 -> 224: 81,536 B of H row tables, over the 64 KB bank
+    # S, Slong and T on S2's block: at 3840x2160 -> 224 S2's ring, weights
+    # and H rows at 32-row strips pass a block's shared memory
+    from vali_tpu_torch.ops import banded
+    from vali_tpu_torch.ops.resize import LANCZOS_AA
+
     big = torch.zeros((2, 3240, 3840), dtype=torch.uint8)
     geo4k = dict(src_w=3840, src_h=2160, dst_w=224, dst_h=224)
+    t4k = banded.static2_tables(*geo4k.values(), LANCZOS_AA, 32, 8)
+    need = banded.static2_smem_bytes(32, t4k.k_luma, t4k.k_chroma)
+    assert need > banded.SMEM_LIMIT
     for call in (lambda: kv.static_kernel(big, **geo4k),
-                 lambda: kv.static_kernel(big, **geo4k, shortchain=False)):
-        with pytest.raises(ValueError, match="81536 B.*constant bank"):
+                 lambda: kv.static_kernel(big, **geo4k, shortchain=False),
+                 lambda: kv.transposed_chroma(big, **geo4k)):
+        with pytest.raises(ValueError, match=f"{need} B of shared memory"):
             call()
     # the combo's tensor-core kernel: 32-row strips' ring, weights and H
     # rows at 4K -> 224 need 267,648 B of shared memory; (1, 32) is no
@@ -323,12 +332,14 @@ def test_bounds_count_the_bytes_the_function_moves():
     assert by == "bytes" and ms == pytest.approx(
         full[0] / HBM_BYTES_PER_S * 1e3)
     assert bound_ms(1, 1e15)[1] == "operations"
-    # S and T run the product's FMAs; S2, the combo, G and the staged B,
-    # C, D move the product's bytes and count the FMAs they run, zero taps
-    # included: more operations than the product's bands (the combo S2's
-    # at its strip height, whatever its frames a block)
-    for name in ("S", "T"):
-        assert kv.case(name, B, rows, **GEO).work == full
+    # S2, the combo, S, Slong, T, G and the staged B, C, D move the
+    # product's bytes and count the FMAs they run, zero taps included:
+    # more operations than the product's bands (the combo, S, Slong and T
+    # S2's at their strip height, whatever its frames a block or chain)
+    for name in ("S", "Slong", "T", "S16", "Slong16", "T16"):
+        t = 16 if name.endswith("16") else 32
+        assert kv.case(name, B, rows, **GEO).work == kv.static2_work(
+            B, **GEO, tile=t, align=8)
     for g, t in COMBO:
         work = kv.case(f"combo{g}x{t}", B, rows, **GEO).work
         assert work == kv.static2_work(B, **GEO, tile=t, align=8)

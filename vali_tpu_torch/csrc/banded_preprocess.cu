@@ -82,11 +82,10 @@
 // no pad rows, and padded or strided batches are accepted.
 //
 // Each launcher returns cudaGetLastError() after its launch, runs on the
-// caller's stream, and neither synchronises nor allocates. The device code
-// of the earlier design (banded_preprocess.cuh: frame and table
-// descriptions, loaders and stores, its H pass) stays for the lab variants
-// of nv12_variants.cu and nv12_grouped.cu; this file takes its Tables,
-// Tail, Mid and Out.
+// caller's stream, and neither synchronises nor allocates. The frame and
+// table descriptions and the output stores it shares with the tensor-core
+// lab kernels are in banded_preprocess.cuh; this file takes its Tables,
+// Tail and Out (and banded_common.cuh's Mid).
 
 #include <climits>
 #include <type_traits>

@@ -324,9 +324,9 @@ cudaError_t launch_nk(dim3 grid, size_t smem, cudaStream_t stream,
 extern "C" {
 
 // G over `src`, frame 0 of a [batch, buf_rows, src_w] uint8 NV12 buffer
-// with the given batch and row strides (bytes). Tables and tail as
-// nv12_static_launch takes them (only the W tables are read, by the
-// banded W pass). b_tiles: [strips, k_pad, 16] bf16 on the device in
+// with the given batch and row strides (bytes). Tables: the product's
+// bf16 band tables (ops/banded.py device_tables; only the W tables are
+// read, by the banded W pass); tail: the 18 floats of tail_params. b_tiles: [strips, k_pad, 16] bf16 on the device in
 // wgmma core-matrix order, strips = ceil(dst_h / 8); starts: [strips, 2]
 // int32 on the device, the first rows of the strip's luma window (of
 // luma_rows rows) and chroma window (of chroma_rows interleaved chroma

@@ -74,8 +74,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "static2_passes.cuh"
 
 // Build knob of the A/B lab (vali_tpu_torch/lab/static2_ab.py), 0 here:
@@ -87,10 +85,7 @@
 
 namespace {
 
-using banded::aligned16;
-using banded::allow_smem;
 using banded::Geometry;
-using banded::kSmemLimit;
 using banded::Tail;
 
 constexpr int kKnockout = NV12_STATIC2_KNOCKOUT;
@@ -109,32 +104,6 @@ nv12_static2_kernel(const uint8_t* __restrict__ src, long long bs,
   static2::block<T, T, static2::kFull, kKnockout>(
       src, bs, rs, vec, tl, g, b_tiles, starts, ky, kc, heads, frags,
       nullptr, 0, out);
-}
-
-// Shared memory of one block (bytes): the ring (or the traded sums, the
-// larger), B_y and B_c, and the two warpgroups' H rows of a chunk
-// (ops/banded.py static2_smem_bytes).
-template <int T>
-long long smem_bytes(int kst) {
-  return static2::smem_bytes<T, static2::kFull>(kst);
-}
-
-template <int T>
-cudaError_t launch_t(int tiles, int strips, int batch, cudaStream_t stream,
-                     const uint8_t* src, long long bs, long long rs, int vec,
-                     const Tail& tl, const Geometry& g, const uint4* b,
-                     const int2* starts, int ky, int kc, const int4* heads,
-                     const uint4* frags, uint8_t* out) {
-  const long long smem = smem_bytes<T>(ky + kc);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  const cudaError_t e =
-      allow_smem(nv12_static2_kernel<T>, static_cast<size_t>(smem));
-  if (e != cudaSuccess) return e;
-  nv12_static2_kernel<T>
-      <<<dim3(tiles, strips, batch), kThreads, static_cast<size_t>(smem),
-         stream>>>(src, bs, rs, vec, tl, g, b, starts, ky, kc, heads, frags,
-                   out);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -162,37 +131,16 @@ int nv12_static2_launch(const void* src, long long batch_stride,
                         const int* w_heads, const void* w_frags, void* out,
                         void* stream) {
   if (batch <= 0 || dst_h <= 0 || dst_w <= 0) return 0;
-  const int strips = tile > 0 ? (dst_h + tile - 1) / tile : 0;
-  if (batch > 65535 || strips > 65535 || src_w <= 0 || (src_w & 1) ||
-      src_h < 2 || buf_rows < src_h * 3 / 2 || k_luma < 16 ||
-      k_luma % 16 != 0 || k_chroma < 16 || k_chroma % 16 != 0 ||
-      !aligned16(b_tiles) || !aligned16(w_heads) || !aligned16(w_frags) ||
-      (reinterpret_cast<uintptr_t>(starts) & 7))
+  static2::Launch l;
+  if (!static2::setup(l, src, batch_stride, row_stride, buf_rows, batch,
+                      src_h, src_w, dst_h, dst_w, tail, tile, b_tiles,
+                      starts, k_luma, k_chroma, w_heads, w_frags, out,
+                      stream))
     return static_cast<int>(cudaErrorInvalidValue);
-  Geometry g;
-  g.batch = batch;
-  g.src_h = src_h;
-  g.src_w = src_w;
-  g.dst_h = dst_h;
-  g.dst_w = dst_w;
-  g.rows = tile;
-  const Tail tl = banded::unpack_tail(tail);
-  const int vec = aligned16(src) && src_w % 16 == 0 &&
-                  batch_stride % 16 == 0 && row_stride % 16 == 0;
-  const int tiles = (dst_w + 63) / 64;
-  auto go = [&](auto t) {
-    return static_cast<int>(launch_t<decltype(t)::value>(
-        tiles, strips, batch, static_cast<cudaStream_t>(stream),
-        static_cast<const uint8_t*>(src), batch_stride, row_stride, vec, tl,
-        g, static_cast<const uint4*>(b_tiles),
-        reinterpret_cast<const int2*>(starts), k_luma, k_chroma,
-        reinterpret_cast<const int4*>(w_heads),
-        static_cast<const uint4*>(w_frags), static_cast<uint8_t*>(out)));
-  };
   switch (tile) {
 #define NV12_STATIC2_TILE(t) \
   case t:                    \
-    return go(std::integral_constant<int, t>());
+    return static2::launch_full<t>(nv12_static2_kernel<t>, l);
     NV12_STATIC2_TILE(8) NV12_STATIC2_TILE(16) NV12_STATIC2_TILE(24)
     NV12_STATIC2_TILE(32) NV12_STATIC2_TILE(40) NV12_STATIC2_TILE(48)
 #undef NV12_STATIC2_TILE

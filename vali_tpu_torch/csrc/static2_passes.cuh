@@ -1,6 +1,7 @@
 // The block of lab kernel S2 (nv12_static2.cu), shared with the lab's
-// prod_like (nv12_prodlike.cu): one block per (output tile of 64 columns,
-// strip of rows, frame), 256 threads in two warpgroups, the stacked window
+// prod_like (nv12_prodlike.cu) and its static_kernel and transposed_chroma
+// (nv12_chains.cu): one block per (output tile of 64 columns, strip of
+// rows, frame), 256 threads in two warpgroups, the stacked window
 // rows streamed through a cp.async ring, the transposed H product and the
 // streamed W pass on wgmma, the final trade of partial sums and the
 // product's tail. nv12_static2.cu describes the design; this header holds
@@ -12,7 +13,14 @@
 //   MODE   what the block computes: kFull (S2), kHpass (the H chains
 //          alone, yh + ch stored from registers) or kWpass (no H chain:
 //          the W pass over the strip's frame rows as given);
-//   KO     the A/B lab's knock-out bits (1 no W pass, 2 no H pass).
+//   KO     the A/B lab's knock-out bits (1 no W pass, 2 no H pass);
+//   CHAIN  how the H chains' A elements are cast from the ring's bytes
+//          (wgmma_common.cuh Chain: kMagic, kShort, kLong; equal values);
+//   CLAYOUT where the chroma chain's sums go: kSplit, K-major U rows then
+//          V rows (deinterleaved as they are stored), or kTransposed,
+//          kept interleaved as the chain leaves them, the chroma W
+//          operand MN-major (store_chroma_mn).
+// With CHAIN and CLAYOUT at their defaults the block is S2's.
 // sm_90a only.
 #pragma once
 
@@ -42,6 +50,7 @@ constexpr int kHBatch = 4;     // H-pass k-steps a batch of products
 constexpr int kWSteps = 6;     // W k-steps a chunk: 4 luma, 2 chroma
 
 enum Mode : int { kFull = 0, kHpass = 1, kWpass = 2 };
+enum CLayout : int { kSplit = 0, kTransposed = 1 };
 
 // Bytes of one 8-column group of a warpgroup's H rows: N luma rows (U
 // then V rows for chroma) of 16 bytes, and 16 of padding.
@@ -73,6 +82,83 @@ long long smem_bytes(int kst) {
          (MODE == kHpass ? 0LL : 2LL * kChunkBytes<N>);
 }
 
+// The arguments of one launch of a kFull kernel on the block
+// (nv12_static2.cu, nv12_chains.cu): frame 0 of the NV12 buffer and its
+// strides, 16-byte loads when its start, width and strides allow, the
+// grid, the tail and geometry, and S2's tables (b, starts, ky, kc, heads,
+// frags).
+struct Launch {
+  const uint8_t* src;
+  long long bs, rs;
+  int vec, tiles, strips;
+  Tail tl;
+  Geometry g;
+  const uint4* b;
+  const int2* starts;
+  int ky, kc;
+  const int4* heads;
+  const uint4* frags;
+  uint8_t* out;
+  cudaStream_t stream;
+};
+
+// Fill `l` from a launcher's C arguments (nv12_static2_launch's); false
+// when they are refused.
+inline bool setup(Launch& l, const void* src, long long batch_stride,
+                  long long row_stride, int buf_rows, int batch, int src_h,
+                  int src_w, int dst_h, int dst_w, const float* tail,
+                  int tile, const void* b_tiles, const int* starts,
+                  int k_luma, int k_chroma, const int* w_heads,
+                  const void* w_frags, void* out, void* stream) {
+  const int strips = tile > 0 ? (dst_h + tile - 1) / tile : 0;
+  if (batch > 65535 || strips > 65535 || src_w <= 0 || (src_w & 1) ||
+      src_h < 2 || buf_rows < src_h * 3 / 2 || k_luma < 16 ||
+      k_luma % 16 != 0 || k_chroma < 16 || k_chroma % 16 != 0 ||
+      !banded::aligned16(b_tiles) || !banded::aligned16(w_heads) ||
+      !banded::aligned16(w_frags) ||
+      (reinterpret_cast<uintptr_t>(starts) & 7))
+    return false;
+  l.src = static_cast<const uint8_t*>(src);
+  l.bs = batch_stride;
+  l.rs = row_stride;
+  l.vec = banded::aligned16(src) && src_w % 16 == 0 &&
+          batch_stride % 16 == 0 && row_stride % 16 == 0;
+  l.tiles = (dst_w + 63) / 64;
+  l.strips = strips;
+  l.tl = banded::unpack_tail(tail);
+  l.g.batch = batch;
+  l.g.src_h = src_h;
+  l.g.src_w = src_w;
+  l.g.dst_h = dst_h;
+  l.g.dst_w = dst_w;
+  l.g.rows = tile;
+  l.b = static_cast<const uint4*>(b_tiles);
+  l.starts = reinterpret_cast<const int2*>(starts);
+  l.ky = k_luma;
+  l.kc = k_chroma;
+  l.heads = reinterpret_cast<const int4*>(w_heads);
+  l.frags = static_cast<const uint4*>(w_frags);
+  l.out = static_cast<uint8_t*>(out);
+  l.stream = static_cast<cudaStream_t>(stream);
+  return true;
+}
+
+// Launch `kern` (a kFull kernel at wgmma's N) over `l`'s grid with its
+// shared memory.
+template <int N, typename K>
+int launch_full(K kern, const Launch& l) {
+  const long long smem = smem_bytes<N, kFull>(l.ky + l.kc);
+  if (smem > banded::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = banded::allow_smem(kern, static_cast<size_t>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(l.tiles, l.strips, l.g.batch), kThreads,
+         static_cast<size_t>(smem), l.stream>>>(
+      l.src, l.bs, l.rs, l.vec, l.tl, l.g, l.b, l.starts, l.ky, l.kc,
+      l.heads, l.frags, l.out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Barrier of one warpgroup's 128 threads (ids 1 and 2; __syncthreads is
 // 0): constant ids, so that ptxas reserves two barriers, not all 16.
 __device__ __forceinline__ void warpgroup_sync(int wg) {
@@ -83,9 +169,10 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
 }
 
 // B k-steps k0 .. k0 + B - 1 of an H chain: d += the thread's A
-// fragments of their window rows (16 a k-step from `rows` on) x B's
-// k-steps (descriptor bdesc, N * 32 bytes apart), then one wait.
-template <int N, int B>
+// fragments of their window rows (16 a k-step from `rows` on, cast by
+// CHAIN) x B's k-steps (descriptor bdesc, N * 32 bytes apart), then one
+// wait.
+template <int N, int B, int CHAIN>
 __device__ __forceinline__ void h_batch(float (&d)[N / 2],
                                         const unsigned char* rows, int k0,
                                         const int (&off)[4],
@@ -93,7 +180,7 @@ __device__ __forceinline__ void h_batch(float (&d)[N / 2],
   uint4 a[B];
 #pragma unroll
   for (int i = 0; i < B; ++i)
-    a[i] = wgmma::ring_step(rows + (k0 + i) * 16 * kStageCols, off);
+    a[i] = wgmma::ring_step<CHAIN>(rows + (k0 + i) * 16 * kStageCols, off);
   wgmma::fence();
 #pragma unroll
   for (int i = 0; i < B; ++i)
@@ -107,7 +194,7 @@ __device__ __forceinline__ void h_batch(float (&d)[N / 2],
 // ky) x B, in batches of kHBatch k-steps, then one batch of the rest.
 // Each batch size is a loop of its own, so that no wgmma sits under a
 // branch.
-template <int N>
+template <int N, int CHAIN = wgmma::kMagic>
 __device__ __forceinline__ void h_chain(float (&d)[N / 2],
                                         const unsigned char* rows, int nk,
                                         const int (&off)[4],
@@ -116,8 +203,8 @@ __device__ __forceinline__ void h_chain(float (&d)[N / 2],
   for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
   int k0 = 0;
   for (; k0 + kHBatch <= nk; k0 += kHBatch)
-    h_batch<N, kHBatch>(d, rows, k0, off, bdesc);
-  for (; k0 < nk; ++k0) h_batch<N, 1>(d, rows, k0, off, bdesc);
+    h_batch<N, kHBatch, CHAIN>(d, rows, k0, off, bdesc);
+  for (; k0 < nk; ++k0) h_batch<N, 1, CHAIN>(d, rows, k0, off, bdesc);
 }
 
 // kWpass's stand-in for an H chain: d in the chain's layout from the ring
@@ -174,6 +261,29 @@ __device__ __forceinline__ void store_chroma(unsigned char* hc,
     }
 }
 
+// kTransposed's store of the chroma sums d, kept interleaved: the chroma
+// W operand [K: the chunk's 32 pixels, n: 2 N] MN-major, each group of 8
+// pixels kGroupC<N> bytes, in it N / 4 core matrices of 128 bytes along
+// n (n = 16 j + e: U of row 8 j + e, then n = 16 j + 8 + e: V of it), a
+// pixel's 8 n of a core matrix 16 bytes at 16 (pixel mod 8). The thread's
+// U of rows 8 j + 2 tq (+1) of pixel lcol / 2 is one 4-byte word, its V
+// the word 128 bytes on; a warp's U words of one j fill one core matrix
+// (32 banks).
+template <int N>
+__device__ __forceinline__ void store_chroma_mn(unsigned char* hc,
+                                                const float (&d)[N / 2],
+                                                int lcol, int tq) {
+  const int c = lcol / 2;
+  unsigned char* p = hc + (c >> 3) * kGroupC<N> + (c & 7) * 16 + 4 * tq;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    *reinterpret_cast<unsigned*>(p + 256 * j) = pack_bf16(d[4 * j],
+                                                          d[4 * j + 1]);
+    *reinterpret_cast<unsigned*>(p + 256 * j + 128) =
+        pack_bf16(d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
 // kHpass's store: for row r < rows and frame column p = p0 (+1) in the
 // block's own columns [own.x, own.y), clip(round(bf16(yh) + bf16(ch)))
 // into all three planes; ch is the interleaved chroma sum of the same
@@ -213,7 +323,8 @@ __device__ __forceinline__ void hpass_store(uint8_t* ob, long long plane_sz,
 // core-matrix order); kWpass reads instead, with ky = kc = N, the strip's
 // rows o0 .. and buf_rows - dst_h + o0 .. of the buffer as given. kHpass
 // stores the frame columns owned[tile] holds; the others ignore owned.
-template <int N, int STRIP, int MODE, int KO>
+template <int N, int STRIP, int MODE, int KO, int CHAIN = wgmma::kMagic,
+          int CLAYOUT = kSplit>
 __device__ __forceinline__ void block(
     const uint8_t* __restrict__ src, long long bs, long long rs, int vec,
     Tail tl, Geometry g, const uint4* __restrict__ b_tiles,
@@ -223,6 +334,8 @@ __device__ __forceinline__ void block(
   static_assert(N % 8 == 0 && STRIP <= N, "N: wgmma's, over the strip");
   static_assert(MODE != kWpass || N % 16 == 0,
                 "kWpass's chroma rows start on a 16-row k-step");
+  static_assert(CLAYOUT == kSplit || MODE == kFull,
+                "the transposed chroma layout is kFull's");
   // the H chains and the W products this block issues
   constexpr bool kH = MODE != kWpass && !(KO & 2);
   constexpr bool kW = MODE != kHpass && !(KO & 1);
@@ -303,8 +416,8 @@ __device__ __forceinline__ void block(
     const unsigned char* slot = ring + s % kStages * kst * kStageCols;
     if constexpr (MODE == kHpass) {
       float d[N / 2], e[N / 2];
-      h_chain<N>(d, slot, ky / 16, off, bdesc_y);
-      h_chain<N>(e, slot + ky * kStageCols, kc / 16, off, bdesc_c);
+      h_chain<N, CHAIN>(d, slot, ky / 16, off, bdesc_y);
+      h_chain<N, CHAIN>(e, slot + ky * kStageCols, kc / 16, off, bdesc_c);
       const long long plane_sz = static_cast<long long>(g.dst_h) * g.dst_w;
       hpass_store<N>(out + static_cast<long long>(blockIdx.z) * 3 * plane_sz,
                      plane_sz, g.dst_w, o0, rows,
@@ -316,13 +429,16 @@ __device__ __forceinline__ void block(
       if constexpr (MODE == kWpass)
         ring_rows<N>(d, slot, off);
       else
-        h_chain<N>(d, slot, ky / 16, off, bdesc_y);
+        h_chain<N, CHAIN>(d, slot, ky / 16, off, bdesc_y);
       store_luma<N>(hy, d, lcol, tq);
       if constexpr (MODE == kWpass)
         ring_rows<N>(d, slot + ky * kStageCols, off);
       else
-        h_chain<N>(d, slot + ky * kStageCols, kc / 16, off, bdesc_c);
-      store_chroma<N>(hc, d, lcol, tq);
+        h_chain<N, CHAIN>(d, slot + ky * kStageCols, kc / 16, off, bdesc_c);
+      if constexpr (CLAYOUT == kTransposed)
+        store_chroma_mn<N>(hc, d, lcol, tq);
+      else
+        store_chroma<N>(hc, d, lcol, tq);
       fence_proxy_async();  // the H rows, read by wgmma below
       warpgroup_sync(wg);
     }
@@ -331,9 +447,12 @@ __device__ __forceinline__ void block(
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         wgmma::mma<N>(dy, wa[i], desc(hy + 2 * i * kGy, kGy, 128));
+      // one descriptor for both layouts: K groups kGc bytes apart, N
+      // groups 128 (kTransposed: MN-major, imm-trans-b 1)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        wgmma::mma<2 * N>(duv, wa[4 + i], desc(hc + 2 * i * kGc, kGc, 128));
+        wgmma::mma<2 * N, CLAYOUT == kTransposed>(
+            duv, wa[4 + i], desc(hc + 2 * i * kGc, kGc, 128));
       wgmma::commit();
       // before the next chunk's weights overwrite wa: a wgmma reads its A
       // registers until its group completes
@@ -359,8 +478,9 @@ __device__ __forceinline__ void block(
                           g.dst_w;
   const long long plane_sz = static_cast<long long>(g.dst_h) * g.dst_w;
   // pixel of accumulator 4 j + e: tile column 16 warp + gq + 8 (e / 2),
-  // row 8 j + 2 tq + e mod 2; U from duv[4 j + e], V from duv[4 (j +
-  // N / 8) + e] (the V rows are N rows N on)
+  // row 8 j + 2 tq + e mod 2; kSplit: U from duv[4 j + e], V from duv[4
+  // (j + N / 8) + e] (the V rows are N rows N on); kTransposed: U from
+  // duv[8 j + e], V from duv[8 j + 4 + e] (n = 16 j (+8) + 2 tq + e mod 2)
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
@@ -368,10 +488,12 @@ __device__ __forceinline__ void block(
       const int r = 8 * j + 2 * tq + (e & 1);
       const int p = 64 * tile + 16 * warp + gq + 8 * (e >> 1);
       if ((e >> 1) == wg && r < rows && p < g.dst_w) {
-        const int iy = 4 * j + e, iv = 4 * (j + N / 8) + e;
+        constexpr bool kT = CLAYOUT == kTransposed;
+        const int iy = 4 * j + e, iu = kT ? 8 * j + e : iy,
+                  iv = kT ? 8 * j + 4 + e : 4 * (j + N / 8) + e;
         csc_store(ob, plane_sz, static_cast<long long>(o0 + r) * g.dst_w + p,
                   dy[iy] + trade[iy * 128 + wt],
-                  duv[iy] + trade[(N / 2 + iy) * 128 + wt],
+                  duv[iu] + trade[(N / 2 + iu) * 128 + wt],
                   duv[iv] + trade[(N / 2 + iv) * 128 + wt], tl);
       }
     }

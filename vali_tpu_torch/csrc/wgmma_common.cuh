@@ -1,9 +1,10 @@
 // Pieces shared by the tensor-core lab kernels of this directory
 // (nv12_grouped.cu, nv12_aligned.cu, nv12_static2.cu, nv12_streamed.cu,
-// nv12_slabs.cu, nv12_staged.cu, nv12_combo.cu): wgmma descriptors,
-// fences, products with A from registers and with A from shared memory, the
-// cp.async staging ring of raw uint8 window rows with the A fragments
-// built from it, the tiled bf16 H rows and the W-pass product over them.
+// nv12_slabs.cu, nv12_staged.cu, nv12_combo.cu, nv12_chains.cu): wgmma
+// descriptors, fences, products with A from registers (B K-major or
+// MN-major) and with A from shared memory, the cp.async staging ring of
+// raw uint8 window rows with the A fragments built from it by one of three
+// cast chains, the tiled bf16 H rows and the W-pass product over them.
 // sm_90a only.
 #pragma once
 
@@ -41,159 +42,186 @@ __device__ __forceinline__ void wait_all() {
 
 // d (64 x N fp32, N / 2 a thread) += a (64 x 16 bf16, registers) * b
 // (16 x N, shared memory, descriptor), for N = 8 to 48 in steps of 8 and
-// 64, 80, 96.
-template <int N>
-__device__ __forceinline__ void mma(float* d, uint4 a, uint64_t b);
+// 64, 80, 96. TB 0: B is K-major (its core matrices 8 N rows of 8
+// contiguous K elements), 1: MN-major (8 K rows of 8 contiguous N
+// elements; wgmma's imm-trans-b). Without swizzle the descriptor's leading
+// byte offset steps along K and its stride byte offset along N in both
+// layouts, as for A (mma_ss).
+template <int N, int TB>
+struct MmaRS;
 
-template <>
-__device__ __forceinline__ void mma<8>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
+template <int TB>
+struct MmaRS<8, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %9;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
 
-template <>
-__device__ __forceinline__ void mma<16>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, "
-      "1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
+template <int TB>
+struct MmaRS<16, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, "
+        "1, 1, %13;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
 
-template <>
-__device__ __forceinline__ void mma<24>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, "
-      "%14, %15}, %16, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
+template <int TB>
+struct MmaRS<24, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, "
+        "%14, %15}, %16, p, 1, 1, %17;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
 
-template <>
-__device__ __forceinline__ void mma<32>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
+template <int TB>
+struct MmaRS<32, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
 
-template <>
-__device__ __forceinline__ void mma<40>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, "
-      "1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
+template <int TB>
+struct MmaRS<40, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, "
+        "1, 1, %25;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
 
-template <>
-__device__ __forceinline__ void mma<48>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, "
-      "%26, %27}, %28, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
+template <int TB>
+struct MmaRS<48, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, "
+        "%26, %27}, %28, p, 1, 1, %29;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
 
-template <>
-__device__ __forceinline__ void mma<64>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
-      "1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
+template <int TB>
+struct MmaRS<64, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+        "1, 1, %37;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
 
-template <>
-__device__ __forceinline__ void mma<80>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
-}
+template <int TB>
+struct MmaRS<80, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, %45;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
 
-template <>
-__device__ __forceinline__ void mma<96>(float* d, uint4 a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, "
-      "%50, %51}, %52, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b)
-      : "memory");
+template <int TB>
+struct MmaRS<96, TB> {
+  static __device__ __forceinline__ void run(float* d, uint4 a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, "
+        "%50, %51}, %52, p, 1, 1, %53;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(b), "n"(TB)
+        : "memory");
+  }
+};
+
+template <int N, int TB = 0>
+__device__ __forceinline__ void mma(float* d, uint4 a, uint64_t b) {
+  MmaRS<N, TB>::run(d, a, b);
 }
 
 // d (64 x N fp32, N / 2 a thread) += a (64 x 16 bf16, shared memory,
@@ -317,19 +345,46 @@ __device__ __forceinline__ void step_offsets(int (&off)[4], int col,
     off[j] = ring_off(2 * tq + (j & 1) + 8 * (j >> 1), col >> 4) + (col & 15);
 }
 
+// How a ring byte becomes a bf16 element of A (every uint8 is exact in
+// bf16, so the three give equal registers):
+//   kMagic  2^23 + x less 2^23 in f32 (byte_f), then cvt.rn.bf16x2.f32;
+//   kShort  the TPU's short chain u8 -> i32 -> bf16: one cvt.rn.bf16.s32
+//           an element (__int2bfloat16_rn), two packed by one prmt;
+//   kLong   the TPU's long chain u8 -> i32 -> f32 (cvt.rn.f32.s32) ->
+//           bf16 (cvt.rn.bf16x2.f32).
+enum Chain : int { kMagic = 0, kShort = 1, kLong = 2 };
+
+// Byte j of `lo` (low half) and of `hi` (high half) as two bf16 by CHAIN,
+// branch-free: ptxas serializes wgmmas whose A registers are written
+// under a branch.
+template <int CHAIN>
+__device__ __forceinline__ unsigned pack_bytes(unsigned lo, unsigned hi,
+                                               int j) {
+  const int x = static_cast<int>((lo >> (8 * j)) & 0xFFu);
+  const int y = static_cast<int>((hi >> (8 * j)) & 0xFFu);
+  if constexpr (CHAIN == kShort)
+    return __byte_perm(__bfloat16_as_ushort(__int2bfloat16_rn(x)),
+                       __bfloat16_as_ushort(__int2bfloat16_rn(y)), 0x5410);
+  else if constexpr (CHAIN == kLong)
+    return pack_bf16(__int2float_rn(x), __int2float_rn(y));
+  else
+    return pack_bf16(byte_f(lo, j), byte_f(hi, j));
+}
+
 // The H product's A fragment of the k-step whose 16 window rows start at
 // `p`: rows 2 tq (+1, +8, +9) of the thread's two byte columns, each pair
-// of rows packed low-k first, every byte an exact bf16.
+// of rows packed low-k first, every byte an exact bf16 by CHAIN.
+template <int CHAIN = kMagic>
 __device__ __forceinline__ uint4 ring_step(const unsigned char* p,
                                           const int (&off)[4]) {
   unsigned h[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     h[j] = *reinterpret_cast<const unsigned short*>(p + off[j]);
-  return make_uint4(pack_bf16(byte_f(h[0], 0), byte_f(h[1], 0)),
-                    pack_bf16(byte_f(h[0], 1), byte_f(h[1], 1)),
-                    pack_bf16(byte_f(h[2], 0), byte_f(h[3], 0)),
-                    pack_bf16(byte_f(h[2], 1), byte_f(h[3], 1)));
+  return make_uint4(pack_bytes<CHAIN>(h[0], h[1], 0),
+                    pack_bytes<CHAIN>(h[0], h[1], 1),
+                    pack_bytes<CHAIN>(h[2], h[3], 0),
+                    pack_bytes<CHAIN>(h[2], h[3], 1));
 }
 
 // The H product's A fragments from a ring slot: a[ks] = window rows

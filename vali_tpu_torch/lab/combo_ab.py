@@ -5,7 +5,11 @@ The earlier design is COMBO of an earlier ``csrc/nv12_variants.cu``
 (``nv12_static_launch`` with the W tables staged in shared memory once a
 block: the product's banded FMA loops on the CUDA cores over G frames of
 a strip, H row tables in the constant bank, tall strips in output-column
-ranges). This builds that source into a throwaway library under
+ranges), from a checkout before the combo's redesign. The current
+``nv12_variants.cu`` holds the stream floor alone; 92ab04a is the last
+checkout whose ``nv12_variants.cu`` holds a CUDA-core S, with a later
+``nv12_static_launch`` of another signature (``chains_ab`` builds that
+one). This builds that source into a throwaway library under
 ``build/combo_ab/`` with its own headers first on the include path, then
 at each case — 64 x 1080p -> 224, eight frames, a padded pitch, a
 misaligned view (element loads) and the card tests' small shapes — counts

@@ -6,8 +6,8 @@ Counterpart of the TPU notebook ``bench_kernel_variants.py`` (its ``main``,
 ``main_sweep2``, ``main_combo``, ``main_transposed`` and ``main_grouped``).
 Nine wrappers over the kernels of ``csrc/nv12_variants.cu``,
 ``csrc/nv12_prodlike.cu``, ``csrc/nv12_staged.cu``,
-``csrc/nv12_static2.cu``, ``csrc/nv12_combo.cu`` and
-``csrc/nv12_grouped.cu`` (the labs' library,
+``csrc/nv12_static2.cu``, ``csrc/nv12_combo.cu``, ``csrc/nv12_chains.cu``
+and ``csrc/nv12_grouped.cu`` (the labs' library,
 ``ops/_cuda_build.load_lab_kernels``), each beside its
 plain PyTorch version, with the same dispatch as the product wrappers: a
 CUDA tensor launches the kernel, a CPU tensor runs the plain version, any
@@ -27,8 +27,10 @@ other device raises.
   C's chain and keeps S2's deinterleaved chroma W pass.
 - :func:`multiframe` (``multiframe_kernel``): G frames per block on
   32-row strips: the combo's block (G = 2, 4, 8), S2's at G = 1.
-- :func:`static_kernel` (``static_kernel``): the H row tables in the
-  64 KB constant bank, two cast chains.
+- :func:`static_kernel` (``static_kernel``): S2's tensor-core block at
+  the TPU's static windows (strips of ``tile`` rows, align 8) with the H
+  chains' A built from the ring's bytes by the TPU's short cast chain
+  (u8 -> i32 -> bf16, S) or long one (u8 -> i32 -> f32 -> bf16, Slong).
 - :func:`static_kernel2` (``static_kernel2``): strips of ``tile`` rows over
   windows aligned to ``align`` rows, zero taps included, both resize
   passes on the tensor cores with the strip height as N (wgmma fed by a
@@ -36,22 +38,22 @@ other device raises.
 - :func:`combo_kernel` (``combo_kernel``): G frames per block on S2's
   strips of ``tile`` rows, S2's tensor-core block with each chunk's W
   weights loaded once for the G frames.
-- :func:`transposed_chroma` (``transposed_chroma_kernel``): the chroma
-  H-pass rows kept transposed in shared memory.
+- :func:`transposed_chroma` (``transposed_chroma_kernel``): S2's
+  tensor-core block with the chroma H rows kept interleaved as the chain
+  leaves them and read MN-major by the chroma W pass.
 - :func:`grouped_kernel` (``grouped_kernel``): the H pass as a dense
   block-diagonal product on the tensor cores (wgmma fed by a cp.async
   ring), the W pass there too (or, by a build knob, the product's).
 Rows too wide for full-width H rows in one block run in output-column
 ranges; the lab line says so.
 
-Every full-function variant (B, C, D, full, M*, S*, combo*, T, G) computes
-the product kernel's function, so on the card it is held to
-``nv12_preprocess``: bit for bit, except the ones on the tensor cores (B,
-C, D, G, S2, the combo, full and M*: they sum in their own order), held to
-the kernels' envelope with their differing samples counted. Their plain
-version is ``nv12_preprocess_plain``, except S2's, the combo's, full's and
-M*'s (S2's at their strip height) and G's, which compute from their own
-host tables. ``wpass`` and the floor read the last DH rows of the buffer
+Every full-function variant (B, C, D, full, M*, S*, combo*, T*, G)
+computes the product kernel's function, so on the card it is held to
+``nv12_preprocess``: all of them run on the tensor cores and sum in their
+own order, so within the kernels' envelope, their differing samples
+counted. Their plain version is ``nv12_preprocess_plain``, except S2's,
+the combo's, full's, M*'s, S's, Slong's and T's (S2's at their strip
+height) and G's, which compute from their own host tables. ``wpass`` and the floor read the last DH rows of the buffer
 as given, as the TPU functions do, so their results depend on the
 buffer's row count.
 
@@ -63,8 +65,9 @@ plain versions at 8 x 256x144 -> 96x64 and times nothing)::
 Names: ``A`` (the product kernel), ``B``, ``C``, ``D``, ``floor``,
 ``full``, ``hpass``, ``wpass`` (a number after a mode sets the strip
 height: ``full32``; 16 without), ``M2``, ``M4``, ``M8``, ``S``, ``Slong``,
+``T`` (a number sets the strip height: ``S16``; 32 without),
 ``S2t{tile}a{align}`` (``S2t32a8``), ``combo{G}x{tile}`` (``combo2x32``),
-``T``, ``G``. Each prints one line: ms per batch, spread, maxdiff against
+``G``. Each prints one line: ms per batch, spread, maxdiff against
 its reference, frames/s, and the bound.
 """
 
@@ -82,9 +85,8 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
-from ..ops.banded import (COMBO_ALIGN, COMBO_SPLITS, CONST_BANK_BYTES,
-                          GROUP_STRIP, STATIC2_W_STEPS, DeviceTables,
-                          column_ranges, combo_refusal, const_bank_bytes,
+from ..ops.banded import (COMBO_ALIGN, COMBO_SPLITS, GROUP_STRIP,
+                          STATIC2_W_STEPS, DeviceTables, combo_refusal,
                           core_matrix_order, dense_weights, device_tables,
                           grouped_refusal,
                           grouped_tables, grouped_w_tables, static2_refusal,
@@ -93,15 +95,13 @@ from ..ops.banded import (COMBO_ALIGN, COMBO_SPLITS, CONST_BANK_BYTES,
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
 from ..ops.resize import LANCZOS_AA, round_to
+from .chains import CHAINS_ALIGN, CHAINS_TILE, chains_refusal
 from .prodlike import (MODES, PRODLIKE_ALIGN, PRODLIKE_TILE, PRODLIKE_TILES,
                        prodlike_device, prodlike_n, prodlike_refusal)
 from .staged import (STAGED_ALIGN, STAGED_TILE, STAGED_VARIANTS,
                      staged_device, staged_refusal, tma_ok)
 from .timing import bound_ms, preprocess_work, time_cuda
 
-#: output rows per block of the product kernel (kMaxRows of
-#: csrc/banded_preprocess.cu), S's and T's strips
-STRIP_ROWS = 8
 #: the strip height of multiframe's blocks (the notebook's default tile)
 MULTIFRAME_TILE = 32
 #: multiframe's frames a block: S2's block at 1, the combo's instances
@@ -112,10 +112,10 @@ SINK_WORDS = 64
 
 DEFAULT_NAMES = ("A", "B", "C", "D", "floor", "full", "hpass", "wpass",
                  "full4", "full8", "full24", "full32", "full48", "hpass32",
-                 "wpass32", "M2", "M4", "M8", "S", "Slong",
-                 "S2t32a8", "S2t16a8", "S2t24a8", "S2t48a8", "S2t32a32",
-                 "combo2x32", "combo4x32", "combo2x64", "combo1x64",
-                 "combo2x16", "combo4x16", "T", "G")
+                 "wpass32", "M2", "M4", "M8", "S", "Slong", "S16",
+                 "Slong16", "S2t32a8", "S2t16a8", "S2t24a8", "S2t48a8",
+                 "S2t32a32", "combo2x32", "combo4x32", "combo2x64",
+                 "combo1x64", "combo2x16", "combo4x16", "T", "T16", "G")
 CARD_SIZE = (64, 1920, 1080, 224, 224)   # batch, W, H, DW, DH
 CPU_SIZE = (8, 256, 144, 96, 64)
 
@@ -464,54 +464,18 @@ def multiframe(nv12: torch.Tensor, *, src_w: int, src_h: int, dst_w: int,
     return out
 
 
-def _bank_checked(src_w, src_h, dst_w, dst_h) -> None:
-    """Refuse a geometry whose H row tables overflow the constant bank."""
-    need = const_bank_bytes(src_w, src_h, dst_w, dst_h, LANCZOS_AA)
-    if need > CONST_BANK_BYTES:
-        raise ValueError(f"the H row tables of {src_w}x{src_h} -> "
-                         f"{dst_w}x{dst_h} take {need} B, more than the "
-                         f"{CONST_BANK_BYTES} B constant bank")
-
-
-def _static_call(what, nv12, tail, tabs, *, short_chain, rows,
-                 **geo) -> torch.Tensor:
-    """One ``nv12_static_launch`` (S) with the constant bank, in the fewest
-    output-column ranges whose strips fit a block."""
-    ranges = column_ranges(geo["src_w"], geo["src_h"], geo["dst_w"],
-                           geo["dst_h"], LANCZOS_AA, rows, nv12.device)
-    return _call(what, "nv12_static_launch", nv12, tail, tabs, 1,
-                 int(short_chain), rows, *ranges.args(), **geo)
-
-
-def static_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
-                  dst_w: int, dst_h: int, shortchain: bool = True,
-                  space: ColorSpace = ColorSpace.BT_709,
-                  crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
-    """S: the product function with the H row tables in the constant bank
-    (the TPU's trace-time window starts), samples converted u8 -> i32 ->
-    bf16 (``shortchain``) or u8 -> i32 -> f32: equal values. A geometry
-    whose H tables pass 64 KB is refused. [B, 3, dst_h, dst_w] uint8,
-    equal to :func:`nv12_preprocess`."""
-    tail = _checked(nv12, src_w, src_h, space, crange)
-    _bank_checked(src_w, src_h, dst_w, dst_h)
-    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
-    if _on_cpu("static_kernel", nv12):
-        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
-    out = _static_call("static_kernel", nv12, tail,
-                       _product_tables(nv12, **geo), short_chain=shortchain,
-                       rows=STRIP_ROWS, **geo)
-    static_kernel.launches += 1
-    return out
-
-
-def _plain_from_row_bands(nv12, luma, chroma, tail, *, src_w, src_h,
-                          dst_w, dst_h) -> torch.Tensor:
-    """The product's plain version with the H pass taken from row bands
-    ``(start, count, weights)`` as dense products."""
+def static2_h_rows(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                   dst_w: int, dst_h: int, tile: int = 32, align: int = 8):
+    """The H rows of :func:`static_kernel2_plain`: luma and interleaved
+    chroma [B, dst_h, src_w] fp32 of bf16 values, S2's strip-window bands
+    at (tile, align) as dense products (fp32 with TF32 off, rounded to
+    bf16)."""
     dev = nv12.device
     bf = torch.bfloat16
     dense = []
-    for (start, count, w), n_in in ((luma, src_h), (chroma, src_h // 2)):
+    for (start, count, w), n_in in zip(
+            strip_window_bands(src_w, src_h, dst_w, dst_h, LANCZOS_AA, tile,
+                               align), (src_h, src_h // 2)):
         d = np.zeros((len(start), n_in), np.float32)
         for o in range(len(start)):
             d[o, start[o]:start[o] + count[o]] = w[o, :count[o]]
@@ -520,10 +484,20 @@ def _plain_from_row_bands(nv12, luma, chroma, tail, *, src_w, src_h,
     with exact_f32_matmul():
         yh = round_to(torch.matmul(dense[0], to_f32(nv12[:, :src_h])), bf)
         ch = round_to(torch.matmul(dense[1], to_f32(uv)), bf)
+    return yh, ch
+
+
+def static2_w_pass_plain(yh: torch.Tensor, uh: torch.Tensor,
+                         vh: torch.Tensor, tail: np.ndarray, *, src_w: int,
+                         src_h: int, dst_w: int, dst_h: int) -> torch.Tensor:
+    """The W pass and tail of :func:`static_kernel2_plain` over H rows
+    ``yh`` [B, dst_h, src_w] and ``uh``, ``vh`` [B, dst_h, src_w / 2]:
+    the dense bf16 column weights, fp32 with TF32 off."""
+    bf = torch.bfloat16
     dw = dense_weights(src_w, src_h, dst_w, dst_h, LANCZOS_AA, "420")
-    wyw, wcw = (round_to(m, bf).to(dev) for m in (dw.luma_w, dw.chroma_w))
-    return w_pass_tail_plain(yh, ch[..., 0::2], ch[..., 1::2], wyw, wcw,
-                             tail, torch.uint8)
+    wyw, wcw = (round_to(m, bf).to(yh.device)
+                for m in (dw.luma_w, dw.chroma_w))
+    return w_pass_tail_plain(yh, uh, vh, wyw, wcw, tail, torch.uint8)
 
 
 def static_kernel2_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
@@ -537,9 +511,9 @@ def static_kernel2_plain(nv12: torch.Tensor, *, src_w: int, src_h: int,
     tables, so that it checks them."""
     tail = _checked(nv12, src_w, src_h, space, crange)
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
-    luma, chroma = strip_window_bands(src_w, src_h, dst_w, dst_h,
-                                      LANCZOS_AA, tile, align)
-    return _plain_from_row_bands(nv12, luma, chroma, tail, **geo)
+    yh, ch = static2_h_rows(nv12, **geo, tile=tile, align=align)
+    return static2_w_pass_plain(yh, ch[..., 0::2], ch[..., 1::2], tail,
+                                **geo)
 
 
 def _strip_block_work(batch: int, src_w: int, src_h: int, dst_w: int,
@@ -778,20 +752,71 @@ def combo_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
     return out
 
 
+def _chains_checked(nv12, geo, tile, space, crange) -> np.ndarray:
+    """Validate a call of S / Slong / T at strips of ``tile`` rows; the
+    packed tail."""
+    tail = _checked(nv12, geo["src_w"], geo["src_h"], space, crange)
+    strip_window_bands(geo["src_w"], geo["src_h"], geo["dst_w"],
+                       geo["dst_h"], LANCZOS_AA, tile,
+                       CHAINS_ALIGN)   # refuses tile < 1
+    why = chains_refusal(**geo, tile=tile)
+    if why:
+        raise ValueError(f"{geo['src_w']}x{geo['src_h']} -> "
+                         f"{geo['dst_w']}x{geo['dst_h']}: {why}")
+    return tail
+
+
+def static_kernel(nv12: torch.Tensor, *, src_w: int, src_h: int,
+                  dst_w: int, dst_h: int, shortchain: bool = True,
+                  tile: int = CHAINS_TILE,
+                  space: ColorSpace = ColorSpace.BT_709,
+                  crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
+    """S: the product function on the TPU's static windows (strips of
+    ``tile`` output rows, 16 or 32, over windows aligned to 8 rows, zero
+    taps included) on S2's tensor-core block, the H chains' A built from
+    the ring's raw bytes by the TPU's short cast chain u8 -> i32 -> bf16
+    (``shortchain``, S) or its long one u8 -> i32 -> f32 -> bf16 (Slong):
+    equal values, so S2's bits at (tile, 8). [B, 3, dst_h, dst_w] uint8,
+    within the kernels' envelope of :func:`nv12_preprocess`; on the CPU
+    :func:`static_kernel2_plain` at (tile, 8). Raises ValueError for a
+    strip height it does not run or a geometry S2 refuses
+    (:func:`~vali_tpu_torch.lab.chains.chains_refusal`), on either
+    device."""
+    geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    tail = _chains_checked(nv12, geo, tile, space, crange)
+    if _on_cpu("static_kernel", nv12):
+        return static_kernel2_plain(nv12, **geo, tile=tile,
+                                    align=CHAINS_ALIGN, space=space,
+                                    crange=crange)
+    out = _s2_tables_launch("nv12_chains_launch", "static_kernel", nv12,
+                            tail, geo, (int(shortchain), tile), tile,
+                            CHAINS_ALIGN)
+    static_kernel.launches += 1
+    return out
+
+
 def transposed_chroma(nv12: torch.Tensor, *, src_w: int, src_h: int,
-                      dst_w: int, dst_h: int,
+                      dst_w: int, dst_h: int, tile: int = CHAINS_TILE,
                       space: ColorSpace = ColorSpace.BT_709,
                       crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
-    """T: the product function with the chroma H-pass rows kept transposed
-    in shared memory; the W pass reads U of column band j from row 2j and
-    V from row 2j + 1. [B, 3, dst_h, dst_w] uint8, equal to
-    :func:`nv12_preprocess`."""
-    tail = _checked(nv12, src_w, src_h, space, crange)
+    """T: the product function on S2's tensor-core block at strips of
+    ``tile`` output rows (16 or 32) over windows aligned to 8 rows, the
+    chroma H sums kept interleaved as the chain leaves them (the TPU's
+    ``ch`` before its transpose) and read by the chroma W pass as an
+    MN-major operand whose n runs over U of 8 rows, then V of the same 8.
+    [B, 3, dst_h, dst_w] uint8, S2's bits at (tile, 8), within the
+    kernels' envelope of :func:`nv12_preprocess`; on the CPU
+    :func:`static_kernel2_plain` at (tile, 8). Raises ValueError for a
+    strip height it does not run or a geometry S2 refuses, on either
+    device."""
     geo = dict(src_w=src_w, src_h=src_h, dst_w=dst_w, dst_h=dst_h)
+    tail = _chains_checked(nv12, geo, tile, space, crange)
     if _on_cpu("transposed_chroma", nv12):
-        return nv12_preprocess_plain(nv12, **geo, space=space, crange=crange)
-    out = _call("transposed_chroma", "nv12_transposed_launch", nv12, tail,
-                _product_tables(nv12, **geo), STRIP_ROWS, **geo)
+        return static_kernel2_plain(nv12, **geo, tile=tile,
+                                    align=CHAINS_ALIGN, space=space,
+                                    crange=crange)
+    out = _s2_tables_launch("nv12_tchroma_launch", "transposed_chroma",
+                            nv12, tail, geo, (tile,), tile, CHAINS_ALIGN)
     transposed_chroma.launches += 1
     return out
 
@@ -930,7 +955,8 @@ class Case(NamedTuple):
     frames: int      # frames the call needs at least (multiframe G)
     work: tuple      # (bytes, operations) of one batch of B frames
     exact: bool = True   # bit-equal to its reference (the tensor cores'
-    #                      B-D, G, S2, combo, prod_like, M*: envelope)
+    #                      B-D, G, S2, combo, prod_like, M*, S*, T*:
+    #                      envelope)
     note: str = ""       # how the kernel ran, for the lab line
     # per-sample bound against the plain version where the envelope's
     # 1 LSB does not hold (hpass: hpass_tolerance), on the given frames
@@ -977,15 +1003,20 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
                         x, **geo, tile=MULTIFRAME_TILE, align=COMBO_ALIGN),
                     True, g, combo_work(batch, **geo, tile=MULTIFRAME_TILE),
                     exact=False, note=_tiles_note(dst_w))
-    if name in ("S", "Slong"):
-        short = name == "S"
-        return Case(static_kernel,
-                    lambda x: static_kernel(x, **geo, shortchain=short),
-                    product, True, 1, full)
-    if name == "T":
-        return Case(transposed_chroma,
-                    lambda x: transposed_chroma(x, **geo), product, True, 1,
-                    full)
+    m = re.fullmatch(r"(S|Slong|T)(\d*)", name)
+    if m:
+        arm, tile = m.group(1), int(m.group(2) or CHAINS_TILE)
+        call = ((lambda x: transposed_chroma(x, **geo, tile=tile))
+                if arm == "T" else
+                (lambda x: static_kernel(x, **geo, shortchain=arm == "S",
+                                         tile=tile)))
+        return Case(
+            transposed_chroma if arm == "T" else static_kernel, call,
+            lambda x: static_kernel2_plain(x, **geo, tile=tile,
+                                           align=CHAINS_ALIGN),
+            True, 1, static2_work(batch, **geo, tile=tile,
+                                  align=CHAINS_ALIGN),
+            exact=False, note=_tiles_note(dst_w))
     if name == "G":
         return Case(grouped_kernel, lambda x: grouped_kernel(x, **geo),
                     lambda x: grouped_kernel_plain(x, **geo), True, 1,
@@ -1022,7 +1053,8 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int,
             tol=((lambda x: hpass_tolerance(x, **geo)) if mode == "hpass"
                  else None))
     raise ValueError(f"unknown lab name {name!r}: one of {DEFAULT_NAMES}, "
-                     f"a mode with a strip height (full16), M{{G}}, "
+                     f"a mode with a strip height (full16), M{{G}}, S, "
+                     f"Slong or T with a strip height (T16), "
                      f"S2t{{tile}}a{{align}} or combo{{G}}x{{tile}}")
 
 

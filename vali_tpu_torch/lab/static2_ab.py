@@ -4,7 +4,11 @@ design, on the card.
 The earlier design is S2 of an earlier ``csrc/nv12_variants.cu``
 (``nv12_static_launch`` with the strip-window row tables in device memory:
 the banded FMA loops on the CUDA cores over every tap of each window, tall
-strips in output-column ranges). This builds that source into a throwaway
+strips in output-column ranges), from a checkout before S2's redesign.
+The current ``nv12_variants.cu`` holds the stream floor alone; 92ab04a is
+the last checkout whose ``nv12_variants.cu`` holds a CUDA-core S, with a
+later ``nv12_static_launch`` of another signature (``chains_ab`` builds
+that one). This builds that source into a throwaway
 library under ``build/static2_ab/`` with its own headers first on the
 include path, then at each case — 64 x 1080p -> 224, one frame, a padded
 pitch, a misaligned view and the card tests' small shapes — and each

@@ -32,6 +32,7 @@ _SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
 _LAB_SOURCES = ("csrc/nv12_variants.cu", "csrc/nv12_grouped.cu",
                 "csrc/nv12_static2.cu", "csrc/nv12_staged.cu",
                 "csrc/nv12_combo.cu", "csrc/nv12_prodlike.cu",
+                "csrc/nv12_chains.cu",
                 "csrc/nv12_aligned.cu", "csrc/nv12_phases.cu",
                 "csrc/nv12_skewed.cu",
                 "csrc/nv12_streamed.cu", "csrc/nv12_slabs.cu",
@@ -76,12 +77,6 @@ _SIGNATURES = {
 _LAB_SIGNATURES = {
     "nv12_stream_floor_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _I, _P, _P],
-    "nv12_static_launch": [
-        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
-        _I, _I, _I, _P, _I, _I, _I, _P, _P],
-    "nv12_transposed_launch": [
-        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
-        _I, _P, _P],
     "nv12_grouped_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _FP,
         _P, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -95,6 +90,13 @@ _LAB_SIGNATURES = {
     "nv12_combo_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _P, _P, _I, _I,
         _P, _P, _P, _P],
+    "nv12_chains_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _P, _P, _I, _I,
+        _P, _P, _P, _P],
+    "nv12_tchroma_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _P, _P, _I, _I, _P, _P,
+        _P, _P],
+    "nv12_chains_probe_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "nv12_prodlike_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _P, _P, _I, _I,
         _P, _P, _P, _P, _P],

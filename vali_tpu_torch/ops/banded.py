@@ -235,11 +235,11 @@ def w_pass_tail_plain(yh: torch.Tensor, uh: torch.Tensor, vh: torch.Tensor,
     return torch.stack(chans, dim=1)
 
 
-# --- host tables of the NV12 lab's static-window and grouped variants ------
-# (csrc/nv12_variants.cu nv12_static_launch, csrc/nv12_grouped.cu)
+# --- host tables of the NV12 lab's strip-window and grouped variants -------
+# (csrc/nv12_static2.cu and the kernels on its block, csrc/nv12_grouped.cu;
+# the output-column ranges of the earlier CUDA-core designs, which their
+# A/Bs build)
 
-#: the constant bank that holds S's H row tables
-CONST_BANK_BYTES = 65536
 #: dynamic shared memory one block may use on sm_90 (kSmemLimit)
 SMEM_LIMIT = 232448
 
@@ -250,16 +250,6 @@ def _nv12_bands(src_w: int, src_h: int, dst_w: int, dst_h: int,
     """The four bf16 bands of a 4:2:0 geometry (:func:`band_table`)."""
     dw = dense_weights(src_w, src_h, dst_w, dst_h, method, "420")
     return tuple(band_table(m, torch.bfloat16) for m in dw)
-
-
-@functools.lru_cache(maxsize=32)
-def const_bank_bytes(src_w: int, src_h: int, dst_w: int, dst_h: int,
-                     method: str) -> int:
-    """Bytes of the H row tables in the constant bank: four int32 tables
-    of dst_h (row starts and counts) and the luma and chroma row weights,
-    as float32 padded to their largest tap count."""
-    hy, hc = _nv12_bands(src_w, src_h, dst_w, dst_h, method)[:2]
-    return 16 * dst_h + 4 * dst_h * (hy[2].shape[1] + hc[2].shape[1])
 
 
 def _strip_windows(start, count, weights, n_in: int, tile: int,
@@ -321,7 +311,7 @@ class ColumnRanges(NamedTuple):
         return self.ext.shape[0]
 
     def args(self):
-        """The ranges as nv12_static_launch takes them."""
+        """The ranges as the earlier nv12_static_launch took them."""
         return (self.ext.data_ptr(), self.n, self.y_pitch, self.c_pitch)
 
 
