@@ -1946,15 +1946,26 @@ def convert_lab_phase(torch, np, dev, smi):
     for name in names:
         wrapper = cases[name].wrapper.__name__
         r = results[name]
-        entries.append({
+        entry = {
             "name": f"{wrapper} {name}", "route": "cuda",
-            "source": "vali_tpu_torch/csrc/nv12_to_rgb_variants.cu",
+            "source": "vali_tpu_torch/csrc/" + (
+                "nv12_convert_staged.cu" if name in cl.VARIANTS
+                else "nv12_to_rgb_variants.cu"),
             "replaces": CONVERT_LAB_REPLACES[wrapper],
             "launches": r["launches"], "max_abs_err": err[name],
             "ms": r["ms"], "plain_ms": plain_ms.get(name, plain_ms["prod"]),
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no PyTorch call computes the bf16-cast-point CSC or the probes
-            "library_ms": None})
+            "library_ms": None}
+        if name in cl.VARIANTS:
+            # the bound by bytes; by the FLOPs its products issue, zeros
+            # included (a bound of this design); by the CSC's own operations
+            nbytes, ops = cases[name].work
+            entry["bytes_bound_ms"] = bound_ms(nbytes, 0)[0]
+            entry["issued_operations_bound_ms"] = bound_ms(0, ops)[0]
+            entry["csc_operations_bound_ms"] = bound_ms(
+                0, cl.case("prod", B, rows, W, H).work[1])[0]
+        entries.append(entry)
     return entries
 
 

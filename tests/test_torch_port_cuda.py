@@ -1613,6 +1613,35 @@ def test_convert_lab_kernels_padded_views(dev, name):
     assert torch.equal(c.call(view), c.plain(view)), name
 
 
+@pytest.mark.parametrize("variant", ["V1", "V2"])
+def test_convert_staged_replays_give_one_reference(dev, variant):
+    """The staged convert's TMA ring and output tiles at 1080p: each of 20
+    launches gives the bits of nv12_to_rgb (no race checker runs on this
+    card; csrc/nv12_convert_staged.cu names the waits that guard each
+    reuse)."""
+    b, w, h = 8, 1920, 1080
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=26)
+    cc = dict(space=ColorSpace.BT_601, crange=ColorRange.JPEG)
+    want = nv12_to_rgb(x, src_w=w, src_h=h, **cc)
+    for i in range(20):
+        got = cl.convert_variant(x, src_w=w, src_h=h, variant=variant, **cc)
+        assert torch.equal(got, want), (variant, i)
+
+
+@pytest.mark.parametrize("twice", [False, True])
+@pytest.mark.parametrize("n", [24, 48])
+def test_convert_staged_probe_pins_the_k_major_instances(dev, n, twice):
+    """One m64nNk16 wgmma with A and B K-major in shared memory
+    (csrc/nv12_convert_staged.cu's probe) at the staged convert's N = 24
+    and 48 and its operand's offsets: scale-d 0 over NaN accumulators
+    gives the matmul of the same small integers (every sum exact), and a
+    second product with scale-d 1 twice that."""
+    from vali_tpu_torch.lab import convert_ab
+    from vali_tpu_torch.ops import _cuda_build
+
+    assert convert_ab.probe(_cuda_build.load_lab_kernels(), n, twice)
+
+
 @pytest.mark.parametrize("mode", ["dma", "inonly"])
 def test_convert_probe_sink_reads_every_byte(dev, mode):
     """On a zeroed sink the XOR of its words is the XOR of every 32-bit

@@ -1,38 +1,26 @@
-// Lab variants of the NV12 -> packed RGB kernel for Hopper (sm_90a):
+// Lab probes of the NV12 -> packed RGB kernel for Hopper (sm_90a):
 // measuring instruments beside nv12_to_rgb (nv12_to_rgb.cu), on no product
 // path.
 //
-// Replaces the TPU lab-notebook kernels of convert_lab.py:
-//   - variant_kernel (V1, V2)                      -> nv12_convert_variant_launch
-//   - probe_kernel   (dma, inonly, outonly, outband,
-//                     noquant, noh)                -> nv12_convert_probe_launch
+// Replaces the TPU lab-notebook kernel probe_kernel of convert_lab.py (dma,
+// inonly, outonly, outband, noquant, noh) -> nv12_convert_probe_launch.
+// The notebook's variant_kernel (V1, V2) is nv12_convert_staged.cu.
 //
 // What bounds them on this card: what bounds nv12_to_rgb. One 64 x 1080p
 // batch reads 199 MB and writes 398 MB for ~9 FLOP per output byte, so the
-// floor is bytes: 597 MB at 3.35 TB/s, ~0.18 ms. Each variant asks one
-// question of the product design (per-pixel conversion straight from
-// 16-byte loads of the frame):
-//   V1, V2   what a staged bf16 copy costs. A block converts its rows of
-//            luma, and of chroma replicated to full height, into bf16 tiles
-//            in shared memory (V1: luma and chroma tiles; V2: one tile,
-//            [luma 128 | chroma 128] per 128-pixel group, the TPU kernel's
-//            layout for one K=256 product), then runs the CSC from those
-//            tiles. Every bf16 coefficient times a uint8 sample is exact in
-//            fp32, and so are the sums of three, so both give nv12_to_rgb's
-//            bits.
-//   probes   nv12_to_rgb's split into read, store, quantisation and chroma
-//            replication. dma and inonly read the whole frame, as the TPU's
-//            DMA does, and XOR every word they read into a sink, so no load
-//            is dead; dma, outonly and outband store row 0 of the frame
-//            broadcast over the [H, 3W] output (dma and outonly from blocks
-//            of kOutRows output rows, outband from blocks of 216); noquant
-//            and noh are the product's per-pixel kernel with the store's
-//            round/clip, or the chroma row's replication, knocked out.
+// floor is bytes: 597 MB at 3.35 TB/s, ~0.18 ms. The probes split
+// nv12_to_rgb into read, store, quantisation and chroma replication. dma
+// and inonly read the whole frame, as the TPU's DMA does, and XOR every
+// word they read into a sink, so no load is dead; dma, outonly and outband
+// store row 0 of the frame broadcast over the [H, 3W] output (dma and
+// outonly from blocks of kOutRows output rows, outband from blocks of
+// 216); noquant and noh are the product's per-pixel kernel with the
+// store's round/clip, or the chroma row's replication, knocked out.
 //
-// The launchers take uint8 NV12 frames whose width is a multiple of 16,
-// with 16-byte aligned rows (the wrappers check), return cudaGetLastError()
-// after their launch, run on the caller's stream, and neither synchronise
-// nor allocate.
+// The launcher takes uint8 NV12 frames whose width is a multiple of 16,
+// with 16-byte aligned rows (the wrapper checks), returns
+// cudaGetLastError() after its launch, runs on the caller's stream, and
+// neither synchronises nor allocates.
 
 #include "banded_common.cuh"
 
@@ -43,8 +31,6 @@ using banded::stream_rows;
 
 constexpr int kThreads = 256;
 constexpr int kPix = 16;      // pixels per thread: one 16-byte load
-constexpr int kRowsV = 4;     // output rows per block of V1 / V2
-constexpr int kGroup = 128;   // pixels per group of the V2 tile
 constexpr int kOutRows = 8;   // output rows per block of dma, inonly, outonly
 constexpr int kBandRows = 216;  // output rows per block of outband
 constexpr int kInRows = 8;    // inonly: rows, lanes and row step of its sum
@@ -118,103 +104,6 @@ __device__ __forceinline__ void store_group(const float* y, const float* c,
     if (g0 + word / 3 < limit) ob[word] = ws[word];
   }
   __syncwarp();
-}
-
-// ---- V1 / V2: one block per (kRowsV output rows, frame) -----------------
-
-// Index in a V2 tile row of lane x of luma (chroma: + the group's width).
-__device__ __forceinline__ int v2_lane(int x) {
-  const int g0 = x / kGroup * kGroup;
-  return 2 * g0 + (x - g0);
-}
-__device__ __forceinline__ int v2_width(int x, int w) {
-  const int g0 = x / kGroup * kGroup;
-  return min(kGroup, w - g0);
-}
-
-// 16 bf16 values of a tile (32-byte aligned), widened to float exactly.
-__device__ __forceinline__ void bf16x16(const __nv_bfloat16* p, float* v) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  const uint4 a = q[0], b = q[1];
-  const uint32_t wds[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    v[2 * i] = __uint_as_float(wds[i] << 16);
-    v[2 * i + 1] = __uint_as_float(wds[i] & 0xFFFF0000u);
-  }
-}
-
-template <bool V2>
-__global__ void __launch_bounds__(kThreads)
-convert_variant_kernel(const uint8_t* __restrict__ src, long long bs,
-                       long long rs, int h, int w, Csc k,
-                       uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ uint4 stage[kThreads * 3];
-  // V1: luma [kRowsV][w] then chroma [kRowsV][w]; V2: [kRowsV][2w]
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int b = blockIdx.y;
-  const int o0 = blockIdx.x * kRowsV;
-  const int rows = min(kRowsV, h - o0);
-  const int chunks = w / kPix;
-  const uint8_t* frame = src + b * bs;
-
-  // phase 1: the rows' luma and replicated chroma, cast to bf16 once; 16
-  // samples a thread, stored as two 16-byte words
-  for (int e = threadIdx.x; e < 2 * rows * chunks; e += blockDim.x) {
-    const int plane = e / (rows * chunks);  // 0 luma, 1 chroma
-    const int rest = e - plane * rows * chunks;
-    const int r = rest / chunks;
-    const int x = (rest - r * chunks) * kPix;
-    const int row = plane ? h + (o0 + r) / 2 : o0 + r;
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(
-                              frame + static_cast<long long>(row) * rs) +
-                          x / kPix);
-    __nv_bfloat16* dst;
-    if (V2)
-      dst = tile + r * 2 * w + v2_lane(x) + (plane ? v2_width(x, w) : 0);
-    else
-      dst = tile + (plane * kRowsV + r) * w + x;
-    uint32_t packed[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      packed[i] =
-          static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(
-              static_cast<float>(byte_of(q, 2 * i))))) |
-          static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(
-              static_cast<float>(byte_of(q, 2 * i + 1)))))
-              << 16;
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    d[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    d[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-  }
-  __syncthreads();
-
-  // phase 2: the CSC from the bf16 tiles, 16 pixels a thread
-  uint4* ws = stage + (threadIdx.x >> 5) * 96;
-  const long long base = (static_cast<long long>(b) * h + o0) * chunks;
-  const int nq = rows * chunks;
-  for (int q0 = 0; q0 < nq; q0 += blockDim.x) {
-    const int q = q0 + threadIdx.x;
-    const bool live = q < nq;
-    float y[kPix], c[kPix];
-    if (live) {
-      const int r = q / chunks;
-      const int x = (q - r * chunks) * kPix;
-      const __nv_bfloat16* yt;
-      const __nv_bfloat16* ct;
-      if (V2) {
-        yt = tile + r * 2 * w + v2_lane(x);
-        ct = yt + v2_width(x, w);
-      } else {
-        yt = tile + r * w + x;
-        ct = tile + (kRowsV + r) * w + x;
-      }
-      bf16x16(yt, y);
-      bf16x16(ct, c);
-    }
-    store_group<true>(y, c, k, live, base + q, base + nq, ws, out);
-  }
 }
 
 // ---- probes -------------------------------------------------------------
@@ -338,40 +227,6 @@ extern "C" {
 // given batch and row strides (bytes); `coef` a host array of 12 floats (the
 // 3x3 matrix, row c = output channel c, then the three offsets), as
 // nv12_to_rgb_launch takes it.
-
-// V1 (variant 1) or V2 (variant 2) into a contiguous uint8 [batch, h, 3w].
-// One launch.
-int nv12_convert_variant_launch(const void* src, long long batch_stride,
-                                long long row_stride, int batch, int h, int w,
-                                const float* coef, int variant, void* out,
-                                void* stream) {
-  if (batch <= 0) return 0;
-  if (!frames_ok(src, batch_stride, row_stride, h, w) ||
-      !banded::aligned16(out) || (variant != 1 && variant != 2) ||
-      batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Csc k = unpack(coef);
-  const size_t smem = sizeof(__nv_bfloat16) * 2 * kRowsV * static_cast<size_t>(w);
-  // the limit counts the static staging buffer too
-  const size_t limit = smem + sizeof(uint4) * kThreads * 3;
-  const dim3 grid((h + kRowsV - 1) / kRowsV, batch);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* in = static_cast<const uint8_t*>(src);
-  auto* o = static_cast<uint8_t*>(out);
-  cudaError_t e;
-  if (variant == 1) {
-    e = banded::allow_smem(convert_variant_kernel<false>, limit);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    convert_variant_kernel<false><<<grid, kThreads, smem, s>>>(
-        in, batch_stride, row_stride, h, w, k, o);
-  } else {
-    e = banded::allow_smem(convert_variant_kernel<true>, limit);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    convert_variant_kernel<true><<<grid, kThreads, smem, s>>>(
-        in, batch_stride, row_stride, h, w, k, o);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The probe `mode` (0 dma, 1 inonly, 2 outonly, 3 outband, 4 noquant,
 // 5 noh) on frames of `rows` buffer rows, into a contiguous uint8 output:

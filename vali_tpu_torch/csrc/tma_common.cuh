@@ -1,8 +1,10 @@
 // Hopper copy machinery shared by the lab kernels of this directory
-// (nv12_streamed.cu, nv12_slabs.cu, nv12_staged.cu): tensor maps of uint8
-// frames encoded on the host, TMA box and bulk copies into shared memory,
-// and the mbarriers that report their arrival. sm_90 (the kernels that
-// include it build for sm_90a).
+// (nv12_streamed.cu, nv12_slabs.cu, nv12_staged.cu,
+// nv12_convert_staged.cu): tensor maps of uint8 frames encoded on the
+// host, TMA box and bulk copies into shared memory, and the mbarriers
+// that report their arrival; TMA box stores from shared memory and the
+// bulk groups that track them. sm_90 (the kernels that include it build
+// for sm_90a).
 //
 // A tensor map is encoded on the host (cuTensorMapEncodeTiled, reached
 // through the runtime's cudaGetDriverEntryPoint, so no -lcuda) and passed
@@ -163,6 +165,38 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Box (x, y, z) of `map` from shared memory at `src` (1024-byte aligned
+// for the 128-byte swizzle) to device memory, in the issuing thread's
+// current bulk group; what lies outside the tensor is not written.
+__device__ __forceinline__ void store_box(const CUtensorMap* map,
+                                          const void* src, int x, int y,
+                                          int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// Closes the issuing thread's bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the issuing thread's bulk groups still read
+// their shared memory (their sources may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of the issuing thread's bulk groups are
+// incomplete (their writes done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Barrier `id` (1 to 15) of the first `threads` threads of the block.

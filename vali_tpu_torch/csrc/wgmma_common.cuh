@@ -1,6 +1,7 @@
 // Pieces shared by the tensor-core lab kernels of this directory
 // (nv12_grouped.cu, nv12_aligned.cu, nv12_static2.cu, nv12_streamed.cu,
-// nv12_slabs.cu, nv12_staged.cu, nv12_combo.cu, nv12_chains.cu): wgmma
+// nv12_slabs.cu, nv12_staged.cu, nv12_combo.cu, nv12_chains.cu,
+// nv12_convert_staged.cu): wgmma
 // descriptors, fences, products with A from registers (B K-major or
 // MN-major) and with A from shared memory, the cp.async staging ring of
 // raw uint8 window rows with the A fragments built from it by one of three
@@ -225,12 +226,13 @@ __device__ __forceinline__ void mma(float* d, uint4 a, uint64_t b) {
 }
 
 // d (64 x N fp32, N / 2 a thread) += a (64 x 16 bf16, shared memory,
-// descriptor) * b (16 x N, shared memory, descriptor), for N = 16 and 32.
-// TA 1: A is MN-major (its core matrices 8 K rows of 8 contiguous M
-// elements), 0: K-major like B. Without swizzle the descriptor's leading
+// descriptor) * b (16 x N, shared memory, descriptor), for N = 16, 24, 32
+// and 48. TA 1: A is MN-major (its core matrices 8 K rows of 8 contiguous
+// M elements), 0: K-major like B. Without swizzle the descriptor's leading
 // byte offset steps along K and its stride byte offset along M in both
-// layouts (nv12_staged.cu).
-template <int N, int TA>
+// layouts (nv12_staged.cu). SD 0 (N = 24 and 48 only) is wgmma's scale-d
+// 0: d = a * b, whatever d held (nv12_convert_staged.cu).
+template <int N, int TA, int SD = 1>
 struct MmaSS;
 
 template <int TA>
@@ -266,9 +268,46 @@ struct MmaSS<32, TA> {
   }
 };
 
-template <int N, int TA = 1>
+template <int TA, int SD>
+struct MmaSS<24, TA, SD> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %15, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, "
+        "1, 1, %14, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11])
+        : "l"(a), "l"(b), "n"(TA), "n"(SD)
+        : "memory");
+  }
+};
+
+template <int TA, int SD>
+struct MmaSS<48, TA, SD> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %27, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, "
+        "1, 1, %26, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "n"(TA), "n"(SD)
+        : "memory");
+  }
+};
+
+template <int N, int TA = 1, int SD = 1>
 __device__ __forceinline__ void mma_ss(float* d, uint64_t a, uint64_t b) {
-  MmaSS<N, TA>::run(d, a, b);
+  MmaSS<N, TA, SD>::run(d, a, b);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

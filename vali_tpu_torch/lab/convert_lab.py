@@ -2,20 +2,23 @@
 goes, run on the card.
 
 Counterpart of the TPU notebook ``convert_lab.py`` (its ``main`` and
-``main_probe``). Two wrappers over the kernels of
-``csrc/nv12_to_rgb_variants.cu``, each beside its plain PyTorch version,
-with the same dispatch as the product wrappers: a CUDA tensor launches the
+``main_probe``). Two wrappers, each beside its plain PyTorch version, with
+the same dispatch as the product wrappers: a CUDA tensor launches the
 kernel, a CPU tensor runs the plain version, any other device raises.
 uint8 NV12 in, packed [B, H, 3W] uint8 out, BT.709 MPEG by default, bf16
 coefficients (``ops/nv12_to_rgb.coefficients``).
 
-- :func:`convert_variant` (``variant_kernel``): ``V1`` converts a block's
-  rows of luma, and of chroma replicated to full height, to bf16 once and
-  runs the CSC from those copies; ``V2`` keeps them interleaved per
-  128-pixel group, [luma 128 | chroma 128]. Every bf16 coefficient times a
-  uint8 sample is exact in fp32 and so are the sums of three, so both equal
-  :func:`nv12_to_rgb` bit for bit.
-- :func:`convert_probe` (``probe_kernel``), one mode each:
+- :func:`convert_variant` (``variant_kernel``, ``csrc/nv12_convert_staged.cu``;
+  host tables ``lab/convert_staged.py``): a tile's luma, and its chroma
+  replicated to full height, land by TMA, are converted to bf16 once into
+  a shared-memory operand, and the CSC runs as ``wgmma`` products with the
+  per-group matrices ``Ag`` and ``Bg``: ``V1`` luma x ``Ag16`` + chroma x
+  ``Bg16`` per 16 pixels, ``V2`` one product over [luma 8 | chroma 8] x
+  ``[Ag8; Bg8]`` per 8 pixels; the packed output is stored by TMA. Every
+  bf16 coefficient times a uint8 sample is exact in fp32 and so is every
+  partial sum, so both equal :func:`nv12_to_rgb` bit for bit.
+- :func:`convert_probe` (``probe_kernel``, ``csrc/nv12_to_rgb_variants.cu``),
+  one mode each:
   ``dma``: row 0 of the frame broadcast to every row of each of the three
   W-wide blocks of the [H, 3W] output (plane-blocked, not interleaved),
   while the whole frame is read; ``outonly``: the same output from 8 input
@@ -60,10 +63,10 @@ import torch
 from ..core.enums import ColorRange, ColorSpace
 from ..ops.nv12_to_rgb import (coefficients, csc_channels, nv12_to_rgb,
                                nv12_to_rgb_plain, pack_channels)
+from .convert_staged import VARIANTS, staged_device
 from .kernel_variants import SINK_WORDS, _on_cpu, make_frames
 from .timing import bound_ms, convert_work, time_cuda
 
-VARIANTS = {"V1": 1, "V2": 2}
 PROBES = {"dma": 0, "inonly": 1, "outonly": 2, "outband": 3, "noquant": 4,
           "noh": 5}
 #: the inonly probe's output rows and lanes, and the row step of its sum
@@ -103,7 +106,8 @@ def _coefficients(space: ColorSpace, crange: ColorRange) -> np.ndarray:
 def _launch(what: str, launcher: str, nv12: torch.Tensor, *args,
             out: torch.Tensor) -> torch.Tensor:
     """One convert-lab launcher on a checked CUDA buffer: the frames, then
-    ``args``, the output and the stream."""
+    ``args``, the output and the stream. The checks are what the probes'
+    16-byte loads and the staged kernels' tensor maps need."""
     from ..ops._cuda_build import check, load_lab_kernels
 
     if (nv12.shape[2] % 16 or nv12.stride(2) != 1 or nv12.stride(1) % 16
@@ -162,9 +166,10 @@ def convert_variant(nv12: torch.Tensor, *, src_w: int, src_h: int,
                     variant: str = "V1",
                     space: ColorSpace = ColorSpace.BT_709,
                     crange: ColorRange = ColorRange.MPEG) -> torch.Tensor:
-    """NV12 -> packed RGB [B, H, 3W] uint8 through bf16 copies staged in
-    shared memory (``variant`` V1: luma and chroma tiles, V2: interleaved
-    per 128-pixel group); equal to :func:`nv12_to_rgb`."""
+    """NV12 -> packed RGB [B, H, 3W] uint8 through a bf16 operand staged
+    in shared memory and ``wgmma`` products (``variant`` V1: luma x Ag16 +
+    chroma x Bg16, V2: [luma 8 | chroma 8] x [Ag8; Bg8]); equal to
+    :func:`nv12_to_rgb`."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {tuple(VARIANTS)}, got "
                          f"{variant!r}")
@@ -176,10 +181,11 @@ def convert_variant(nv12: torch.Tensor, *, src_w: int, src_h: int,
     k = _coefficients(space, crange)
     out = torch.empty((nv12.shape[0], src_h, 3 * src_w), dtype=torch.uint8,
                       device=nv12.device)
-    _launch("convert_variant", "nv12_convert_variant_launch", nv12,
-            nv12.shape[0], src_h, src_w,
+    b = staged_device(space, crange, variant, nv12.device)
+    _launch("convert_variant", "nv12_convert_staged_launch", nv12,
+            nv12.shape[1], nv12.shape[0], src_h, src_w,
             k.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            VARIANTS[variant], out=out)
+            VARIANTS[variant], b.data_ptr(), out=out)
     convert_variant.launches += 1
     return out
 
@@ -279,7 +285,8 @@ class Case(NamedTuple):
 def case(name: str, batch: int, rows: int, src_w: int, src_h: int) -> Case:
     """The :class:`Case` of a lab name on [batch, rows, src_w] frames: V1
     and V2 are held to :func:`nv12_to_rgb`, the probes to their plain
-    versions."""
+    versions. V1's and V2's operations are the FLOPs their products
+    issue."""
     geo = dict(src_w=src_w, src_h=src_h, **_BT709)
     product = (lambda x: nv12_to_rgb(x, **geo))
     plain = (lambda x: nv12_to_rgb_plain(x, **geo))
@@ -290,7 +297,8 @@ def case(name: str, batch: int, rows: int, src_w: int, src_h: int) -> Case:
         return Case(convert_variant,
                     lambda x: convert_variant(x, **geo, variant=name),
                     lambda x: convert_variant_plain(x, **geo, variant=name),
-                    product, full)
+                    product, convert_work(batch, src_w, src_h, rows,
+                                          variant=name))
     if name in PROBES:
         probe_plain = (lambda x: convert_probe_plain(x, **geo, mode=name))
         return Case(convert_probe,

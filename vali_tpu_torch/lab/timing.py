@@ -154,17 +154,31 @@ def nv12_resize_work(batch: int, src_h: int, src_w: int, dst_h: int,
     return nbytes, 2 * batch * fmas
 
 
+#: the staged convert's tile (csrc/nv12_convert_staged.cu): output rows
+#: by pixels; and the FLOPs its products issue a pixel, zeros included: V1
+#: two m64n48k16 a 16-pixel span, V2 two m64n24k16
+STAGED_TILE = (64, 128)
+STAGED_FLOPS = {"V1": 2 * 2 * 48 * 16 // 16, "V2": 2 * 2 * 24 * 16 // 16}
+
+
 def convert_work(batch: int, src_w: int, src_h: int, rows: int,
-                 probe: str = "") -> Tuple[int, int]:
+                 probe: str = "", variant: str = "") -> Tuple[int, int]:
     """(bytes, operations) of a uint8 NV12 -> packed RGB batch on frames of
     ``rows`` buffer rows: the NV12 frame read once, [H, 3W] written once,
-    CSC_OPS per pixel. ``probe`` counts the convert lab's probes instead:
+    CSC_OPS per pixel. ``variant`` (V1 or V2) counts the FLOPs the staged
+    convert's products issue instead, zeros included, over its whole tiles
+    (STAGED_TILE: the ragged band and column tile too). ``probe`` counts
+    the convert lab's probes instead:
     ``dma`` reads every row of the buffer and ``inonly`` too (one XOR per
     32-bit word, into the sink); ``inonly`` writes [8, 128] (its sums),
     ``outonly`` and ``outband`` read 8 rows; none of those three does the
     CSC. ``noquant`` and ``noh`` are the full function's work."""
     out = 3 * src_h * src_w
     frame = src_h * 3 // 2 * src_w
+    if variant:
+        th, tw = STAGED_TILE
+        pixels = -(-src_h // th) * th * -(-src_w // tw) * tw
+        return batch * (frame + out), batch * STAGED_FLOPS[variant] * pixels
     if probe in ("", "noquant", "noh"):
         return batch * (frame + out), batch * CSC_OPS * src_h * src_w
     read = 8 * src_w if probe in ("outonly", "outband") else rows * src_w

@@ -37,7 +37,8 @@ _LAB_SOURCES = ("csrc/nv12_variants.cu", "csrc/nv12_grouped.cu",
                 "csrc/nv12_skewed.cu",
                 "csrc/nv12_streamed.cu", "csrc/nv12_slabs.cu",
                 "csrc/nv12_striped.cu",
-                "csrc/nv12_to_rgb_variants.cu", "csrc/cuda_errors.cu")
+                "csrc/nv12_to_rgb_variants.cu", "csrc/nv12_convert_staged.cu",
+                "csrc/cuda_errors.cu")
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
             "csrc/wgmma_common.cuh", "csrc/aligned_passes.cuh",
             "csrc/aligned_block.cuh",
@@ -100,8 +101,10 @@ _LAB_SIGNATURES = {
     "nv12_prodlike_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _I, _I, _P, _P, _I, _I,
         _P, _P, _P, _P, _P],
-    "nv12_convert_variant_launch": [
-        _P, _LL, _LL, _I, _I, _I, _FP, _I, _P, _P],
+    "nv12_convert_staged_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _FP, _I, _P, _P, _P],
+    "nv12_convert_staged_probe_launch": [
+        _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
     "nv12_convert_probe_launch": [
         _P, _LL, _LL, _I, _I, _I, _I, _FP, _I, _P, _I, _P, _P],
 }
