@@ -83,7 +83,11 @@ the host clock, and prints:
     data sheet) at its batched shape; the Surface kernels' entries also
     list every timed shape with its main-path launches ("shapes"; at
     N = 1 a wrapper call's time, host work included) and the mean time
-    over those launches ("launch_weighted_ms");
+    over those launches ("launch_weighted_ms"); nv12_to_rgb's entry also
+    each compute dtype's route (bf16 on the tensor cores, f32 on the CUDA
+    cores) at the batched shape and at N = 1: the wrapper call, the
+    kernel alone through one prepared call and its device time by
+    torch.profiler ("routes");
   - as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and ends the run with a non-zero exit code before the
@@ -1018,6 +1022,9 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
         if wrapper.launches != before + 1:
             raise AssertionError(f"{name}: the kernel was not launched")
         e = compare(torch, name, out, ref)
+        if name.startswith("nv12_to_rgb") and not torch.equal(out, ref):
+            raise AssertionError(f"{name}: not bit-equal to the plain "
+                                 f"version")
         err.setdefault(name.split()[0], e)
         outs[name] = out
 
@@ -1190,6 +1197,9 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
     n1_cases = {
         "nv12_to_rgb N=1 1080p bt709/mpeg": pair(
             nv12_to_rgb, nv12_to_rgb_plain, nv12[:1], **to_rgb, **bt709),
+        "nv12_to_rgb N=1 1080p bt709/mpeg f32": pair(
+            nv12_to_rgb, nv12_to_rgb_plain, nv12[:1], **to_rgb, **bt709,
+            **f32),
         "packed_resize N=1 rgb 1080p->640x360 lanczos": pair(
             packed_resize, packed_resize_plain, rgb[:1], **to_360,
             **lanczos),
@@ -1215,6 +1225,9 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
         "nv12_to_rgb rgb bt709/mpeg bf16": (
             "nv12_to_rgb", (nv12.nbytes + rgb.nbytes, CSC_OPS * B * H * W),
             runs["two_stage"]["nv12_to_rgb"]),
+        "nv12_to_rgb rgb bt709/mpeg f32": (
+            "nv12_to_rgb", (nv12.nbytes + rgb.nbytes, CSC_OPS * B * H * W),
+            0),
         "packed_resize rgb 1080p->224 u8": (
             "packed_resize", resize_work(B, H, W, DH, DW, 3, aa),
             runs["two_stage"]["packed_resize"]),
@@ -1232,6 +1245,9 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
             "nv12_to_rgb", (nv12[:1].nbytes + rgb[:1].nbytes,
                             CSC_OPS * H * W),
             runs["surface_a"]["nv12_to_rgb"]),
+        "nv12_to_rgb N=1 1080p bt709/mpeg f32": (
+            "nv12_to_rgb", (nv12[:1].nbytes + rgb[:1].nbytes,
+                            CSC_OPS * H * W), 0),
         "packed_resize N=1 rgb 1080p->640x360 lanczos": (
             "packed_resize", resize_work(1, H, W, SURFACE_H, SURFACE_W, 3,
                                          resize.LANCZOS),
@@ -1256,29 +1272,30 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
         log(f"time {case}: kernel_ms={t_kern} plain_ms={t_plain} "
             f"bound_ms={bound} bound_by={bound_by} main_path_launches={n} "
             f"({smi})")
-    # the N = 1 convert once more through one prepared ctypes call: the
-    # kernel alone, without the wrapper's host work
-    import ctypes
+    # nv12_to_rgb once more through one prepared ctypes call at each of
+    # its timed shapes and compute dtypes: the kernel alone, without the
+    # wrapper's host work; each held to the wrapper's bits, every launch
+    # on the staged route
+    from vali_tpu_torch.ops.nv12_to_rgb import (prepare_nv12_to_rgb,
+                                                staged_route)
 
-    from vali_tpu_torch.ops import _cuda_build
-    from vali_tpu_torch.ops import nv12_to_rgb as n2r_mod
-
-    lib = _cuda_build.load_kernels()
-    one = nv12[:1]
-    coef = n2r_mod._checked(one, W, H, ColorSpace.BT_709, ColorRange.MPEG,
-                            False, None)
-    out_one = torch.empty((1, H, 3 * W), dtype=torch.uint8, device=dev)
-    n2r_args = (one.data_ptr(), one.stride(0), one.stride(1), 1, H, W,
-                coef.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                out_one.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if lib.nv12_to_rgb_launch(*n2r_args) != 0 or not torch.equal(
-            out_one, nv12_to_rgb(one, **to_rgb, **bt709)):
-        raise AssertionError("prepared nv12_to_rgb call differs")
-    n1_alone = {"nv12_to_rgb N=1 1080p bt709/mpeg": time_ms(
-        lambda: lib.nv12_to_rgb_launch(*n2r_args))}
-    log(f"time nv12_to_rgb N=1 1080p bt709/mpeg, kernel alone (one "
-        f"prepared ctypes call): kernel_ms="
-        f"{n1_alone['nv12_to_rgb N=1 1080p bt709/mpeg']} ({smi})")
+    prepared = {}
+    for case, x in (("nv12_to_rgb rgb bt709/mpeg bf16", nv12),
+                    ("nv12_to_rgb rgb bt709/mpeg f32", nv12),
+                    ("nv12_to_rgb N=1 1080p bt709/mpeg", nv12[:1]),
+                    ("nv12_to_rgb N=1 1080p bt709/mpeg f32", nv12[:1])):
+        cdt = f32 if case.endswith("f32") else {}
+        launch, out = prepare_nv12_to_rgb(x, **to_rgb, **bt709, **cdt)
+        launch()
+        if not staged_route(x, W) or not torch.equal(
+                out, nv12_to_rgb(x, **to_rgb, **bt709, **cdt)):
+            raise AssertionError(f"prepared {case} call differs or leaves "
+                                 f"the staged route")
+        prepared[case] = launch
+    alone = {case: time_ms(launch) for case, launch in prepared.items()}
+    for case, ms in alone.items():
+        log(f"time {case}, kernel alone (one prepared ctypes call): "
+            f"kernel_ms={ms} ({smi})")
     for case, nbytes in (("nv12_to_rgb rgb bt709/mpeg bf16",
                           nv12.nbytes + rgb.nbytes),
                          ("nv12_resize 4k->1080p bf16",
@@ -1297,7 +1314,24 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
         secs = time.perf_counter() - t0
         log(f"time surface path {rate_name} N=1 over {n} frames (host "
             f"clock): fps={n / secs} ms_per_frame={secs / n * 1e3} ({smi})")
+    # each prepared nv12_to_rgb call's device time by torch.profiler, last:
+    # its tracing slows the launches timed after it
+    from vali_tpu_torch.lab.ab_common import kernel_ms
 
+    device_ms = {case: sum(k.values())
+                 for case, k in kernel_ms(prepared).items()}
+    log(f"time nv12_to_rgb device (torch.profiler): "
+        f"{json.dumps(device_ms)} ({smi})")
+    routes = {}
+    for case in prepared:
+        route = "f32" if case.endswith("f32") else "bf16"
+        shape = "n1" if "N=1" in case else "batched"
+        routes.setdefault(route, {})[shape] = {
+            "case": case, "wrapper_ms": times[case][0],
+            "kernel_alone_ms": alone[case], "device_ms": device_ms[case]}
+
+    # nv12_to_rgb.cu runs the staged block of convert_staged.cuh (with the
+    # TMA and wgmma helpers) and its own per-pixel kernel
     src_of = {"nv12_to_rgb": ("vali_tpu_torch/csrc/nv12_to_rgb.cu",
                               "vali_tpu/ops/pallas_fused.py:1487"),
               "packed_resize": ("vali_tpu_torch/csrc/banded_resize.cu",
@@ -1324,8 +1358,9 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
                         "launches": v[4],
                         "timed": ("wrapper call incl. host work"
                                   if c in n1_cases else "kernel")},
-                       **({"kernel_alone_ms": n1_alone[c]}
-                          if c in n1_alone else {}))
+                       **({"kernel_alone_ms": alone[c],
+                           "device_ms": device_ms[c]}
+                          if c in alone else {}))
                   for c, v in times.items() if timed[c][0] == k]
         n = sum(sh["launches"] for sh in shapes)
         entries.append({
@@ -1336,6 +1371,11 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
             "launch_weighted_ms": sum(sh["ms"] * sh["launches"]
                                       for sh in shapes) / n,
             "shapes": shapes})
+    entries[0].update(
+        headers=["vali_tpu_torch/csrc/convert_staged.cuh",
+                 "vali_tpu_torch/csrc/tma_common.cuh",
+                 "vali_tpu_torch/csrc/wgmma_common.cuh"],
+        routes=routes)
     return entries
 
 

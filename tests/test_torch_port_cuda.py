@@ -340,18 +340,74 @@ def test_resize_kernels_padded_strided_views(dev, kind):
 
 
 @pytest.mark.parametrize("geom", [(2, 96, 256), (1, 62, 130),
-                                  (2, 1080, 1920)])
+                                  (2, 1080, 1920), (1, 1080, 1920),
+                                  (3, 1080, 144), (2, 96, 144)])
 @pytest.mark.parametrize("kw", [
     {}, {"compute_dtype": torch.float32},
     {"space": ColorSpace.BT_601, "crange": ColorRange.JPEG, "swap": True},
+    {"space": ColorSpace.BT_601, "crange": ColorRange.JPEG, "swap": True,
+     "compute_dtype": torch.float32},
     {"space": ColorSpace.BT_709, "crange": ColorRange.MPEG}])
 def test_nv12_to_rgb_matches_plain(dev, geom, kw):
-    """Same arithmetic in the same order: bit-identical."""
+    """Same arithmetic in the same order: bit-identical (N = 1 at 1080p,
+    widths of 144 and 130, a height of 1080, both compute dtypes)."""
     b, h, w = geom
     x = _rand(dev, (b, h * 3 // 2, w), torch.uint8, w)
     out = nv12_to_rgb(x, src_w=w, src_h=h, **kw)
     ref = nv12_to_rgb_plain(x, src_w=w, src_h=h, **kw)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.float32])
+def test_nv12_to_rgb_replays_give_one_reference(dev, compute_dtype):
+    """The staged block's TMA ring and output tiles at 1080p, BGR: each of
+    20 launches gives the plain version's bits (no race checker runs on
+    this card; csrc/convert_staged.cuh names the waits that guard each
+    reuse)."""
+    b, w, h = 8, 1920, 1080
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=27)
+    kw = dict(src_w=w, src_h=h, space=ColorSpace.BT_601,
+              crange=ColorRange.JPEG, swap=True, compute_dtype=compute_dtype)
+    want = nv12_to_rgb_plain(x, **kw)
+    for i in range(20):
+        assert torch.equal(nv12_to_rgb(x, **kw), want), i
+
+
+def test_nv12_to_rgb_geometry_picks_the_route(dev):
+    """The launcher's rule (nv12_to_rgb_tma_route) is the wrapper's
+    staged_route: a width of 40 and an odd pitch take the per-pixel
+    kernel, bit-equal to the plain version at both compute dtypes; 1080p
+    packed, padded to a pitch of 1984 or with a larger batch stride take
+    the staged block."""
+    from vali_tpu_torch.ops import _cuda_build
+    from vali_tpu_torch.ops.nv12_to_rgb import staged_route
+
+    lib = _cuda_build.load_kernels()
+    h = 32
+    narrow = _rand(dev, (2, h * 3 // 2, 40), torch.uint8, 40)
+    big = torch.zeros((2, h * 3 // 2, 1921), dtype=torch.uint8, device=dev)
+    big[:, :, :1920] = _rand(dev, (2, h * 3 // 2, 1920), torch.uint8, 3)
+    odd = big[:, :, :1920]
+    pitched = torch.zeros((2, 1620, 1984), dtype=torch.uint8,
+                          device=dev)[:, :, :1920]
+    flat = torch.zeros(2 * (1620 * 1920 + 4096), dtype=torch.uint8,
+                       device=dev)
+    strided = torch.as_strided(flat, (2, 1620, 1920),
+                               (1620 * 1920 + 4096, 1920, 1))
+    packed = torch.zeros((1, 1620, 1920), dtype=torch.uint8, device=dev)
+    for x, w, staged in ((narrow, 40, False), (odd, 1920, False),
+                         (pitched, 1920, True), (strided, 1920, True),
+                         (packed, 1920, True)):
+        out = torch.empty((x.shape[0], 8, 3 * w), dtype=torch.uint8,
+                          device=dev)
+        rule = lib.nv12_to_rgb_tma_route(x.data_ptr(), x.stride(0),
+                                         x.stride(1), w, out.data_ptr())
+        assert (rule == 1) == staged == staged_route(x, w), (w, staged)
+    for x, w in ((narrow, 40), (odd, 1920)):
+        for kw in ({}, {"compute_dtype": torch.float32, "swap": True}):
+            got = nv12_to_rgb(x, src_w=w, src_h=h, **kw)
+            assert torch.equal(got, nv12_to_rgb_plain(x, src_w=w, src_h=h,
+                                                      **kw)), (w, kw)
 
 
 @pytest.mark.parametrize("geom", [

@@ -52,7 +52,7 @@ import torch
 from ..core.enums import ColorRange, ColorSpace
 from ..ops import _cuda_build
 from ..ops.banded import core_matrix_order
-from ..ops.nv12_to_rgb import nv12_to_rgb, nv12_to_rgb_plain
+from ..ops.nv12_to_rgb import device_table, nv12_to_rgb, nv12_to_rgb_plain
 from . import ab_common
 from . import convert_lab as cl
 from . import convert_staged as cs
@@ -172,7 +172,11 @@ def launcher(lib, x: torch.Tensor, w: int, h: int, name: str, cc: dict):
         fn, args = lib.nv12_convert_variant_launch, (
             *head, b, h, w, kp, cl.VARIANTS[name.removeprefix("earlier_")])
     elif name == "nv12_to_rgb":
-        fn, args = lib.nv12_to_rgb_launch, (*head, b, h, w, kp)
+        tab = device_table(cc["space"], cc["crange"], False, torch.bfloat16,
+                           dev)
+        fn, args = lib.nv12_to_rgb_launch, (
+            *head, x.shape[1], b, h, w, kp, 0, tab.data_ptr())
+        keep += (tab,)
     else:
         sink = torch.zeros(cl.SINK_WORDS, dtype=torch.int32, device=dev)
         fn, args = lib.nv12_convert_probe_launch, (

@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import functools
 import subprocess
 import sys
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -96,10 +95,9 @@ def _checked(nv12, src_w, src_h) -> None:
                          f"{src_w}x{src_h}")
 
 
-@functools.lru_cache(maxsize=16)
 def _coefficients(space: ColorSpace, crange: ColorRange) -> np.ndarray:
-    """The product's 12 coefficients with bf16-rounded matrix (read-only:
-    shared by every call)."""
+    """The product's 12 coefficients with bf16-rounded matrix (cached and
+    read-only: shared by every call)."""
     return coefficients(space, crange, False, torch.bfloat16)
 
 

@@ -3,12 +3,14 @@
 ``convert_lab.py``'s ``variant_kernel``: the NV12 -> packed RGB CSC as
 ``wgmma`` products over a once-converted bf16 operand.
 
-- :func:`group_mats` are the notebook's dense per-group matrices (``Ag``
-  for luma, ``Bg`` for interleaved chroma) at any group width;
-  :func:`b_matrices` the kernel's B at wgmma's k16 (V1: ``Ag16``, ``Bg16``;
-  V2: ``[Ag8; Bg8]``), columns permuted by :func:`column_map`, and
-  :func:`b_image` their bf16 bytes in K-major core matrices, uploaded once
-  per (space, range, variant, device) by :func:`staged_device`.
+- The functions that make B are the product's (``ops/nv12_to_rgb.py``,
+  whose bf16 route runs V1's block): ``group_mats``, the notebook's dense
+  per-group matrices (``Ag`` for luma, ``Bg`` for interleaved chroma) at
+  any group width; ``b_matrices``, the kernel's B at wgmma's k16 (V1:
+  ``Ag16``, ``Bg16``; V2: ``[Ag8; Bg8]``), columns permuted by
+  ``column_map``; and ``b_image``, their bf16 bytes in K-major core
+  matrices, uploaded once per (space, range, variant, device) by
+  :func:`staged_device`.
 - :func:`operand_offsets` is where the converter writes each landed
   sample in the operand (chroma twice: the replication), :func:`k_steps`
   the descriptors' starts the products read, :func:`thread_bytes` which
@@ -28,17 +30,14 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
-from ..ops.banded import core_matrix_order
-from ..ops.nv12_to_rgb import coefficients
+from ..ops.nv12_to_rgb import (GROUP, N, b_image, b_matrices,  # noqa: F401
+                               column_map, group_mats)
 from .staged import bf16_bits
 
 #: the launcher's variant numbers
 VARIANTS = {"V1": 1, "V2": 2}
 #: a tile: output rows (wgmma's M) by pixels; a span's pixels
 BAND, TILE_W, SPAN = 64, 128, 16
-#: the products' N and the pixels of one product's group
-N = {"V1": 48, "V2": 24}
-GROUP = {"V1": 16, "V2": 8}
 #: landing slots
 SLOTS = 3
 #: the operand: K blocks 128 B apart, M blocks 32 K blocks and 16 spare
@@ -50,52 +49,6 @@ OPERAND_BYTES = BAND // 8 * OPERAND_SBO
 #: boxes)
 OUT_BOX = 128
 OUT_BYTES = 3 * BAND * OUT_BOX
-
-
-def group_mats(m: np.ndarray, pixels: int) -> Tuple[np.ndarray,
-                                                    np.ndarray]:
-    """The notebook's dense group matrices of ``pixels`` pixels for the 3x3
-    matrix ``m`` (row c: output channel c's Y, U, V coefficients): ``Ag``
-    [P, 3P] takes pixel p's luma to columns 3p + c, ``Bg`` [P, 3P] chroma
-    byte 2 (p // 2) (U) and 2 (p // 2) + 1 (V) to them."""
-    m = np.asarray(m, np.float32).reshape(3, 3)
-    p = np.arange(pixels)
-    ag = np.zeros((pixels, 3 * pixels), np.float32)
-    bg = np.zeros((pixels, 3 * pixels), np.float32)
-    for c in range(3):
-        ag[p, 3 * p + c] = m[c, 0]
-        bg[2 * (p // 2), 3 * p + c] = m[c, 1]
-        bg[2 * (p // 2) + 1, 3 * p + c] = m[c, 2]
-    return ag, bg
-
-
-def column_map(n: int) -> np.ndarray:
-    """[n] the group's output byte (3 pixel + channel) of accumulator
-    column c of an m64nNk16 product: thread tq = (c mod 8) / 2 holds
-    columns 8 j + 2 tq + e, which become its bytes n / 4 tq + 2 j + e."""
-    c = np.arange(n)
-    return n // 4 * ((c % 8) // 2) + 2 * (c // 8) + c % 2
-
-
-def b_matrices(space: ColorSpace, crange: ColorRange,
-               variant: str) -> List[np.ndarray]:
-    """The variant's B matrices [16, N] (float32, bf16-exact), columns in
-    accumulator order: V1 ``Ag16`` and ``Bg16``, V2 ``[Ag8; Bg8]``, from
-    nv12_to_rgb's bf16-rounded coefficients."""
-    m = coefficients(space, crange, False, torch.bfloat16)[:9]
-    ag, bg = group_mats(m, GROUP[variant])
-    cols = column_map(N[variant])
-    mats = [ag, bg] if variant == "V1" else [np.concatenate([ag, bg])]
-    return [np.ascontiguousarray(x[:, cols]) for x in mats]
-
-
-def b_image(space: ColorSpace, crange: ColorRange,
-            variant: str) -> np.ndarray:
-    """uint16 bf16 bits of the variant's B as the kernel reads it: each
-    matrix in K-major core matrices (leading byte offset 128, stride 256;
-    ``ops/banded.core_matrix_order``), V1's ``Ag16`` then ``Bg16``."""
-    return np.concatenate([core_matrix_order(bf16_bits(x.T))
-                           for x in b_matrices(space, crange, variant)])
 
 
 @functools.lru_cache(maxsize=16)

@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from ..ops.banded import (SMEM_LIMIT, SM_SMEM, BLOCK_RESERVED_SMEM,
-                          core_matrix_order, fragment_order, static2_tables,
-                          static2_w_tables)
+                          bf16_bits, core_matrix_order, fragment_order,
+                          static2_tables, static2_w_tables)
 from ..ops.resize import LANCZOS_AA
 
 #: the launcher's variant numbers
@@ -121,12 +121,6 @@ def convert_stage(window: np.ndarray) -> np.ndarray:
     buf[off] = (bits & 0xFF).astype(np.uint8)
     buf[off + 1] = (bits >> 8).astype(np.uint8)
     return buf
-
-
-def bf16_bits(x: np.ndarray) -> np.ndarray:
-    """uint16 bf16 bits of float32 values exact in bf16."""
-    return (np.asarray(x, np.float32).view(np.uint32) >> 16).astype(
-        np.uint16)
 
 
 def bf16_values(bits: np.ndarray) -> np.ndarray:

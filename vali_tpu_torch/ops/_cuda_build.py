@@ -42,7 +42,8 @@ _LAB_SOURCES = ("csrc/nv12_variants.cu", "csrc/nv12_grouped.cu",
 _HEADERS = ("csrc/banded_common.cuh", "csrc/banded_preprocess.cuh",
             "csrc/wgmma_common.cuh", "csrc/aligned_passes.cuh",
             "csrc/aligned_block.cuh",
-            "csrc/tma_common.cuh", "csrc/static2_passes.cuh")
+            "csrc/tma_common.cuh", "csrc/static2_passes.cuh",
+            "csrc/convert_staged.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vali_tpu_torch_kernels")
 LAB_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -73,7 +74,12 @@ _SIGNATURES = {
     "nv12_resize_launch": [
         _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
         _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "nv12_to_rgb_launch": [_P, _LL, _LL, _I, _I, _I, _FP, _P, _P],
+    "nv12_to_rgb_launch": [_P, _LL, _LL, _I, _I, _I, _I, _FP, _I, _P, _P,
+                           _P],
+}
+# the product library's queries (int functions that launch nothing)
+_QUERIES = {
+    "nv12_to_rgb_tma_route": [_P, _LL, _LL, _I, _P],
 }
 _LAB_SIGNATURES = {
     "nv12_stream_floor_launch": [
@@ -202,7 +208,7 @@ def _load(which: str, sources: Sequence[str],
 
 def load_kernels() -> ctypes.CDLL:
     """The product kernels' shared library, built on first use."""
-    return _load("product", _SOURCES, _SIGNATURES)
+    return _load("product", _SOURCES, {**_SIGNATURES, **_QUERIES})
 
 
 def load_lab_kernels() -> ctypes.CDLL:

@@ -404,6 +404,12 @@ def grouped_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
     return GroupedTables(weights, starts, ly, lc)
 
 
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bits of float32 values exact in bf16."""
+    return (np.asarray(x, np.float32).view(np.uint32) >> 16).astype(
+        np.uint16)
+
+
 def core_matrix_order(m: np.ndarray) -> np.ndarray:
     """[..., N, K] (N a multiple of 8, K of 16) in wgmma's K-major core
     matrices without swizzle, as G's kernel reads its B: per k-step of 16,
