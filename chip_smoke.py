@@ -122,6 +122,30 @@ def log(*parts):
     print(*parts, flush=True)
 
 
+def launch_counts(*wrappers):
+    """{wrapper's name: kernel launches it made so far}, from the
+    program's ``launches.<wrapper>`` counters (``utils/tracing``)."""
+    from vali_tpu_torch.utils.tracing import counters
+
+    now = counters()
+    return {w.__name__: now.get("launches." + w.__name__, 0)
+            for w in wrappers}
+
+
+def launches_of(wrapper):
+    """A wrapper's kernel launches so far: a lab wrapper's ``launches``
+    attribute, a product wrapper's counter (:func:`launch_counts`)."""
+    if hasattr(wrapper, "launches"):
+        return wrapper.launches
+    return launch_counts(wrapper)[wrapper.__name__]
+
+
+def launched_since(before, *wrappers):
+    """{wrapper's name: its launches since ``before`` (a
+    :func:`launch_counts`)}."""
+    return {k: n - before[k] for k, n in launch_counts(*wrappers).items()}
+
+
 def make_frames(np, rng, fmt, b, w, h):
     """[b, host_frame_bytes] uint8 host frames of ``fmt``, laid out like
     decoded frames: even rows of the batch random samples, odd rows smooth
@@ -322,10 +346,10 @@ def main() -> int:
     for name, fmt, kw in cases:
         kern, plain = run_pair(fmt, **kw)
         wrapper = preprocess_kernels()[fmt][0]
-        before = wrapper.launches
+        before = launch_counts(wrapper)
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        if wrapper.launches != before + 1:
+        if launched_since(before, wrapper)[wrapper.__name__] != 1:
             raise AssertionError(f"{name}: the kernel was not launched")
         err[name] = compare(torch, name, out, ref)
 
@@ -382,15 +406,14 @@ def main() -> int:
         for name, fmt, kw, dw, dh in runs}
     wrappers = (nv12_preprocess, yuv420_preprocess, yuv422_preprocess,
                 yuv444_preprocess)
-    # each pipeline run read on its own: every count set to 0 just before
-    # and read just after, so that each launch shape has its own count
+    # each pipeline run read on its own: every count read just before and
+    # just after, so that each launch shape has its own count
     main, per_run = {}, {}
     for name, pipe in pipes.items():
-        for w in wrappers:
-            w.launches = 0
+        before = launch_counts(*wrappers)
         main[name] = list(pipe)
         torch.cuda.synchronize()
-        per_run[name] = {w.__name__: w.launches for w in wrappers}
+        per_run[name] = launched_since(before, *wrappers)
     launches = {w.__name__: sum(r[w.__name__] for r in per_run.values())
                 for w in wrappers}
     log(f"main_path_launches={json.dumps(launches)} "
@@ -640,7 +663,7 @@ def inference_phase(torch, np, dev, host, planes, smi):
     pipe = MultiStreamPipeline(sources, DW, DH, gpu_id=0, batch_size=B,
                                sync_streams=True, **kw)
     with torch.inference_mode():
-        yuv420_preprocess.launches = 0
+        before = launch_counts(yuv420_preprocess)
         n = 0
         for batch, ids in pipe:
             classes = fcn.predict_classes(model, batch)
@@ -651,7 +674,8 @@ def inference_phase(torch, np, dev, host, planes, smi):
             n += 1
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = yuv420_preprocess.launches
+        launches = launched_since(before, yuv420_preprocess)[
+            "yuv420_preprocess"]
         log("inference_path_launches=" + json.dumps(
             {"yuv420_preprocess": launches}))
         if n != INFER_BATCHES or launches < 1:
@@ -1016,10 +1040,10 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
     err, outs = {}, {}
     for name, (kern, plain) in cases.items():
         wrapper = wrappers[name.split()[0]]
-        before = wrapper.launches
+        before = launch_counts(wrapper)
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        if wrapper.launches != before + 1:
+        if launched_since(before, wrapper)[wrapper.__name__] != 1:
             raise AssertionError(f"{name}: the kernel was not launched")
         e = compare(torch, name, out, ref)
         if name.startswith("nv12_to_rgb") and not torch.equal(out, ref):
@@ -1137,13 +1161,12 @@ def surface_phases(torch, np, dev, nv12_host, smi, fused_ms):
             raise AssertionError(f"surface path B failed on frame {i}")
 
     def counted(run):
-        """{wrapper: launches} of ``run()``: every count set to 0 just
-        before and read just after."""
-        for w in wrappers.values():
-            w.launches = 0
+        """{wrapper: launches} of ``run()``: every count read just before
+        and just after."""
+        before = launch_counts(*wrappers.values())
         run()
         torch.cuda.synchronize()
-        return {name: w.launches for name, w in wrappers.items()}
+        return launched_since(before, *wrappers.values())
 
     def path_a():
         for i in range(B):
@@ -1842,9 +1865,9 @@ def resize_lab_phase(torch, np, dev, smi):
         # the name's own wrapper: both's reference launches aligned_resize
         wrapper = (cases[name] if name in cases else
                    rd.case(name, B4K, **geo)).wrapper
-        before = wrapper.launches
+        before = launches_of(wrapper)
         (row,) = rd.run([name], frames, **geo, log=log)
-        row["launches"] = wrapper.launches - before
+        row["launches"] = launches_of(wrapper) - before
         results[name] = row
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in rd.WRAPPERS}
@@ -2173,16 +2196,15 @@ def transcode_device_phase(torch, np, dev, smi):
     wrappers = [k for k, _ in preprocess_kernels().values()] + [
         nv12_to_rgb.nv12_to_rgb, packed_resize.packed_resize,
         nv12_resize.nv12_resize, plane_resize]
-    for wr in wrappers:
-        wr.launches = 0
+    before = launch_counts(*wrappers)
     steps = {}
     t0 = time.perf_counter()
     card = transcode_loop(torch, np, frames, dev, steps=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {wr.__name__: wr.launches for wr in wrappers}
-    log(f"transcode_device main_path_launches={json.dumps(launches)}")
-    if launches.pop("plane_resize") != 2 * n or any(launches.values()):
+    made = launched_since(before, *wrappers)
+    log(f"transcode_device main_path_launches={json.dumps(made)}")
+    if made.pop("plane_resize") != 2 * n or any(made.values()):
         raise AssertionError("transcode's device half did not launch "
                              "plane_resize twice a frame (and nothing else)")
     per_step = {k: v / n * 1e3 for k, v in steps.items()}
@@ -2417,13 +2439,12 @@ def mesh_phase(torch, np, dev, host, planes, smi):
     out = {w.__name__: ([], 0) for w in wrappers}
 
     def counted(run):
-        """run() with every count set to 0 just before and read just
-        after; the launches join each kernel's mesh-path total."""
-        for w in wrappers:
-            w.launches = 0
+        """run() with every count read just before and just after; the
+        launches join each kernel's mesh-path total."""
+        before = launch_counts(*wrappers)
         result = run()
         torch.cuda.synchronize()
-        got = {w.__name__: w.launches for w in wrappers}
+        got = launched_since(before, *wrappers)
         for name, n in got.items():
             out[name] = (out[name][0], out[name][1] + n)
         return result, got
@@ -2698,13 +2719,12 @@ def samples_phase(torch, np, dev, frames, planes, no_engine, smi):
     out = {w.__name__: ([], 0) for w in wrappers}
 
     def counted(name, run):
-        """run() with every count set to 0 just before and read just
-        after; the launches join each kernel's samples total."""
-        for w in wrappers:
-            w.launches = 0
+        """run() with every count read just before and just after; the
+        launches join each kernel's samples total."""
+        before = launch_counts(*wrappers)
         result = run()
         torch.cuda.synchronize()
-        got = {w.__name__: w.launches for w in wrappers}
+        got = launched_since(before, *wrappers)
         for k, n in got.items():
             out[k] = (out[k][0], out[k][1] + n)
         log(f"sample {name}: launches={json.dumps(got)}")
@@ -2918,18 +2938,15 @@ def bench_phase(torch, np, dev, no_engine, smi, kernel_ms, two_stage_ms):
 
     wrappers = (nv12_preprocess, yuv420_preprocess, nv12_to_rgb,
                 packed_resize, nv12_resize)
-    sections, current = {}, [None]
+    sections, current = {}, [None, None]
 
     def read_counts():
         if current[0] is not None:
-            sections[current[0]] = {w.__name__: w.launches
-                                    for w in wrappers}
+            sections[current[0]] = launched_since(current[1], *wrappers)
 
     def progress(section):
         read_counts()
-        for w in wrappers:
-            w.launches = 0
-        current[0] = section
+        current[:] = section, launch_counts(*wrappers)
 
     t0 = time.perf_counter()
     result = bench.run(dev, budget_s=BENCH_BUDGET_S, progress=progress)

@@ -41,6 +41,7 @@ from vali_tpu_torch.ops.yuv444_preprocess import (yuv444_preprocess,
                                                   yuv444_preprocess_plain)
 from vali_tpu_torch.pipeline.multistream import BatchStager, \
     preprocess_batch
+from vali_tpu_torch.utils import tracing
 
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
@@ -52,6 +53,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def launches(wrapper):
+    """Kernel launches ``wrapper`` made so far (``launches.<wrapper>``)."""
+    return tracing.counters().get("launches." + wrapper.__name__, 0)
 
 
 def _frames(rng, fmt, b, w, h):
@@ -171,10 +177,10 @@ def test_preprocess_geometry_that_does_not_fit_raises_before_launch(dev):
     """Rings of tens of thousands of rows do not fit a block: the wrapper
     raises before any launch."""
     x = torch.zeros((1, 150000, 64), dtype=torch.uint8, device=dev)
-    before = nv12_preprocess.launches
+    before = launches(nv12_preprocess)
     with pytest.raises(ValueError, match="shared memory"):
         nv12_preprocess(x, src_w=64, src_h=100000, dst_w=32, dst_h=8)
-    assert nv12_preprocess.launches == before
+    assert launches(nv12_preprocess) == before
 
 
 def test_launch_counters(dev):
@@ -186,15 +192,15 @@ def test_launch_counters(dev):
     i4 = _planes(torch.from_numpy(
         _frames(rng, PixelFormat.YUV420, 2, w, h)).to(dev),
         PixelFormat.YUV420, w, h)
-    n0, y0 = nv12_preprocess.launches, yuv420_preprocess.launches
+    n0, y0 = launches(nv12_preprocess), launches(yuv420_preprocess)
     preprocess_batch(nv, PixelFormat.NV12, w, h, 32, 32)
     preprocess_batch(i4, PixelFormat.YUV420, w, h, 32, 32, letterbox=True)
     preprocess_batch(i4, PixelFormat.YUV420, w, h, 32, 32, use_kernel=False)
-    assert nv12_preprocess.launches == n0 + 1
-    assert yuv420_preprocess.launches == y0 + 1
+    assert launches(nv12_preprocess) == n0 + 1
+    assert launches(yuv420_preprocess) == y0 + 1
     # the plain version on CPU tensors is not a launch
     nv12_preprocess(nv[0].cpu(), src_w=w, src_h=h, dst_w=16, dst_h=16)
-    assert nv12_preprocess.launches == n0 + 1
+    assert launches(nv12_preprocess) == n0 + 1
 
 
 def test_planar_kernels_launch_counters(dev):
@@ -206,19 +212,19 @@ def test_planar_kernels_launch_counters(dev):
         fn = PLANAR[fmt][0]
         planes = _planes(torch.from_numpy(_frames(rng, fmt, 2, w, h)).to(
             dev), fmt, w, h)
-        n0 = fn.launches
+        n0 = launches(fn)
         out = preprocess_batch(planes, fmt, w, h, 32, 32, planar=True)
-        assert fn.launches == n0 + 1
+        assert launches(fn) == n0 + 1
         assert torch.equal(out, fn(*planes, src_w=w, src_h=h, dst_w=32,
                                    dst_h=32))
         preprocess_batch(planes, fmt, w, h, 32, 32, use_kernel=False)
         fn(*(p.cpu() for p in planes), src_w=w, src_h=h, dst_w=16,
            dst_h=16)
-        assert fn.launches == n0 + 2
+        assert launches(fn) == n0 + 2
         with pytest.raises(ValueError):  # rows not contiguous
             fn(planes[0].transpose(1, 2), *planes[1:], src_w=h, src_h=w,
                dst_w=16, dst_h=16)
-        assert fn.launches == n0 + 2
+        assert launches(fn) == n0 + 2
 
 
 def test_staging_reuses_pinned_buffers_only_after_the_copy(dev):
@@ -437,10 +443,10 @@ def test_resize_geometry_that_does_not_fit_raises_before_launch(dev):
     """A ring of tens of thousands of rows does not fit a block: the
     wrapper raises before any launch."""
     x = torch.zeros((1, 100000, 64), dtype=torch.uint8, device=dev)
-    before = plane_resize.launches
+    before = launches(plane_resize)
     with pytest.raises(ValueError, match="shared memory"):
         plane_resize(x, src_h=100000, dst_h=8, dst_w=32)
-    assert plane_resize.launches == before
+    assert launches(plane_resize) == before
 
 
 def test_nv12_to_rgb_padded_strided_views(dev):
@@ -458,15 +464,15 @@ def test_nv12_to_rgb_padded_strided_views(dev):
 
 def test_surface_kernels_count_launches_and_reject_bad_input(dev):
     x = _rand(dev, (1, 48, 64), torch.uint8, 1)
-    counters = (nv12_to_rgb, plane_resize, packed_resize, nv12_resize)
-    before = [f.launches for f in counters]
+    counted = (nv12_to_rgb, plane_resize, packed_resize, nv12_resize)
+    before = [launches(f) for f in counted]
     nv12_to_rgb(x, src_w=64, src_h=32)
     plane_resize(x, src_h=48, dst_h=16, dst_w=16)
     packed_resize(x[:, :, :63], src_w=21, src_h=48, dst_w=8, dst_h=8)
     nv12_resize(x, src_w=64, src_h=32, dst_w=16, dst_h=16)
-    assert [f.launches for f in counters] == [n + 1 for n in before]
+    assert [launches(f) for f in counted] == [n + 1 for n in before]
     plane_resize(x.cpu(), src_h=48, dst_h=16, dst_w=16)  # not a launch
-    assert plane_resize.launches == before[1] + 1
+    assert launches(plane_resize) == before[1] + 1
     with pytest.raises(ValueError):  # rows not contiguous
         plane_resize(x.transpose(1, 2), src_h=64, dst_h=16, dst_w=16)
     with pytest.raises(ValueError):
@@ -479,7 +485,8 @@ def test_surface_kernels_count_launches_and_reject_bad_input(dev):
     with pytest.raises(ValueError, match="float32"):
         plane_resize(x.float(), src_h=48, dst_h=16, dst_w=16,
                      compute_dtype=torch.bfloat16)
-    assert [f.launches for f in counters][1:] == [n + 1 for n in before][1:]
+    assert [launches(f) for f in counted][1:] == [
+        n + 1 for n in before][1:]
 
 
 def test_run_async_event_then_read_on_another_stream(dev):
@@ -1983,9 +1990,9 @@ def test_transcode_device_half_matches_the_cpu(dev, async_):
     w, h, dw, dh = 256, 144, 128, 72
     frames = _host_frames(np.random.default_rng(10), PixelFormat.YUV420, 6,
                           w, h)
-    before = plane_resize.launches
+    before = launches(plane_resize)
     card = _transcode_device_half(frames, dev, w, h, dw, dh, async_)
-    assert plane_resize.launches - before == 2 * len(frames)
+    assert launches(plane_resize) - before == 2 * len(frames)
     cpu = _transcode_device_half(frames, torch.device("cpu"), w, h, dw, dh,
                                  async_)
     for a, b in zip(card, cpu):
@@ -2077,10 +2084,10 @@ def test_sharded_kernel_preprocess_equals_one_launch(dev):
     nv12 = torch.from_numpy(frames).to(dev).view(16, 216, 256)
     single = nv12_preprocess(nv12, src_w=256, src_h=144, dst_w=96, dst_h=64)
     fn = sharded_kernel_preprocess(_quad(dev), 256, 144, 96, 64)
-    n0 = nv12_preprocess.launches
+    n0 = launches(nv12_preprocess)
     out = fn(nv12)
     torch.cuda.synchronize()
-    assert nv12_preprocess.launches == n0 + 4
+    assert launches(nv12_preprocess) == n0 + 4
     assert torch.equal(out.gather(dev), single)
     assert [tuple(s.data.shape) for s in out.shards] == [(4, 3, 64, 96)] * 4
 

@@ -282,11 +282,14 @@ def test_allocation_registry_and_tracing_scope():
         assert len(registry.live_allocations()) == before
     finally:
         registry.enable(False)
-    for on in (True, False):
-        tracing.enable(on)
-        with tracing.op_scope("ConvertSurface"):
-            pass
-    tracing.enable(True)
+    was = tracing.enable(True)
+    try:
+        for on in (True, False):
+            tracing.enable(on)
+            with tracing.span("ConvertSurface"):
+                pass
+    finally:
+        tracing.enable(was)
 
 
 def test_lazy_public_names():

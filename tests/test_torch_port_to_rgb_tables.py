@@ -30,6 +30,7 @@ from vali_tpu_torch.ops.nv12_to_rgb import (b_image, coefficients,
                                             device_table, nv12_to_rgb,
                                             nv12_to_rgb_plain, staged_route,
                                             table)
+from vali_tpu_torch.utils.tracing import counters
 
 SPACES = [(ColorSpace.BT_709, ColorRange.MPEG),
           (ColorSpace.BT_709, ColorRange.JPEG),
@@ -328,10 +329,10 @@ def test_cpu_route_is_the_plain_version_and_counts_no_launch():
     b, w, h = 2, 40, 32
     x = torch.from_numpy(np.random.default_rng(3).integers(
         0, 256, (b, h * 3 // 2, w), dtype=np.uint8))
-    before = nv12_to_rgb.launches
+    before = counters().get("launches.nv12_to_rgb", 0)
     for kw in ({}, {"compute_dtype": torch.float32, "swap": True}):
         assert torch.equal(nv12_to_rgb(x, src_w=w, src_h=h, **kw),
                            nv12_to_rgb_plain(x, src_w=w, src_h=h, **kw))
-    assert nv12_to_rgb.launches == before
+    assert counters().get("launches.nv12_to_rgb", 0) == before
     with pytest.raises(ValueError, match="CUDA or CPU"):
         nv12_to_rgb(x.to("meta"), src_w=w, src_h=h)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
+from ..utils.tracing import count, span, traced_build
 from . import colors
 from .fused import _chroma_weights, exact_f32_matmul, to_f32
 from .resize import resize_weights, round_to
@@ -137,6 +138,7 @@ class DeviceTables(NamedTuple):
 
 
 @functools.lru_cache(maxsize=32)
+@traced_build
 def device_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
                   method: str, layout: str, compute_dtype: torch.dtype,
                   device: torch.device) -> DeviceTables:
@@ -700,34 +702,41 @@ def planar_u8_checked(fmt: str, y, u, v, *, src_w: int, src_h: int,
             tail_params(space, crange, 1.0, out_dtype, normalize))
 
 
-def launch_planar_u8(launcher: str, y, u, v, *, src_w: int, src_h: int,
+def launch_planar_u8(wrapper: str, y, u, v, *, src_w: int, src_h: int,
                      dst_w: int, dst_h: int, method: str, layout: str,
                      compute_dtype: torch.dtype, tail: np.ndarray,
                      out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch ``launcher`` (``yuv422_preprocess_launch`` or
-    ``yuv444_preprocess_launch``) on checked CUDA planes; rows must be
+    """Launch ``<wrapper>_launch`` (``yuv422_preprocess`` or
+    ``yuv444_preprocess``) on checked CUDA planes; rows must be
     contiguous, rows past H and a batch stride larger than the plane are
     accepted; the block geometry is the packer's for this batch
-    (:func:`stream_preprocess_tables`). Returns [B, 3, dst_h, dst_w]."""
-    from ._cuda_build import check, load_kernels
-
-    if y.stride(2) != 1 or u.stride(2) != 1 or v.stride(2) != 1:
-        raise ValueError("plane rows must be contiguous (stride 1)")
-    lib = load_kernels()
+    (:func:`stream_preprocess_tables`). Returns [B, 3, dst_h, dst_w] and
+    counts ``launches.<wrapper>``."""
+    with span(wrapper + ".checks"):
+        if y.stride(2) != 1 or u.stride(2) != 1 or v.stride(2) != 1:
+            raise ValueError("plane rows must be contiguous (stride 1)")
     B = y.shape[0]
-    tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h, method,
-                                    layout, compute_dtype, y.dtype, B,
-                                    sm_count(y.device), y.device)
-    out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        rc = getattr(lib, launcher)(
-            y.data_ptr(), u.data_ptr(), v.data_ptr(), y.stride(0),
-            y.stride(1), u.stride(0), u.stride(1), v.stride(0), v.stride(1),
-            B, src_h, src_w, dst_h, dst_w, *tabs.args(),
-            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            int(compute_dtype == torch.float32), out.data_ptr(),
-            OUT_KINDS[out_dtype], torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, launcher)
+    with span(wrapper + ".tables"):
+        tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h, method,
+                                        layout, compute_dtype, y.dtype, B,
+                                        sm_count(y.device), y.device)
+    with span(wrapper + ".alloc"):
+        out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype,
+                          device=y.device)
+    with span(wrapper + ".launch"):
+        from ._cuda_build import check, load_kernels
+
+        lib = load_kernels()
+        with torch.cuda.device(y.device):
+            rc = getattr(lib, wrapper + "_launch")(
+                y.data_ptr(), u.data_ptr(), v.data_ptr(), y.stride(0),
+                y.stride(1), u.stride(0), u.stride(1), v.stride(0),
+                v.stride(1), B, src_h, src_w, dst_h, dst_w, *tabs.args(),
+                tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                int(compute_dtype == torch.float32), out.data_ptr(),
+                OUT_KINDS[out_dtype], torch.cuda.current_stream().cuda_stream)
+        check(lib, rc, wrapper)
+        count("launches." + wrapper)
     return out
 
 
@@ -1077,6 +1086,7 @@ def stream_tables(bands: StreamBands, geometry) -> StreamTables:
 
 
 @functools.lru_cache(maxsize=256)
+@traced_build
 def stream_resize_tables(src_h: int, dst_h: int, src_w: int, dst_w: int,
                          method: str, compute_dtype: torch.dtype,
                          channels: int, sample_dtype: torch.dtype,
@@ -1254,6 +1264,7 @@ def preprocess_candidates(bands, layout: str, sample_bytes: int,
 
 
 @functools.lru_cache(maxsize=256)
+@traced_build
 def stream_preprocess_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
                              method: str, layout: str,
                              compute_dtype: torch.dtype,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
+from ..utils.tracing import span
 from . import colors
 
 _J = ColorRange.JPEG
@@ -359,27 +360,28 @@ def convert_batch(
     Raises KeyError for unsupported pairs and
     UnsupportedConversionParams for unsupported (space, range) combos.
     """
-    from ..utils.device import kernel_platform_available
+    with span("convert_batch"):
+        from ..utils.device import kernel_platform_available
 
-    src_fmt, dst_fmt = PixelFormat(src_fmt), PixelFormat(dst_fmt)
-    conv = _REGISTRY.get((src_fmt, dst_fmt))
-    if conv is None:
-        raise KeyError(
-            f"Conversion {src_fmt.name} -> "
-            f"{dst_fmt.name} is not supported")
-    space, crange = colors.resolve_cc(cc, *conv.default)
-    if conv.combos is not None and (space, crange) not in conv.combos:
-        raise UnsupportedConversionParams(
-            f"{src_fmt.name}->{dst_fmt.name} does "
-            f"not support {space.name}+{crange.name}")
-    if use_kernel is None:
-        use_kernel = kernel_platform_available(planes[0].device)
-    if (use_kernel and src_fmt == PixelFormat.NV12
-            and dst_fmt in (PixelFormat.RGB, PixelFormat.BGR)
-            and planes[0].dtype == torch.uint8):
-        from .nv12_to_rgb import nv12_to_rgb
+        src_fmt, dst_fmt = PixelFormat(src_fmt), PixelFormat(dst_fmt)
+        conv = _REGISTRY.get((src_fmt, dst_fmt))
+        if conv is None:
+            raise KeyError(
+                f"Conversion {src_fmt.name} -> "
+                f"{dst_fmt.name} is not supported")
+        space, crange = colors.resolve_cc(cc, *conv.default)
+        if conv.combos is not None and (space, crange) not in conv.combos:
+            raise UnsupportedConversionParams(
+                f"{src_fmt.name}->{dst_fmt.name} does "
+                f"not support {space.name}+{crange.name}")
+        if use_kernel is None:
+            use_kernel = kernel_platform_available(planes[0].device)
+        if (use_kernel and src_fmt == PixelFormat.NV12
+                and dst_fmt in (PixelFormat.RGB, PixelFormat.BGR)
+                and planes[0].dtype == torch.uint8):
+            from .nv12_to_rgb import nv12_to_rgb
 
-        return (nv12_to_rgb(planes[0], src_w=width, src_h=height,
-                            space=space, crange=crange,
-                            swap=dst_fmt == PixelFormat.BGR),)
-    return tuple(conv.impl(tuple(planes), width, height, space, crange))
+            return (nv12_to_rgb(planes[0], src_w=width, src_h=height,
+                                space=space, crange=crange,
+                                swap=dst_fmt == PixelFormat.BGR),)
+        return tuple(conv.impl(tuple(planes), width, height, space, crange))

@@ -13,6 +13,7 @@ import ctypes
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
+from ..utils.tracing import count, span
 from .banded import (OUT_KINDS, banded_plain, resolve_compute_dtype,
                      sm_count, stream_preprocess_tables, tail_params)
 from .csc import nv12_split
@@ -81,30 +82,34 @@ def nv12_preprocess(
     if nv12.device.type != "cuda":
         raise ValueError(f"nv12_preprocess runs on CUDA or CPU tensors, got "
                          f"{nv12.device}")
-    cdt, tail = _checked(nv12, src_w, src_h, space, crange, out_dtype,
-                         normalize, compute_dtype)
-    if nv12.stride(2) != 1:
-        raise ValueError("NV12 rows must be contiguous (stride 1)")
-    from ._cuda_build import check, load_kernels
+    with span("nv12_preprocess"):
+        with span("nv12_preprocess.checks"):
+            cdt, tail = _checked(nv12, src_w, src_h, space, crange,
+                                 out_dtype, normalize, compute_dtype)
+            if nv12.stride(2) != 1:
+                raise ValueError("NV12 rows must be contiguous (stride 1)")
+        B = nv12.shape[0]
+        with span("nv12_preprocess.tables"):
+            tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h,
+                                            method, "nv12", cdt, nv12.dtype,
+                                            B, sm_count(nv12.device),
+                                            nv12.device)
+        with span("nv12_preprocess.alloc"):
+            out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype,
+                              device=nv12.device)
+        with span("nv12_preprocess.launch"):
+            from ._cuda_build import check, load_kernels
 
-    lib = load_kernels()
-    B = nv12.shape[0]
-    tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h, method,
-                                    "nv12", cdt, nv12.dtype, B,
-                                    sm_count(nv12.device), nv12.device)
-    out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype,
-                      device=nv12.device)
-    with torch.cuda.device(nv12.device):
-        rc = lib.nv12_preprocess_launch(
-            nv12.data_ptr(), nv12.element_size(), nv12.stride(0),
-            nv12.stride(1), B, src_h, src_w, dst_h, dst_w,
-            *tabs.args(), tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            int(cdt == torch.float32), out.data_ptr(), OUT_KINDS[out_dtype],
-            torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, "nv12_preprocess")
-    nv12_preprocess.launches += 1
-    return out
-
-
-#: kernel launches made by the wrapper (CPU calls are not counted)
-nv12_preprocess.launches = 0
+            lib = load_kernels()
+            with torch.cuda.device(nv12.device):
+                rc = lib.nv12_preprocess_launch(
+                    nv12.data_ptr(), nv12.element_size(), nv12.stride(0),
+                    nv12.stride(1), B, src_h, src_w, dst_h, dst_w,
+                    *tabs.args(),
+                    tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                    int(cdt == torch.float32), out.data_ptr(),
+                    OUT_KINDS[out_dtype],
+                    torch.cuda.current_stream().cuda_stream)
+            check(lib, rc, "nv12_preprocess")
+            count("launches.nv12_preprocess")
+        return out

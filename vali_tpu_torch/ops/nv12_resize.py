@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import count, span
 from .banded import (IN_KINDS, resize_compute_dtype, sm_count,
                      stream_resize_tables)
 from .resize import LANCZOS_AA, resize_plane
@@ -67,38 +68,40 @@ def nv12_resize(
     knob; uint16 always computes in float32. Rows past H*3/2 and a batch
     stride larger than the plane are accepted; rows must be
     contiguous."""
-    if nv12.device.type == "cpu":
-        return nv12_resize_plain(nv12, src_w=src_w, src_h=src_h,
-                                 dst_w=dst_w, dst_h=dst_h, method=method,
-                                 compute_dtype=compute_dtype)
-    if nv12.device.type != "cuda":
-        raise ValueError(
-            f"nv12_resize runs on CUDA or CPU tensors, got {nv12.device}")
-    cdt = _checked(nv12, src_w, src_h, dst_w, dst_h, compute_dtype)
-    if nv12.stride(2) != 1:
-        raise ValueError("NV12 rows must be contiguous (stride 1)")
-    from ._cuda_build import check, load_kernels
+    with span("nv12_resize"):
+        if nv12.device.type == "cpu":
+            return nv12_resize_plain(nv12, src_w=src_w, src_h=src_h,
+                                     dst_w=dst_w, dst_h=dst_h, method=method,
+                                     compute_dtype=compute_dtype)
+        if nv12.device.type != "cuda":
+            raise ValueError(f"nv12_resize runs on CUDA or CPU tensors, got "
+                             f"{nv12.device}")
+        with span("nv12_resize.checks"):
+            cdt = _checked(nv12, src_w, src_h, dst_w, dst_h, compute_dtype)
+            if nv12.stride(2) != 1:
+                raise ValueError("NV12 rows must be contiguous (stride 1)")
+        B = nv12.shape[0]
+        with span("nv12_resize.tables"):
+            sms = sm_count(nv12.device)
+            luma = stream_resize_tables(src_h, dst_h, src_w, dst_w, method,
+                                        cdt, 1, nv12.dtype, B, sms,
+                                        nv12.device)
+            chroma = stream_resize_tables(src_h // 2, dst_h // 2, src_w // 2,
+                                          dst_w // 2, method, cdt, 2,
+                                          nv12.dtype, B, sms, nv12.device)
+        with span("nv12_resize.alloc"):
+            out = torch.empty((B, dst_h * 3 // 2, dst_w), dtype=nv12.dtype,
+                              device=nv12.device)
+        with span("nv12_resize.launch"):
+            from ._cuda_build import check, load_kernels
 
-    lib = load_kernels()
-    B = nv12.shape[0]
-    sms = sm_count(nv12.device)
-    luma = stream_resize_tables(src_h, dst_h, src_w, dst_w, method, cdt, 1,
-                                nv12.dtype, B, sms, nv12.device)
-    chroma = stream_resize_tables(src_h // 2, dst_h // 2, src_w // 2,
-                                  dst_w // 2, method, cdt, 2, nv12.dtype, B,
-                                  sms, nv12.device)
-    out = torch.empty((B, dst_h * 3 // 2, dst_w), dtype=nv12.dtype,
-                      device=nv12.device)
-    with torch.cuda.device(nv12.device):
-        rc = lib.nv12_resize_launch(
-            nv12.data_ptr(), IN_KINDS[nv12.dtype], nv12.stride(0),
-            nv12.stride(1), B, src_h, src_w, dst_h, dst_w,
-            *luma.args(), *chroma.args(), int(cdt == torch.float32),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, "nv12_resize")
-    nv12_resize.launches += 1
-    return out
-
-
-#: kernel launches made by the wrapper (CPU calls are not counted)
-nv12_resize.launches = 0
+            lib = load_kernels()
+            with torch.cuda.device(nv12.device):
+                rc = lib.nv12_resize_launch(
+                    nv12.data_ptr(), IN_KINDS[nv12.dtype], nv12.stride(0),
+                    nv12.stride(1), B, src_h, src_w, dst_h, dst_w,
+                    *luma.args(), *chroma.args(), int(cdt == torch.float32),
+                    out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            check(lib, rc, "nv12_resize")
+            count("launches.nv12_resize")
+        return out

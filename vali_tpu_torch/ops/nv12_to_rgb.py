@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
+from ..utils.tracing import count, span, traced_build
 from . import colors
 from .banded import bf16_bits, core_matrix_order, resolve_compute_dtype
 from .csc import nv12_split, upsample2x_nearest
@@ -142,6 +143,7 @@ def table(space: ColorSpace, crange: ColorRange, swap: bool,
 
 
 @functools.lru_cache(maxsize=64)
+@traced_build
 def device_table(space: ColorSpace, crange: ColorRange, swap: bool,
                  compute_dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
@@ -224,21 +226,26 @@ def prepare_nv12_to_rgb(nv12: torch.Tensor, *, src_w: int, src_h: int,
     current when it was prepared, without the wrapper's host work (checks,
     tables, output, arguments) and without counting; :func:`nv12_to_rgb`
     launches through it once a call."""
-    cdt, _ = _checked(nv12, src_w, src_h, space, crange, swap,
-                      compute_dtype)
-    if nv12.stride(2) != 1:
-        raise ValueError("NV12 rows must be contiguous (stride 1)")
-    from ._cuda_build import check, load_kernels
-
-    lib = load_kernels()
+    with span("nv12_to_rgb.checks"):
+        cdt, _ = _checked(nv12, src_w, src_h, space, crange, swap,
+                          compute_dtype)
+        if nv12.stride(2) != 1:
+            raise ValueError("NV12 rows must be contiguous (stride 1)")
     B = nv12.shape[0]
-    tab = device_table(space, crange, swap, cdt, nv12.device)
-    out = torch.empty((B, src_h, 3 * src_w), dtype=torch.uint8,
-                      device=nv12.device)
-    args = (nv12.data_ptr(), nv12.stride(0), nv12.stride(1), nv12.shape[1],
-            B, src_h, src_w, _coef_pointer(space, crange, swap, cdt),
-            int(cdt == torch.float32), tab.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(nv12.device).cuda_stream)
+    with span("nv12_to_rgb.tables"):
+        tab = device_table(space, crange, swap, cdt, nv12.device)
+        coef = _coef_pointer(space, crange, swap, cdt)
+    with span("nv12_to_rgb.alloc"):
+        out = torch.empty((B, src_h, 3 * src_w), dtype=torch.uint8,
+                          device=nv12.device)
+    with span("nv12_to_rgb.launch"):
+        from ._cuda_build import check, load_kernels
+
+        lib = load_kernels()
+        args = (nv12.data_ptr(), nv12.stride(0), nv12.stride(1),
+                nv12.shape[1], B, src_h, src_w, coef,
+                int(cdt == torch.float32), tab.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(nv12.device).cuda_stream)
 
     def launch():
         with torch.cuda.device(nv12.device):
@@ -271,13 +278,11 @@ def nv12_to_rgb(
     if nv12.device.type != "cuda":
         raise ValueError(
             f"nv12_to_rgb runs on CUDA or CPU tensors, got {nv12.device}")
-    launch, out = prepare_nv12_to_rgb(
-        nv12, src_w=src_w, src_h=src_h, space=space, crange=crange,
-        swap=swap, compute_dtype=compute_dtype)
-    launch()
-    nv12_to_rgb.launches += 1
-    return out
-
-
-#: kernel launches made by the wrapper (CPU calls are not counted)
-nv12_to_rgb.launches = 0
+    with span("nv12_to_rgb"):
+        launch, out = prepare_nv12_to_rgb(
+            nv12, src_w=src_w, src_h=src_h, space=space, crange=crange,
+            swap=swap, compute_dtype=compute_dtype)
+        with span("nv12_to_rgb.launch"):
+            launch()
+            count("launches.nv12_to_rgb")
+        return out

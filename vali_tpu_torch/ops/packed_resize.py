@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import count, span
 from .banded import (IN_KINDS, resize_compute_dtype, sm_count,
                      stream_resize_tables)
 from .resize import LANCZOS_AA, resize_plane
@@ -66,28 +67,30 @@ def packed_resize(
     if plane.device.type != "cuda":
         raise ValueError(f"packed_resize runs on CUDA or CPU tensors, got "
                          f"{plane.device}")
-    cdt = _checked(plane, src_w, src_h, dst_w, dst_h, compute_dtype)
-    if plane.stride(2) != 1:
-        raise ValueError("packed rows must be contiguous (stride 1)")
-    from ._cuda_build import check, load_kernels
+    with span("packed_resize"):
+        with span("packed_resize.checks"):
+            cdt = _checked(plane, src_w, src_h, dst_w, dst_h, compute_dtype)
+            if plane.stride(2) != 1:
+                raise ValueError("packed rows must be contiguous (stride 1)")
+        B = plane.shape[0]
+        with span("packed_resize.tables"):
+            tabs = stream_resize_tables(src_h, dst_h, src_w, dst_w, method,
+                                        cdt, CHANNELS, plane.dtype, B,
+                                        sm_count(plane.device), plane.device)
+        with span("packed_resize.alloc"):
+            out = torch.empty((B, dst_h, dst_w * CHANNELS), dtype=plane.dtype,
+                              device=plane.device)
+        with span("packed_resize.launch"):
+            from ._cuda_build import check, load_kernels
 
-    lib = load_kernels()
-    B = plane.shape[0]
-    tabs = stream_resize_tables(src_h, dst_h, src_w, dst_w, method, cdt,
-                                CHANNELS, plane.dtype, B,
-                                sm_count(plane.device), plane.device)
-    out = torch.empty((B, dst_h, dst_w * CHANNELS), dtype=plane.dtype,
-                      device=plane.device)
-    with torch.cuda.device(plane.device):
-        rc = lib.packed_resize_launch(
-            plane.data_ptr(), IN_KINDS[plane.dtype], plane.stride(0),
-            plane.stride(1), B, src_h, src_w, dst_h, dst_w, *tabs.args(),
-            int(cdt == torch.float32), out.data_ptr(), out.stride(0),
-            out.stride(1), torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, "packed_resize")
-    packed_resize.launches += 1
-    return out
-
-
-#: kernel launches made by the wrapper (CPU calls are not counted)
-packed_resize.launches = 0
+            lib = load_kernels()
+            with torch.cuda.device(plane.device):
+                rc = lib.packed_resize_launch(
+                    plane.data_ptr(), IN_KINDS[plane.dtype], plane.stride(0),
+                    plane.stride(1), B, src_h, src_w, dst_h, dst_w,
+                    *tabs.args(), int(cdt == torch.float32), out.data_ptr(),
+                    out.stride(0), out.stride(1),
+                    torch.cuda.current_stream().cuda_stream)
+            check(lib, rc, "packed_resize")
+            count("launches.packed_resize")
+        return out

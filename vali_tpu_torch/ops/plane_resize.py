@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import count, span
 from .banded import (IN_KINDS, resize_compute_dtype, sm_count,
                      stream_resize_tables)
 from .resize import LANCZOS_AA, resize_plane
@@ -60,12 +61,14 @@ def plane_resize(
     if plane.device.type != "cuda":
         raise ValueError(f"plane_resize runs on CUDA or CPU tensors, got "
                          f"{plane.device}")
-    launch, out = prepare_plane_resize(plane, src_h=src_h, dst_h=dst_h,
-                                       dst_w=dst_w, method=method,
-                                       compute_dtype=compute_dtype)
-    launch()
-    plane_resize.launches += 1
-    return out
+    with span("plane_resize"):
+        launch, out = prepare_plane_resize(plane, src_h=src_h, dst_h=dst_h,
+                                           dst_w=dst_w, method=method,
+                                           compute_dtype=compute_dtype)
+        with span("plane_resize.launch"):
+            launch()
+            count("launches.plane_resize")
+        return out
 
 
 def prepare_plane_resize(plane: torch.Tensor, *, src_h: int, dst_h: int,
@@ -76,30 +79,30 @@ def prepare_plane_resize(plane: torch.Tensor, *, src_h: int, dst_h: int,
     was current when it was prepared, without the wrapper's host work
     (tables, output, arguments) and without counting; :func:`plane_resize`
     launches through it once a call."""
-    cdt = _checked(plane, src_h, dst_h, dst_w, compute_dtype)
-    if plane.stride(2) != 1:
-        raise ValueError("plane rows must be contiguous (stride 1)")
-    from ._cuda_build import check, load_kernels
-
-    lib = load_kernels()
+    with span("plane_resize.checks"):
+        cdt = _checked(plane, src_h, dst_h, dst_w, compute_dtype)
+        if plane.stride(2) != 1:
+            raise ValueError("plane rows must be contiguous (stride 1)")
     B, _, W = plane.shape
-    tabs = stream_resize_tables(src_h, dst_h, W, dst_w, method, cdt, 1,
-                                plane.dtype, B, sm_count(plane.device),
-                                plane.device)
-    out = torch.empty((B, dst_h, dst_w), dtype=plane.dtype,
-                      device=plane.device)
-    with torch.cuda.device(plane.device):
-        args = (plane.data_ptr(), IN_KINDS[plane.dtype], plane.stride(0),
-                plane.stride(1), B, src_h, W, dst_h, dst_w, *tabs.args(),
-                int(cdt == torch.float32), out.data_ptr(), out.stride(0),
-                out.stride(1), torch.cuda.current_stream().cuda_stream)
+    with span("plane_resize.tables"):
+        tabs = stream_resize_tables(src_h, dst_h, W, dst_w, method, cdt, 1,
+                                    plane.dtype, B, sm_count(plane.device),
+                                    plane.device)
+    with span("plane_resize.alloc"):
+        out = torch.empty((B, dst_h, dst_w), dtype=plane.dtype,
+                          device=plane.device)
+    with span("plane_resize.launch"):
+        from ._cuda_build import check, load_kernels
+
+        lib = load_kernels()
+        with torch.cuda.device(plane.device):
+            args = (plane.data_ptr(), IN_KINDS[plane.dtype], plane.stride(0),
+                    plane.stride(1), B, src_h, W, dst_h, dst_w, *tabs.args(),
+                    int(cdt == torch.float32), out.data_ptr(), out.stride(0),
+                    out.stride(1), torch.cuda.current_stream().cuda_stream)
 
     def launch():
         with torch.cuda.device(plane.device):
             rc = lib.plane_resize_launch(*args)
         check(lib, rc, "plane_resize")
     return launch, out
-
-
-#: kernel launches made by the wrapper (CPU calls are not counted)
-plane_resize.launches = 0

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
+from ..utils.tracing import count, span
 from .banded import (OUT_KINDS, banded_plain, resolve_compute_dtype,
                      sm_count, stream_preprocess_tables, tail_params)
 from .resize import LANCZOS_AA
@@ -94,30 +95,35 @@ def yuv420_preprocess(
     if y.device.type != "cuda":
         raise ValueError(f"yuv420_preprocess runs on CUDA or CPU tensors, "
                          f"got {y.device}")
-    cdt, tail = _checked(y, u, v, src_w, src_h, space, crange, out_dtype,
-                         normalize, bit_depth, compute_dtype)
-    if y.stride(2) != 1 or u.stride(2) != 1 or v.stride(2) != 1:
-        raise ValueError("YUV420 rows must be contiguous (stride 1)")
-    from ._cuda_build import check, load_kernels
+    with span("yuv420_preprocess"):
+        with span("yuv420_preprocess.checks"):
+            cdt, tail = _checked(y, u, v, src_w, src_h, space, crange,
+                                 out_dtype, normalize, bit_depth,
+                                 compute_dtype)
+            if y.stride(2) != 1 or u.stride(2) != 1 or v.stride(2) != 1:
+                raise ValueError("YUV420 rows must be contiguous (stride 1)")
+        B = y.shape[0]
+        with span("yuv420_preprocess.tables"):
+            tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h,
+                                            method, "420", cdt, y.dtype, B,
+                                            sm_count(y.device), y.device)
+        with span("yuv420_preprocess.alloc"):
+            out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype,
+                              device=y.device)
+        with span("yuv420_preprocess.launch"):
+            from ._cuda_build import check, load_kernels
 
-    lib = load_kernels()
-    B = y.shape[0]
-    tabs = stream_preprocess_tables(src_w, src_h, dst_w, dst_h, method,
-                                    "420", cdt, y.dtype, B,
-                                    sm_count(y.device), y.device)
-    out = torch.empty((B, 3, dst_h, dst_w), dtype=out_dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        rc = lib.yuv420_preprocess_launch(
-            y.data_ptr(), u.data_ptr(), v.data_ptr(), y.element_size(),
-            y.stride(0), y.stride(1), u.stride(0), u.stride(1), v.stride(0),
-            v.stride(1), B, src_h, src_w, dst_h, dst_w,
-            *tabs.args(), tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            int(cdt == torch.float32), out.data_ptr(), OUT_KINDS[out_dtype],
-            torch.cuda.current_stream().cuda_stream)
-    check(lib, rc, "yuv420_preprocess")
-    yuv420_preprocess.launches += 1
-    return out
-
-
-#: kernel launches made by the wrapper (CPU calls are not counted)
-yuv420_preprocess.launches = 0
+            lib = load_kernels()
+            with torch.cuda.device(y.device):
+                rc = lib.yuv420_preprocess_launch(
+                    y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                    y.element_size(), y.stride(0), y.stride(1), u.stride(0),
+                    u.stride(1), v.stride(0), v.stride(1), B, src_h, src_w,
+                    dst_h, dst_w, *tabs.args(),
+                    tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                    int(cdt == torch.float32), out.data_ptr(),
+                    OUT_KINDS[out_dtype],
+                    torch.cuda.current_stream().cuda_stream)
+            check(lib, rc, "yuv420_preprocess")
+            count("launches.yuv420_preprocess")
+        return out

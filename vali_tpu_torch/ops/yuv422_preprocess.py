@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
+from ..utils.tracing import span
 from .banded import banded_plain, launch_planar_u8, planar_u8_checked
 from .resize import LANCZOS_AA
 
@@ -74,15 +75,11 @@ def yuv422_preprocess(
     if y.device.type != "cuda":
         raise ValueError(f"yuv422_preprocess runs on CUDA or CPU tensors, "
                          f"got {y.device}")
-    cdt, tail = _checked(y, u, v, src_w, src_h, space, crange, out_dtype,
-                         normalize, compute_dtype)
-    out = launch_planar_u8(
-        "yuv422_preprocess_launch", y, u, v, src_w=src_w, src_h=src_h,
-        dst_w=dst_w, dst_h=dst_h, method=method, layout="422",
-        compute_dtype=cdt, tail=tail, out_dtype=out_dtype)
-    yuv422_preprocess.launches += 1
-    return out
-
-
-#: kernel launches made by the wrapper (CPU calls are not counted)
-yuv422_preprocess.launches = 0
+    with span("yuv422_preprocess"):
+        with span("yuv422_preprocess.checks"):
+            cdt, tail = _checked(y, u, v, src_w, src_h, space, crange,
+                                 out_dtype, normalize, compute_dtype)
+        return launch_planar_u8(
+            "yuv422_preprocess", y, u, v, src_w=src_w, src_h=src_h,
+            dst_w=dst_w, dst_h=dst_h, method=method, layout="422",
+            compute_dtype=cdt, tail=tail, out_dtype=out_dtype)

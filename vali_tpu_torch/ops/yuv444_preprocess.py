@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
+from ..utils.tracing import span
 from .banded import banded_plain, launch_planar_u8, planar_u8_checked
 from .resize import LANCZOS_AA
 
@@ -71,15 +72,11 @@ def yuv444_preprocess(
     if y.device.type != "cuda":
         raise ValueError(f"yuv444_preprocess runs on CUDA or CPU tensors, "
                          f"got {y.device}")
-    cdt, tail = _checked(y, u, v, src_w, src_h, space, crange, out_dtype,
-                         normalize, compute_dtype)
-    out = launch_planar_u8(
-        "yuv444_preprocess_launch", y, u, v, src_w=src_w, src_h=src_h,
-        dst_w=dst_w, dst_h=dst_h, method=method, layout="444",
-        compute_dtype=cdt, tail=tail, out_dtype=out_dtype)
-    yuv444_preprocess.launches += 1
-    return out
-
-
-#: kernel launches made by the wrapper (CPU calls are not counted)
-yuv444_preprocess.launches = 0
+    with span("yuv444_preprocess"):
+        with span("yuv444_preprocess.checks"):
+            cdt, tail = _checked(y, u, v, src_w, src_h, space, crange,
+                                 out_dtype, normalize, compute_dtype)
+        return launch_planar_u8(
+            "yuv444_preprocess", y, u, v, src_w=src_w, src_h=src_h,
+            dst_w=dst_w, dst_h=dst_h, method=method, layout="444",
+            compute_dtype=cdt, tail=tail, out_dtype=out_dtype)

@@ -14,6 +14,7 @@ large batched kernel per tick instead of one small one per stream.
 
 from __future__ import annotations
 
+import functools
 import os
 import queue
 import threading
@@ -33,6 +34,7 @@ from ..ops.resize import LANCZOS_AA
 from ..parallel.mesh import (Mesh, P, Shard, ShardedTensor,
                              on_position_streams)
 from ..utils.device import get_device, kernel_platform_available
+from ..utils.tracing import count, span
 
 
 def _kernel_usable(src_fmt, space, crange, device) -> bool:
@@ -164,6 +166,7 @@ class BatchStager:
         # lifetime.
         if len(self._free) > self.keep:
             self._free = self._free[-self.keep:]
+        count("stage.pinned_allocs")
         return torch.empty((n, total), dtype=torch.uint8, pin_memory=True)
 
     def run(self, frames: Sequence[np.ndarray],
@@ -171,17 +174,21 @@ class BatchStager:
             ) -> torch.Tensor:
         """Stage ``frames`` (flat host frames of equal size), run
         ``dispatch(planes)`` and return its result."""
-        if self.device.type != "cuda":
-            return dispatch(self.split(torch.from_numpy(np.stack(frames))))
-        total = frames[0].nbytes
-        host = self._acquire(len(frames), total)
-        np.stack([f.view(np.uint8) for f in frames], out=host.numpy())
-        dev = host.to(self.device, non_blocking=True)
-        out = dispatch(self.split(dev))
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        self._inflight.append((host, [event]))
-        return out
+        with span("stage"):
+            if self.device.type != "cuda":
+                return dispatch(self.split(torch.from_numpy(
+                    np.stack(frames))))
+            with span("stage.acquire"):
+                host = self._acquire(len(frames), frames[0].nbytes)
+            with span("stage.stack"):
+                np.stack([f.view(np.uint8) for f in frames], out=host.numpy())
+            with span("stage.h2d"):
+                dev = host.to(self.device, non_blocking=True)
+            out = dispatch(self.split(dev))
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self._inflight.append((host, [event]))
+            return out
 
     def run_on_mesh(self, frames: Sequence[np.ndarray], mesh: Mesh,
                     dispatch: Callable[[Tuple[torch.Tensor, ...]],
@@ -197,32 +204,40 @@ class BatchStager:
         one non_blocking copy on its own stream, where its ``dispatch``
         runs too (``parallel/mesh.on_position_streams``); the buffer is
         reused only after every position's copy event."""
-        n = len(frames)
-        data = mesh.axis_size("data")
-        frames = list(frames) + [frames[-1]] * (-n % data)
-        rows = len(frames) // data
-        cuda = any(d.type == "cuda" for d in mesh.devices.flat)
-        if cuda:
-            host = self._acquire(len(frames), frames[0].nbytes)
-            np.stack([f.view(np.uint8) for f in frames], out=host.numpy())
-        else:
-            host = torch.from_numpy(np.stack(frames))
-        jobs, index = [], []
-        for pos in mesh.positions():
-            dev = mesh.device(pos)
-            d = mesh.coord(pos, "data")
-            part = host[d * rows:(d + 1) * rows]
-            jobs.append((dev, [], (lambda part=part, dev=dev: dispatch(
-                self.split(part.to(dev, non_blocking=True))))))
-            index.append((pos, dev, slice(d * rows, (d + 1) * rows)))
-        outs, events = on_position_streams(jobs)
-        if cuda:
-            self._inflight.append((host, events))
-        shards = [Shard(pos, dev, (b,) + tuple(slice(0, k)
-                                               for k in out.shape[1:]), out)
-                  for (pos, dev, b), out in zip(index, outs)]
-        return ShardedTensor((len(frames),) + tuple(outs[0].shape[1:]),
-                             mesh, P("data"), shards).head(n)
+        with span("stage"):
+            n = len(frames)
+            data = mesh.axis_size("data")
+            frames = list(frames) + [frames[-1]] * (-n % data)
+            rows = len(frames) // data
+            cuda = any(d.type == "cuda" for d in mesh.devices.flat)
+            if cuda:
+                with span("stage.acquire"):
+                    host = self._acquire(len(frames), frames[0].nbytes)
+                with span("stage.stack"):
+                    np.stack([f.view(np.uint8) for f in frames],
+                             out=host.numpy())
+            else:
+                host = torch.from_numpy(np.stack(frames))
+
+            def job(part, dev):
+                with span("stage.h2d"):
+                    part = part.to(dev, non_blocking=True)
+                return dispatch(self.split(part))
+            jobs, index = [], []
+            for pos in mesh.positions():
+                dev = mesh.device(pos)
+                d = mesh.coord(pos, "data")
+                part = host[d * rows:(d + 1) * rows]
+                jobs.append((dev, [], functools.partial(job, part, dev)))
+                index.append((pos, dev, slice(d * rows, (d + 1) * rows)))
+            outs, events = on_position_streams(jobs)
+            if cuda:
+                self._inflight.append((host, events))
+            shards = [Shard(pos, dev, (b,) + tuple(
+                slice(0, k) for k in out.shape[1:]), out)
+                for (pos, dev, b), out in zip(index, outs)]
+            return ShardedTensor((len(frames),) + tuple(outs[0].shape[1:]),
+                                 mesh, P("data"), shards).head(n)
 
 
 class MultiStreamPipeline:
@@ -579,28 +594,30 @@ def preprocess_batch(planes, src_fmt: PixelFormat, src_w: int, src_h: int,
     content resample still takes the kernel route when available.
     Returns [B, dst_h, dst_w, 3], or [B, 3, dst_h, dst_w] when planar.
     """
-    src_fmt = PixelFormat(src_fmt)
-    if use_kernel is None:
-        use_kernel = _kernel_usable(src_fmt, space, crange, planes[0].device)
-    if normalize is not None:
-        normalize = (tuple(float(v) for v in normalize[0]),
-                     tuple(float(v) for v in normalize[1]))
-    if letterbox:
-        inner_w, inner_h, left, top, _ = letterbox_params(
-            src_w, src_h, dst_w, dst_h)
-        inner = preprocess_batch(
-            planes, src_fmt, src_w, src_h, inner_w, inner_h, space=space,
-            crange=crange, out_dtype=out_dtype, planar=False,
-            method=method, normalize=normalize, use_kernel=use_kernel)
-        return letterbox_pad(inner, dst_w, dst_h, left, top,
-                             pad_value=int(pad_value), normalize=normalize,
-                             planar=planar)
-    if use_kernel and src_fmt in kernel_preprocess_formats():
-        out = kernel_preprocess(
-            planes, src_fmt, src_w=src_w, src_h=src_h, dst_w=dst_w,
-            dst_h=dst_h, space=space, crange=crange, out_dtype=out_dtype,
-            method=method, normalize=normalize)
-        return out if planar else out.movedim(1, -1)
-    return fused_preprocess(
-        tuple(planes), src_fmt, src_w, src_h, dst_w, dst_h, space, crange,
-        out_dtype, planar, method, normalize)
+    with span("preprocess_batch"):
+        src_fmt = PixelFormat(src_fmt)
+        if use_kernel is None:
+            use_kernel = _kernel_usable(src_fmt, space, crange,
+                                        planes[0].device)
+        if normalize is not None:
+            normalize = (tuple(float(v) for v in normalize[0]),
+                         tuple(float(v) for v in normalize[1]))
+        if letterbox:
+            inner_w, inner_h, left, top, _ = letterbox_params(
+                src_w, src_h, dst_w, dst_h)
+            inner = preprocess_batch(
+                planes, src_fmt, src_w, src_h, inner_w, inner_h, space=space,
+                crange=crange, out_dtype=out_dtype, planar=False,
+                method=method, normalize=normalize, use_kernel=use_kernel)
+            return letterbox_pad(inner, dst_w, dst_h, left, top,
+                                 pad_value=int(pad_value), normalize=normalize,
+                                 planar=planar)
+        if use_kernel and src_fmt in kernel_preprocess_formats():
+            out = kernel_preprocess(
+                planes, src_fmt, src_w=src_w, src_h=src_h, dst_w=dst_w,
+                dst_h=dst_h, space=space, crange=crange, out_dtype=out_dtype,
+                method=method, normalize=normalize)
+            return out if planar else out.movedim(1, -1)
+        return fused_preprocess(
+            tuple(planes), src_fmt, src_w, src_h, dst_w, dst_h, space, crange,
+            out_dtype, planar, method, normalize)

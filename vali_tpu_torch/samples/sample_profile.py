@@ -1,6 +1,7 @@
 """Capture a torch.profiler trace of the fused preprocess (NVTX-analogue
-demo: the call runs inside a ``utils/tracing.op_scope`` scope, so it shows
-up named in the trace, and on a card the kernel beside it).
+demo: tracing is enabled around the trace, so the program's spans
+(``utils/tracing``) show up named in it, ``preprocess_batch`` with its
+wrapper's phases inside, and on a card the kernel beside them).
 
 Usage: python -m vali_tpu_torch.samples.sample_profile [out_dir]
            [--device cuda|cpu]
@@ -17,6 +18,7 @@ from . import command_line, synchronize
 
 B, H, W, D = 8, 464, 848, 224
 STEPS = 4
+#: the program's span that names the call in the trace
 SCOPE = "preprocess_batch"
 
 
@@ -35,14 +37,13 @@ def profile(out_dir, device, steps=STEPS):
     the host clock)."""
     from ..core.enums import ColorRange, ColorSpace, PixelFormat
     from ..pipeline.multistream import preprocess_batch
-    from ..utils.tracing import op_scope
+    from ..utils import tracing
 
     nv12 = nv12_batch(device)
 
     def step():
-        with op_scope(SCOPE):
-            out = preprocess_batch((nv12,), PixelFormat.NV12, W, H, D, D,
-                                   ColorSpace.BT_709, ColorRange.MPEG)
+        out = preprocess_batch((nv12,), PixelFormat.NV12, W, H, D, D,
+                               ColorSpace.BT_709, ColorRange.MPEG)
         synchronize(device)
         return out
 
@@ -50,11 +51,15 @@ def profile(out_dir, device, steps=STEPS):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            out = step()
-        secs = time.perf_counter() - t0
+    was = tracing.enable(True)
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                out = step()
+            secs = time.perf_counter() - t0
+    finally:
+        tracing.enable(was)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)

@@ -29,7 +29,7 @@ from .memory.host import download_host_frame, upload_host_frame
 from .memory.surface import Surface
 from .ops import csc, resize, rotate, ud
 from .utils.device import get_stream
-from .utils.tracing import op_scope
+from .utils.tracing import span
 
 _OK = (True, TaskExecInfo.SUCCESS)
 
@@ -92,7 +92,7 @@ class PySurfaceConverter(_SurfaceOp):
         if src.IsEmpty or dst.IsEmpty:
             return _fail(TaskExecInfo.INVALID_INPUT)
         planes = tuple(p[None] for p in src.plane_tensors())
-        with op_scope("ConvertSurface"), self._stream.context():
+        with span("ConvertSurface"), self._stream.context():
             try:
                 out = csc.convert_batch(planes, src.Format, dst.Format,
                                         src.Width, src.Height, cc_ctx,
@@ -194,7 +194,7 @@ class PySurfaceResizer(_SurfaceOp):
             return _fail(TaskExecInfo.INVALID_INPUT)
         planes = tuple(p[None] for p in src.plane_tensors())
         fmt = self._format
-        with op_scope("ResizeSurface"), self._stream.context():
+        with span("ResizeSurface"), self._stream.context():
             if self._turbo and (fmt in _SEMI_PLANAR or fmt in _PLANAR):
                 out = self._turbo_resize(planes, src, dst.Width, dst.Height)
             else:
@@ -233,7 +233,7 @@ class PySurfaceRotator(_SurfaceOp):
         if src.IsEmpty or dst.IsEmpty:
             return _fail(TaskExecInfo.INVALID_INPUT)
         planes = tuple(p[None] for p in src.plane_tensors())
-        with op_scope("RotateSurface"), self._stream.context():
+        with span("RotateSurface"), self._stream.context():
             out = rotate.rotate_batch(
                 planes, src.Format, src.Width, src.Height, dst.Width,
                 dst.Height, float(angle), float(shift_x), float(shift_y))
@@ -263,7 +263,7 @@ class PySurfaceUD(_SurfaceOp):
         if src.IsEmpty or dst.IsEmpty:
             return _fail(TaskExecInfo.INVALID_INPUT)
         planes = tuple(p[None] for p in src.plane_tensors())
-        with op_scope("UDSurface"), self._stream.context():
+        with span("UDSurface"), self._stream.context():
             out = ud.ud_batch(planes, src.Format, dst.Format, src.Width,
                               src.Height, dst.Width, dst.Height)
             return self._finish(src, dst, out, sync)
@@ -296,7 +296,7 @@ class PyFrameUploader:
             flat = np.ascontiguousarray(src).reshape(-1).view(np.uint8)
             if flat.nbytes != dst.HostSize or dst.IsEmpty:
                 return _fail(TaskExecInfo.INVALID_INPUT)
-            with op_scope("CudaUploadFrame"):
+            with span("CudaUploadFrame"):
                 # a pageable host source: the copy has read it when the
                 # call returns, so the caller may reuse its buffer at once
                 upload_host_frame(torch.from_numpy(flat), dst.Format,
@@ -324,7 +324,7 @@ class PySurfaceDownloader:
         if src.IsEmpty:
             return _fail(TaskExecInfo.INVALID_INPUT)
         try:
-            with op_scope("CudaDownloadSurface"):
+            with span("CudaDownloadSurface"):
                 flat = download_host_frame(src, self._stream)
         except ValueError:
             return _fail(TaskExecInfo.INVALID_INPUT)
