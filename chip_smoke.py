@@ -62,7 +62,10 @@ prints, in-process with a 120 s budget): its line logged whole, each
 section's kernel launches counted on their own, its headline and config 2
 held to this run's own kernel times, the records that need the native
 engine null exactly where it does not load, and each shape it launches a
-kernel at held to the plain version and timed. It builds the CUDA
+kernel at held to the plain version and timed; then nv12_preprocess's route at
+each of its uint8 shapes (the cells', the mesh position's, the samples',
+the bench's 4K and the letterbox content's): the kernel it takes, held
+to the FMA kernel's own entry and timed against it. It builds the CUDA
 kernels from the sources in this checkout, compares every kernel with its
 plain PyTorch version on the card and with the dense exact route, checks
 every main-path output against the batched kernels bit for bit, and when
@@ -88,6 +91,8 @@ the host clock, and prints:
     cores) at the batched shape and at N = 1: the wrapper call, the
     kernel alone through one prepared call and its device time by
     torch.profiler ("routes");
+  - a JSON line {"nv12_preprocess_routes": [...]}: per shape the route,
+    both kernels' wrapper and device times and the differing samples;
   - as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and ends the run with a non-zero exit code before the
@@ -599,9 +604,12 @@ def main() -> int:
     for name, (layout, line, case) in preprocess.items():
         bound, bound_by = bound_ms(*preprocess_work(B, W, H, DW, DH, layout))
         sh = timed_shapes[name]
+        source = "vali_tpu_torch/csrc/banded_preprocess.cu"
+        if name == "nv12_preprocess":   # its uint8 / bf16 / uint8 route
+            source = ("vali_tpu_torch/csrc/nv12_wgmma_preprocess.cu, "
+                      + source)
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "vali_tpu_torch/csrc/banded_preprocess.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": f"vali_tpu/ops/pallas_fused.py:{line}",
             "launches": launches[name],
             "max_abs_err": max([err[case]] + [x["max_abs_err"] for x in sh]),
@@ -625,11 +633,68 @@ def main() -> int:
             entry["launch_weighted_ms"] = sum(
                 x["ms"] * x["launches"] for x in entry["shapes"]) / max(
                 1, sum(x["launches"] for x in entry["shapes"]))
+    routes = route_phase(torch, dev, smi)
+    lap("nv12_preprocess routes")
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"nv12_preprocess_routes": routes}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+#: nv12_preprocess's uint8 shapes and who runs each: (who, batch,
+#: src_w, src_h, dst_w, dst_h)
+ROUTE_SHAPES = (
+    ("fused_nv12_b64 / bench headline / MultiStreamPipeline", 64, W, H, DW,
+     DH),
+    ("sharded_kernel_preprocess position", 16, W, H, DW, DH),
+    ("sample_profile", 8, 848, 464, DW, DH),
+    ("bench 4K", 8, 3840, 2160, DW, DH),
+    ("letterbox content", 64, W, H, 640, 360),
+)
+
+
+def route_phase(torch, dev, smi):
+    """nv12_preprocess's route at each of ROUTE_SHAPES: the kernel it
+    takes (``nv12_route``), the wrapper's output against the FMA kernel's
+    own entry (``_nv12_preprocess_banded``: within the kernels' envelope,
+    differing samples counted), and both timed, as wrapper calls with CUDA
+    events and by their kernels' device time (torch.profiler), so that a
+    shape where the route is slower than the FMA kernel shows. Returns one
+    entry a shape."""
+    from vali_tpu_torch.lab import kernel_variants as kv
+    from vali_tpu_torch.lab.ab_common import kernel_ms
+    from vali_tpu_torch.ops.nv12_preprocess import (_nv12_preprocess_banded,
+                                                    nv12_preprocess,
+                                                    nv12_route)
+
+    entries = []
+    for who, b, w, h, dw, dh in ROUTE_SHAPES:
+        geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh)
+        x = kv.make_frames(b, h * 3 // 2, w, dev, seed=b + w + dw)
+        route = nv12_route(x, **geo)
+        shape = f"{b} x {w}x{h} -> {dw}x{dh}"
+        calls = {"routed": lambda: nv12_preprocess(x, **geo),
+                 "fma": lambda: _nv12_preprocess_banded(x, **geo)}
+        routed, fma = calls["routed"](), calls["fma"]()
+        torch.cuda.synchronize()
+        err = compare(torch, f"route {who} {shape} ({route}) vs the FMA "
+                      f"kernel", routed, fma)
+        ndiff = int((routed != fma).sum().item())
+        ms = {k: time_ms(fn) for k, fn in calls.items()}
+        device = {k: sum(v.values()) for k, v in kernel_ms(calls).items()}
+        entries.append({"who": who, "shape": shape, "route": route,
+                        "wrapper_ms": ms, "device_ms": device,
+                        "differ": ndiff, "samples": routed.numel(),
+                        "max_abs_err": err})
+        log(f"route nv12_preprocess {who} {shape}: route={route} "
+            f"wrapper_ms routed={ms['routed']} fma={ms['fma']} "
+            f"device_ms routed={device['routed']} fma={device['fma']} "
+            f"(routed/fma {device['routed'] / device['fma']:.3f}) "
+            f"differing={ndiff} of {routed.numel()} ({smi})")
+        del x, routed, fma
+    return entries
 
 
 INFER_BATCHES = 12   # batches per stream on the pipeline + FCN run

@@ -725,8 +725,10 @@ def test_swept_tile19_geometry_is_bit_equal(dev, kind):
     """A sweep of 64 x 1080p -> 224 NV12 once gave other bits at the block
     of column tile 19, 4-row stages and one 224-row strip, in a build whose
     H items summed four rows. Forced through the launcher, that block gives
-    the product wrapper's bits on each of 20 launches in every layout, and
-    the wrapper agrees with the plain version."""
+    the FMA kernel's own entry's bits (NV12's wrapper takes the
+    tensor-core route at this shape: ``_nv12_preprocess_banded``) on each
+    of 20 launches in every layout, and the entry agrees with the plain
+    version."""
     from vali_tpu_torch.lab import preprocess_ab as ab
     from vali_tpu_torch.ops import _cuda_build, banded
     from vali_tpu_torch.ops.resize import LANCZOS_AA
@@ -742,7 +744,7 @@ def test_swept_tile19_geometry_is_bit_equal(dev, kind):
         if b[0] == 19 and b[3] == 4 and b[4] == 224)
     if kind == "nv12":
         assert block[:7] == (19, 224, 224, 4, 224, 82, 41)
-    want = ab.product_call(kind, planes, geo, {})
+    want = ab.fma_call(kind, planes, geo, {})
     fn = ab.launcher(_cuda_build.load_kernels(), kind, planes, geo, {},
                      False, ab.tables_for(kind, planes, geo, cdt,
                                           block=block))
@@ -752,6 +754,116 @@ def test_swept_tile19_geometry_is_bit_equal(dev, kind):
              "422": yuv422_preprocess_plain,
              "444": yuv444_preprocess_plain}[kind]
     _assert_close(want, plain(*planes, **geo), (kind, block))
+
+
+# --- nv12_preprocess's tensor-core route (csrc/nv12_wgmma_preprocess.cu) --
+
+
+def test_route_equals_the_lab_t16_with_both_libraries_loaded(dev):
+    """At 64 x 1080p -> 224 the routed wrapper gives the lab's T16 bits
+    (csrc/nv12_chains.cu at 16 rows: the same block and instance in the
+    labs' library), whichever library launches first and on every turn:
+    what static2_passes.cuh keeps per kernel has internal linkage in both
+    libraries, so neither launches with the other's shared-memory
+    allowance. Both lie within the envelope of the FMA kernel."""
+    from vali_tpu_torch.ops import _cuda_build
+    from vali_tpu_torch.ops.nv12_preprocess import (_nv12_preprocess_banded,
+                                                    nv12_route)
+
+    geo = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
+    x = kv.make_frames(64, 1620, 1920, dev, seed=31)
+    assert nv12_route(x, **geo) == "wgmma"
+    _cuda_build.load_lab_kernels()
+    _cuda_build.load_kernels()
+    first = kv.transposed_chroma(x, **geo, tile=16)
+    for turn in range(3):
+        routed = nv12_preprocess(x, **geo)
+        lab = kv.transposed_chroma(x, **geo, tile=16)
+        torch.cuda.synchronize()
+        assert torch.equal(routed, first), turn
+        assert torch.equal(lab, first), turn
+    _assert_close(first, _nv12_preprocess_banded(x, **geo), "T16 vs FMA")
+
+
+def test_routed_call_is_one_kernel_the_roofline_metric_finds(dev):
+    """A profiled routed call runs exactly one device kernel, and its name
+    is what perfbench's nv12_preprocess_roofline finds (a
+    ``preprocess_kernel<..., 0>`` with no cast in its arguments) and not
+    what yuv420_preprocess_roofline finds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.metrics import nv12_preprocess_roofline as nv12_metric
+    from perfbench.metrics import yuv420_preprocess_roofline as i420_metric
+
+    geo = dict(src_w=1920, src_h=1080, dst_w=224, dst_h=224)
+    x = kv.make_frames(8, 1620, 1920, dev, seed=32)
+    nv12_preprocess(x, **geo)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        nv12_preprocess(x, **geo)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_time_total and e.count]
+    assert len(kernels) == 1, kernels
+    assert sum(e.count for e in prof.key_averages()
+               if e.key == kernels[0]) == nv12_metric.LAUNCHES_PER_CALL
+    assert nv12_metric.KERNEL.search(kernels[0]), kernels
+    assert not i420_metric.KERNEL.search(kernels[0]), kernels
+
+
+def test_route_counters_count(dev):
+    """``routes.nv12_preprocess.wgmma`` counts the routed calls,
+    ``routes.nv12_preprocess.banded`` those on the FMA kernel (the float32
+    compute knob, a float output, P010, the FMA kernel's own entry, a
+    geometry the block refuses), and ``launches.nv12_preprocess`` both."""
+    from vali_tpu_torch.ops.nv12_preprocess import _nv12_preprocess_banded
+
+    def routes():
+        c = tracing.counters()
+        return tuple(c.get(f"routes.nv12_preprocess.{r}", 0)
+                     for r in ("wgmma", "banded"))
+
+    geo = dict(src_w=256, src_h=144, dst_w=96, dst_h=64)
+    x = kv.make_frames(2, 216, 256, dev, seed=33)
+    p10 = torch.zeros((2, 216, 256), dtype=torch.uint16, device=dev)
+    (w0, b0), n0 = routes(), launches(nv12_preprocess)
+    nv12_preprocess(x, **geo)
+    nv12_preprocess(x, **geo)
+    assert routes() == (w0 + 2, b0)
+    nv12_preprocess(x, **geo, compute_dtype=torch.float32)
+    nv12_preprocess(x, **geo, out_dtype=torch.float32)
+    nv12_preprocess(p10, **geo)
+    _nv12_preprocess_banded(x, **geo)
+    big = kv.make_frames(1, 1620, 1920, dev, seed=34)
+    nv12_preprocess(big, src_w=1920, src_h=1080, dst_w=32, dst_h=32)
+    torch.cuda.synchronize()
+    assert routes() == (w0 + 2, b0 + 5)
+    assert launches(nv12_preprocess) == n0 + 7
+    nv12_preprocess(x.cpu(), **geo)     # the plain version: not a launch
+    assert routes() == (w0 + 2, b0 + 5)
+
+
+@pytest.mark.parametrize("geom", [
+    (2, 144, 256, 64, 96),     # down
+    (2, 144, 256, 200, 320),   # up on both axes
+    (3, 96, 322, 150, 70),     # up rows, down columns, ragged
+])
+@pytest.mark.parametrize("method", ["lanczos", "bilinear", "nearest",
+                                    "lanczos_aa", "bilinear_aa"])
+def test_route_matches_plain_and_fma_at_every_method(dev, geom, method):
+    """Every resize method takes the route at these shapes, up and down,
+    and lies within the kernels' envelope of the plain version and of the
+    FMA kernel's own entry."""
+    from vali_tpu_torch.ops.nv12_preprocess import (_nv12_preprocess_banded,
+                                                    nv12_route)
+
+    b, h, w, dh, dw = geom
+    geo = dict(src_w=w, src_h=h, dst_w=dw, dst_h=dh, method=method)
+    x = kv.make_frames(b, h * 3 // 2, w, dev, seed=h + dw)
+    assert nv12_route(x, **geo) == "wgmma"
+    out = nv12_preprocess(x, **geo)
+    _assert_close(out, nv12_preprocess_plain(x, **geo), (geom, method))
+    _assert_close(out, _nv12_preprocess_banded(x, **geo), (geom, method))
 
 
 @pytest.mark.parametrize("name", ["S2t32a8", "S2t48a8", "combo2x32",

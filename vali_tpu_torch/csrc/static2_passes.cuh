@@ -1,11 +1,13 @@
 // The block of lab kernel S2 (nv12_static2.cu), shared with the lab's
 // prod_like (nv12_prodlike.cu) and its static_kernel and transposed_chroma
-// (nv12_chains.cu): one block per (output tile of 64 columns, strip of
-// rows, frame), 256 threads in two warpgroups, the stacked window
-// rows streamed through a cp.async ring, the transposed H product and the
-// streamed W pass on wgmma, the final trade of partial sums and the
-// product's tail. nv12_static2.cu describes the design; this header holds
-// its code, templated over
+// (nv12_chains.cu), and with the product's tensor-core route of
+// nv12_preprocess (nv12_wgmma_preprocess.cu, T's instance at 16 rows):
+// one block per (output tile of 64 columns, strip of rows, frame), 256
+// threads in two warpgroups, the stacked window rows streamed through a
+// cp.async ring, the transposed H product and the streamed W pass on
+// wgmma, the final trade of partial sums and the product's tail.
+// nv12_static2.cu describes the design; this header holds its code,
+// templated over
 //   N      wgmma's N of the H chains and of the luma W products (the U and
 //          V rows are 2 N), a multiple of 8 up to 48;
 //   STRIP  the output rows of a strip: N, or fewer (4 at N = 8: B's
@@ -32,6 +34,11 @@
 #include "wgmma_common.cuh"
 
 namespace static2 {
+// Internal linkage: the product's and the labs' libraries both include
+// this block, and an inline or template function of external linkage
+// that kept state per kernel would be one object across both loaded
+// libraries (as convert_staged.cuh says).
+namespace {
 
 using banded::csc_store;
 using banded::Geometry;
@@ -500,4 +507,5 @@ __device__ __forceinline__ void block(
   }
 }
 
+}  // namespace
 }  // namespace static2

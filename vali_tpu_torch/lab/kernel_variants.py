@@ -90,7 +90,8 @@ from ..ops.banded import (COMBO_ALIGN, COMBO_SPLITS, GROUP_STRIP,
                           core_matrix_order, dense_weights, device_tables,
                           grouped_refusal,
                           grouped_tables, grouped_w_tables, static2_refusal,
-                          static2_tables, static2_w_tables,
+                          static2_device_tables, static2_tables,
+                          static2_w_tables,
                           strip_window_bands, tail_params, w_pass_tail_plain)
 from ..ops.fused import exact_f32_matmul, to_f32
 from ..ops.nv12_preprocess import nv12_preprocess, nv12_preprocess_plain
@@ -616,24 +617,13 @@ def staged_work(batch: int, src_w: int, src_h: int, dst_w: int,
                              STAGED_ALIGN, 8 if variant == "D" else 12)
 
 
-@functools.lru_cache(maxsize=16)
 def _static2_device(src_w, src_h, dst_w, dst_h, tile, align, device):
-    """S2's launch arguments after the tile on ``device``, uploaded once
-    per geometry: per strip B_y then B_c in bf16 core-matrix order, the
-    window starts, K of each window, the W heads and bf16 A fragments;
-    with the tensors they point into."""
-    geo = (src_w, src_h, dst_w, dst_h, LANCZOS_AA)
-    t = static2_tables(*geo, tile, align)
-    wt = static2_w_tables(*geo)
-    b = np.concatenate([core_matrix_order(t.luma),
-                        core_matrix_order(t.chroma)], axis=1)
-    keep = (torch.from_numpy(b).to(device, torch.bfloat16),
-            torch.from_numpy(t.starts).to(device),
-            torch.from_numpy(wt.heads).to(device),
-            torch.from_numpy(wt.frags).to(device, torch.bfloat16))
-    args = (keep[0].data_ptr(), keep[1].data_ptr(), t.k_luma, t.k_chroma,
-            keep[2].data_ptr(), keep[3].data_ptr())
-    return args, keep
+    """S2's launch arguments after the tile on ``device`` (the product's
+    :func:`~vali_tpu_torch.ops.banded.static2_device_tables`, uploaded
+    once per geometry), with the tables they point into."""
+    t = static2_device_tables(src_w, src_h, dst_w, dst_h, LANCZOS_AA, tile,
+                              align, device)
+    return t.args(), t
 
 
 def _s2_tables_launch(launcher: str, what: str, nv12: torch.Tensor,

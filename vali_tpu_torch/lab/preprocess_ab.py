@@ -1,24 +1,39 @@
 """A/B of the banded preprocess kernel against an earlier source of
-``csrc/banded_preprocess.cu``, on the card.
+``csrc/banded_preprocess.cu``, and of ``nv12_preprocess``'s tensor-core
+route against both, on the card.
 
 The earlier source is the 8-row-strip design (C launchers that take the
 tables of :func:`vali_tpu_torch.ops.banded.device_tables` and no block
-geometry). This builds it into a throwaway library under
+geometry) or the streaming design, whose launchers take the current
+source's tables and block geometry (:func:`takes_geometry`). This builds
+it into a throwaway library under
 ``build/preprocess_ab/`` with the earlier ``banded_preprocess.cuh`` and
 ``banded_common.cuh`` first on the include path, then at each case — the
 four layouts at 64 x 1080p -> 224, NV12 with float32 compute, P010, the
 pipeline's letterbox launch (I420 -> 640x360 bfloat16, normalised), ragged
 geometries, one frame, an odd batch and a misaligned, padded view —
 counts the output samples that differ between the two kernels (bit
-patterns), checks the current kernel's output against the product
-wrapper's, and times both kernels with CUDA events in ``--pairs``
-alternating pairs (earlier, current, then current, earlier, ...). Each
-side reports the median and range of its times, and each pair the
-earlier time over the current one: a case counts as resolved faster
+patterns), checks the current kernel's output against the FMA kernel's
+own entry (:func:`fma_call`), and times both kernels with CUDA events in
+``--pairs`` alternating pairs (earlier, current, then current, earlier,
+...). Each side reports the median and range of its times, and each pair
+the earlier time over the current one: a case counts as resolved faster
 (slower) only where every pair's ratio is above (below) 1. Both are timed
 through the same prepared ctypes call (tables and output made once), so
-that the kernels and not two host paths are compared. Prints one line a
-case and, with ``--out``, writes them as JSON.
+that the kernels and not two host paths are compared.
+
+Where ``nv12_route`` sends a case to the tensor-core kernel
+(``csrc/nv12_wgmma_preprocess.cu``), the row also holds that route's
+output against the wrapper's (equal), the earlier kernel's and the plain
+version's (the kernels' uint8 envelope, differing samples counted), and
+against the lab's T16 and S2 t16a8 (``csrc/nv12_chains.cu``,
+``csrc/nv12_static2.cu`` at 16 rows: equal); at a timed case the earlier
+kernel, the route and the two lab arms are timed in ``--pairs`` rounds of
+all four (:func:`~vali_tpu_torch.lab.ab_common.rounds`), and the route's
+device time read by ``torch.profiler`` by kernel name. The run also
+reports the route's kernel's ptxas registers and spills and its shared
+memory at 64 x 1080p -> 224. Prints one line a case and, with ``--out``,
+writes them as JSON.
 
 ``--knockouts`` builds the current source with each phase knocked out
 (``BANDED_PREPROCESS_KNOCKOUT``: 1 no W pass, 2 no H pass, 3 the ring fill
@@ -65,6 +80,9 @@ from ..ops.banded import (OUT_KINDS, PreprocessTables, SAMPLE_BYTES,
                           device_tables, preprocess_candidates, sm_count,
                           stream_preprocess_tables)
 from ..ops.resize import LANCZOS_AA
+from . import kernel_variants as kv
+from .ab_common import (differ, kernel_ms, ptxas_report, rounds, summary,
+                        within_envelope)
 from .resize_ab import bits, quick_ms
 from .timing import bound_ms, preprocess_work, time_ms
 
@@ -101,10 +119,19 @@ def _current_source() -> str:
     return os.path.join(_cuda_build._PKG_DIR, "csrc", "banded_preprocess.cu")
 
 
+def takes_geometry(source: str) -> bool:
+    """Whether an earlier source's launchers take the packer's block
+    geometry (the streaming design's C signatures, as the current source)
+    rather than the 8-row-strip design's."""
+    with open(source) as f:
+        return "const int* geometry" in f.read()
+
+
 def build_earlier(source: str) -> ctypes.CDLL:
     """The earlier source, its own headers first, with its C
     signatures."""
-    return _build(source, "earlier", _EARLIER)
+    return _build(source, "earlier",
+                  _CURRENT if takes_geometry(source) else _EARLIER)
 
 
 def build_current(flags) -> ctypes.CDLL:
@@ -188,6 +215,66 @@ def product_call(kind: str, planes, geo: dict, kw: dict) -> torch.Tensor:
     mod = KINDS[kind][1]
     fn = getattr(mod, mod.__name__.rsplit(".", 1)[-1])
     return fn(*planes, **geo, **kw)
+
+
+def fma_call(kind: str, planes, geo: dict, kw: dict) -> torch.Tensor:
+    """The FMA kernel's own entry: the product wrapper, but for NV12, whose
+    wrapper may take the tensor-core route, ``_nv12_preprocess_banded``."""
+    if kind == "nv12":
+        return nv12_mod._nv12_preprocess_banded(*planes, **geo, **kw)
+    return product_call(kind, planes, geo, kw)
+
+
+#: the lab's arms at the route's strip: T16 (the route's instance in the
+#: labs' library) and S2 t16a8, each launcher's name
+LAB_ARMS = {"T16": "nv12_tchroma_launch", "S2t16a8": "nv12_static2_launch"}
+
+
+def _s2_call(lib, launcher: str, planes, geo: dict, kw: dict, targs,
+             knobs=()):
+    """A prepared call of a launcher on S2's tables (``targs``: frames,
+    geometry, tail, ``knobs``, tables, out, stream), as :func:`launcher`
+    prepares the FMA kernel's."""
+    _, tail = checked("nv12", planes, geo, kw)
+    x = planes[0]
+    out = torch.empty((x.shape[0], 3, geo["dst_h"], geo["dst_w"]),
+                      dtype=torch.uint8, device=x.device)
+    args = (x.data_ptr(), x.stride(0), x.stride(1), x.shape[1], x.shape[0],
+            geo["src_h"], geo["src_w"], geo["dst_h"], geo["dst_w"],
+            tail.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), *knobs,
+            *targs, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    fn = getattr(lib, launcher)
+
+    def call():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{launcher} failed ({rc})")
+        return out
+    call.keep = tail
+    return call
+
+
+def routed_launcher(planes, geo: dict, kw: dict):
+    """A prepared call of the product's tensor-core launcher on NV12
+    planes that ``nv12_route`` sends there, with the wrapper's cached
+    tables."""
+    x = planes[0]
+    _, targs = nv12_mod._wgmma_tables(geo["src_w"], geo["src_h"],
+                                      geo["dst_w"], geo["dst_h"], LANCZOS_AA,
+                                      x.device)
+    return _s2_call(_cuda_build.load_kernels(),
+                    "nv12_wgmma_preprocess_launch", planes, geo, kw, targs)
+
+
+def lab_launcher(arm: str, planes, geo: dict, kw: dict):
+    """A prepared call of the lab's ``arm`` (:data:`LAB_ARMS`) at 16-row
+    strips over windows aligned to 8 rows."""
+    tile = nv12_mod.WGMMA_TILE
+    targs, _ = kv._static2_device(geo["src_w"], geo["src_h"], geo["dst_w"],
+                                  geo["dst_h"], tile, nv12_mod.WGMMA_ALIGN,
+                                  planes[0].device)
+    return _s2_call(_cuda_build.load_lab_kernels(), LAB_ARMS[arm], planes,
+                    geo, kw, targs, (tile,))
 
 
 def make_planes(kind: str, b: int, w: int, h: int, device, seed: int,
@@ -336,6 +423,33 @@ def pairs_of(earlier, current, pairs: int) -> dict:
         resolved=verdict)
 
 
+def routed_row(planes, geo: dict, kw: dict, earlier: torch.Tensor,
+               earlier_call, pairs: int, timed: bool) -> dict:
+    """The tensor-core route's part of a row: its output against the
+    wrapper's, the earlier kernel's (``earlier``) and the plain version's,
+    each lab arm's equality with it, and at a timed case ``pairs`` rounds
+    of the earlier kernel (``earlier_call``), the route and the lab arms,
+    and the route's device time by kernel name."""
+    rcall = routed_launcher(planes, geo, kw)
+    labs = {arm: lab_launcher(arm, planes, geo, kw) for arm in LAB_ARMS}
+    r = bits(rcall().clone())
+    wrapper = bits(product_call("nv12", planes, geo, kw))
+    plain = bits(nv12_mod.nv12_preprocess_plain(*planes, **geo, **kw))
+    torch.cuda.synchronize()
+    row = dict(routed_wrapper_equal=bool(torch.equal(r, wrapper)),
+               routed_vs_earlier=differ(r, earlier),
+               routed_vs_plain=differ(r, plain))
+    row.update({f"{arm}_equal": bool(torch.equal(bits(fn()), r))
+                for arm, fn in labs.items()})
+    if timed:
+        times = rounds({"earlier": earlier_call, "routed": rcall, **labs},
+                       pairs)
+        row.update(summary(times, [("earlier", "routed")] + [
+            ("routed", arm) for arm in labs]))
+        row["routed_device_ms"] = kernel_ms({"routed": rcall})["routed"]
+    return row
+
+
 def run(source: str, pairs: int = 10, knockouts: bool = False,
         swept: bool = False, variants=(), log=print):
     builds = {"earlier": build_earlier(source),
@@ -344,25 +458,32 @@ def run(source: str, pairs: int = 10, knockouts: bool = False,
     if knockouts:
         builds.update({f"knockout{m}": build_current(
             [f"-DBANDED_PREPROCESS_KNOCKOUT={m}"]) for m in (1, 2, 3)})
+    strips8 = not takes_geometry(source)   # the earlier 8-row design
     rows = []
     for name, kind, planes, geo, kw, timed in cases(torch.device("cuda", 0)):
         cdt, _ = checked(kind, planes, geo, kw)
         calls = {tag: launcher(lib, kind, planes, geo, kw,
-                               tag == "earlier")
+                               tag == "earlier" and strips8)
                  for tag, lib in builds.items()}
         a = bits(calls["earlier"]().clone())
         b = bits(calls["current"]().clone())
-        product = bits(product_call(kind, planes, geo, kw))
+        product = bits(fma_call(kind, planes, geo, kw))
         torch.cuda.synchronize()
         t = tables_for(kind, planes, geo, cdt)
-        row = dict(name=name, samples=b.numel(),
+        route = (nv12_mod.nv12_route(*planes, **geo, **kw)
+                 if kind == "nv12" else "banded")
+        row = dict(name=name, samples=b.numel(), route=route,
                    differ=int((a != b).sum().item()),
                    wrapper_equal=bool(torch.equal(b, product)),
                    geometry=[int(v) for v in t[3:-1]])
+        if route == "wgmma":
+            row.update(routed_row(planes, geo, kw, a, calls["earlier"],
+                                  pairs, timed))
         if timed:
-            row.update(pairs_of(calls["earlier"], calls["current"], pairs))
             bound, by = bound_ms(*work(kind, planes, geo, kw))
             row.update(bound_ms=bound, bound_by=by)
+        if timed and route == "banded":   # the FMA kernel is the product's
+            row.update(pairs_of(calls["earlier"], calls["current"], pairs))
             for tag in builds:
                 if tag.startswith("knockout"):
                     row[f"{tag}_ms"] = time_ms(calls[tag])
@@ -410,13 +531,45 @@ def main(argv=None) -> int:
     variants = [[f"-D{kv}" for kv in v.split(",")] for v in args.variant]
     rows = run(args.earlier, args.pairs, args.knockouts, args.sweep,
                variants, log=lambda s: print(s, flush=True))
-    bad = [r["name"] for r in rows if r["differ"] or not r["wrapper_equal"]]
+    report = routed_report()
+    print(json.dumps(report), flush=True)
+    bad = [r["name"] for r in rows if failed(r)]
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": smi, "rows": rows}, f, indent=1)
-    print(f"cases that differ from the earlier kernel or the product "
-          f"wrapper: {bad or 'none'}")
+            json.dump({"device": smi, "routed_kernel": report, "rows": rows},
+                      f, indent=1)
+    print(f"cases that differ from the earlier kernel or the FMA kernel's "
+          f"entry, or whose route leaves the envelope or the lab's bits: "
+          f"{bad or 'none'}")
     return 1 if bad else 0
+
+
+def failed(row: dict) -> bool:
+    """A row's FMA kernel differs from the earlier one or from its entry,
+    or its tensor-core route differs from the wrapper or the lab's T16 and
+    S2 t16a8, or leaves the kernels' uint8 envelope of the earlier kernel
+    or of the plain version."""
+    if row["differ"] or not row["wrapper_equal"]:
+        return True
+    if row["route"] != "wgmma":
+        return False
+    n = row["samples"]
+    return not (row["routed_wrapper_equal"]
+                and all(row[f"{arm}_equal"] for arm in LAB_ARMS)
+                and within_envelope(row["routed_vs_earlier"], n)
+                and within_envelope(row["routed_vs_plain"], n))
+
+
+def routed_report() -> dict:
+    """The route's kernel from ``nvcc -Xptxas -v`` (registers, spills, the
+    C75xx warnings) and its dynamic shared memory at 64 x 1080p -> 224."""
+    ptxas = ptxas_report("nv12_wgmma_preprocess.cu",
+                         lambda n: "routed" if "preprocess_kernel" in n
+                         else None)
+    t = banded.static2_tables(1920, 1080, 224, 224, LANCZOS_AA,
+                              nv12_mod.WGMMA_TILE, nv12_mod.WGMMA_ALIGN)
+    return dict(ptxas, smem_bytes_1080p_224=banded.static2_smem_bytes(
+        nv12_mod.WGMMA_TILE, t.k_luma, t.k_chroma))
 
 
 if __name__ == "__main__":

@@ -27,8 +27,9 @@ from ..utils._build import locked_build, source_key
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # cuda_errors.cu (banded_error_string, which check() reads) goes into both
-_SOURCES = ("csrc/banded_preprocess.cu", "csrc/banded_resize.cu",
-            "csrc/nv12_to_rgb.cu", "csrc/cuda_errors.cu")
+_SOURCES = ("csrc/banded_preprocess.cu", "csrc/nv12_wgmma_preprocess.cu",
+            "csrc/banded_resize.cu", "csrc/nv12_to_rgb.cu",
+            "csrc/cuda_errors.cu")
 _LAB_SOURCES = ("csrc/nv12_variants.cu", "csrc/nv12_grouped.cu",
                 "csrc/nv12_static2.cu", "csrc/nv12_staged.cu",
                 "csrc/nv12_combo.cu", "csrc/nv12_prodlike.cu",
@@ -62,6 +63,10 @@ _PREPROCESS = [_I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _IP, _FP, _I, _P,
                _I, _P]
 _SIGNATURES = {
     "nv12_preprocess_launch": [_P, _I, _LL, _LL] + _PREPROCESS,
+    # the frames, geometry, tail, S2's tables at 16 rows, out, stream
+    "nv12_wgmma_preprocess_launch": [
+        _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _FP, _P, _P, _I, _I, _P, _P,
+        _P, _P],
     "yuv420_preprocess_launch": [_P, _P, _P, _I] + [_LL] * 6 + _PREPROCESS,
     "yuv422_preprocess_launch": [_P, _P, _P] + [_LL] * 6 + _PREPROCESS,
     "yuv444_preprocess_launch": [_P, _P, _P] + [_LL] * 6 + _PREPROCESS,

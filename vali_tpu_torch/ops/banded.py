@@ -237,10 +237,12 @@ def w_pass_tail_plain(yh: torch.Tensor, uh: torch.Tensor, vh: torch.Tensor,
     return torch.stack(chans, dim=1)
 
 
-# --- host tables of the NV12 lab's strip-window and grouped variants -------
-# (csrc/nv12_static2.cu and the kernels on its block, csrc/nv12_grouped.cu;
-# the output-column ranges of the earlier CUDA-core designs, which their
-# A/Bs build)
+# --- host tables of the strip-window block and the lab's grouped variants --
+# (csrc/static2_passes.cuh: S2's block, which the product's tensor-core
+# route of nv12_preprocess runs at 16-row strips, csrc/nv12_wgmma_
+# preprocess.cu, and the lab's kernels on it; csrc/nv12_grouped.cu; the
+# output-column ranges of the earlier CUDA-core designs, which their A/Bs
+# build)
 
 #: dynamic shared memory one block may use on sm_90 (kSmemLimit)
 SMEM_LIMIT = 232448
@@ -506,7 +508,7 @@ def grouped_w_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
 
 
 class Static2Tables(NamedTuple):
-    """S2's H-pass tables (csrc/nv12_static2.cu): per strip of ``tile``
+    """S2's H-pass tables (csrc/static2_passes.cuh): per strip of ``tile``
     output rows, ``luma`` [strips, tile, k_luma] and ``chroma`` [strips,
     tile, k_chroma] float32 of bf16 values — each output row's band at its
     rows of the strip's window (:func:`strip_window_bands`), widened with
@@ -554,7 +556,7 @@ def static2_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
 
 
 class Static2WTables(NamedTuple):
-    """S2's W pass (csrc/nv12_static2.cu): ``heads`` [tiles, 4] int32, per
+    """S2's W pass (csrc/static2_passes.cuh): ``heads`` [tiles, 4] int32, per
     tile of GROUPED_W_TILE output columns its first chunk in ``frags``,
     its first byte column x0 (a multiple of 32) and its chunks (even), 0;
     ``frags`` [chunks, 6, 128, 8] float32 of bf16 values, per chunk of
@@ -618,16 +620,58 @@ def static2_refusal(src_w: int, src_h: int, dst_w: int, dst_h: int,
                     method: str, tile: int, align: int) -> str:
     """Why S2's kernel cannot take this geometry and strip, or "" when it
     can: a strip height that is not one of STATIC2_TILES (a multiple of 8
-    up to 48), or a block's shared memory over a block's."""
+    up to 48), an odd width, or a block's shared memory over a block's."""
     if tile not in STATIC2_TILES:
         return (f"S2's tensor-core kernel takes strips of a multiple of 8 "
                 f"rows up to {STATIC2_TILES[-1]}, got tile={tile}")
+    if src_w % 2 or src_h < 2:
+        return (f"S2's tensor-core kernel takes an even width and two rows "
+                f"or more, got {src_w}x{src_h}")
     t = static2_tables(src_w, src_h, dst_w, dst_h, method, tile, align)
     smem = static2_smem_bytes(tile, t.k_luma, t.k_chroma)
     if smem > SMEM_LIMIT:
         return (f"S2's ring, weights and H rows need {smem} B of shared "
                 f"memory, over a block's {SMEM_LIMIT} B")
     return ""
+
+
+class Static2Device(NamedTuple):
+    """S2's tables at one (tile, align) on one device, as its launchers
+    take them after the tail: ``b`` [strips, (k_luma + k_chroma) tile]
+    bf16, per strip B_y then B_c in core-matrix order; ``starts`` [strips,
+    2] int32; ``heads`` [tiles, 4] int32; ``frags`` [chunks, 6, 128, 8]
+    bf16 (:func:`static2_tables`, :func:`static2_w_tables`)."""
+    b: torch.Tensor
+    starts: torch.Tensor
+    k_luma: int
+    k_chroma: int
+    heads: torch.Tensor
+    frags: torch.Tensor
+
+    def args(self):
+        """The tables as the launchers take them (the pointers point into
+        this tuple's tensors: keep it while a launch may read them)."""
+        return (self.b.data_ptr(), self.starts.data_ptr(), self.k_luma,
+                self.k_chroma, self.heads.data_ptr(), self.frags.data_ptr())
+
+
+@functools.lru_cache(maxsize=32)
+@traced_build
+def static2_device_tables(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                          method: str, tile: int, align: int,
+                          device: torch.device) -> Static2Device:
+    """Build S2's tables at (tile, align) and upload them to ``device``,
+    once per geometry, method, strip and device."""
+    geo = (src_w, src_h, dst_w, dst_h, method)
+    t = static2_tables(*geo, tile, align)
+    wt = static2_w_tables(*geo)
+    b = np.concatenate([core_matrix_order(t.luma),
+                        core_matrix_order(t.chroma)], axis=1)
+    return Static2Device(
+        torch.from_numpy(b).to(device, torch.bfloat16),
+        torch.from_numpy(t.starts).to(device), t.k_luma, t.k_chroma,
+        torch.from_numpy(wt.heads).to(device),
+        torch.from_numpy(wt.frags).to(device, torch.bfloat16))
 
 
 #: the combo's instances (csrc/nv12_combo.cu): (frames a block, strip
