@@ -7,6 +7,10 @@ the widest gap, in output LSBs, between an output sample and the
 reference's real-valued answer for it, one number per output the path
 makes (``max_err_lsb.<output>``); each has its limit in
 ``limits/<workload>.json``.
+
+A ring may live on the host (frames a path stages to the card itself)
+while the outputs are on the card: the reference computes where the
+outputs are, each block of frames moved there first.
 """
 
 from __future__ import annotations
@@ -40,16 +44,16 @@ def gaps(samples: Sequence[Tuple[int, object]], ring, path_mod, config: dict,
          traffic: dict, precision: str = "float64") -> Dict[str, float]:
     """``max_err_lsb.<output>``: the widest gap between each output of the
     sampled batches ``(index, outputs)`` and the reference computed at
-    ``precision`` from ring slot ``index mod len(ring)``. A batch whose
-    outputs never came (None) reads infinity."""
+    ``precision`` from ring slot ``index mod len(ring)``, on the outputs'
+    device. A batch whose outputs never came (None) reads infinity."""
     ref = reference(path_mod)
     worst = {f"max_err_lsb.{o}": 0.0 for o in path_mod.OUTPUTS}
     for index, outs in samples:
         if outs is None:
             return {k: float("inf") for k in worst}
-        planes = ring[index % len(ring)]
+        planes, device = ring[index % len(ring)], outs[0].device
         for f0 in range(0, planes[0].shape[0], BLOCK):
-            block = tuple(p[f0:f0 + BLOCK] for p in planes)
+            block = tuple(p[f0:f0 + BLOCK].to(device) for p in planes)
             refs = ref.compute(block, traffic["format"], config, precision)
             for key, out, want in zip(worst, outs, refs):
                 got = out[f0:f0 + BLOCK].to(torch.float64)

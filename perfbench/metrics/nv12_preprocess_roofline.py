@@ -1,5 +1,7 @@
-"""nv12_preprocess_roofline: the banded fused preprocess kernel on NV12
-frames (csrc/banded_preprocess.cu, layout 0), percent of its roofline.
+"""nv12_preprocess_roofline: the fused preprocess kernel on NV12 frames,
+percent of its roofline: the tensor-core route of uint8 -> uint8 batches
+(csrc/nv12_wgmma_preprocess.cu) or the banded FMA kernel of every other
+call (csrc/banded_preprocess.cu, layout 0), whichever the batch takes.
 
 Work of a uint8 -> uint8 batch: each 4:2:0 frame read once, the RGB
 output written once; the H pass's taps over every luma and chroma column,
